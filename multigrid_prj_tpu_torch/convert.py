@@ -1,0 +1,51 @@
+"""Build a port solver from a JAX solver's state given as numpy data.
+
+The JAX package is never imported here: the caller hands over plain values,
+e.g. for a JAX ``GMGSolver`` ``js``::
+
+    state = dict(levels=[dataclasses.astuple(l) for l in js.levels],
+                 coarse_inv=None if js._coarse_inv is None
+                 else np.asarray(js._coarse_inv),
+                 length=js.length, alpha=js.alpha, tol=js.tol,
+                 maxit=js.maxit, nu=js.nu, pre_sweeps=js.pre_sweeps,
+                 cycle=js.cycle, coarse_tol=js.coarse_tol,
+                 coarse_maxit=js.coarse_maxit)
+
+so that both sides run with the identical hierarchy and coarse inverse.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from multigrid_prj_tpu_torch.gmg import GMGSolver
+from multigrid_prj_tpu_torch.grids import GridLevel
+
+_CONFIG_KEYS = ("length", "alpha", "tol", "maxit", "nu", "pre_sweeps",
+                "cycle", "coarse_tol", "coarse_maxit")
+
+
+def solver_state_from_numpy(state: dict, device="cpu", smoother: str = "gs",
+                            use_pallas: bool | None = None) -> GMGSolver:
+    """A port ``GMGSolver`` whose levels, coarse inverse and scalar config
+    are those in ``state`` (keys: ``levels`` as ``(shape, h, level,
+    padded_shape)`` tuples, ``coarse_inv`` as a numpy array or None, and the
+    scalar config keys of the JAX solver).  Raises ``ValueError`` if the
+    levels are not the hierarchy the port builds for the same shape."""
+    levels = [GridLevel(tuple(int(s) for s in shape), float(h), int(level),
+                        None if padded is None else tuple(int(p) for p in padded))
+              for shape, h, level, padded in state["levels"]]
+    lev0 = levels[0]
+    solver = GMGSolver(shape=lev0.shape, num_levels=len(levels),
+                       smoother=smoother, pad_align=lev0.padded_shape,
+                       use_pallas=use_pallas, coarse="none", device=device,
+                       **{k: state[k] for k in _CONFIG_KEYS})
+    if solver.levels != levels:
+        raise ValueError(f"levels {levels} differ from the port's hierarchy "
+                         f"{solver.levels}")
+    inv = state.get("coarse_inv")
+    if inv is not None:
+        solver._coarse_inv = torch.from_numpy(
+            np.array(inv, dtype=np.float64)).to(solver.device)
+    return solver

@@ -1,0 +1,524 @@
+"""Geometric multigrid cycles and the outer solver driver (PyTorch port of
+``multigrid_prj_tpu/gmg.py``).
+
+* ``sawtooth_cycle``: the reference's cycle (one fine residual, a stationary
+  coarse solve of the error equation, then per level up: prolong and ``nu``
+  smoother sweeps), with full-weighting restriction.
+* ``v_cycle`` / ``w_cycle`` / ``fmg``: the correction-scheme cycles with the
+  ``residual`` / ``downleg`` / ``padded_restrict`` / ``prolong_add`` /
+  ``coarse_apply`` hooks of the JAX package.
+* ``GMGSolver``: ``solve`` and ``solve_refined`` (float-float outer
+  residuals).
+
+The JAX package runs each solve as one ``lax.while_loop``; here the loops are
+Python loops that fetch one scalar per outer iteration (the residual norm
+that goes into ``history``).  History semantics are the same: entry 0 is the
+initial residual, and the loop stops at ``tol`` or ``maxit``.
+
+Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there.
+On CUDA the smoother and residuals run through the hand-written kernels of
+``ops/cuda_stencil.py``; what they do not cover raises ``NotImplementedError``
+naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from multigrid_prj_tpu_torch.grids import GridLevel, build_hierarchy
+from multigrid_prj_tpu_torch.ops import cuda_stencil as _cs
+from multigrid_prj_tpu_torch.ops.extended import (
+    ff_accumulate,
+    ff_from_div,
+    ff_poisson_residual as _ff_residual_plain,
+)
+from multigrid_prj_tpu_torch.ops.residual import norm2, rel_residual_norm
+from multigrid_prj_tpu_torch.ops.smoothers import make_smoother
+from multigrid_prj_tpu_torch.ops.stencil import poisson_residual
+from multigrid_prj_tpu_torch.ops.transfer import (
+    crop_to,
+    pad_to,
+    prolong,
+    prolong_padded,
+    restrict_full_weighting,
+    restrict_fw_padded,
+)
+from multigrid_prj_tpu_torch.utils.guards import check_finite
+
+Smoother = Callable[..., torch.Tensor]  # (u, b, alpha, h, sweeps, logical_shape)
+
+# fine physical points from which the JAX package switches to its Pallas
+# transfer kernels (multigrid_prj_tpu/gmg.py, the 4M-point gate)
+_TRANSFER_KERNEL_POINTS = 4 << 20
+
+
+def stationary_solve(e0, b, alpha, h, smoother: Smoother, tol: float,
+                     maxit: int, sweeps_per_check: int = 1,
+                     logical_shape=None):
+    """Iterate ``smoother`` on ``A e = b`` until ``||b - A e|| <= tol ||b||``.
+
+    Returns ``(e, iterations, rel_norm)``; one scalar fetch per check.
+    """
+    b2 = norm2(b)
+    tol2 = (tol * tol) * b2
+    e, k, rn2 = e0, 0, b2
+    while k < maxit and bool(rn2 > tol2):
+        e = smoother(e, b, alpha, h, sweeps_per_check,
+                     logical_shape=logical_shape)
+        rn2 = norm2(poisson_residual(e, b, alpha, h, logical_shape))
+        k += 1
+    rel = torch.sqrt(torch.where(b2 > 0, rn2 / b2, torch.zeros_like(b2)))
+    return e, k, rel
+
+
+def _logical(lev: GridLevel):
+    """logical_shape argument for masked ops: None in the exact layout."""
+    return lev.shape if lev.padded_shape is not None else None
+
+
+def restrict_level(r, lev: GridLevel, nxt: GridLevel,
+                   exact_restrict=restrict_full_weighting,
+                   padded_restrict=restrict_fw_padded):
+    """Restriction honouring each level's layout (padded halving or exact)."""
+    if lev.padded_shape is not None:
+        rc = padded_restrict(r, lev.shape)
+        if nxt.padded_shape is None:
+            rc = crop_to(rc, nxt.shape)
+        return rc
+    return exact_restrict(r)
+
+
+def prolong_level(e, nxt: GridLevel, lev: GridLevel):
+    """Prolongation from level ``nxt`` (coarse) up to ``lev`` (fine)."""
+    if lev.padded_shape is not None:
+        if nxt.padded_shape is None:
+            e = pad_to(e, tuple(p // 2 for p in lev.padded_shape))
+        return prolong_padded(e)
+    return prolong(e, lev.shape)
+
+
+def sawtooth_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
+                   smoother: Smoother, nu: int = 5, coarse_tol: float = 1e-1,
+                   coarse_maxit: int = 2000,
+                   restrict=restrict_full_weighting):
+    """One sawtooth multigrid cycle on the error equation (reference parity;
+    full weighting by default, ``restrict_inject`` for the strict mode)."""
+    r = poisson_residual(u, b, alpha, levels[0].h, _logical(levels[0]))
+    rs = [r]
+    for j, lev in enumerate(levels[1:], start=1):
+        rc = restrict_level(rs[-1], levels[j - 1], lev, exact_restrict=restrict)
+        if tuple(rc.shape) != lev.physical:
+            raise RuntimeError(f"restricted {tuple(rc.shape)} != {lev.physical}")
+        rs.append(rc)
+    e = torch.zeros_like(rs[-1])
+    e, _, _ = stationary_solve(e, rs[-1], alpha, levels[-1].h, smoother,
+                               coarse_tol, coarse_maxit,
+                               logical_shape=_logical(levels[-1]))
+    for j in range(len(levels) - 2, -1, -1):
+        e = prolong_level(e, levels[j + 1], levels[j])
+        e = smoother(e, rs[j], alpha, levels[j].h, nu,
+                     logical_shape=_logical(levels[j]))
+    return u + e
+
+
+def v_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
+            smoother: Smoother, nu1: int = 2, nu2: int = 2,
+            coarse_sweeps: int = 100, restrict=restrict_full_weighting,
+            gamma: int = 1, coarse_apply=None, residual=poisson_residual,
+            downleg=None, padded_restrict=restrict_fw_padded,
+            prolong_add=None, _level: int = 0):
+    """Correction-scheme V-cycle (``gamma = 2`` gives the W-cycle).
+
+    ``coarse_apply``: exact bottom solve ``b -> A^{-1} b`` (the dense
+    inverse of ``GMGSolver(coarse="direct")``).  ``residual``: the residual
+    implementation (``GMGSolver`` passes the CUDA kernel's wrapper).
+    ``downleg``: fused pre-smooth+residual+restrict ``(u, b, lev, nxt, nu1)
+    -> (u, r_coarse)`` on padded levels.  ``prolong_add``: fused ``u +
+    prolong(e)`` on padded levels.
+    """
+    lev = levels[_level]
+    h = lev.h
+    logical = _logical(lev)
+    if _level == len(levels) - 1:
+        if coarse_apply is not None:
+            return coarse_apply(b)
+        return smoother(u, b, alpha, h, coarse_sweeps, logical_shape=logical)
+    if downleg is not None and lev.padded_shape is not None:
+        u, rc = downleg(u, b, lev, levels[_level + 1], nu1)
+    else:
+        u = smoother(u, b, alpha, h, nu1, logical_shape=logical)
+        r = residual(u, b, alpha, h, logical)
+        rc = restrict_level(r, lev, levels[_level + 1],
+                            exact_restrict=restrict,
+                            padded_restrict=padded_restrict)
+    ec = torch.zeros_like(rc)
+    for _ in range(gamma):
+        ec = v_cycle(ec, rc, levels, alpha, smoother, nu1=nu1, nu2=nu2,
+                     coarse_sweeps=coarse_sweeps, restrict=restrict,
+                     gamma=gamma, coarse_apply=coarse_apply,
+                     residual=residual, downleg=downleg,
+                     padded_restrict=padded_restrict,
+                     prolong_add=prolong_add, _level=_level + 1)
+    nxt = levels[_level + 1]
+    if (prolong_add is not None and lev.padded_shape is not None
+            and nxt.padded_shape is not None):
+        u = prolong_add(ec, u)
+    else:
+        u = u + prolong_level(ec, nxt, lev)
+    return smoother(u, b, alpha, h, nu2, logical_shape=logical)
+
+
+def w_cycle(u, b, levels, alpha, smoother, **kw):
+    kw.setdefault("gamma", 2)
+    return v_cycle(u, b, levels, alpha, smoother, **kw)
+
+
+def fmg(b, levels: Sequence[GridLevel], alpha: float, smoother: Smoother,
+        n_vcycles: int = 1, restrict=restrict_full_weighting, **vkw):
+    """Full multigrid: coarsest-first nested iteration, then V-cycles per
+    level."""
+    bs = [b]
+    for j, lev in enumerate(levels[1:], start=1):
+        bs.append(restrict_level(bs[-1], levels[j - 1], lev,
+                                 exact_restrict=restrict))
+    u = torch.zeros_like(bs[-1])
+    for j in range(len(levels) - 1, -1, -1):
+        if j < len(levels) - 1:
+            u = prolong_level(u, levels[j + 1], levels[j])
+        for _ in range(n_vcycles):
+            u = v_cycle(u, bs[j], levels[j:], alpha, smoother,
+                        restrict=restrict, **vkw)
+    return u
+
+
+@dataclasses.dataclass
+class SolveResult:
+    """Outcome of an outer multigrid solve: ``history`` is the per-iteration
+    relative residual norm (numpy, the solve's dtype) the reference writes
+    to ``MGGS4.txt``; ``converged`` is ``history[-1] <= tol``."""
+
+    u: torch.Tensor
+    history: np.ndarray  # shape (iterations + 1,)
+    iterations: int
+    converged: bool
+
+    @property
+    def convergence_factor(self) -> float:
+        """Geometric-mean residual reduction per outer iteration."""
+        h = self.history
+        if len(h) < 2 or float(h[0]) == 0.0:
+            return 0.0
+        return float((h[-1] / h[0]) ** (1.0 / (len(h) - 1)))
+
+
+def _tol_in(tol: float, dtype) -> float:
+    """``tol`` rounded to ``dtype``: the JAX loops compare the history entry
+    with the weakly typed Python ``tol`` in the array's dtype."""
+    return float(torch.tensor(tol, dtype=dtype))
+
+
+def _np_dtype(dtype):
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+class GMGSolver:
+    """Geometric multigrid solver for the Dirichlet Poisson problem.
+
+    Parameters mirror the JAX ``GMGSolver`` (and through it the reference
+    CLI), plus ``device``.  ``use_pallas`` keeps its JAX meaning -- route
+    the smoother and residuals through the kernel functions -- and defaults
+    to True on CUDA and False on the CPU.  On the CPU, ``use_pallas=True``
+    runs the kernels' torch twins and ``False`` the XLA-order plain ops.
+    """
+
+    def __init__(
+        self,
+        shape: Sequence[int],
+        length: float = 10.0,
+        alpha: float = 10.0,
+        num_levels: int = 2,
+        smoother: str = "gs",
+        cycle: str = "sawtooth",
+        nu: int = 5,
+        pre_sweeps: int = 2,
+        omega: float = 1.0,
+        tol: float = 1e-11,
+        maxit: int = 1000,
+        coarse_tol: float = 1e-1,
+        coarse_maxit: int = 2000,
+        smoother_dtype=None,
+        pad_align: int | None = None,
+        use_pallas: bool | None = None,
+        coarse: str = "direct",
+        fuse_downleg: bool = False,
+        device="cpu",
+    ):
+        self.device = torch.device(device)
+        self.levels = build_hierarchy(shape, length, num_levels,
+                                      pad_align=pad_align)
+        self.alpha = float(alpha)
+        self.length = float(length)
+        self.tol = float(tol)
+        self.maxit = int(maxit)
+        self.nu = int(nu)
+        self.pre_sweeps = int(pre_sweeps)
+        self.cycle = cycle
+        self.coarse_tol = float(coarse_tol)
+        self.coarse_maxit = int(coarse_maxit)
+        if use_pallas is None:
+            use_pallas = self.device.type == "cuda"
+        self._use_pallas = bool(use_pallas)
+        self._refuse_unported(smoother, omega, smoother_dtype, fuse_downleg)
+        self.smoother = make_smoother(smoother, omega=omega)
+        if self._use_pallas and smoother == "gs":
+            def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
+                return _cs.red_black_gauss_seidel(
+                    u, b, alpha, h, sweeps=sweeps, omega=omega,
+                    logical_shape=logical_shape)
+
+            self.smoother = _sm
+        self._logical0 = _logical(self.levels[0])
+        self._residual_fn = (_cs.poisson_residual if self._use_pallas
+                             else poisson_residual)
+        self._ff_residual_fn = (_cs.ff_poisson_residual if self._use_pallas
+                                else _ff_residual_plain)
+        # below the transfer-kernel gate the JAX package runs the grid
+        # transfers in XLA too; above it the port raises (see
+        # _refuse_unported), so these hooks stay plain
+        self._downleg_fn = None
+        self._restrict_padded_fn = restrict_fw_padded
+        self._prolong_add_fn = None
+        # direct bottom solve: dense inverse of the coarsest operator, built
+        # once in f64 on the host and kept on the device (f64); solves use a
+        # copy cast to their dtype
+        self._coarse_inv = None
+        self._coarse_inv_cast = {}
+        if coarse == "direct" and cycle in ("v", "w"):
+            inv = self._build_coarse_inverse()
+            if inv is not None:
+                self._coarse_inv = torch.from_numpy(inv).to(self.device)
+
+    def _refuse_unported(self, smoother, omega, smoother_dtype, fuse_downleg):
+        """Raise ``NotImplementedError`` for what this port does not run yet
+        (each names its ROADMAP.md item)."""
+        if smoother_dtype is not None:
+            raise NotImplementedError(
+                "smoother_dtype (bf16 defect correction) is not ported yet: "
+                "ROADMAP.md queue A item 9a")
+        if self._use_pallas and fuse_downleg:
+            raise NotImplementedError(
+                "fuse_downleg needs the rbgs_residual_restrict kernel: "
+                "ROADMAP.md queue B item 7")
+        if self._use_pallas and smoother == "jacobi":
+            raise NotImplementedError(
+                "the Jacobi smoother kernel is not ported yet: ROADMAP.md "
+                "queue B item 5")
+        if self._use_pallas and len(self.levels[0].shape) != 2:
+            raise NotImplementedError(
+                "3D kernels are not ported yet: ROADMAP.md queue A item 12, "
+                "queue B items 8-11")
+        if self.device.type != "cuda":
+            return
+        if not self._use_pallas:
+            raise NotImplementedError(
+                "use_pallas=False (the XLA-order plain path) on CUDA is not "
+                "ported yet: ROADMAP.md queue A item 9a")
+        if omega != 1.0:
+            raise NotImplementedError(
+                "omega != 1 (SOR) on CUDA is not ported yet: ROADMAP.md "
+                "queue A item 9a")
+        if int(np.prod(self.levels[0].physical)) >= _TRANSFER_KERNEL_POINTS:
+            raise NotImplementedError(
+                f"fine buffer {self.levels[0].physical} has >= 4M points, "
+                "where the JAX package uses its transfer kernels: ROADMAP.md "
+                "queue B items 1-2 (transfer kernels + 8193^2 slice)")
+
+    def _build_coarse_inverse(self, max_nodes: int = 4608):
+        """Dense inverse of the coarsest-level stencil operator (numpy f64).
+
+        Interior nodes get ``2*ndim*c`` on the diagonal and ``-c`` per
+        neighbour; logical-boundary and dead-zone nodes are identity rows.
+        Returns ``None`` when the coarse buffer exceeds ``max_nodes`` (the
+        smoother iteration stays in that case).
+        """
+        lev = self.levels[-1]
+        shape = lev.physical
+        n_nodes = int(np.prod(shape))
+        if n_nodes > max_nodes:
+            return None
+        logical = lev.shape
+        c = self.alpha / (lev.h * lev.h)
+        idx = np.arange(n_nodes).reshape(shape)
+        coords = np.indices(shape)
+        interior = np.ones(shape, dtype=bool)
+        for d in range(len(shape)):
+            interior &= (coords[d] >= 1) & (coords[d] <= logical[d] - 2)
+        A = np.eye(n_nodes)
+        rows = idx[interior]
+        A[rows, rows] = 2 * len(shape) * c
+        for d in range(len(shape)):
+            for off in (-1, +1):
+                nb = np.roll(idx, -off, axis=d)  # nb[p] = idx at p + off
+                A[rows, nb[interior]] = -c
+        return np.linalg.inv(A)
+
+    def _coarse_inv_as(self, dtype):
+        """The coarse inverse cast to ``dtype`` (cached per dtype)."""
+        if self._coarse_inv is None:
+            return None
+        if dtype not in self._coarse_inv_cast:
+            self._coarse_inv_cast[dtype] = self._coarse_inv.to(dtype)
+        return self._coarse_inv_cast[dtype]
+
+    @staticmethod
+    def _coarse_apply_of(cinv):
+        if cinv is None:
+            return None
+
+        def apply_inv(bb):
+            # a float32 matvec in full float32, never TF32 (set explicitly;
+            # it is the default)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            m = cinv if cinv.dtype == bb.dtype else cinv.to(bb.dtype)
+            return (m @ bb.reshape(-1)).reshape(bb.shape)
+
+        return apply_inv
+
+    def _cycle(self, u, b, cinv=None):
+        hooks = dict(nu1=self.pre_sweeps, nu2=self.nu,
+                     coarse_apply=self._coarse_apply_of(cinv),
+                     residual=self._residual_fn, downleg=self._downleg_fn,
+                     padded_restrict=self._restrict_padded_fn,
+                     prolong_add=self._prolong_add_fn)
+        if self.cycle == "sawtooth":
+            return sawtooth_cycle(u, b, self.levels, self.alpha,
+                                  self.smoother, nu=self.nu,
+                                  coarse_tol=self.coarse_tol,
+                                  coarse_maxit=self.coarse_maxit)
+        if self.cycle == "v":
+            return v_cycle(u, b, self.levels, self.alpha, self.smoother,
+                           **hooks)
+        if self.cycle == "w":
+            return w_cycle(u, b, self.levels, self.alpha, self.smoother,
+                           **hooks)
+        raise ValueError(f"unknown cycle {self.cycle!r}")
+
+    def step(self, u, b, cinv=None):
+        """One outer iteration: pre-smooths (sawtooth) + one cycle.
+
+        ``cinv``: coarse inverse for the direct bottom solve (default: the
+        stored one)."""
+        if cinv is None:
+            cinv = self._coarse_inv
+        if self.cycle == "sawtooth":
+            u = self.smoother(u, b, self.alpha, self.levels[0].h,
+                              self.pre_sweeps, logical_shape=self._logical0)
+        return self._cycle(u, b, cinv)
+
+    def _error_cycle(self, r, cinv=None):
+        """One cycle on the error equation ``A e = r`` from ``e = 0``."""
+        e = torch.zeros_like(r)
+        if self.cycle == "sawtooth":
+            e = self.smoother(e, r, self.alpha, self.levels[0].h,
+                              self.pre_sweeps, logical_shape=self._logical0)
+        return self._cycle(e, r, cinv)
+
+    def _input(self, x, name):
+        """``x`` as a tensor on the solver's device (numpy is copied there;
+        a tensor elsewhere is refused -- devices are explicit)."""
+        if isinstance(x, np.ndarray):
+            return torch.as_tensor(x, device=self.device)
+        if x.device.type != self.device.type or (
+                self.device.index is not None
+                and x.device.index != self.device.index):
+            raise ValueError(f"{name} is on {x.device}, the solver on "
+                             f"{self.device}")
+        return x
+
+    def _padded(self, x):
+        lev0 = self.levels[0]
+        if lev0.padded_shape is not None and tuple(x.shape) == lev0.shape:
+            return pad_to(x, lev0.padded_shape)
+        return x
+
+    def _solve_impl(self, u, b, cinv=None):
+        lev0 = self.levels[0]
+        b, u = self._padded(b), self._padded(u)
+        h0 = lev0.h
+        tol = _tol_in(self.tol, b.dtype)
+        hist = [float(rel_residual_norm(u, b, self.alpha, h0, self._logical0))]
+        k = 0
+        while k < self.maxit and hist[k] > tol:
+            u = self.step(u, b, cinv)
+            hist.append(float(rel_residual_norm(u, b, self.alpha, h0,
+                                                self._logical0)))
+            k += 1
+        if lev0.padded_shape is not None:
+            u = crop_to(u, lev0.shape)
+        return u, k, np.asarray(hist, dtype=_np_dtype(b.dtype))
+
+    def solve_refined(self, b, inner_cg: int = 0) -> SolveResult:
+        """Solve with float-float outer residuals: f32 cycles on the error
+        equation against an extended-precision residual, which reaches
+        ~1e-8 where plain f32 floors at ``eps_f32 * kappa(A)``.  One
+        extended residual per iteration, carried into the next correction
+        and the history entry."""
+        if inner_cg:
+            raise NotImplementedError(
+                "solve_refined(inner_cg > 0) needs ops/krylov.py and the "
+                "poisson_apply kernel: ROADMAP.md queue A item 7, queue B "
+                "item 3")
+        b = self._padded(self._input(b, "b"))
+        lev0 = self.levels[0]
+        h0 = lev0.h
+        c = self.alpha / (h0 * h0)
+        d_hi, d_lo = ff_from_div(b, c)
+        b2 = norm2(b)
+        cinv = self._coarse_inv_as(b.dtype)
+
+        def residual(u_hi, u_lo):
+            return self._ff_residual_fn(u_hi, u_lo, d_hi, d_lo, b, self.alpha,
+                                        h0, self._logical0)
+
+        def rel(r):
+            return float(torch.sqrt(norm2(r) / b2))
+
+        u_hi = torch.zeros_like(b)
+        u_lo = torch.zeros_like(b)
+        r = residual(u_hi, u_lo)
+        hist = [rel(r)]
+        tol = _tol_in(self.tol, b.dtype)
+        k = 0
+        while k < self.maxit and hist[k] > tol:
+            e = self._error_cycle(r, cinv)
+            u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
+            r = residual(u_hi, u_lo)
+            hist.append(rel(r))
+            k += 1
+        u = u_hi + u_lo
+        if lev0.padded_shape is not None:
+            u = crop_to(u, lev0.shape)
+        hist_np = np.asarray(hist, dtype=_np_dtype(b.dtype))
+        return SolveResult(u=u, history=hist_np, iterations=k,
+                           converged=bool(hist_np[-1] <= tol))
+
+    def solve(self, b, u0=None, fmg_start: bool = False) -> SolveResult:
+        """Solve to tolerance.  ``b`` (and ``u0``) are LOGICAL-shape arrays;
+        padding is handled internally and the solution is cropped back.
+
+        ``fmg_start``: start from one full-multigrid pass.
+        """
+        b = self._input(b, "b")
+        check_finite(b, "rhs b")
+        if fmg_start and u0 is None:
+            u0 = fmg(self._padded(b), self.levels, self.alpha, self.smoother,
+                     nu1=self.pre_sweeps, nu2=self.nu)
+        u0 = torch.zeros_like(b) if u0 is None else self._input(u0, "u0")
+        u, k, hist = self._solve_impl(u0, b, self._coarse_inv_as(b.dtype))
+        return SolveResult(u=u, history=hist, iterations=k,
+                           converged=bool(hist[-1] <= _tol_in(self.tol,
+                                                              b.dtype)))

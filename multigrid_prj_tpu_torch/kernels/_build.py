@@ -1,0 +1,88 @@
+"""Build and load the CUDA kernels of ``csrc/`` at first use.
+
+``nvcc`` compiles ``csrc/stencil2d.cu`` for ``sm_90a`` into a shared library
+with a plain C interface, which is loaded with ``ctypes``.  The library goes
+to ``multigrid_prj_tpu_torch/build/`` (git-ignored) and is rebuilt when the
+source is newer than it.  Nothing is built or loaded at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "stencil2d.cu"
+BUILD_DIR = _PKG / "build"
+LIBRARY = BUILD_DIR / "libmg_stencil2d.so"
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    "-fmad=false",  # no FMA contraction: the kernels are bit-equal to twins
+    "-Xptxas", "-v",  # per-kernel registers / spills in the build log
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "mg_rbgs_color": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_residual": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
+    "mg_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels of multigrid_prj_tpu_torch cannot be built")
+
+
+def build(force: bool = False) -> dict:
+    """Compile the library if it is missing or older than its source.
+
+    Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
+    output (``-Xptxas -v`` register report) when a build ran.
+    """
+    if (not force and LIBRARY.exists()
+            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+        return {"path": str(LIBRARY), "seconds": 0.0, "built": False, "log": ""}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, LIBRARY)  # atomic: concurrent loaders see old or new
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return {"path": str(LIBRARY), "seconds": time.perf_counter() - t0,
+            "built": True, "log": proc.stdout + proc.stderr}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with argtypes."""
+    build()
+    lib = ctypes.CDLL(str(LIBRARY))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,98 @@
+"""Poisson model problems: built-in test functions and RHS assembly.
+
+Port of ``multigrid_prj_tpu/models/poisson.py``.  The three ``(f, g)`` pairs
+match the reference's table:
+    test 0: ``f = 1``, ``g = 0``
+    test 1: ``f = -5 e^x e^{-2y}``, ``g = e^x e^{-2y}``
+    test 2: ``f = -30 (cos(30 r)/r - 30 sin(30 r))`` (0 at ``r = 0``),
+            ``g = sin(30 r)``, ``r = sqrt(x^2 + y^2)``
+Out-of-range indices fall back to test 0 with a warning.  ``f`` is sampled
+at interior nodes, ``g`` at boundary nodes, with ``coord(i, j) = (j h,
+L - i h)``.  Tensors are made on the given ``device`` in the given ``dtype``.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Callable, Sequence
+
+import torch
+
+from multigrid_prj_tpu_torch.grids import GridLevel
+from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
+
+
+def _t0_f(x, y):
+    return torch.ones_like(x)
+
+
+def _t0_g(x, y):
+    return torch.zeros_like(x)
+
+
+def _t1_f(x, y):
+    return -5.0 * torch.exp(x) * torch.exp(-2.0 * y)
+
+
+def _t1_g(x, y):
+    return torch.exp(x) * torch.exp(-2.0 * y)
+
+
+def _t2_f(x, y):
+    r = torch.sqrt(x * x + y * y)
+    safe_r = torch.where(r == 0.0, torch.ones_like(r), r)
+    val = -30.0 * (torch.cos(30.0 * r) / safe_r - 30.0 * torch.sin(30.0 * r))
+    return torch.where(r == 0.0, torch.zeros_like(r), val)
+
+
+def _t2_g(x, y):
+    return torch.sin(30.0 * torch.sqrt(x * x + y * y))
+
+
+TEST_FUNCTIONS: dict[int, tuple[Callable, Callable]] = {
+    0: (_t0_f, _t0_g),
+    1: (_t1_f, _t1_g),
+    2: (_t2_f, _t2_g),
+}
+
+
+def get_test_functions(i: int) -> tuple[Callable, Callable]:
+    """Select ``(f, g)`` with the reference's fallback to test 0."""
+    if i not in TEST_FUNCTIONS:
+        warnings.warn("Invalid test case index. Default test case selected.")
+        return TEST_FUNCTIONS[0]
+    return TEST_FUNCTIONS[i]
+
+
+def grid_coords(shape: Sequence[int], length: float,
+                dtype=torch.float32, device="cpu"):
+    """Node coordinates: 2D ``x[i, j] = j h``, ``y[i, j] = L - i h``; 3D
+    adds ``z[k] = L - k h`` on the leading axis."""
+    shape = tuple(int(s) for s in shape)
+    h = length / (shape[0] - 1)
+
+    def iota(ax):
+        view = [1] * len(shape)
+        view[ax] = shape[ax]
+        idx = torch.arange(shape[ax], device=device).to(dtype).view(view)
+        return idx.expand(shape)
+
+    if len(shape) == 2:
+        return iota(1) * h, length - iota(0) * h
+    if len(shape) == 3:
+        return iota(2) * h, length - iota(1) * h, length - iota(0) * h
+    raise ValueError(f"unsupported rank {len(shape)}")
+
+
+def assemble_rhs(level: GridLevel, length: float, test: int = 1,
+                 f: Callable | None = None, g: Callable | None = None,
+                 dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """Sample ``f`` on interior nodes and ``g`` on boundary nodes of the
+    LOGICAL grid.  Custom ``f``/``g`` callables override the registry."""
+    if f is None or g is None:
+        rf, rg = get_test_functions(test)
+        f = f or rf
+        g = g or rg
+    coords = grid_coords(level.shape, length, dtype=dtype, device=device)
+    bmask = boundary_mask(level.shape, device=device)
+    return torch.where(bmask, g(*coords), f(*coords)).to(dtype).contiguous()

@@ -1,0 +1,218 @@
+"""The port's GMG slice vs the JAX package on the CPU: hierarchy, RHS, the
+solver (``solve`` / ``solve_refined`` / ``fmg_start``), the CLI, the refusals
+of what is not ported yet, and that the port imports without jax.
+
+The JAX solver runs with ``use_pallas=True`` in Pallas interpret mode where
+the port runs its kernel twins, and with the plain XLA path where the port
+runs its plain ops.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from multigrid_prj_tpu import gmg as jgmg
+from multigrid_prj_tpu import grids as jgrids
+from multigrid_prj_tpu.cli import gmg_main as jcli
+from multigrid_prj_tpu.models import poisson as jpoisson
+from multigrid_prj_tpu_torch import gmg as tgmg
+from multigrid_prj_tpu_torch import grids as tgrids
+from multigrid_prj_tpu_torch.cli import gmg_main as tcli
+from multigrid_prj_tpu_torch.convert import solver_state_from_numpy
+from multigrid_prj_tpu_torch.models import poisson as tpoisson
+from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+from multigrid_prj_tpu_torch.utils import io as tio
+from multigrid_prj_tpu_torch.utils.guards import check_finite
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _state(js):
+    """The JAX solver's state as plain numpy data (see convert.py)."""
+    return dict(levels=[dataclasses.astuple(lev) for lev in js.levels],
+                coarse_inv=(None if js._coarse_inv is None
+                            else np.asarray(js._coarse_inv)),
+                length=js.length, alpha=js.alpha, tol=js.tol, maxit=js.maxit,
+                nu=js.nu, pre_sweeps=js.pre_sweeps, cycle=js.cycle,
+                coarse_tol=js.coarse_tol, coarse_maxit=js.coarse_maxit)
+
+
+@pytest.mark.parametrize("shape,levels,pad", [((129, 129), 4, 128),
+                                              ((1025, 1025), 6, 256),
+                                              ((65, 65), 4, None),
+                                              ((33, 33, 33), 3, (8, 8, 128))])
+def test_hierarchy_matches_jax(shape, levels, pad):
+    assert (tgrids.build_hierarchy(shape, 10.0, levels, pad_align=pad)
+            == [tgrids.GridLevel(*dataclasses.astuple(lev)) for lev in
+                jgrids.build_hierarchy(shape, 10.0, levels, pad_align=pad)])
+    assert tgrids.max_levels(shape) == jgrids.max_levels(shape)
+
+
+@pytest.mark.parametrize("test", [0, 1, 2])
+def test_assemble_rhs_matches_jax(test):
+    """exp / sin / cos come from different math libraries; sin(30 r) and
+    cos(30 r) reach arguments of ~420, whose range reduction differs: the
+    measured largest relative difference is 2.4e-13."""
+    lev = tgrids.build_hierarchy((65, 65), 10.0, 1)[0]
+    got = tpoisson.assemble_rhs(lev, 10.0, test=test, dtype=torch.float64)
+    want = np.asarray(jpoisson.assemble_rhs(lev, 10.0, test=test,
+                                            dtype=jnp.float64))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+def test_solve_refined_129_matches_jax_pallas():
+    """129^2, 4 levels, pad 128, f32 ff refinement to 1e-8: the port's kernel
+    twins against the JAX Pallas kernels in interpret mode, with the same
+    hierarchy and coarse inverse.  JAX takes 8 iterations to 2.70e-9.  The
+    twins differ from interpret mode by a rounding where XLA contracts an
+    FMA, and the coarsest levels of JAX run XLA-order fallbacks (widths
+    below 128): the histories differ by a relative 2.1e-5 at most (measured)
+    and are held to 1e-4."""
+    kw = dict(shape=(129, 129), length=10.0, alpha=10.0, num_levels=4,
+              cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60,
+              pad_align=128)
+    js = jgmg.GMGSolver(use_pallas=True, **kw)
+    b = jpoisson.assemble_rhs(js.levels[0], 10.0, test=1, dtype=jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = js.solve_refined(b)
+    ts = solver_state_from_numpy(_state(js), device="cpu", use_pallas=True)
+    got = ts.solve_refined(torch.from_numpy(np.array(b)))
+    assert want.iterations == 8 and want.converged
+    assert got.iterations == want.iterations and got.converged
+    assert got.history.dtype == np.float32
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-4)
+    u = got.u.numpy()
+    assert u.shape == (129, 129) and np.all(np.isfinite(u))
+    np.testing.assert_allclose(u, np.asarray(want.u),
+                               atol=1e-6 * np.abs(u).max())
+
+
+@pytest.mark.parametrize("cycle,fmg_start", [("v", False), ("w", False),
+                                             ("v", True)])
+def test_solve_f64_matches_jax_xla(cycle, fmg_start):
+    """Plain path (use_pallas=False) in f64 on a padded 65^2: the same
+    iterations; histories to rtol 1e-8 plus the f64 round-off floor of a
+    relative residual, eps_f64 * kappa(A) ~ 4e-13 at 65^2 (measured
+    absolute differences up to 1.4e-14)."""
+    kw = dict(shape=(65, 65), num_levels=3, cycle=cycle, nu=2, tol=1e-10,
+              maxit=30, pad_align=128, use_pallas=False)
+    js = jgmg.GMGSolver(**kw)
+    b = jpoisson.assemble_rhs(js.levels[0], 10.0, test=1, dtype=jnp.float64)
+    want = js.solve(b, fmg_start=fmg_start)
+    ts = solver_state_from_numpy(_state(js), device="cpu", use_pallas=False)
+    got = ts.solve(torch.from_numpy(np.array(b)), fmg_start=fmg_start)
+    assert got.iterations == want.iterations and got.converged
+    np.testing.assert_allclose(got.history, np.asarray(want.history),
+                               rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u), rtol=1e-9,
+                               atol=1e-9 * np.abs(np.asarray(want.u)).max())
+
+
+def test_port_solver_builds_the_same_coarse_inverse():
+    kw = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=128)
+    js = jgmg.GMGSolver(use_pallas=False, **kw)
+    ts = tgmg.GMGSolver(**kw)
+    np.testing.assert_array_equal(ts._coarse_inv.numpy(),
+                                  np.asarray(js._coarse_inv))
+
+
+def test_convert_refuses_other_levels():
+    js = jgmg.GMGSolver(shape=(65, 65), num_levels=3, cycle="v",
+                        pad_align=128, use_pallas=False)
+    state = _state(js)
+    state["levels"] = state["levels"][:2]
+    state["levels"][1] = ((34, 34), *state["levels"][1][1:])
+    with pytest.raises(ValueError):
+        solver_state_from_numpy(state)
+
+
+def _run_cli(main, argv, cwd, monkeypatch):
+    monkeypatch.chdir(cwd)
+    assert main(argv) == 0
+    return tio.load_vector(cwd / "MGGS4.txt"), tio.load_vector(cwd / "x.mtx")
+
+
+def test_cli_65_test0_f64_matches_jax_cli(tmp_path, monkeypatch):
+    """``-n 65 -ml 4 -test 0`` (sawtooth, f64, XLA order on both sides):
+    11 iterations as in PARITY.md.  Measured max relative history
+    difference 3.5e-13; the late entries sit near 1e-11 where ulp
+    differences are amplified by about kappa(A), so the bound is 1e-8."""
+    argv = ["-n", "65", "-ml", "4", "-test", "0"]
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    jh, jx = _run_cli(jcli.main, argv, tmp_path / "jax", monkeypatch)
+    th, tx = _run_cli(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    assert len(th) == len(jh) == 12  # 1.0 + 11 iterations
+    np.testing.assert_allclose(th, jh, rtol=1e-8)
+    assert th[-1] < 1e-11
+    assert tx.size == 65 * 65
+    np.testing.assert_allclose(tx, jx, rtol=1e-9, atol=1e-12 * np.abs(jx).max())
+
+
+def test_cli_refuses_bicgstab(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tcli.main(["-n", "17", "-smt", "2"])
+
+
+@pytest.mark.parametrize("kw", [dict(smoother="jacobi"), dict(omega=1.2),
+                                dict(fuse_downleg=True),
+                                dict(smoother_dtype=torch.bfloat16),
+                                dict(use_pallas=False),
+                                dict(shape=(2049, 2049), pad_align=256),
+                                dict(shape=(17, 17, 17), num_levels=2)])
+def test_unported_options_raise_on_cuda(kw):
+    """Refused before any tensor is made, so this runs without a card."""
+    args = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=256,
+                device="cuda")
+    args.update(kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tgmg.GMGSolver(**args)
+
+
+def test_inner_cg_raises():
+    ts = tgmg.GMGSolver(shape=(33, 33), num_levels=3, cycle="v")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ts.solve_refined(torch.zeros(33, 33), inner_cg=2)
+
+
+def test_solver_is_pure_and_checks_inputs():
+    # tol above the f32 floor eps_f32 * kappa(A) (~6e-6 at 33^2)
+    ts = tgmg.GMGSolver(shape=(33, 33), num_levels=3, cycle="v", tol=1e-4,
+                        pad_align=64, use_pallas=True)
+    b = tpoisson.assemble_rhs(ts.levels[0], 10.0, test=1, dtype=torch.float32)
+    b0 = b.clone()
+    cs.reset_launch_counts()
+    out = ts.solve(b)
+    assert torch.equal(b, b0)
+    assert all(v == 0 for v in cs.LAUNCHES.values())  # twins on the CPU
+    assert out.converged and 0 < out.convergence_factor < 0.5
+    with pytest.raises(ValueError):
+        ts.solve(b.clone().fill_(float("nan")))
+    with pytest.raises(ValueError):
+        check_finite(np.array([1.0, np.inf]))
+
+
+def test_port_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['multigrid_prj_tpu'] = None; "
+            "import multigrid_prj_tpu_torch as p; "
+            "import multigrid_prj_tpu_torch.convert, "
+            "multigrid_prj_tpu_torch.cli.gmg_main, "
+            "multigrid_prj_tpu_torch.kernels._build; "
+            "assert p.GMGSolver; print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

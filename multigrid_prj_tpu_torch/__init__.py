@@ -1,12 +1,14 @@
 """multigrid_prj_tpu_torch -- the PyTorch and CUDA port of multigrid_prj_tpu.
 
 The JAX package ``multigrid_prj_tpu`` is the reference; this package carries
-its main path, the 2D geometric-multigrid V-cycle on the padded Poisson
-layout (``GMGSolver(cycle="v", smoother="gs", pad_align=256)`` with
-``solve`` and ``solve_refined``), on an NVIDIA H100.  The smoother, residual
-and float-float residual run as hand-written CUDA kernels
-(``csrc/stencil2d.cu``, built with nvcc at first use); every other op is
-plain torch.  Nothing here imports jax or the JAX package.
+its 2D geometric multigrid on the padded Poisson layout
+(``GMGSolver(cycle="v", pad_align=256)`` with ``solve`` and
+``solve_refined``, also with ``inner_cg`` and at 8193^2), the RB-GS and
+Jacobi smoothers, the Krylov solvers and the ``gmg_main`` CLI, on an NVIDIA
+H100.  The smoothers, residuals, operator apply and padded grid transfers
+run as hand-written CUDA kernels (``csrc/stencil2d.cu``, built with nvcc at
+first use); every other op is plain torch.  Nothing here imports jax or the
+JAX package.
 """
 
 __version__ = "0.1.0"

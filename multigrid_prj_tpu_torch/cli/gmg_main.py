@@ -6,8 +6,10 @@ outer loop runs to ``TOL = 1e-11`` / 1000 iterations; prints the
 
 The device is CUDA when a card is present, else the CPU (as the JAX CLI
 takes the default backend).  Auto dtype is f64 on the CPU and f32 on CUDA,
-where the tolerance is raised to at least 1e-6.  ``-smt 2`` (BiCGSTAB)
-raises ``NotImplementedError`` (ROADMAP.md queue A item 7).
+where the tolerance is raised to at least 1e-6.  ``-smt 1`` runs the Jacobi
+smoother; ``-smt 2`` runs BiCGSTAB on the plain operator apply, preconditioned
+by one multigrid step, exactly as the JAX CLI does (which also fails with
+``-pad``: the preconditioner gets logical-shape vectors).
 
 Usage: ``python -m multigrid_prj_tpu_torch.cli.gmg_main -n 385 -ml 4 -test 1``
 """
@@ -24,13 +26,12 @@ def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     from multigrid_prj_tpu_torch.gmg import GMGSolver
     from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops.krylov import bicgstab
+    from multigrid_prj_tpu_torch.ops.stencil import poisson_apply
     from multigrid_prj_tpu_torch.utils.config import parse_gmg_args
     from multigrid_prj_tpu_torch.utils.io import save_history, save_vector
 
     cfg = parse_gmg_args(argv)
-    if cfg.smoother == 2:
-        raise NotImplementedError(
-            "-smt 2 (BiCGSTAB) needs ops/krylov.py: ROADMAP.md queue A item 7")
     device = "cuda" if torch.cuda.is_available() else "cpu"
     dtype = cfg.dtype
     if dtype == "auto":
@@ -62,19 +63,30 @@ def main(argv=None) -> int:
     print(f"Initialization time: {t1 - t0} seconds")
 
     t0 = time.perf_counter()
-    print("GS iters" if cfg.smoother == 0 else "Jacobi iters")
-    out = solver.solve(b)
-    u = out.u.cpu().numpy()  # waits for the device
+    if cfg.smoother == 2:
+        print("BiCGSTAB iters")
+        h0 = solver.levels[0].h
+        res = bicgstab(lambda x: poisson_apply(x, cfg.alpha, h0), b, tol=tol,
+                       maxit=cfg.maxit,
+                       M=lambda r: solver.step(torch.zeros_like(r), r))
+        x, hist = res.x, [res.rel_residual]
+        iters, converged = res.iterations, res.converged
+    else:
+        print("GS iters" if cfg.smoother == 0 else "Jacobi iters")
+        out = solver.solve(b)
+        x, hist = out.u, out.history
+        iters, converged = out.iterations, out.converged
+    u = x.cpu().numpy()  # waits for the device
     t1 = time.perf_counter()
 
     print(f"||Solving elapsed time: {t1 - t0} sec<br>")
     print(f"Tol: {tol}<br>")
     print(f"Max iter: {cfg.maxit}<br>")
-    if not out.converged:
-        print(f"Warning: not converged after {out.iterations} iterations "
-              f"(final rel. residual {float(out.history[-1]):.3e})")
+    if not converged:
+        print(f"Warning: not converged after {iters} iterations "
+              f"(final rel. residual {float(hist[-1]):.3e})")
 
-    save_history("MGGS4.txt", out.history)
+    save_history("MGGS4.txt", hist)
     save_vector("x.mtx", u.reshape(-1))
     return 0
 

@@ -16,9 +16,10 @@ that goes into ``history``).  History semantics are the same: entry 0 is the
 initial residual, and the loop stops at ``tol`` or ``maxit``.
 
 Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there.
-On CUDA the smoother and residuals run through the hand-written kernels of
-``ops/cuda_stencil.py``; what they do not cover raises ``NotImplementedError``
-naming its ROADMAP.md item.
+With ``use_pallas`` (the default on CUDA) the smoothers, residuals, padded
+grid transfers and the ``inner_cg`` operator apply run through the
+hand-written kernels of ``ops/cuda_stencil.py``; what they do not cover
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -36,9 +37,14 @@ from multigrid_prj_tpu_torch.ops.extended import (
     ff_from_div,
     ff_poisson_residual as _ff_residual_plain,
 )
+from multigrid_prj_tpu_torch.ops.krylov import cg_arrays
 from multigrid_prj_tpu_torch.ops.residual import norm2, rel_residual_norm
 from multigrid_prj_tpu_torch.ops.smoothers import make_smoother
-from multigrid_prj_tpu_torch.ops.stencil import poisson_residual
+from multigrid_prj_tpu_torch.ops.stencil import (
+    boundary_mask,
+    poisson_apply,
+    poisson_residual,
+)
 from multigrid_prj_tpu_torch.ops.transfer import (
     crop_to,
     pad_to,
@@ -50,10 +56,6 @@ from multigrid_prj_tpu_torch.ops.transfer import (
 from multigrid_prj_tpu_torch.utils.guards import check_finite
 
 Smoother = Callable[..., torch.Tensor]  # (u, b, alpha, h, sweeps, logical_shape)
-
-# fine physical points from which the JAX package switches to its Pallas
-# transfer kernels (multigrid_prj_tpu/gmg.py, the 4M-point gate)
-_TRANSFER_KERNEL_POINTS = 4 << 20
 
 
 def stationary_solve(e0, b, alpha, h, smoother: Smoother, tol: float,
@@ -230,9 +232,10 @@ class GMGSolver:
 
     Parameters mirror the JAX ``GMGSolver`` (and through it the reference
     CLI), plus ``device``.  ``use_pallas`` keeps its JAX meaning -- route
-    the smoother and residuals through the kernel functions -- and defaults
-    to True on CUDA and False on the CPU.  On the CPU, ``use_pallas=True``
-    runs the kernels' torch twins and ``False`` the XLA-order plain ops.
+    the smoother, residuals, padded transfers and ``inner_cg`` apply through
+    the kernel functions -- and defaults to True on CUDA and False on the
+    CPU.  On the CPU, ``use_pallas=True`` runs the kernels' torch twins;
+    ``False`` runs the XLA-order plain ops on any device.
     """
 
     def __init__(
@@ -272,7 +275,7 @@ class GMGSolver:
         if use_pallas is None:
             use_pallas = self.device.type == "cuda"
         self._use_pallas = bool(use_pallas)
-        self._refuse_unported(smoother, omega, smoother_dtype, fuse_downleg)
+        self._refuse_unported(smoother_dtype, fuse_downleg)
         self.smoother = make_smoother(smoother, omega=omega)
         if self._use_pallas and smoother == "gs":
             def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
@@ -281,17 +284,29 @@ class GMGSolver:
                     logical_shape=logical_shape)
 
             self.smoother = _sm
+        elif self._use_pallas and smoother == "jacobi":
+            def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
+                return _cs.jacobi(u, b, alpha, h, omega=omega, sweeps=sweeps,
+                                  logical_shape=logical_shape)
+
+            self.smoother = _sm
         self._logical0 = _logical(self.levels[0])
         self._residual_fn = (_cs.poisson_residual if self._use_pallas
                              else poisson_residual)
         self._ff_residual_fn = (_cs.ff_poisson_residual if self._use_pallas
                                 else _ff_residual_plain)
-        # below the transfer-kernel gate the JAX package runs the grid
-        # transfers in XLA too; above it the port raises (see
-        # _refuse_unported), so these hooks stay plain
+        self._apply_fn = (_cs.poisson_apply if self._use_pallas
+                          else poisson_apply)
         self._downleg_fn = None
         self._restrict_padded_fn = restrict_fw_padded
         self._prolong_add_fn = None
+        if self._use_pallas:
+            # the transfer kernels at every padded level: they are bit-equal
+            # to the plain transfers, and one launch replaces the plain
+            # transfer's many (the JAX package gates them at >= 4M fine
+            # points, a TPU measurement that does not carry over)
+            self._restrict_padded_fn = _cs.restrict_fw_padded_fast
+            self._prolong_add_fn = _cs.prolong_add_padded_fast
         # direct bottom solve: dense inverse of the coarsest operator, built
         # once in f64 on the host and kept on the device (f64); solves use a
         # copy cast to their dtype
@@ -302,9 +317,10 @@ class GMGSolver:
             if inv is not None:
                 self._coarse_inv = torch.from_numpy(inv).to(self.device)
 
-    def _refuse_unported(self, smoother, omega, smoother_dtype, fuse_downleg):
+    def _refuse_unported(self, smoother_dtype, fuse_downleg):
         """Raise ``NotImplementedError`` for what this port does not run yet
-        (each names its ROADMAP.md item)."""
+        (each names its ROADMAP.md item).  f64 tensors with ``use_pallas``
+        on CUDA are refused by the kernel wrappers (queue A item 9a)."""
         if smoother_dtype is not None:
             raise NotImplementedError(
                 "smoother_dtype (bf16 defect correction) is not ported yet: "
@@ -313,29 +329,10 @@ class GMGSolver:
             raise NotImplementedError(
                 "fuse_downleg needs the rbgs_residual_restrict kernel: "
                 "ROADMAP.md queue B item 7")
-        if self._use_pallas and smoother == "jacobi":
-            raise NotImplementedError(
-                "the Jacobi smoother kernel is not ported yet: ROADMAP.md "
-                "queue B item 5")
         if self._use_pallas and len(self.levels[0].shape) != 2:
             raise NotImplementedError(
                 "3D kernels are not ported yet: ROADMAP.md queue A item 12, "
                 "queue B items 8-11")
-        if self.device.type != "cuda":
-            return
-        if not self._use_pallas:
-            raise NotImplementedError(
-                "use_pallas=False (the XLA-order plain path) on CUDA is not "
-                "ported yet: ROADMAP.md queue A item 9a")
-        if omega != 1.0:
-            raise NotImplementedError(
-                "omega != 1 (SOR) on CUDA is not ported yet: ROADMAP.md "
-                "queue A item 9a")
-        if int(np.prod(self.levels[0].physical)) >= _TRANSFER_KERNEL_POINTS:
-            raise NotImplementedError(
-                f"fine buffer {self.levels[0].physical} has >= 4M points, "
-                "where the JAX package uses its transfer kernels: ROADMAP.md "
-                "queue B items 1-2 (transfer kernels + 8193^2 slice)")
 
     def _build_coarse_inverse(self, max_nodes: int = 4608):
         """Dense inverse of the coarsest-level stencil operator (numpy f64).
@@ -414,6 +411,13 @@ class GMGSolver:
         stored one)."""
         if cinv is None:
             cinv = self._coarse_inv
+        phys = self.levels[0].physical
+        if tuple(b.shape) != phys or tuple(u.shape) != phys:
+            # the JAX package fails here too, deeper in the cycle (e.g. the
+            # CLI's -smt 2 with -pad hands logical-shape vectors in)
+            raise ValueError(f"step takes finest-level buffers of shape "
+                             f"{phys}, got u {tuple(u.shape)} and b "
+                             f"{tuple(b.shape)}")
         if self.cycle == "sawtooth":
             u = self.smoother(u, b, self.alpha, self.levels[0].h,
                               self.pre_sweeps, logical_shape=self._logical0)
@@ -466,12 +470,13 @@ class GMGSolver:
         equation against an extended-precision residual, which reaches
         ~1e-8 where plain f32 floors at ``eps_f32 * kappa(A)``.  One
         extended residual per iteration, carried into the next correction
-        and the history entry."""
-        if inner_cg:
-            raise NotImplementedError(
-                "solve_refined(inner_cg > 0) needs ops/krylov.py and the "
-                "poisson_apply kernel: ROADMAP.md queue A item 7, queue B "
-                "item 3")
+        and the history entry.
+
+        ``inner_cg = k > 0`` replaces each correction's single cycle with
+        ``k`` iterations of cycle-preconditioned CG on the f32 error
+        equation (``ops/krylov.cg_arrays``, operator apply through the
+        kernel with ``use_pallas``).  Whether that pays depends on the grid
+        and the device: see PERF.md for the H100's numbers."""
         b = self._padded(self._input(b, "b"))
         lev0 = self.levels[0]
         h0 = lev0.h
@@ -487,6 +492,24 @@ class GMGSolver:
         def rel(r):
             return float(torch.sqrt(norm2(r) / b2))
 
+        if inner_cg:
+            bmask = boundary_mask(b.shape, self._logical0, b.device)
+
+            def inner_solve(r):
+                # A with Dirichlet identity rows is not symmetric on the full
+                # space; on the zero-boundary subspace it is the SPD interior
+                # operator, and A and the cycle preserve that subspace: run
+                # CG there and solve the identity rows directly
+                e, _, _, _ = cg_arrays(
+                    lambda v: self._apply_fn(v, self.alpha, h0,
+                                             self._logical0),
+                    r.masked_fill(bmask, 0.0), tol=0.0, maxit=inner_cg,
+                    M=lambda rr: self._error_cycle(rr, cinv))
+                return torch.where(bmask, r, e)
+        else:
+            def inner_solve(r):
+                return self._error_cycle(r, cinv)
+
         u_hi = torch.zeros_like(b)
         u_lo = torch.zeros_like(b)
         r = residual(u_hi, u_lo)
@@ -494,7 +517,7 @@ class GMGSolver:
         tol = _tol_in(self.tol, b.dtype)
         k = 0
         while k < self.maxit and hist[k] > tol:
-            e = self._error_cycle(r, cinv)
+            e = inner_solve(r)
             u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
             r = residual(u_hi, u_lo)
             hist.append(rel(r))

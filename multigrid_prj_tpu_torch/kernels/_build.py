@@ -35,6 +35,10 @@ _SIGNATURES = {
     "mg_rbgs_color": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_residual": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
+    "mg_apply": [_vp, _vp, _i, _i, _i, _i, _f, _vp],
+    "mg_jacobi": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _f, _f, _vp],
+    "mg_restrict_fw": [_vp, _vp, _i, _i, _i, _i, _vp],
+    "mg_prolong_add": [_vp, _vp, _vp, _i, _i, _vp],
 }
 
 

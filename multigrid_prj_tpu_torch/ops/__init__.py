@@ -1,3 +1,13 @@
 """Compute ops of the port: plain torch stencil, smoother, transfer,
-residual and float-float ops (the JAX package's XLA-order versions), and
-``cuda_stencil`` with the hand-written CUDA kernels and their twins."""
+residual and float-float ops (the JAX package's XLA-order versions), the
+Krylov solvers, and ``cuda_stencil`` with the hand-written CUDA kernels and
+their twins."""
+
+from multigrid_prj_tpu_torch.ops.krylov import (
+    KrylovResult,
+    bicgstab,
+    cg,
+    cg_arrays,
+)
+
+__all__ = ["KrylovResult", "bicgstab", "cg", "cg_arrays"]

@@ -1,24 +1,34 @@
-"""CUDA stencil kernels of the GMG main path, with their plain twins.
+"""CUDA stencil and transfer kernels of the 2D GMG paths, with their plain
+twins.
 
-Counterpart of ``multigrid_prj_tpu/ops/pallas_stencil.py`` for the three
-kernels the padded 2D V-cycle reaches (sources in ``csrc/stencil2d.cu``):
+Counterpart of ``multigrid_prj_tpu/ops/pallas_stencil.py`` for the kernels
+the padded 2D V-cycle, its ``inner_cg`` variant and the Jacobi smoother
+reach (sources in ``csrc/stencil2d.cu``):
 
-==========================  =============================  ================
-function                    replaces (pallas_stencil.py)   bytes per point
-==========================  =============================  ================
-``red_black_gauss_seidel``  ``_rbgs_fused_kernel`` /       12 per colour
-                            ``_rbgs_fused2d_kernel``       pass
-``poisson_residual``        ``_residual_kernel``           12
-``ff_poisson_residual``     ``_ff_residual_kernel``        24
-==========================  =============================  ================
+============================  =============================  ===============
+function                      replaces (pallas_stencil.py)   bytes per point
+============================  =============================  ===============
+``red_black_gauss_seidel``    ``_rbgs_fused_kernel`` /       12 per colour
+                              ``_rbgs_fused2d_kernel``       pass
+``poisson_residual``          ``_residual_kernel``           12
+``ff_poisson_residual``       ``_ff_residual_kernel``        24
+``poisson_apply``             ``_apply_kernel`` /            8
+                              ``_apply_carry_kernel``
+``jacobi``                    ``_jacobi_fused_kernel`` /     12 per sweep
+                              ``_jacobi_fused2d_kernel``
+``restrict_fw_padded_fast``   ``_fw_filter2d_kernel`` + its  ~5 per fine
+                              wrapper's edge fix-up          point
+``prolong_add_padded_fast``   ``_prolong_add_kernel``        ~9 per fine
+                                                             point
+============================  =============================  ===============
 
 Each public function keeps the JAX signature and dispatches on the device of
 its tensors: a CPU tensor runs the plain torch twin (``*_plain``, the
 kernel's operation order, which matches the JAX Pallas function in
 interpret mode); a CUDA tensor launches the kernel or raises
-``NotImplementedError``.  There is no fallback.  All three kernels are
-memory-bound simple first versions (one launch per colour, no temporal
-fusion); ``LAUNCHES`` counts each kernel launch.
+``NotImplementedError``.  There is no fallback.  All kernels are
+memory-bound simple first versions (one launch per colour or sweep, no
+temporal fusion); ``LAUNCHES`` counts each kernel launch.
 """
 
 from __future__ import annotations
@@ -27,10 +37,12 @@ import torch
 
 from multigrid_prj_tpu_torch.ops import extended as _ext
 from multigrid_prj_tpu_torch.ops import smoothers as _sm
+from multigrid_prj_tpu_torch.ops import transfer as _tr
 from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 
 # kernel name -> number of launches since the last reset_launch_counts()
-LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0}
+LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
+            "jacobi": 0, "restrict_fw": 0, "prolong_add": 0}
 
 
 def reset_launch_counts() -> None:
@@ -48,9 +60,10 @@ def _logical(shape, logical_shape):
     return nl, ml
 
 
-def _check_cuda(name, *tensors):
+def _check_cuda(name, *tensors, same_shape=True):
     """Raise on what the kernels do not take (they need 2D contiguous f32
-    tensors of one shape on one CUDA device)."""
+    tensors on one CUDA device, of one shape unless ``same_shape`` is
+    False)."""
     t0 = tensors[0]
     if t0.ndim != 2:
         raise NotImplementedError(
@@ -61,8 +74,8 @@ def _check_cuda(name, *tensors):
             f"{name}: the CUDA kernels take float32, got {t0.dtype} "
             "(ROADMAP.md queue A item 9a)")
     for t in tensors:
-        if (t.device != t0.device or t.dtype != t0.dtype
-                or t.shape != t0.shape):
+        if (t.device != t0.device or t.dtype != t0.dtype or t.ndim != 2
+                or (same_shape and t.shape != t0.shape)):
             raise ValueError(f"{name}: operands differ in device, dtype or "
                              f"shape ({t.device}, {t.dtype}, {tuple(t.shape)})")
         if not t.is_contiguous():
@@ -126,19 +139,16 @@ def red_black_gauss_seidel_plain(u, b, alpha, h, sweeps: int = 1,
 
 def red_black_gauss_seidel(u, b, alpha, h, sweeps: int = 1,
                            omega: float = 1.0, logical_shape=None):
-    """``sweeps`` RB-GS sweeps (``omega == 1`` only on CUDA)."""
+    """``sweeps`` RB-GS sweeps.  The kernel is ``omega == 1`` only: SOR runs
+    the XLA-order plain smoother on every device, as the JAX kernel wrapper
+    does (``pallas_stencil.red_black_gauss_seidel``), and is no launch."""
+    if omega != 1.0:
+        return _sm.red_black_gauss_seidel(u, b, alpha, h, sweeps=sweeps,
+                                          omega=omega,
+                                          logical_shape=logical_shape)
     if u.device.type == "cpu":
-        if omega != 1.0:
-            # the JAX kernel wrapper runs SOR through the XLA smoother too
-            return _sm.red_black_gauss_seidel(u, b, alpha, h, sweeps=sweeps,
-                                              omega=omega,
-                                              logical_shape=logical_shape)
         return red_black_gauss_seidel_plain(u, b, alpha, h, sweeps,
                                             logical_shape)
-    if omega != 1.0:
-        raise NotImplementedError(
-            "RB-GS with omega != 1 (SOR) has no CUDA kernel "
-            "(ROADMAP.md queue A item 9a)")
     _check_cuda("red_black_gauss_seidel", u, b)
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
@@ -160,13 +170,8 @@ def red_black_gauss_seidel(u, b, alpha, h, sweeps: int = 1,
 
 
 def poisson_residual_plain(u, b, alpha, h, logical_shape=None):
-    """Twin of the residual kernel:
-    ``b - where(boundary, u, c * ((((4u - N) - S) - E) - W))``."""
-    c = alpha / (h * h)
-    north, south, east, west = _neighbors(u)
-    stencil = c * (4.0 * u - north - south - east - west)
-    bnd = boundary_mask(u.shape, logical_shape, u.device)
-    return b - torch.where(bnd, u, stencil)
+    """Twin of the residual kernel: ``b - poisson_apply_plain(u)``."""
+    return b - poisson_apply_plain(u, alpha, h, logical_shape)
 
 
 def poisson_residual(u, b, alpha, h, logical_shape=None):
@@ -212,3 +217,138 @@ def ff_poisson_residual(u_hi, u_lo, d_hi, d_lo, b, alpha, h,
                                     ml, c, _stream()), "ff_residual")
     LAUNCHES["ff_residual"] += 1
     return r
+
+
+# ---------------------------------------------------------------------------
+# operator apply
+# ---------------------------------------------------------------------------
+
+
+def poisson_apply_plain(u, alpha, h, logical_shape=None):
+    """Twin of the apply kernel:
+    ``where(boundary, u, c * ((((4u - N) - S) - E) - W))`` (not
+    ``ops/stencil.poisson_apply``, whose neighbour sum runs in another
+    order)."""
+    c = alpha / (h * h)
+    north, south, east, west = _neighbors(u)
+    stencil = c * (4.0 * u - north - south - east - west)
+    bnd = boundary_mask(u.shape, logical_shape, u.device)
+    return torch.where(bnd, u, stencil)
+
+
+def poisson_apply(u, alpha, h, logical_shape=None):
+    """Fused ``y = A u`` (identity at Dirichlet rows).  The Pallas
+    version's ``dst`` (a buffer to alias for its ping-pong chains) has no
+    counterpart here: the output is always a new tensor."""
+    if u.device.type == "cpu":
+        return poisson_apply_plain(u, alpha, h, logical_shape)
+    _check_cuda("poisson_apply", u)
+    n, m = u.shape
+    nl, ml = _logical(u.shape, logical_shape)
+    c = alpha / (h * h)
+    y = torch.empty_like(u)
+    _raise_on(_lib().mg_apply(_ptr(u), _ptr(y), n, m, nl, ml, c, _stream()),
+              "apply")
+    LAUNCHES["apply"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# damped Jacobi
+# ---------------------------------------------------------------------------
+
+
+def jacobi_plain(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
+                 logical_shape=None):
+    """Twin of the Jacobi kernel, per sweep
+    ``x <- where(boundary, b, jac)`` with ``jac = (b * (1/c) + N + S + E +
+    W) * 0.25`` summed left to right and, if ``omega != 1``,
+    ``jac <- (1 - omega) * x + omega * jac``
+    (``pallas_stencil._fused_jacobi_passes``; not ``ops/smoothers.jacobi``,
+    which divides ``b / c`` and sums the neighbours in another order)."""
+    c = alpha / (h * h)
+    bnd = boundary_mask(u.shape, logical_shape, u.device)
+    b_over_c = b * (1.0 / c)
+    x = u
+    for _ in range(sweeps):
+        north, south, east, west = _neighbors(x)
+        jac = (b_over_c + north + south + east + west) * 0.25
+        if omega != 1.0:
+            jac = (1.0 - omega) * x + omega * jac
+        x = torch.where(bnd, b, jac)
+    return x
+
+
+def jacobi(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
+           logical_shape=None):
+    """``sweeps`` damped-Jacobi sweeps: one out-of-place launch per sweep,
+    ping-ponging two scratch buffers (``u`` is only read)."""
+    if u.device.type == "cpu":
+        return jacobi_plain(u, b, alpha, h, omega, sweeps, logical_shape)
+    _check_cuda("jacobi", u, b)
+    if sweeps < 1:
+        return u.clone()
+    n, m = u.shape
+    nl, ml = _logical(u.shape, logical_shape)
+    c = alpha / (h * h)
+    fn = _lib().mg_jacobi
+    bufs = [torch.empty_like(u) for _ in range(min(sweeps, 2))]
+    x = u
+    for s in range(sweeps):
+        y = bufs[s % 2]
+        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), n, m, nl, ml, 1.0 / c,
+                     int(omega != 1.0), 1.0 - omega, omega, _stream()),
+                  "jacobi")
+        LAUNCHES["jacobi"] += 1
+        x = y
+    return x
+
+
+# ---------------------------------------------------------------------------
+# grid transfers of the padded layout
+# ---------------------------------------------------------------------------
+
+
+# The restriction kernel computes ``transfer.restrict_fw_padded`` op for op
+# (axis 0, then axis 1 on its result), so that function is its twin, as the
+# Pallas version is held to it (tests/test_pallas_stencil.py).
+restrict_fw_padded_fast_plain = _tr.restrict_fw_padded
+
+
+def restrict_fw_padded_fast(r, logical_shape):
+    """Full-weighting restriction, padded layout: fine ``(n, m)`` ->
+    coarse ``(n/2, m/2)``, equal to ``transfer.restrict_fw_padded``."""
+    if r.device.type == "cpu":
+        return restrict_fw_padded_fast_plain(r, logical_shape)
+    _check_cuda("restrict_fw_padded_fast", r)
+    n, m = r.shape
+    if n % 2 or m % 2:
+        raise ValueError(f"restrict_fw_padded_fast: fine shape {(n, m)} "
+                         "must be even on both axes")
+    nl, ml = _logical(r.shape, logical_shape)
+    out = torch.empty((n // 2, m // 2), dtype=r.dtype, device=r.device)
+    _raise_on(_lib().mg_restrict_fw(_ptr(r), _ptr(out), n, m, (nl + 1) // 2,
+                                    (ml + 1) // 2, _stream()), "restrict_fw")
+    LAUNCHES["restrict_fw"] += 1
+    return out
+
+
+def prolong_add_padded_fast_plain(e, u):
+    """Twin of the prolong-add kernel: ``u + transfer.prolong_padded(e)``."""
+    return u + _tr.prolong_padded(e)
+
+
+def prolong_add_padded_fast(e, u):
+    """``u + prolong_padded(e)`` for coarse ``e`` of half ``u``'s shape."""
+    if u.device.type == "cpu":
+        return prolong_add_padded_fast_plain(e, u)
+    _check_cuda("prolong_add_padded_fast", u, e, same_shape=False)
+    n, m = u.shape
+    if (2 * e.shape[0], 2 * e.shape[1]) != (n, m):
+        raise ValueError(f"prolong_add_padded_fast: u {(n, m)} is not twice "
+                         f"e {tuple(e.shape)}")
+    out = torch.empty_like(u)
+    _raise_on(_lib().mg_prolong_add(_ptr(e), _ptr(u), _ptr(out), e.shape[0],
+                                    e.shape[1], _stream()), "prolong_add")
+    LAUNCHES["prolong_add"] += 1
+    return out

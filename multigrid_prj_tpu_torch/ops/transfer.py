@@ -7,8 +7,9 @@
   padded layout (fine physical ``P`` <-> coarse ``P/2``), which keeps the
   dead zone at zero.
 
-Plain torch on every device, as the JAX package runs them in XLA below its
-4M-point transfer-kernel gate.  Every function returns a new tensor.
+Plain torch on every device.  The padded restriction and prolong-and-add
+also have CUDA kernels (``ops/cuda_stencil.py``), which these functions are
+the twins of.  Every function returns a new tensor.
 """
 
 from __future__ import annotations

@@ -22,6 +22,8 @@ CUDA_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
                ((320, 320), (257, 257)), ((160, 160), (129, 129)),
                ((80, 80), (65, 65)), ((40, 40), (33, 33)),
                ((385, 385), None)]
+# the finest level of the 8193^2 / pad 256 path
+SCALE_SHAPE = ((8448, 8448), (8193, 8193))
 
 
 @pytest.fixture
@@ -59,33 +61,81 @@ def test_cuda_kernels_equal_twins(cuda_device, shape, logical):
 
 
 @pytest.mark.cuda
-def test_cuda_wrappers_count_and_refuse(cuda_device):
-    u, b, _, h = _cuda_inputs((160, 160), (129, 129), cuda_device)
-    cs.reset_launch_counts()
-    cs.red_black_gauss_seidel(u, b, ALPHA, h, sweeps=3)
-    cs.poisson_residual(u, b, ALPHA, h)
-    assert cs.LAUNCHES == {"rbgs_color": 6, "residual": 1, "ff_residual": 0}
-    with pytest.raises(NotImplementedError):
-        cs.poisson_residual(u.double(), b.double(), ALPHA, h)
-    with pytest.raises(NotImplementedError):
-        cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
+@pytest.mark.parametrize("shape,logical", CUDA_SHAPES + [SCALE_SHAPE])
+def test_cuda_apply_jacobi_transfers_equal_twins(cuda_device, shape,
+                                                 logical):
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    assert torch.equal(cs.poisson_apply(u, ALPHA, h, logical),
+                       cs.poisson_apply_plain(u, ALPHA, h, logical))
+    for omega in (1.0, 0.8):
+        got = cs.jacobi(u, b, ALPHA, h, omega=omega, sweeps=3,
+                        logical_shape=logical)
+        want = cs.jacobi_plain(u, b, ALPHA, h, omega, 3, logical)
+        assert torch.equal(got, want)
+    n, m = shape
+    if n % 2 == 0:  # the transfers run on the (even) padded levels
+        lg = logical or shape
+        assert torch.equal(cs.restrict_fw_padded_fast(u, lg),
+                           cs.restrict_fw_padded_fast_plain(u, lg))
+        e = b[: n // 2, : m // 2].contiguous()
+        assert torch.equal(cs.prolong_add_padded_fast(e, u),
+                           cs.prolong_add_padded_fast_plain(e, u))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
-def test_cuda_solve_refined_matches_cpu_twins(cuda_device):
-    """129^2 ff32 V(2,2) solve on the card vs the same solve through the
-    twins on the CPU: the same iterations; histories differ only through
-    the coarse matvec's and the norms' summation order."""
+def test_cuda_wrappers_count_and_refuse(cuda_device):
+    u, b, _, h = _cuda_inputs((160, 160), (129, 129), cuda_device)
+    u0 = u.clone()
+    cs.reset_launch_counts()
+    cs.red_black_gauss_seidel(u, b, ALPHA, h, sweeps=3)
+    cs.poisson_residual(u, b, ALPHA, h)
+    cs.poisson_apply(u, ALPHA, h)
+    cs.jacobi(u, b, ALPHA, h, omega=0.8, sweeps=3)
+    rc = cs.restrict_fw_padded_fast(u, (129, 129))
+    cs.prolong_add_padded_fast(rc, u)
+    # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
+    cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
+    assert cs.LAUNCHES == {"rbgs_color": 6, "residual": 1, "ff_residual": 0,
+                           "apply": 1, "jacobi": 3, "restrict_fw": 1,
+                           "prolong_add": 1}
+    assert torch.equal(u, u0)
+    with pytest.raises(NotImplementedError):
+        cs.poisson_residual(u.double(), b.double(), ALPHA, h)
+    with pytest.raises(ValueError):
+        cs.restrict_fw_padded_fast(u[:, :159].contiguous(), (129, 129))
+    with pytest.raises(ValueError):
+        cs.prolong_add_padded_fast(rc[:, :79].contiguous(), u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,inner_cg,need,rtol,atol", [
+    ({}, 0, (), 1e-3, 0.0), ({}, 2, ("apply",), 1e-2, 1e-12),
+    (dict(smoother="jacobi", omega=0.8), 0, ("jacobi",), 1e-3, 0.0)])
+def test_cuda_solve_refined_matches_cpu_twins(cuda_device, extra, inner_cg,
+                                              need, rtol, atol):
+    """129^2 ff32 V(2,2) solves on the card (RB-GS, RB-GS with inner_cg,
+    Jacobi) vs the same solves through the twins on the CPU: the same
+    iterations; histories differ only through the coarse matvec's and the
+    norms' and dot products' summation order.  CG's dot products carry that
+    into every correction, and inner_cg's last entry (~9e-12) sits at the
+    round-off floor of the extended residual: measured on an H100, 2.8e-13
+    apart (3.4 % relative), so that case adds an absolute 1e-12."""
     from multigrid_prj_tpu_torch.gmg import GMGSolver
     from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
 
     kw = dict(shape=(129, 129), num_levels=4, cycle="v", nu=2, tol=1e-8,
-              maxit=60, pad_align=128)
+              maxit=60, pad_align=128, **extra)
     gpu = GMGSolver(device="cuda", **kw)
     b = assemble_rhs(gpu.levels[0], 10.0, test=1, device="cuda")
     cs.reset_launch_counts()
-    got = gpu.solve_refined(b)
-    assert all(v > 0 for v in cs.LAUNCHES.values())
-    want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(b.cpu())
+    got = gpu.solve_refined(b, inner_cg=inner_cg)
+    smoother = "jacobi" if extra else "rbgs_color"
+    for k in (smoother, "residual", "ff_residual", "restrict_fw",
+              "prolong_add") + need:
+        assert cs.LAUNCHES[k] > 0, k
+    want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
+        b.cpu(), inner_cg=inner_cg)
     assert got.converged and got.iterations == want.iterations
-    np.testing.assert_allclose(got.history, want.history, rtol=1e-3)
+    np.testing.assert_allclose(got.history, want.history, rtol=rtol,
+                               atol=atol)

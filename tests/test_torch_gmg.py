@@ -1,6 +1,7 @@
 """The port's GMG slice vs the JAX package on the CPU: hierarchy, RHS, the
-solver (``solve`` / ``solve_refined`` / ``fmg_start``), the CLI, the refusals
-of what is not ported yet, and that the port imports without jax.
+solver (``solve`` / ``solve_refined`` with and without ``inner_cg``, the
+Jacobi smoother, ``fmg_start``), the CLI (``-smt 0/1/2``), the refusals of
+what is not ported yet, and that the port imports without jax.
 
 The JAX solver runs with ``use_pallas=True`` in Pallas interpret mode where
 the port runs its kernel twins, and with the plain XLA path where the port
@@ -70,6 +71,17 @@ def test_assemble_rhs_matches_jax(test):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
+def _jax_pallas_and_port(**kw):
+    """The JAX solver (``use_pallas=True``), the port solver with its
+    state (kernel twins), and the 129^2 test-function-1 RHS."""
+    js = jgmg.GMGSolver(use_pallas=True, **kw)
+    ts = solver_state_from_numpy(_state(js), device="cpu", use_pallas=True,
+                                 smoother=kw.get("smoother", "gs"),
+                                 omega=kw.get("omega", 1.0))
+    b = jpoisson.assemble_rhs(js.levels[0], 10.0, test=1, dtype=jnp.float32)
+    return js, ts, b
+
+
 def test_solve_refined_129_matches_jax_pallas():
     """129^2, 4 levels, pad 128, f32 ff refinement to 1e-8: the port's kernel
     twins against the JAX Pallas kernels in interpret mode, with the same
@@ -78,14 +90,11 @@ def test_solve_refined_129_matches_jax_pallas():
     FMA, and the coarsest levels of JAX run XLA-order fallbacks (widths
     below 128): the histories differ by a relative 2.1e-5 at most (measured)
     and are held to 1e-4."""
-    kw = dict(shape=(129, 129), length=10.0, alpha=10.0, num_levels=4,
-              cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60,
-              pad_align=128)
-    js = jgmg.GMGSolver(use_pallas=True, **kw)
-    b = jpoisson.assemble_rhs(js.levels[0], 10.0, test=1, dtype=jnp.float32)
+    js, ts, b = _jax_pallas_and_port(
+        shape=(129, 129), length=10.0, alpha=10.0, num_levels=4, cycle="v",
+        nu=2, pre_sweeps=2, tol=1e-8, maxit=60, pad_align=128)
     with pltpu.force_tpu_interpret_mode():
         want = js.solve_refined(b)
-    ts = solver_state_from_numpy(_state(js), device="cpu", use_pallas=True)
     got = ts.solve_refined(torch.from_numpy(np.array(b)))
     assert want.iterations == 8 and want.converged
     assert got.iterations == want.iterations and got.converged
@@ -95,6 +104,39 @@ def test_solve_refined_129_matches_jax_pallas():
     assert u.shape == (129, 129) and np.all(np.isfinite(u))
     np.testing.assert_allclose(u, np.asarray(want.u),
                                atol=1e-6 * np.abs(u).max())
+
+
+@pytest.mark.parametrize("kw,inner_cg,iters,hist_rtol", [
+    (dict(tol=1e-11), 2, 5, 1e-2),
+    (dict(tol=1e-8, smoother="jacobi", omega=0.8), 0, 13, 1e-3)])
+def test_solve_refined_129_variants_match_jax_pallas(kw, inner_cg, iters,
+                                                     hist_rtol):
+    """129^2, 4 levels, pad 128, f32 ff refinement; the JAX Pallas kernels
+    in interpret mode against the port's twins, with the same hierarchy and
+    coarse inverse.
+
+    ``inner_cg=2`` (V-cycle-preconditioned CG through ``poisson_apply``):
+    JAX 5 iterations to 8.3e-12.  The twins differ from interpret mode by a
+    rounding where XLA contracts an FMA; CG's dot products carry that into
+    every correction, and the last entries (~1e-11) are ratios of residuals
+    near the f32 floor of the inner solve: measured 3.7e-3 relative at most,
+    held to 1e-2.
+
+    Jacobi, omega 0.8 (the ``jacobi`` kernel): JAX 13 iterations to
+    7.9e-9; measured 8.4e-5 relative at most, held to 1e-3."""
+    args = dict(shape=(129, 129), length=10.0, alpha=10.0, num_levels=4,
+                cycle="v", nu=2, pre_sweeps=2, maxit=60, pad_align=128, **kw)
+    js, ts, b = _jax_pallas_and_port(**args)
+    with pltpu.force_tpu_interpret_mode():
+        want = js.solve_refined(b, inner_cg=inner_cg)
+    cs.reset_launch_counts()
+    got = ts.solve_refined(torch.from_numpy(np.array(b)), inner_cg=inner_cg)
+    assert all(v == 0 for v in cs.LAUNCHES.values())  # twins on the CPU
+    assert want.iterations == iters and want.converged
+    assert got.iterations == want.iterations and got.converged
+    np.testing.assert_allclose(got.history, want.history, rtol=hist_rtol)
+    np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u),
+                               atol=1e-6 * np.abs(np.asarray(want.u)).max())
 
 
 @pytest.mark.parametrize("cycle,fmg_start", [("v", False), ("w", False),
@@ -159,17 +201,54 @@ def test_cli_65_test0_f64_matches_jax_cli(tmp_path, monkeypatch):
     np.testing.assert_allclose(tx, jx, rtol=1e-9, atol=1e-12 * np.abs(jx).max())
 
 
-def test_cli_refuses_bicgstab(tmp_path, monkeypatch):
+def test_cli_jacobi_65_f64_matches_jax_cli(tmp_path, monkeypatch):
+    """``-smt 1`` (undamped Jacobi in the sawtooth cycle, f64, XLA order on
+    both sides) to ``-tol 1e-6``: 706 iterations on both sides, the
+    reference's slow undamped Jacobi.  Measured max relative history
+    difference 3.7e-8 (706 iterations of round-off, each amplified by about
+    kappa(A)); held to 1e-6."""
+    argv = ["-n", "65", "-ml", "4", "-test", "0", "-smt", "1", "-tol", "1e-6"]
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    jh, jx = _run_cli(jcli.main, argv, tmp_path / "jax", monkeypatch)
+    th, tx = _run_cli(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    assert len(th) == len(jh) == 707  # 1.0 + 706 iterations
+    np.testing.assert_allclose(th, jh, rtol=1e-6)
+    assert th[-1] <= 1e-6
+    np.testing.assert_allclose(tx, jx, rtol=1e-6, atol=1e-9 * np.abs(jx).max())
+
+
+def test_cli_bicgstab_65_f64_matches_jax_cli(tmp_path, monkeypatch):
+    """``-smt 2 -cycle v``: BiCGSTAB on the plain apply, preconditioned by
+    one V-cycle step; MGGS4.txt holds only the final relative residual
+    (JAX: 2.85e-12).  Round-off of the dot products' summation order:
+    measured 1.8e-13 relative on the residual; held to 1e-6, and x to
+    1e-9."""
+    argv = ["-n", "65", "-ml", "4", "-test", "0", "-smt", "2", "-cycle", "v"]
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    jh, jx = _run_cli(jcli.main, argv, tmp_path / "jax", monkeypatch)
+    th, tx = _run_cli(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    assert th.size == jh.size == 1 and th[0] < 1e-11
+    np.testing.assert_allclose(th, jh, rtol=1e-6)
+    assert tx.size == 65 * 65
+    np.testing.assert_allclose(tx, jx, rtol=1e-9, atol=1e-9 * np.abs(jx).max())
+
+
+def test_cli_bicgstab_with_pad_fails_on_both_sides(tmp_path, monkeypatch):
+    """The JAX CLI hands logical-shape vectors to the padded cycle under
+    ``-smt 2 -pad`` and fails (an assertion in the sawtooth cycle here); the
+    port reproduces the failure with a clear error instead of fixing it."""
+    argv = ["-n", "65", "-ml", "4", "-test", "0", "-smt", "2", "-pad", "128"]
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tcli.main(["-n", "17", "-smt", "2"])
+    with pytest.raises((AssertionError, TypeError)):
+        jcli.main(argv)
+    with pytest.raises(ValueError, match="finest-level buffers"):
+        tcli.main(argv)
 
 
-@pytest.mark.parametrize("kw", [dict(smoother="jacobi"), dict(omega=1.2),
-                                dict(fuse_downleg=True),
+@pytest.mark.parametrize("kw", [dict(fuse_downleg=True),
                                 dict(smoother_dtype=torch.bfloat16),
-                                dict(use_pallas=False),
-                                dict(shape=(2049, 2049), pad_align=256),
                                 dict(shape=(17, 17, 17), num_levels=2)])
 def test_unported_options_raise_on_cuda(kw):
     """Refused before any tensor is made, so this runs without a card."""
@@ -180,10 +259,17 @@ def test_unported_options_raise_on_cuda(kw):
         tgmg.GMGSolver(**args)
 
 
-def test_inner_cg_raises():
-    ts = tgmg.GMGSolver(shape=(33, 33), num_levels=3, cycle="v")
+def test_f64_solve_with_kernels_is_refused_off_the_cpu():
+    """f64 with ``use_pallas=True`` off the CPU raises at the first kernel
+    wrapper (a meta tensor stands in for a CUDA one, so this runs without a
+    card)."""
+    ts = tgmg.GMGSolver(shape=(33, 33), num_levels=3, cycle="v",
+                        pad_align=64, use_pallas=True, device="meta")
+    b = torch.empty((33, 33), dtype=torch.float64, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.solve_refined(torch.zeros(33, 33), inner_cg=2)
+        ts.solve_refined(b)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ts.solve_refined(b, inner_cg=2)
 
 
 def test_solver_is_pure_and_checks_inputs():
@@ -208,6 +294,7 @@ def test_port_imports_without_jax():
             "sys.modules['multigrid_prj_tpu'] = None; "
             "import multigrid_prj_tpu_torch as p; "
             "import multigrid_prj_tpu_torch.convert, "
+            "multigrid_prj_tpu_torch.ops.krylov, "
             "multigrid_prj_tpu_torch.cli.gmg_main, "
             "multigrid_prj_tpu_torch.kernels._build; "
             "assert p.GMGSolver; print('ok')")

@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
-Drives the port's 2D GMG paths on the card through ``GMGSolver`` and the
-``gmg_main`` CLI, after building the CUDA kernels from
-``multigrid_prj_tpu_torch/csrc`` and holding each against its plain torch
-twin at the paths' shapes.  Imports nothing of JAX.  The paths:
+Drives the port's 2D and 3D GMG paths on the card through ``GMGSolver``
+and the ``gmg_main`` CLI, after building the CUDA kernels from
+``multigrid_prj_tpu_torch/csrc`` (both sources, compiled in parallel, into
+one library) and holding each against its plain torch twin at the paths'
+shapes.  Imports nothing of JAX.  The paths:
 
 * main: ``solve_refined`` at 1025^2, 6 levels, V(2,2), pad 256, to 1e-8;
 * at scale: the same at 8193^2, 8 levels, to 1e-7, plain and with
   ``inner_cg=4`` (``benchmarks/scale_bench.py``'s solve);
 * 1025^2 with ``inner_cg=4``, and with the Jacobi smoother (omega 0.8);
 * the options that run plain ops on CUDA (``use_pallas=False``, SOR);
-* the CLI with ``-smt 0``, ``-smt 1`` and ``-smt 2``.
+* the CLI with ``-smt 0``, ``-smt 1`` and ``-smt 2``;
+* 3D (BASELINE config 4 and around it, ``bench.py``'s ``measure_vcycle3d``
+  RHS): A. config 4 verbatim, 257^3, 5 levels, bf16 ``smoother_dtype``,
+  ``solve_refined`` to 1e-8; B. the same with ``pad_align=(8, 8, 128)``;
+  C. 513^3, 6 levels, to 1e-8; D. 65^3 with ``pad_align=(8, 8, 128)``
+  (GS, ``inner_cg=4``, Jacobi omega 0.8, and the bf16 defect-correction
+  ``.solve``), each against its CPU-twin run;
+* ``smoother_dtype`` (bf16 defect correction) in 2D.
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
-  1. device   2. build   3. kernel vs twin   4. main path (+ CPU-twin run)
-  5. 8193^2   6. 1025^2 inner_cg / Jacobi (+ CPU-twin runs)   7. plain ops
-  8. CLI      9. unported features raise   10. times
+  1. device   2. build   3. 2D kernel vs twin   4. 3D kernel vs twin
+  5. main path (+ CPU-twin run)   6. 8193^2   7. 1025^2 inner_cg / Jacobi
+  (+ CPU-twin runs)   8. plain ops   9. CLI   10. 3D paths A, B, C
+  11. 3D variants D (+ CPU-twin runs)   12. options   13. times
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -63,16 +72,39 @@ KERNEL_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
                  ((132, 132), (129, 129)), ((66, 66), (65, 65))]
 TIME_SHAPES = [((1280, 1280), (1025, 1025)), ((8448, 8448), (8193, 8193))]
 _PS = "multigrid_prj_tpu/ops/pallas_stencil.py"
-KERNELS = {  # wrapper counter name -> TPU kernel it replaces
-    "rbgs_color": f"{_PS}:456",
-    "residual": f"{_PS}:313",
-    "ff_residual": f"{_PS}:792",
-    "apply": f"{_PS}:287",
-    "jacobi": f"{_PS}:962",
-    "restrict_fw": f"{_PS}:541",
-    "prolong_add": f"{_PS}:631",
+_PS3 = "multigrid_prj_tpu/ops/pallas_stencil_3d.py"
+_SRC2 = "multigrid_prj_tpu_torch/csrc/stencil2d.cu"
+_SRC3 = "multigrid_prj_tpu_torch/csrc/stencil3d.cu"
+KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
+    "rbgs_color": (f"{_PS}:456", _SRC2),
+    "residual": (f"{_PS}:313", _SRC2),
+    "ff_residual": (f"{_PS}:792", _SRC2),
+    "apply": (f"{_PS}:287", _SRC2),
+    "jacobi": (f"{_PS}:962", _SRC2),
+    "restrict_fw": (f"{_PS}:541", _SRC2),
+    "prolong_add": (f"{_PS}:631", _SRC2),
+    "apply3d": (f"{_PS3}:107", _SRC3),
+    "residual3d": (f"{_PS3}:117", _SRC3),
+    "rbgs3d_color": (f"{_PS3}:128", _SRC3),
+    "jacobi3d": (f"{_PS3}:141", _SRC3),
 }
-SOURCE = "multigrid_prj_tpu_torch/csrc/stencil2d.cu"
+KERNELS_3D = ("apply3d", "residual3d", "rbgs3d_color", "jacobi3d")
+
+# 3D paths (BASELINE config 4: bench.py's measure_vcycle3d)
+CONFIG4_KW = dict(shape=(257, 257, 257), length=1.0, alpha=1.0, num_levels=5,
+                  cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60)
+CONFIG4_ITERATIONS = 11  # BENCH_r05.json, vcycle3d_257_iters (TPU)
+PADDED4_KW = dict(CONFIG4_KW, pad_align=(8, 8, 128))
+SCALE3D_KW = dict(CONFIG4_KW, shape=(513, 513, 513), num_levels=6)
+# D: 65^3 in (72, 72, 128) buffers, 4 levels, 9^3 bottom (dense inverse);
+# the bf16 .solve's tolerance sits above its f32 residual floor (the JAX
+# package on the CPU floors at 8.4e-4 there and passes 2e-3 at iteration 6)
+VARIANT3D_KW = dict(CONFIG4_KW, shape=(65, 65, 65), num_levels=4,
+                    pad_align=(8, 8, 128), maxit=40)
+BF16_TOL = 2e-3
+# the non-cubic shape (physical, logical) that catches swapped axes
+NONCUBIC_3D = ((20, 24, 136), (17, 21, 129))
+TIME_SHAPES_3D = [((257, 257, 257), None), ((513, 513, 513), None)]
 # CPU twins vs CUDA kernels: the same ops, but the coarse matvec (cuBLAS vs
 # the CPU BLAS) and the norms and dot products sum in another order on the
 # two devices; the f32 cycle carries those roundings into every correction,
@@ -88,6 +120,10 @@ HISTORY_ATOL = 1e-12
 # carried solution; measured on an H100 at 1025^2: 2.7e-2 relative at most
 # (the cropped f32 solutions were identical)
 INNER_CG_HISTORY_RTOL = 1e-1
+# bf16 defect correction, CUDA vs CPU: the elementwise bf16 ops round alike
+# on both devices, the bf16 bottom matvec (cuBLAS vs the CPU BLAS) and the
+# f32 norms do not; each such rounding is 2^-8 relative in a correction
+BF16_HISTORY_RTOL = 1e-1
 
 
 def check(cond, msg):
@@ -101,6 +137,65 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def rhs_3d(torch, level, device):
+    """Config 4's smooth 3D pair on ``level`` (bench.py:462-465)."""
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+
+    return assemble_rhs(
+        level, 1.0, device=device,
+        f=lambda x, y, z: torch.sin(3.0 * x) * torch.cos(2.0 * y) + z,
+        g=lambda x, y, z: torch.exp(x) * torch.exp(-2.0 * y) * z)
+
+
+def level_shapes_3d(build_hierarchy, *solver_kws):
+    """(physical, logical or None) of every level of the given 3D solver
+    configurations, once each, in order."""
+    out = []
+    for kw in solver_kws:
+        for lev in build_hierarchy(kw["shape"], kw["length"],
+                                   kw["num_levels"],
+                                   pad_align=kw.get("pad_align")):
+            item = (lev.physical,
+                    lev.shape if lev.padded_shape is not None else None)
+            if item not in out:
+                out.append(item)
+    return out
+
+
+def kernel_inputs_3d(torch, shape, logical, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u, b = (torch.randn(shape, generator=gen, device="cuda")
+            for _ in range(2))
+    h = 1.0 / ((logical or shape)[0] - 1)
+    return u, b, h
+
+
+def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
+    """name -> [(label, kernel call, twin call)] on the same 3D inputs."""
+    return {
+        "rbgs3d_color": [(
+            "sweeps 2",
+            lambda: c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=2,
+                                                 logical_shape=logical),
+            lambda: c3.red_black_gauss_seidel_3d_plain(u, b, alpha, h, 2,
+                                                       logical))],
+        "residual3d": [(
+            "",
+            lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
+            lambda: c3.poisson_residual_3d_plain(u, b, alpha, h, logical))],
+        "apply3d": [(
+            "",
+            lambda: c3.poisson_apply_3d(u, alpha, h, logical),
+            lambda: c3.poisson_apply_3d_plain(u, alpha, h, logical))],
+        "jacobi3d": [(
+            f"sweeps 2, omega {w}",
+            lambda w=w: c3.jacobi_3d(u, b, alpha, h, omega=w, sweeps=2,
+                                     logical_shape=logical),
+            lambda w=w: c3.jacobi_3d_plain(u, b, alpha, h, w, 2, logical))
+            for w in (1.0, 0.8)],
+    }
 
 
 def kernel_inputs(torch, shape, logical, seed):
@@ -208,9 +303,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.grids import build_hierarchy
     from multigrid_prj_tpu_torch.kernels import _build
     from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
     from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
     from multigrid_prj_tpu_torch.ops import extended as text
     from multigrid_prj_tpu_torch.utils.io import load_vector
 
@@ -226,13 +323,14 @@ def main() -> int:
     info = _build.build(force=True)
     regs = [ln.strip() for ln in info["log"].splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
-    print(f"[build] nvcc {info['seconds']:.2f} s -> {info['path']}")
+    print(f"[build] nvcc, {len(_build.SOURCES)} sources in parallel, "
+          f"{info['seconds']:.2f} s -> {info['path']}")
     for ln in regs:
         print(f"[build] {ln}")
     _build.library()
 
-    # 3. kernel vs twin (torch.equal at every path shape)
-    phases.next("kernel vs twin")
+    # 3. 2D kernel vs twin (torch.equal at every path shape)
+    phases.next("2D kernel vs twin")
     max_err = {k: 0.0 for k in KERNELS}
     for i, (shape, logical) in enumerate(KERNEL_SHAPES):
         u, b, u_lo, h = kernel_inputs(torch, shape, logical, seed=i)
@@ -254,13 +352,35 @@ def main() -> int:
         del u, b, u_lo
     torch.cuda.empty_cache()
 
+    # 4. 3D kernel vs twin: every level of paths A-D (C's finest is 513^3)
+    # and the non-cubic shape
+    phases.next("3D kernel vs twin")
+    shapes_3d = level_shapes_3d(build_hierarchy, CONFIG4_KW, PADDED4_KW,
+                                SCALE3D_KW, VARIANT3D_KW) + [NONCUBIC_3D]
+    for i, (shape, logical) in enumerate(shapes_3d):
+        u, b, h = kernel_inputs_3d(torch, shape, logical, seed=100 + i)
+        for kname, cases in kernel_calls_3d(c3, u, b, h, logical).items():
+            for label, kern, twin in cases:
+                got, want = kern(), twin()
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                max_err[kname] = max(max_err[kname], err)
+                check(torch.equal(got, want),
+                      f"{kname} ({label}) != twin at {shape} logical "
+                      f"{logical} (max abs diff {err})")
+                del got, want
+        print(f"[kernels3d] {shape} logical {logical}: "
+              f"{', '.join(KERNELS_3D)} equal to their twins (torch.equal)")
+        del u, b
+    torch.cuda.empty_cache()
+
     launches = {k: 0 for k in KERNELS}
 
-    def run_path(solver, b, **kw):
+    def run_path(solver, b, method="solve_refined", **kw):
         """One solve with the counters set to 0 just before and read just
         after; adds them to ``launches``."""
         cs.reset_launch_counts()
-        res = solver.solve_refined(b, **kw)
+        res = getattr(solver, method)(b, **kw)
         torch.cuda.synchronize()
         counts = dict(cs.LAUNCHES)
         for k, v in counts.items():
@@ -282,10 +402,11 @@ def main() -> int:
         check(tuple(res.u.shape) == shape and res.u.device.type == "cuda"
               and bool(torch.isfinite(res.u).all()), f"{tag}: bad solution")
 
-    def check_twins(tag, res, kw, b, rtol=HISTORY_RTOL, **solve_kw):
+    def check_twins(tag, res, kw, b, rtol=HISTORY_RTOL,
+                    method="solve_refined", **solve_kw):
         t0 = time.perf_counter()
-        ref = GMGSolver(**kw, device="cpu", use_pallas=True) \
-            .solve_refined(b.cpu(), **solve_kw)
+        ref = getattr(GMGSolver(**kw, device="cpu", use_pallas=True),
+                      method)(b.cpu(), **solve_kw)
         print(f"[{tag}] CPU twins: {ref.iterations} iterations in "
               f"{time.perf_counter() - t0:.1f} s; history "
               f"{[float(x) for x in ref.history]}")
@@ -303,7 +424,7 @@ def main() -> int:
     gs_need = ("rbgs_color", "residual", "ff_residual", "restrict_fw",
                "prolong_add")
 
-    # 4. main path: 1025^2 ff32-refined V(2,2) solve on the card
+    # 5. main path: 1025^2 ff32-refined V(2,2) solve on the card
     phases.next("main path 1025^2")
     solver = GMGSolver(**SOLVER_KW, device="cuda")
     b = assemble_rhs(solver.levels[0], 10.0, test=1, dtype=torch.float32,
@@ -313,7 +434,7 @@ def main() -> int:
     main_launches = sum(counts.values())
     check_twins("main", res, SOLVER_KW, b)
 
-    # 5. at scale: 8193^2, plain and inner_cg=4
+    # 6. at scale: 8193^2, plain and inner_cg=4
     phases.next("8193^2")
     t0 = time.perf_counter()
     big = GMGSolver(**SCALE_KW, device="cuda")
@@ -334,7 +455,7 @@ def main() -> int:
         big_res[inner] = res8
         del res8
 
-    # 6. 1025^2 inner_cg=4 and Jacobi omega 0.8, each against its CPU twins
+    # 7. 1025^2 inner_cg=4 and Jacobi omega 0.8, each against its CPU twins
     phases.next("1025^2 inner_cg / Jacobi")
     res_cg, counts = run_path(solver, b, inner_cg=4)
     check_solve("1025 inner_cg=4", res_cg, SHAPE, 1e-8, INNER_CG_ITERATIONS,
@@ -348,7 +469,7 @@ def main() -> int:
                  "prolong_add"))
     check_twins("1025 jacobi", res_jac, JACOBI_KW, b)
 
-    # 7. the options whose JAX meaning is "no kernel" run plain ops on CUDA
+    # 8. the options whose JAX meaning is "no kernel" run plain ops on CUDA
     phases.next("plain ops on CUDA")
     cs.reset_launch_counts()
     res_p = GMGSolver(**SOLVER_KW, use_pallas=False, device="cuda") \
@@ -370,7 +491,7 @@ def main() -> int:
     check(res_sor.converged and cs.LAUNCHES["rbgs_color"] == 0,
           "omega=1.2 solve")
 
-    # 8. CLI on the card (three runs at once, one process each)
+    # 9. CLI on the card (three runs at once, one process each)
     phases.next("CLI")
     env = dict(os.environ, PYTHONPATH=REPO)
     runs = [["-n", "129", "-ml", "4", "-cycle", "v", "-pad", "256",
@@ -401,25 +522,107 @@ def main() -> int:
                   f"{len(hist)} history entries, last {hist[-1]:.3e}; wrote "
                   f"MGGS4.txt and x.mtx ({x.size} values)")
 
-    # 9. unported features raise on CUDA
-    phases.next("unported")
+    # 10. 3D paths A (config 4 verbatim), B (padded), C (513^3)
+    phases.next("3D paths A, B, C")
+    need3d = ("rbgs3d_color", "residual3d")
+    paths3d = {}
+    for tag, kw in [("A 257^3", CONFIG4_KW), ("B 257^3 pad (8,8,128)",
+                                               PADDED4_KW),
+                    ("C 513^3", SCALE3D_KW)]:
+        t0 = time.perf_counter()
+        extra = dict(smoother_dtype=torch.bfloat16) if tag[0] == "A" else {}
+        s3 = GMGSolver(**kw, **extra, device="cuda")
+        b3 = rhs_3d(torch, s3.levels[0], "cuda")
+        torch.cuda.synchronize()
+        print(f"[{tag}] set-up {time.perf_counter() - t0:.1f} s; levels "
+              f"{[lev.physical for lev in s3.levels]}; dense bottom "
+              f"inverse: {s3._coarse_inv is not None}")
+        torch.cuda.reset_peak_memory_stats()
+        res3, counts = run_path(s3, b3)
+        if tag[0] == "C":
+            check(res3.converged and float(res3.history[-1]) <= 1e-8,
+                  f"{tag}: not converged")
+            print(f"[{tag}] {res3.iterations} iterations, final rel. "
+                  f"residual {float(res3.history[-1]):.3e}; history "
+                  f"{[float(x) for x in res3.history]}")
+            print(f"[{tag}] kernel launches during the solve: {counts}")
+        else:
+            check_solve(tag, res3, kw["shape"], 1e-8, CONFIG4_ITERATIONS,
+                        counts, need3d)
+        check(all(counts[k] > 0 for k in need3d)
+              and tuple(res3.u.shape) == kw["shape"]
+              and bool(torch.isfinite(res3.u).all()), f"{tag}: solution")
+        print(f"[{tag}] peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"{sum(counts.values()) / res3.iterations:.1f} kernel launches "
+              "per iteration (wrapper counts)")
+        paths3d[tag] = (s3, b3, res3)
+
+    # 11. 3D variants D at 65^3, pad (8, 8, 128), each against its CPU-twin
+    # run: GS, inner_cg=4, Jacobi omega 0.8, bf16 defect correction, SOR
+    phases.next("3D variants D")
+    dv = GMGSolver(**VARIANT3D_KW, device="cuda")
+    db = rhs_3d(torch, dv.levels[0], "cuda")
+    jac_kw = dict(VARIANT3D_KW, smoother="jacobi", omega=0.8)
+    bf16_kw = dict(VARIANT3D_KW, smoother_dtype=torch.bfloat16, tol=BF16_TOL)
+    for tag, kw, dsolver, method, solve_kw, need, rtol in [
+            ("D GS", VARIANT3D_KW, dv, "solve_refined", {}, need3d,
+             HISTORY_RTOL),
+            ("D inner_cg=4", VARIANT3D_KW, dv, "solve_refined",
+             dict(inner_cg=4), need3d + ("apply3d",), INNER_CG_HISTORY_RTOL),
+            ("D jacobi", jac_kw, GMGSolver(**jac_kw, device="cuda"),
+             "solve_refined", {}, ("jacobi3d", "residual3d"), HISTORY_RTOL),
+            ("D bf16 .solve", bf16_kw, GMGSolver(**bf16_kw, device="cuda"),
+             "solve", {}, ("residual3d",), BF16_HISTORY_RTOL)]:
+        res_d, counts = run_path(dsolver, db, method, **solve_kw)
+        print(f"[{tag}] {res_d.iterations} iterations to "
+              f"{float(res_d.history[-1]):.3e}; launches {counts}")
+        check(res_d.converged and all(counts[k] > 0 for k in need),
+              f"{tag}: not converged, or a kernel of {need} not launched")
+        if method == "solve":  # the bf16 cycle runs plain ops
+            check(sum(counts.values()) == counts["residual3d"]
+                  == res_d.iterations, f"{tag}: the bf16 cycle launched")
+        check_twins(tag, res_d, kw, db, rtol=rtol, method=method, **solve_kw)
+    cs.reset_launch_counts()
+    res_sor = GMGSolver(**VARIANT3D_KW, omega=1.2, device="cuda") \
+        .solve_refined(db)
+    torch.cuda.synchronize()
+    print(f"[D SOR] omega=1.2 (plain smoother): {res_sor.iterations} "
+          f"iterations to {float(res_sor.history[-1]):.3e}; launches "
+          f"{dict(cs.LAUNCHES)}")
+    check(res_sor.converged and cs.LAUNCHES["rbgs3d_color"] == 0,
+          "3D omega=1.2 solve")
+
+    # 12. options: fuse_downleg and f64 with the kernels still raise; the
+    # bf16 defect correction runs in 2D too (3D: paths A-D)
+    phases.next("options")
     for label, make in [
             ("fuse_downleg", lambda: GMGSolver(**SOLVER_KW, fuse_downleg=True,
                                                device="cuda")),
-            ("smoother_dtype", lambda: GMGSolver(
-                **SOLVER_KW, smoother_dtype=torch.bfloat16, device="cuda")),
-            ("3D", lambda: GMGSolver(shape=(17, 17, 17), num_levels=2,
-                                     cycle="v", device="cuda")),
             ("f64 with use_pallas", lambda: solver.solve_refined(b.double()))]:
         try:
             make()
         except NotImplementedError as exc:
-            print(f"[unported] {label}: NotImplementedError: {exc}")
+            print(f"[options] {label}: NotImplementedError: {exc}")
         else:
             check(False, f"{label} did not raise on CUDA")
+    bf16_2d = dict(SOLVER_KW, shape=(129, 129), num_levels=4, pad_align=128,
+                   tol=1e-3, smoother_dtype=torch.bfloat16)
+    b129 = assemble_rhs(build_hierarchy((129, 129), 10.0, 4,
+                                        pad_align=128)[0], 10.0, test=1,
+                        device="cuda")
+    cs.reset_launch_counts()
+    res_bf = GMGSolver(**bf16_2d, device="cuda").solve(b129)
+    torch.cuda.synchronize()
+    print(f"[options] smoother_dtype=bfloat16, 129^2 .solve: "
+          f"{res_bf.iterations} iterations to {float(res_bf.history[-1]):.3e};"
+          f" launches {dict(cs.LAUNCHES)}")
+    check(res_bf.converged and sum(cs.LAUNCHES.values())
+          == cs.LAUNCHES["residual"] == res_bf.iterations,
+          "2D smoother_dtype solve")
 
-    # 10. times: kernels vs twins at 1280^2 (warm L2) and 8448^2 (HBM), and
-    # warm solves
+    # 13. times: kernels vs twins at 1280^2 (warm L2) and 8448^2 (HBM), the
+    # 3D ones at 257^3 and 513^3, and warm solves
     phases.next("times")
     times = {}
     for shape, logical in TIME_SHAPES:
@@ -433,6 +636,20 @@ def main() -> int:
                   f"{t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us  ({card})")
         del u, bb, u_lo
         torch.cuda.empty_cache()
+    for shape, logical in TIME_SHAPES_3D:
+        u, bb, h = kernel_inputs_3d(torch, shape, logical, seed=99)
+        for kname, cases in kernel_calls_3d(c3, u, bb, h, logical).items():
+            label, kern, twin = cases[-1]
+            t = (median_ms(torch, kern, runs=10),
+                 median_ms(torch, twin, runs=10))
+            times.setdefault(kname, {})[shape[0]] = t
+            print(f"[time] {kname} {label} at {shape[0]}^3: kernel "
+                  f"{t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us  ({card})")
+        del u, bb
+        torch.cuda.empty_cache()
+    walls_3d = [(f"solve_refined 3D {tag}",
+                 lambda s3=s3, b3=b3: s3.solve_refined(b3), res3.iterations)
+                for tag, (s3, b3, res3) in paths3d.items()]
     for tag, fn, iters in [
             ("solve_refined 1025^2", lambda: solver.solve_refined(b),
              res.iterations),
@@ -442,7 +659,7 @@ def main() -> int:
              lambda: big.solve_refined(big_b, inner_cg=4),
              big_res[4].iterations),
             ("solve_refined 1025^2 jacobi", lambda: jac.solve_refined(b),
-             res_jac.iterations)]:
+             res_jac.iterations)] + walls_3d:
         med, walls, out = median_wall(torch, fn)
         check(out.iterations == iters, f"timed {tag} differs")
         print(f"[time] {tag}: median wall {med * 1e3:.2f} ms over 3 "
@@ -454,14 +671,20 @@ def main() -> int:
     print(f"[time] chip_smoke total {time.perf_counter() - phases.t_start:.1f}"
           " s")
 
-    small, large = (shape[0] for shape, _ in TIME_SHAPES)
+    def timing(k):
+        shapes = TIME_SHAPES_3D if k in KERNELS_3D else TIME_SHAPES
+        small, large = (shape for shape, _ in shapes)
+        at = "x".join(map(str, small))
+        return {"ms": times[k][small[0]][0], "plain_ms": times[k][small[0]][1],
+                "ms_at": at, "large_at": "x".join(map(str, large)),
+                "ms_large": times[k][large[0]][0],
+                "plain_ms_large": times[k][large[0]][1]}
+
     print(card)
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": SOURCE, "replaces": KERNELS[k],
-         "launches": launches[k], "max_abs_err": max_err[k],
-         "ms": times[k][small][0], "plain_ms": times[k][small][1],
-         f"ms_{large}": times[k][large][0],
-         f"plain_ms_{large}": times[k][large][1]}
+        {"name": k, "route": "cuda", "source": KERNELS[k][1],
+         "replaces": KERNELS[k][0], "launches": launches[k],
+         "max_abs_err": max_err[k], **timing(k)}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

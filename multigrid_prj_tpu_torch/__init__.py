@@ -3,12 +3,14 @@
 The JAX package ``multigrid_prj_tpu`` is the reference; this package carries
 its 2D geometric multigrid on the padded Poisson layout
 (``GMGSolver(cycle="v", pad_align=256)`` with ``solve`` and
-``solve_refined``, also with ``inner_cg`` and at 8193^2), the RB-GS and
-Jacobi smoothers, the Krylov solvers and the ``gmg_main`` CLI, on an NVIDIA
-H100.  The smoothers, residuals, operator apply and padded grid transfers
-run as hand-written CUDA kernels (``csrc/stencil2d.cu``, built with nvcc at
-first use); every other op is plain torch.  Nothing here imports jax or the
-JAX package.
+``solve_refined``, also with ``inner_cg`` and at 8193^2), its 3D 7-point
+geometric multigrid (BASELINE config 4 at 257^3, and 513^3), the
+``smoother_dtype`` defect correction, the RB-GS and Jacobi smoothers, the
+Krylov solvers and the ``gmg_main`` CLI, on an NVIDIA H100.  The
+smoothers, residuals, operator apply and 2D padded grid transfers run as
+hand-written CUDA kernels (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``,
+built with nvcc at first use); every other op is plain torch.  Nothing here
+imports jax or the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -28,20 +28,25 @@ _CONFIG_KEYS = ("length", "alpha", "tol", "maxit", "nu", "pre_sweeps",
 
 def solver_state_from_numpy(state: dict, device="cpu", smoother: str = "gs",
                             use_pallas: bool | None = None,
-                            omega: float = 1.0) -> GMGSolver:
+                            omega: float = 1.0,
+                            smoother_dtype: torch.dtype | None = None
+                            ) -> GMGSolver:
     """A port ``GMGSolver`` whose levels, coarse inverse and scalar config
     are those in ``state`` (keys: ``levels`` as ``(shape, h, level,
-    padded_shape)`` tuples, ``coarse_inv`` as a numpy array or None, and the
-    scalar config keys of the JAX solver).  ``smoother`` and ``omega`` are
-    given separately: the JAX solver keeps them only inside its smoother.
-    Raises ``ValueError`` if the levels are not the hierarchy the port
-    builds for the same shape."""
+    padded_shape)`` tuples, 2D or 3D, ``coarse_inv`` as a numpy array or
+    None -- None when the coarsest level is above the dense inverse's
+    cap -- and the scalar config keys of the JAX solver).  ``smoother`` and
+    ``omega`` are given separately, since the JAX solver keeps them only
+    inside its smoother, and so is ``smoother_dtype``, a torch dtype where
+    the JAX solver holds a jax one.  Raises ``ValueError`` if the levels
+    are not the hierarchy the port builds for the same shape."""
     levels = [GridLevel(tuple(int(s) for s in shape), float(h), int(level),
                         None if padded is None else tuple(int(p) for p in padded))
               for shape, h, level, padded in state["levels"]]
     lev0 = levels[0]
     solver = GMGSolver(shape=lev0.shape, num_levels=len(levels),
                        smoother=smoother, omega=omega,
+                       smoother_dtype=smoother_dtype,
                        pad_align=lev0.padded_shape,
                        use_pallas=use_pallas, coarse="none", device=device,
                        **{k: state[k] for k in _CONFIG_KEYS})

@@ -7,8 +7,9 @@
 * ``v_cycle`` / ``w_cycle`` / ``fmg``: the correction-scheme cycles with the
   ``residual`` / ``downleg`` / ``padded_restrict`` / ``prolong_add`` /
   ``coarse_apply`` hooks of the JAX package.
-* ``GMGSolver``: ``solve`` and ``solve_refined`` (float-float outer
-  residuals).
+* ``GMGSolver``: ``solve`` (with ``smoother_dtype``: defect correction
+  whose cycle runs in that dtype) and ``solve_refined`` (float-float outer
+  residuals), in 2D and 3D.
 
 The JAX package runs each solve as one ``lax.while_loop``; here the loops are
 Python loops that fetch one scalar per outer iteration (the residual norm
@@ -18,8 +19,12 @@ initial residual, and the loop stops at ``tol`` or ``maxit``.
 Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there.
 With ``use_pallas`` (the default on CUDA) the smoothers, residuals, padded
 grid transfers and the ``inner_cg`` operator apply run through the
-hand-written kernels of ``ops/cuda_stencil.py``; what they do not cover
-raises ``NotImplementedError`` naming its ROADMAP.md item.
+hand-written kernels of ``ops/cuda_stencil.py`` (3D: ``ops/cuda_stencil_3d.py``
+for the smoothers, residual and apply; the 3D transfers and float-float
+residual are plain ops, as in the JAX package).  As in the JAX kernel
+wrappers, a cycle in a dtype narrower than f32 runs the plain ops.  What the
+kernels do not cover raises ``NotImplementedError`` naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -275,8 +280,13 @@ class GMGSolver:
         if use_pallas is None:
             use_pallas = self.device.type == "cuda"
         self._use_pallas = bool(use_pallas)
-        self._refuse_unported(smoother_dtype, fuse_downleg)
-        self.smoother = make_smoother(smoother, omega=omega)
+        if self._use_pallas and fuse_downleg:
+            raise NotImplementedError(
+                "fuse_downleg needs the rbgs_residual_restrict kernel: "
+                "ROADMAP.md queue B item 7")
+        self.smoother_dtype = smoother_dtype
+        self._plain_smoother = make_smoother(smoother, omega=omega)
+        self.smoother = self._plain_smoother
         if self._use_pallas and smoother == "gs":
             def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
                 return _cs.red_black_gauss_seidel(
@@ -291,16 +301,19 @@ class GMGSolver:
 
             self.smoother = _sm
         self._logical0 = _logical(self.levels[0])
+        # the transfers and the float-float residual have 2D kernels only;
+        # in 3D the JAX package runs them as XLA ops, and so does the port
+        kernels2d = self._use_pallas and len(self.levels[0].shape) == 2
         self._residual_fn = (_cs.poisson_residual if self._use_pallas
                              else poisson_residual)
-        self._ff_residual_fn = (_cs.ff_poisson_residual if self._use_pallas
+        self._ff_residual_fn = (_cs.ff_poisson_residual if kernels2d
                                 else _ff_residual_plain)
         self._apply_fn = (_cs.poisson_apply if self._use_pallas
                           else poisson_apply)
         self._downleg_fn = None
         self._restrict_padded_fn = restrict_fw_padded
         self._prolong_add_fn = None
-        if self._use_pallas:
+        if kernels2d:
             # the transfer kernels at every padded level: they are bit-equal
             # to the plain transfers, and one launch replaces the plain
             # transfer's many (the JAX package gates them at >= 4M fine
@@ -316,23 +329,6 @@ class GMGSolver:
             inv = self._build_coarse_inverse()
             if inv is not None:
                 self._coarse_inv = torch.from_numpy(inv).to(self.device)
-
-    def _refuse_unported(self, smoother_dtype, fuse_downleg):
-        """Raise ``NotImplementedError`` for what this port does not run yet
-        (each names its ROADMAP.md item).  f64 tensors with ``use_pallas``
-        on CUDA are refused by the kernel wrappers (queue A item 9a)."""
-        if smoother_dtype is not None:
-            raise NotImplementedError(
-                "smoother_dtype (bf16 defect correction) is not ported yet: "
-                "ROADMAP.md queue A item 9a")
-        if self._use_pallas and fuse_downleg:
-            raise NotImplementedError(
-                "fuse_downleg needs the rbgs_residual_restrict kernel: "
-                "ROADMAP.md queue B item 7")
-        if self._use_pallas and len(self.levels[0].shape) != 2:
-            raise NotImplementedError(
-                "3D kernels are not ported yet: ROADMAP.md queue A item 12, "
-                "queue B items 8-11")
 
     def _build_coarse_inverse(self, max_nodes: int = 4608):
         """Dense inverse of the coarsest-level stencil operator (numpy f64).
@@ -385,30 +381,48 @@ class GMGSolver:
 
         return apply_inv
 
+    def _smoother_for(self, dtype):
+        """The smoother for a cycle in ``dtype``: the JAX kernel wrappers
+        take f32 only and run a narrower dtype (the ``smoother_dtype``
+        cycle) as XLA ops, so such a cycle runs the plain ops here and
+        launches nothing.  f64 stays on the kernel route, whose wrappers
+        refuse it off the CPU (ROADMAP.md queue A item 9a)."""
+        if torch.finfo(dtype).bits < 32:
+            return self._plain_smoother
+        return self.smoother
+
     def _cycle(self, u, b, cinv=None):
-        hooks = dict(nu1=self.pre_sweeps, nu2=self.nu,
-                     coarse_apply=self._coarse_apply_of(cinv),
-                     residual=self._residual_fn, downleg=self._downleg_fn,
-                     padded_restrict=self._restrict_padded_fn,
-                     prolong_add=self._prolong_add_fn)
+        smoother = self._smoother_for(u.dtype)
+        if smoother is self._plain_smoother:
+            hooks = dict(residual=poisson_residual,
+                         padded_restrict=restrict_fw_padded)
+        else:
+            hooks = dict(residual=self._residual_fn, downleg=self._downleg_fn,
+                         padded_restrict=self._restrict_padded_fn,
+                         prolong_add=self._prolong_add_fn)
+        hooks.update(nu1=self.pre_sweeps, nu2=self.nu,
+                     coarse_apply=self._coarse_apply_of(cinv))
         if self.cycle == "sawtooth":
-            return sawtooth_cycle(u, b, self.levels, self.alpha,
-                                  self.smoother, nu=self.nu,
-                                  coarse_tol=self.coarse_tol,
+            return sawtooth_cycle(u, b, self.levels, self.alpha, smoother,
+                                  nu=self.nu, coarse_tol=self.coarse_tol,
                                   coarse_maxit=self.coarse_maxit)
         if self.cycle == "v":
-            return v_cycle(u, b, self.levels, self.alpha, self.smoother,
-                           **hooks)
+            return v_cycle(u, b, self.levels, self.alpha, smoother, **hooks)
         if self.cycle == "w":
-            return w_cycle(u, b, self.levels, self.alpha, self.smoother,
-                           **hooks)
+            return w_cycle(u, b, self.levels, self.alpha, smoother, **hooks)
         raise ValueError(f"unknown cycle {self.cycle!r}")
 
     def step(self, u, b, cinv=None):
         """One outer iteration: pre-smooths (sawtooth) + one cycle.
 
         ``cinv``: coarse inverse for the direct bottom solve (default: the
-        stored one)."""
+        stored one).
+
+        With ``smoother_dtype`` the iteration is a defect correction, as in
+        the JAX package: the residual in the outer dtype (through the
+        kernel), one cycle on the error equation in ``smoother_dtype``
+        (plain ops, coarse inverse cast to that dtype), and the correction
+        added back in the outer dtype."""
         if cinv is None:
             cinv = self._coarse_inv
         phys = self.levels[0].physical
@@ -418,6 +432,11 @@ class GMGSolver:
             raise ValueError(f"step takes finest-level buffers of shape "
                              f"{phys}, got u {tuple(u.shape)} and b "
                              f"{tuple(b.shape)}")
+        if self.smoother_dtype is not None:
+            r = self._residual_fn(u, b, self.alpha, self.levels[0].h,
+                                  self._logical0)
+            e = self._error_cycle(r.to(self.smoother_dtype), cinv)
+            return u + e.to(u.dtype)
         if self.cycle == "sawtooth":
             u = self.smoother(u, b, self.alpha, self.levels[0].h,
                               self.pre_sweeps, logical_shape=self._logical0)
@@ -427,8 +446,9 @@ class GMGSolver:
         """One cycle on the error equation ``A e = r`` from ``e = 0``."""
         e = torch.zeros_like(r)
         if self.cycle == "sawtooth":
-            e = self.smoother(e, r, self.alpha, self.levels[0].h,
-                              self.pre_sweeps, logical_shape=self._logical0)
+            e = self._smoother_for(r.dtype)(e, r, self.alpha,
+                                            self.levels[0].h, self.pre_sweeps,
+                                            logical_shape=self._logical0)
         return self._cycle(e, r, cinv)
 
     def _input(self, x, name):
@@ -476,7 +496,10 @@ class GMGSolver:
         ``k`` iterations of cycle-preconditioned CG on the f32 error
         equation (``ops/krylov.cg_arrays``, operator apply through the
         kernel with ``use_pallas``).  Whether that pays depends on the grid
-        and the device: see PERF.md for the H100's numbers."""
+        and the device: see PERF.md for the H100's numbers.
+
+        ``smoother_dtype`` is not read here: the error cycles run in the
+        outer dtype, as in the JAX package."""
         b = self._padded(self._input(b, "b"))
         lev0 = self.levels[0]
         h0 = lev0.h
@@ -541,7 +564,11 @@ class GMGSolver:
             u0 = fmg(self._padded(b), self.levels, self.alpha, self.smoother,
                      nu1=self.pre_sweeps, nu2=self.nu)
         u0 = torch.zeros_like(b) if u0 is None else self._input(u0, "u0")
-        u, k, hist = self._solve_impl(u0, b, self._coarse_inv_as(b.dtype))
+        # the bottom solve runs in the cycle's dtype: the defect-correction
+        # cycle's is smoother_dtype (one cast from the f64 inverse)
+        cycle_dtype = (b.dtype if self.smoother_dtype is None
+                       else self.smoother_dtype)
+        u, k, hist = self._solve_impl(u0, b, self._coarse_inv_as(cycle_dtype))
         return SolveResult(u=u, history=hist, iterations=k,
                            converged=bool(hist[-1] <= _tol_in(self.tol,
                                                               b.dtype)))

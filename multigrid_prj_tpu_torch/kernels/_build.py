@@ -1,9 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles ``csrc/stencil2d.cu`` for ``sm_90a`` into a shared library
-with a plain C interface, which is loaded with ``ctypes``.  The library goes
-to ``multigrid_prj_tpu_torch/build/`` (git-ignored) and is rebuilt when the
-source is newer than it.  Nothing is built or loaded at import time.
+``nvcc`` compiles each source (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``)
+for ``sm_90a`` into an object file, all at once in parallel, and links them
+into one shared library with a plain C interface, which is loaded with
+``ctypes``.  The library goes to ``multigrid_prj_tpu_torch/build/``
+(git-ignored) and is rebuilt when any source is newer than it.  Nothing is
+built or loaded at import time.
 """
 
 from __future__ import annotations
@@ -18,16 +20,16 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "stencil2d.cu"
+SOURCES = (_PKG / "csrc" / "stencil2d.cu", _PKG / "csrc" / "stencil3d.cu")
 BUILD_DIR = _PKG / "build"
-LIBRARY = BUILD_DIR / "libmg_stencil2d.so"
+LIBRARY = BUILD_DIR / "libmg_stencil.so"
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     "-fmad=false",  # no FMA contraction: the kernels are bit-equal to twins
     "-Xptxas", "-v",  # per-kernel registers / spills in the build log
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -39,6 +41,11 @@ _SIGNATURES = {
     "mg_jacobi": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _f, _f, _vp],
     "mg_restrict_fw": [_vp, _vp, _i, _i, _i, _i, _vp],
     "mg_prolong_add": [_vp, _vp, _vp, _i, _i, _vp],
+    "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
+    "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
+    "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
+    "mg_jacobi3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _f, _f,
+                    _vp],
 }
 
 
@@ -53,31 +60,49 @@ def _nvcc() -> str:
                        "kernels of multigrid_prj_tpu_torch cannot be built")
 
 
+def _run(cmd, proc):
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}{err}")
+    return out + err
+
+
 def build(force: bool = False) -> dict:
-    """Compile the library if it is missing or older than its source.
+    """Compile the library if it is missing or older than a source.
 
     Returns ``{"path", "seconds", "built", "log"}``; ``log`` is nvcc's
     output (``-Xptxas -v`` register report) when a build ran.
     """
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
+    newest = max(src.stat().st_mtime for src in SOURCES)
+    if not force and LIBRARY.exists() and LIBRARY.stat().st_mtime >= newest:
         return {"path": str(LIBRARY), "seconds": 0.0, "built": False, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [Path(tmpdir) / f"{src.stem}.o" for src in SOURCES]
+        # one nvcc per source, all started together
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        try:
+            log = "".join(_run(cmd, proc)
+                          for cmd, proc in zip(compiles, procs))
+        finally:
+            for proc in procs:  # after a failure, stop the other compiles
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        tmp = Path(tmpdir) / LIBRARY.name
+        link = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        log += _run(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True))
         os.replace(tmp, LIBRARY)  # atomic: concurrent loaders see old or new
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return {"path": str(LIBRARY), "seconds": time.perf_counter() - t0,
-            "built": True, "log": proc.stdout + proc.stderr}
+            "built": True, "log": log}
 
 
 @functools.cache

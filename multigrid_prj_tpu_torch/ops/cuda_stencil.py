@@ -22,10 +22,13 @@ function                      replaces (pallas_stencil.py)   bytes per point
                                                              point
 ============================  =============================  ===============
 
-Each public function keeps the JAX signature and dispatches on the device of
-its tensors: a CPU tensor runs the plain torch twin (``*_plain``, the
-kernel's operation order, which matches the JAX Pallas function in
-interpret mode); a CUDA tensor launches the kernel or raises
+Each public function keeps the JAX signature.  As in the JAX wrappers, a 3D
+tensor goes to ``ops/cuda_stencil_3d.py`` (the smoothers, residual and
+apply; the transfers and the float-float residual have no 3D kernel, and
+the 3D path runs them as plain ops).  Otherwise each function dispatches on
+the device of its tensors: a CPU tensor runs the plain torch twin
+(``*_plain``, the kernel's operation order, which matches the JAX Pallas
+function in interpret mode); a CUDA tensor launches the kernel or raises
 ``NotImplementedError``.  There is no fallback.  All kernels are
 memory-bound simple first versions (one launch per colour or sweep, no
 temporal fusion); ``LAUNCHES`` counts each kernel launch.
@@ -42,7 +45,8 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 
 # kernel name -> number of launches since the last reset_launch_counts()
 LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
-            "jacobi": 0, "restrict_fw": 0, "prolong_add": 0}
+            "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
+            "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0}
 
 
 def reset_launch_counts() -> None:
@@ -67,8 +71,8 @@ def _check_cuda(name, *tensors, same_shape=True):
     t0 = tensors[0]
     if t0.ndim != 2:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels are 2D; 3D is ROADMAP.md queue A "
-            "item 12 (3D GMG) with queue B items 8-11 (3D kernels)")
+            f"{name}: this CUDA kernel is 2D; the JAX package has no 3D "
+            "kernel for it either, and the 3D path runs the plain ops")
     if t0.dtype != torch.float32:
         raise NotImplementedError(
             f"{name}: the CUDA kernels take float32, got {t0.dtype} "
@@ -104,6 +108,12 @@ def _lib():
     from multigrid_prj_tpu_torch.kernels._build import library
 
     return library()
+
+
+def _cs3d():
+    from multigrid_prj_tpu_torch.ops import cuda_stencil_3d
+
+    return cuda_stencil_3d
 
 
 def _neighbors(x):
@@ -142,6 +152,10 @@ def red_black_gauss_seidel(u, b, alpha, h, sweeps: int = 1,
     """``sweeps`` RB-GS sweeps.  The kernel is ``omega == 1`` only: SOR runs
     the XLA-order plain smoother on every device, as the JAX kernel wrapper
     does (``pallas_stencil.red_black_gauss_seidel``), and is no launch."""
+    if u.ndim == 3:
+        return _cs3d().red_black_gauss_seidel_3d(
+            u, b, alpha, h, sweeps=sweeps, omega=omega,
+            logical_shape=logical_shape)
     if omega != 1.0:
         return _sm.red_black_gauss_seidel(u, b, alpha, h, sweeps=sweeps,
                                           omega=omega,
@@ -176,6 +190,8 @@ def poisson_residual_plain(u, b, alpha, h, logical_shape=None):
 
 def poisson_residual(u, b, alpha, h, logical_shape=None):
     """Fused ``r = b - A u``."""
+    if u.ndim == 3:
+        return _cs3d().poisson_residual_3d(u, b, alpha, h, logical_shape)
     if u.device.type == "cpu":
         return poisson_residual_plain(u, b, alpha, h, logical_shape)
     _check_cuda("poisson_residual", u, b)
@@ -240,6 +256,8 @@ def poisson_apply(u, alpha, h, logical_shape=None):
     """Fused ``y = A u`` (identity at Dirichlet rows).  The Pallas
     version's ``dst`` (a buffer to alias for its ping-pong chains) has no
     counterpart here: the output is always a new tensor."""
+    if u.ndim == 3:
+        return _cs3d().poisson_apply_3d(u, alpha, h, logical_shape)
     if u.device.type == "cpu":
         return poisson_apply_plain(u, alpha, h, logical_shape)
     _check_cuda("poisson_apply", u)
@@ -283,6 +301,9 @@ def jacobi(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
            logical_shape=None):
     """``sweeps`` damped-Jacobi sweeps: one out-of-place launch per sweep,
     ping-ponging two scratch buffers (``u`` is only read)."""
+    if u.ndim == 3:
+        return _cs3d().jacobi_3d(u, b, alpha, h, omega=omega, sweeps=sweeps,
+                                 logical_shape=logical_shape)
     if u.device.type == "cpu":
         return jacobi_plain(u, b, alpha, h, omega, sweeps, logical_shape)
     _check_cuda("jacobi", u, b)

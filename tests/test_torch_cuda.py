@@ -1,6 +1,8 @@
-"""CUDA kernels of ``multigrid_prj_tpu_torch.ops.cuda_stencil`` vs their
-plain torch twins, on the card (``cuda`` marker; skipped without a CUDA
-device).  This file imports no jax, so it also runs where jax is absent:
+"""CUDA kernels of ``multigrid_prj_tpu_torch.ops.cuda_stencil`` and
+``ops.cuda_stencil_3d`` vs their plain torch twins, and 2D and 3D solves on
+the card against the same solves through the twins on the CPU (``cuda``
+marker; skipped without a CUDA device).  This file imports no jax, so it
+also runs where jax is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -13,6 +15,7 @@ import pytest
 import torch
 
 from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
 from multigrid_prj_tpu_torch.ops import extended as text
 
 ALPHA = 10.0
@@ -24,6 +27,17 @@ CUDA_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
                ((385, 385), None)]
 # the finest level of the 8193^2 / pad 256 path
 SCALE_SHAPE = ((8448, 8448), (8193, 8193))
+# 3D (physical, logical): config 4's exact 257^3 levels, its levels with
+# pad_align=(8, 8, 128), the 65^3 padded hierarchy, the 513^3 finest level,
+# and a non-cubic shape that catches swapped axes
+CUDA_SHAPES_3D = [((257, 257, 257), None), ((129, 129, 129), None),
+                  ((65, 65, 65), None), ((33, 33, 33), None),
+                  ((17, 17, 17), None), ((264, 264, 384), (257, 257, 257)),
+                  ((132, 132, 192), (129, 129, 129)),
+                  ((66, 66, 96), (65, 65, 65)), ((72, 72, 128), (65, 65, 65)),
+                  ((36, 36, 64), (33, 33, 33)), ((18, 18, 32), (17, 17, 17)),
+                  ((9, 9, 9), None), ((20, 24, 136), (17, 21, 129)),
+                  ((513, 513, 513), None)]
 
 
 @pytest.fixture
@@ -98,7 +112,8 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
     assert cs.LAUNCHES == {"rbgs_color": 6, "residual": 1, "ff_residual": 0,
                            "apply": 1, "jacobi": 3, "restrict_fw": 1,
-                           "prolong_add": 1}
+                           "prolong_add": 1, "apply3d": 0, "residual3d": 0,
+                           "rbgs3d_color": 0, "jacobi3d": 0}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -106,6 +121,57 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
         cs.restrict_fw_padded_fast(u[:, :159].contiguous(), (129, 129))
     with pytest.raises(ValueError):
         cs.prolong_add_padded_fast(rc[:, :79].contiguous(), u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", CUDA_SHAPES_3D)
+def test_cuda_3d_kernels_equal_twins(cuda_device, shape, logical):
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    assert torch.equal(c3.poisson_apply_3d(u, ALPHA, h, logical),
+                       c3.poisson_apply_3d_plain(u, ALPHA, h, logical))
+    assert torch.equal(c3.poisson_residual_3d(u, b, ALPHA, h, logical),
+                       c3.poisson_residual_3d_plain(u, b, ALPHA, h, logical))
+    got = c3.red_black_gauss_seidel_3d(u, b, ALPHA, h, sweeps=2,
+                                       logical_shape=logical)
+    want = c3.red_black_gauss_seidel_3d_plain(u, b, ALPHA, h, 2, logical)
+    assert torch.equal(got, want)
+    for omega in (1.0, 0.8):
+        got = c3.jacobi_3d(u, b, ALPHA, h, omega=omega, sweeps=3,
+                           logical_shape=logical)
+        want = c3.jacobi_3d_plain(u, b, ALPHA, h, omega, 3, logical)
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
+    u, b, _, h = _cuda_inputs((36, 36, 64), (33, 33, 33), cuda_device)
+    u0 = u.clone()
+    cs.reset_launch_counts()
+    # through the 2D module's entry points, as the solver calls them
+    cs.red_black_gauss_seidel(u, b, ALPHA, h, sweeps=3)
+    cs.poisson_residual(u, b, ALPHA, h)
+    cs.poisson_apply(u, ALPHA, h)
+    cs.jacobi(u, b, ALPHA, h, omega=0.8, sweeps=3)
+    # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
+    cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
+    assert cs.LAUNCHES == {"rbgs_color": 0, "residual": 0, "ff_residual": 0,
+                           "apply": 0, "jacobi": 0, "restrict_fw": 0,
+                           "prolong_add": 0, "apply3d": 1, "residual3d": 1,
+                           "rbgs3d_color": 6, "jacobi3d": 3}
+    assert torch.equal(u, u0)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cs.poisson_residual(u.double(), b.double(), ALPHA, h)
+    with pytest.raises(ValueError):
+        c3.poisson_residual_3d(u, b[:, :, :63].contiguous(), ALPHA, h)
+    # the transfers and the float-float residual have no 3D kernel (nor
+    # does the JAX package): refused, no fallback inside the wrapper
+    for call in (lambda: cs.restrict_fw_padded_fast(u, (33, 33, 33)),
+                 lambda: cs.prolong_add_padded_fast(u[:18, :18, :32]
+                                                    .contiguous(), u),
+                 lambda: cs.ff_poisson_residual(u, u, u, u, b, ALPHA, h)):
+        with pytest.raises(NotImplementedError, match="2D"):
+            call()
 
 
 @pytest.mark.cuda
@@ -139,3 +205,84 @@ def test_cuda_solve_refined_matches_cpu_twins(cuda_device, extra, inner_cg,
     assert got.converged and got.iterations == want.iterations
     np.testing.assert_allclose(got.history, want.history, rtol=rtol,
                                atol=atol)
+
+
+def _rhs_3d(level, device):
+    """BASELINE config 4's smooth 3D pair (bench.py's measure_vcycle3d)."""
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+
+    return assemble_rhs(
+        level, 1.0, device=device,
+        f=lambda x, y, z: torch.sin(3.0 * x) * torch.cos(2.0 * y) + z,
+        g=lambda x, y, z: torch.exp(x) * torch.exp(-2.0 * y) * z)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra,inner_cg,need", [
+    ({}, 0, ("rbgs3d_color", "residual3d")),
+    (dict(pad_align=(8, 8, 128)), 2, ("rbgs3d_color", "residual3d",
+                                      "apply3d")),
+    (dict(smoother="jacobi", omega=0.8), 0, ("jacobi3d", "residual3d"))])
+def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
+                                                 inner_cg, need):
+    """33^3 ff32 V(2,2) solves on the card (config 4's shape cut to 3
+    levels; RB-GS, padded RB-GS with inner_cg, Jacobi) vs the same solves
+    through the twins on the CPU: the same iterations, histories within
+    1e-2 relative plus 1e-12 (the coarse matvec, norms and dot products sum
+    in another order on the two devices).  The 2D kernels never launch:
+    the 3D transfers and float-float residual are plain ops."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+
+    kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
+              cycle="v", nu=2, tol=1e-8, maxit=40, **extra)
+    gpu = GMGSolver(device="cuda", **kw)
+    b = _rhs_3d(gpu.levels[0], "cuda")
+    cs.reset_launch_counts()
+    got = gpu.solve_refined(b, inner_cg=inner_cg)
+    torch.cuda.synchronize()
+    for k in need:
+        assert cs.LAUNCHES[k] > 0, k
+    assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_color", "residual",
+                                              "ff_residual", "apply",
+                                              "jacobi", "restrict_fw",
+                                              "prolong_add"))
+    want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
+        b.cpu(), inner_cg=inner_cg)
+    assert got.converged and got.iterations == want.iterations
+    assert tuple(got.u.shape) == (33, 33, 33)
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-2,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
+                                                              dims):
+    """``.solve`` with ``smoother_dtype=bfloat16`` on the card: the f32
+    outer residual runs through the kernel, the bf16 cycle through the plain
+    ops (the JAX kernel wrappers' dtype rule), so only the residual kernel
+    launches; SOR launches no smoother kernel either."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+
+    if dims == 2:
+        kw = dict(shape=(129, 129), num_levels=4, pad_align=128, tol=1e-3)
+        res, smooth = "residual", "rbgs_color"
+    else:
+        kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
+                  pad_align=(8, 8, 128), tol=2e-3)
+        res, smooth = "residual3d", "rbgs3d_color"
+    kw.update(cycle="v", nu=2, maxit=40)
+    gpu = GMGSolver(device="cuda", smoother_dtype=torch.bfloat16, **kw)
+    b = (assemble_rhs(gpu.levels[0], 10.0, test=1, device="cuda")
+         if dims == 2 else _rhs_3d(gpu.levels[0], "cuda"))
+    cs.reset_launch_counts()
+    out = gpu.solve(b)
+    torch.cuda.synchronize()
+    assert out.converged and out.u.dtype == torch.float32
+    assert cs.LAUNCHES[res] == out.iterations
+    assert sum(cs.LAUNCHES.values()) == out.iterations
+    cs.reset_launch_counts()
+    sor = GMGSolver(device="cuda", omega=1.2, **kw).solve(b)
+    torch.cuda.synchronize()
+    assert sor.converged and cs.LAUNCHES[smooth] == 0

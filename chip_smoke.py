@@ -2,10 +2,11 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
 Drives the port's 2D and 3D GMG paths on the card through ``GMGSolver``
-and the ``gmg_main`` CLI, after building the CUDA kernels from
-``multigrid_prj_tpu_torch/csrc`` (both sources, compiled in parallel, into
-one library) and holding each against its plain torch twin at the paths'
-shapes.  Imports nothing of JAX.  The paths:
+and the ``gmg_main`` CLI, and its AMG path through ``AMGSolver`` and the
+``amg_main`` CLI, after building the CUDA kernels from
+``multigrid_prj_tpu_torch/csrc`` (all three sources, compiled in parallel,
+into one library) and holding each against its plain torch twin at the
+paths' shapes.  Imports nothing of JAX.  The paths:
 
 * main: ``solve_refined`` at 1025^2, 6 levels, V(2,2), pad 256, to 1e-8;
 * at scale: the same at 8193^2, 8 levels, to 1e-7, plain and with
@@ -19,14 +20,22 @@ shapes.  Imports nothing of JAX.  The paths:
   C. 513^3, 6 levels, to 1e-8; D. 65^3 with ``pad_align=(8, 8, 128)``
   (GS, ``inner_cg=4``, Jacobi omega 0.8, and the bf16 defect-correction
   ``.solve``), each against its CPU-twin run;
-* ``smoother_dtype`` (bf16 defect correction) in 2D.
+* ``smoother_dtype`` (bf16 defect correction) in 2D;
+* AMG (BASELINE config 3's FD system, ``benchmarks/amg_bench.py``): the
+  1024^2 FD hierarchy (12 levels max, 2000-row bottom, Chebyshev, RCM,
+  f32, the ELL kernels from 4096 rows) with ``solve``, ``solve_pcg`` and
+  ``solve_refined``; 256^2 and the P1 FEM system of an 81 x 81 mesh against
+  their CPU-twin runs; ``amg_main -matrix`` on a MatrixMarket file.
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
   1. device   2. build   3. 2D kernel vs twin   4. 3D kernel vs twin
   5. main path (+ CPU-twin run)   6. 8193^2   7. 1025^2 inner_cg / Jacobi
   (+ CPU-twin runs)   8. plain ops   9. CLI   10. 3D paths A, B, C
-  11. 3D variants D (+ CPU-twin runs)   12. options   13. times
+  11. 3D variants D (+ CPU-twin runs)   12. options   13. AMG set-up
+  14. AMG kernels vs twins   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU
+  twins, FEM and the AMG CLI   17. times (with one profiled run of each
+  AMG solve)
 The line before the last is the kernel table as one JSON object; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 rest of the repository beside it, it exits non-zero and prints no result.
@@ -44,6 +53,7 @@ import sys
 import tempfile
 import time
 
+EPS32 = 2.0 ** -23
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 SHAPE = (1025, 1025)
@@ -89,6 +99,42 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     "jacobi3d": (f"{_PS3}:141", _SRC3),
 }
 KERNELS_3D = ("apply3d", "residual3d", "rbgs3d_color", "jacobi3d")
+_PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
+_SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
+KERNELS.update({
+    # PallasELL.spmv2d (:613) and ell_local_spmv2d (:877): one CUDA kernel
+    "spmv": (f"{_PSPMV}:613", _SRCS),
+    "ff_residual_ell": (f"{_PSPMV}:695", _SRCS),
+})
+KERNELS_AMG = ("spmv", "ff_residual_ell")
+ALSO_REPLACES = {"spmv": f"{_PSPMV}:877"}
+
+# AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
+# it (poisson_fd_csr(1024): 1,048,576 rows, 5,238,784 nnz; b from
+# default_rng(0)), with the kernel path on.  Expected: the JAX package on
+# the CPU with the XLA gather (levels, operator complexity 2.711, 5 / 4 / 8
+# iterations), and the TPU's 5 f32 cycles and 8 ff32 iterations.
+AMG_N = 1024
+AMG_KW = dict(num_levels=12, min_coarse=2000, smoother="chebyshev",
+              reorder="rcm")
+AMG_LEVELS = [1048576, 382447, 77684, 13796, 2057, 280]
+AMG_SOLVES = (("solve", 1e-5, 5), ("solve_pcg", 1e-5, 4),
+              ("solve_refined", 1e-8, 8))
+AMG_TWIN_N = 256  # CUDA vs CPU twins on one hierarchy
+FEM_N = 81  # structured P1 mesh: 6241 interior dofs, as many as mesh1
+FEM_SOLVES = (("solve_pcg", 1e-6), ("solve_refined", 1e-9))
+CLI_N = 128  # the amg_main run on a MatrixMarket file
+AMG_TIME_NS = (1024, 4096)  # 1.05M and 16.8M rows (4096^2 in FD order)
+# CUDA vs CPU twins on one AMG hierarchy: the SpMV and float-float kernels
+# equal their twins, but the dense level matvecs and the bottom inverse
+# (cuBLAS vs the CPU BLAS), the norms and PCG's dot products sum in another
+# order on the two devices; each cycle carries those roundings on, so the
+# histories agree to 1e-2 relative (plus 1e-12 at the extended residual's
+# round-off floor), and the iteration counts are equal.
+AMG_HISTORY_RTOL = 1e-2
+# the float-float residual kernel vs the f64 residual of the pair system:
+# one f32 rounding of the result plus 1e-12 of |b| + |A| |x|
+FF_BOUND_SCALE = 1e-12
 
 # 3D paths (BASELINE config 4: bench.py's measure_vcycle3d)
 CONFIG4_KW = dict(shape=(257, 257, 257), length=1.0, alpha=1.0, num_levels=5,
@@ -293,6 +339,403 @@ class Phases:
         if self.name is not None:
             print(f"[phase] {self.name}: {now - self.t0:.1f} s")
         self.name, self.t0 = name, now
+
+
+# -- AMG helpers (device-generic, so the phases can be rehearsed on the CPU
+# at small sizes; the script itself runs them on CUDA only) -----------------
+
+
+def sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def amg_setup(torch, AMGSolver, A, dev, **kw):
+    """``AMGSolver(A, **kw)`` on ``dev`` and its set-up seconds (host setup,
+    RCM, Galerkin products, device levels and kernel layouts)."""
+    t0 = time.perf_counter()
+    solver = AMGSolver(A, **kw, device=dev)
+    sync(torch, dev)
+    return solver, time.perf_counter() - t0
+
+
+def cpu_twin_solver(torch, AMGSolver, solver):
+    """The same hierarchy on the CPU, through the kernels' twins."""
+    return AMGSolver.from_hierarchy(
+        solver.host_matrices, solver.host_P, perm=solver._perm,
+        lmax=[lv.lmax for lv in solver.levels],
+        smoother=solver.smoother_name, dtype=torch.float32, use_pallas=True,
+        device="cpu")
+
+
+def level_lines(solver):
+    """Per level: rows, ELL width K, and what runs its A / P / P^T."""
+    out = []
+    for i, lv in enumerate(solver.levels):
+        a = ("bottom inverse" if i == len(solver.levels) - 1 else
+             "dense" if lv.A_dense is not None else
+             "A_fast" if lv.A_fast is not None else "gather")
+        p = ("" if lv.P is None else
+             f", P {'P_fast' if lv.P_fast is not None else 'gather'} "
+             f"(K {lv.P.k}), Pt {'Pt_fast' if lv.Pt_fast is not None else 'gather'}"
+             f" (K {lv.Pt.k})")
+        out.append(f"level {i}: {solver.level_sizes[i]} rows, K {lv.A.k}, "
+                   f"A {a}{p}")
+    return out
+
+
+def check_spmv_cases(torch, cv, cases, dev, seed):
+    """Each ``(label, CudaELL)``: the SpMV kernel vs its twin on the same
+    random x; returns the largest |difference|."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for label, E in cases:
+        x = torch.randn(E.shape[1], generator=gen, device=dev)
+        got = E.spmv(x)
+        want = cv.ell_spmv_plain(E.colsT, E.valsT, x)
+        sync(torch, dev)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        worst = max(worst, err)
+        check(torch.equal(got, want),
+              f"ell_spmv != twin on {label} (max abs diff {err})")
+        print(f"[amg kernels] ell_spmv on {label}: {E.shape[0]} x "
+              f"{E.shape[1]}, K {E.k}, {E.nnz} nnz: equal to its twin "
+              "(torch.equal)")
+    return worst
+
+
+def check_ff_residual(torch, cv, HostCSR, ff_pair_from_f64, A, E, dev, seed):
+    """The float-float residual kernel on ``A`` (its pair layout ``E``) with
+    random pairs near a solution, vs its twin (``torch.equal``) and vs the
+    f64 residual of the pair system within one f32 rounding plus
+    ``FF_BOUND_SCALE`` of ``|b| + |A| |x|``; returns (max |kernel - twin|,
+    max error / bound, the plain f32 residual's max error / bound)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x64 = rng.standard_normal(A.shape[0])
+    b64 = A.spmv(x64) + 1e-6 * rng.standard_normal(A.shape[0])
+    bh, bl = ff_pair_from_f64(b64, device=dev)
+    xh, xl = ff_pair_from_f64(x64, device=dev)
+    got = E.residual_ff(bh, bl, xh, xl)
+    want = cv.ell_ff_residual_plain(E.colsT, E.valsT, E.valsT_lo, bh, bl, xh,
+                                    xl)
+    plain = bh - cv.ell_spmv_plain(E.colsT, E.valsT, xh)
+    sync(torch, dev)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want),
+          f"ell_ff_residual != twin (max abs diff {err})")
+    vh = A.data.astype(np.float32).astype(np.float64)
+    vl = (A.data - vh).astype(np.float32).astype(np.float64)
+    xp = xh.cpu().numpy().astype(np.float64) + xl.cpu().numpy()
+    bp = bh.cpu().numpy().astype(np.float64) + bl.cpu().numpy()
+    r64 = bp - HostCSR(A.indptr, A.indices, vh + vl, A.shape).spmv(xp)
+    scale = np.abs(bp) + HostCSR(A.indptr, A.indices, np.abs(A.data),
+                                 A.shape).spmv(np.abs(xp))
+    bound = EPS32 * np.abs(r64) + FF_BOUND_SCALE * scale
+    ratio = float((np.abs(got.cpu().numpy() - r64) / bound).max())
+    plain_ratio = float((np.abs(plain.cpu().numpy() - r64) / bound).max())
+    check(ratio <= 1.0, f"ell_ff_residual vs the f64 residual: {ratio:.3g} "
+          "of the bound")
+    return err, ratio, plain_ratio
+
+
+def true_rel_residual(A, b64, x):
+    """``||b - A x|| / ||b||`` in f64 on the host (x numpy or a tensor)."""
+    import numpy as np
+
+    x = x if isinstance(x, np.ndarray) else x.cpu().numpy()
+    r = b64 - A.spmv(x.astype(np.float64))
+    return float(np.linalg.norm(r) / np.linalg.norm(b64))
+
+
+def profile_run(torch, fn):
+    """One run of ``fn`` under ``torch.profiler``: (host wall s, summed
+    device-kernel seconds, device events, top device ops by time as
+    (name, (us, count))).  The kernels of one stream run one at a time, so
+    the summed kernel time is the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        n += 1
+        us, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), cnt + 1)
+    busy = sum(us for us, _ in by_name.values()) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return wall, busy, n, top
+
+
+def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
+            twin_n=AMG_TWIN_N, fem_n=FEM_N, cli_n=CLI_N, expected=True):
+    """The AMG phases: kernels vs twins on the path's matrices, the n^2 FD
+    solves (the main AMG path, counted into ``launches``), the twin_n^2
+    CUDA-vs-CPU-twin solves, the FEM solves and the ``amg_main`` CLI.
+    ``expected`` holds the n = 1024 counts.  Returns what the times phase
+    needs."""
+    import numpy as np
+
+    from multigrid_prj_tpu_torch import native
+    from multigrid_prj_tpu_torch.amg import AMGSolver
+    from multigrid_prj_tpu_torch.models.fem import (
+        assemble_p1,
+        structured_unit_square_mesh,
+    )
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+    from multigrid_prj_tpu_torch.ops.sparse_extended import ff_pair_from_f64
+    from multigrid_prj_tpu_torch.utils.io import load_vector, save_matrix_market
+
+    on_cuda = torch.device(dev).type == "cuda"
+    # the GMG phases' solvers still hold device memory: count from here
+    base = torch.cuda.memory_allocated() if on_cuda else 0
+    phases.next(f"AMG {n}^2 set-up")
+    A = poisson_fd_csr(n)
+    amg, setup_s = amg_setup(torch, AMGSolver, A, dev, **AMG_KW)
+    held = torch.cuda.memory_allocated() - base if on_cuda else 0
+    print(f"[amg] native library available: {native.available()}")
+    print(f"[amg] poisson_fd_csr({n}): {A.shape[0]} rows, {A.nnz} nnz; "
+          f"set-up {setup_s:.2f} s; levels {amg.level_sizes}; operator "
+          f"complexity {amg.operator_complexity:.3f}; dtype {amg.dtype}, "
+          f"smoother {amg.smoother_name}")
+    for line in level_lines(amg):
+        print(f"[amg] {line}")
+    if expected:
+        check(amg.level_sizes == AMG_LEVELS and
+              round(amg.operator_complexity, 3) == 2.711,
+              f"AMG hierarchy {amg.level_sizes} differs from {AMG_LEVELS}")
+
+    phases.next("AMG kernels vs twins")
+    rng = np.random.default_rng(5)
+    shuffled = A.permute(rng.permutation(A.shape[0]))
+    lv = amg.levels
+    cases = [(f"the RCM'd FD {n}^2 (level 0 A_fast)", lv[0].A_fast),
+             (f"a randomly permuted FD {n}^2 (non-banded)",
+              cv.CudaELL.build(shuffled, device=dev)),
+             ("level 0 P_fast (smoothed P)", lv[0].P_fast),
+             ("level 0 Pt_fast (its transpose)", lv[0].Pt_fast)]
+    cases += [(f"level {i} A_fast (Galerkin coarse operator)", lv[i].A_fast)
+              for i in range(1, len(lv))]
+    if expected:  # 1024^2: levels 0-3 run the kernels, with both transfers
+        check(all(E is not None for _, E in cases[:7]),
+              "a kernel operator of the 1024^2 hierarchy is missing")
+    cases = [(label, E) for label, E in cases if E is not None]
+    del shuffled
+    max_err["spmv"] = max(max_err["spmv"],
+                          check_spmv_cases(torch, cv, cases, dev, seed=7))
+    pair = cv.CudaELL.build(amg.host_matrices[0], pair=True, device=dev)
+    err, ratio, plain_ratio = check_ff_residual(
+        torch, cv, HostCSR, ff_pair_from_f64, amg.host_matrices[0], pair, dev,
+        seed=8)
+    max_err["ff_residual_ell"] = max(max_err["ff_residual_ell"], err)
+    print(f"[amg kernels] ell_ff_residual on the RCM'd FD {n}^2 with random "
+          "pairs: equal to its twin (torch.equal); vs the f64 residual of "
+          f"the pair system {ratio:.3g} of the bound (eps_f32 |r| + "
+          f"{FF_BOUND_SCALE} (|b| + |A||x|)); a plain f32 residual: "
+          f"{plain_ratio:.3g} of it")
+
+    phases.next(f"AMG {n}^2 solves")
+    b = np.random.default_rng(0).standard_normal(A.shape[0]).astype(np.float32)
+    b64 = b.astype(np.float64)
+    b_dev = torch.from_numpy(b).to(dev)
+    if on_cuda:
+        torch.cuda.reset_peak_memory_stats()
+    results = {}
+    for method, tol, iters in AMG_SOLVES:
+        cs.reset_launch_counts()
+        res = getattr(amg, method)(b_dev, tol=tol)
+        sync(torch, dev)
+        counts = {k: cs.LAUNCHES[k] for k in KERNELS_AMG}
+        for k, v in counts.items():
+            launches[k] += v
+        x = res.x
+        true_rel = true_rel_residual(A, b64, x)
+        print(f"[amg {n}] {method}(tol={tol}): {res.iterations} iterations "
+              f"(expected {iters}), final rel. residual "
+              f"{res.rel_residual:.3e}; true f64 rel. residual of x "
+              f"{true_rel:.3e}")
+        print(f"[amg {n}] {method} history "
+              f"{[float(h) for h in res.history]}")
+        print(f"[amg {n}] {method} kernel launches: {counts}")
+        check(res.rel_residual <= tol and len(x) == A.shape[0]
+              and bool(np.isfinite(np.asarray(
+                  x if isinstance(x, np.ndarray) else x.cpu())).all()),
+              f"AMG {method}: not converged or a bad solution")
+        if expected:
+            check(res.iterations == iters,
+                  f"AMG {method}: {res.iterations} iterations, expected "
+                  f"{iters}")
+        if on_cuda:
+            check(counts["spmv"] > 0 and (counts["ff_residual_ell"] > 0)
+                  == (method == "solve_refined"),
+                  f"AMG {method}: kernel launches {counts}")
+        results[method] = (tol, res)
+    if on_cuda:
+        print(f"[amg {n}] device memory of the AMG path: the hierarchy "
+              f"{held / 2**30:.3f} GiB (gather ELLs and kernel layouts of "
+              f"every level), peak during the solves "
+              f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB "
+              "(with the kernel checks' pair layout)")
+
+    phases.next(f"AMG {twin_n}^2 CUDA vs CPU twins")
+    small, setup_s = amg_setup(torch, AMGSolver, poisson_fd_csr(twin_n), dev,
+                               **AMG_KW)
+    print(f"[amg {twin_n}] set-up {setup_s:.2f} s; levels "
+          f"{small.level_sizes}")
+    b_small = np.random.default_rng(0).standard_normal(
+        small.level_sizes[0]).astype(np.float32)
+    compare_twin_solves(torch, f"amg {twin_n}", small,
+                        cpu_twin_solver(torch, AMGSolver, small), b_small,
+                        [(m, tol) for m, tol, _ in AMG_SOLVES])
+    del small
+
+    phases.next("AMG FEM and CLI")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        fd_cli = poisson_fd_csr(cli_n)
+        mtx = os.path.join(tmp, f"fd{cli_n}.mtx")
+        save_matrix_market(mtx, *fd_cli.to_coo(), fd_cli.shape)
+        argv = ["-matrix", mtx, "-precision", "ff32", "-tol", "1e-8"]
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "multigrid_prj_tpu_torch.cli.amg_main",
+             *argv], cwd=tmp, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        try:
+            A_fem, rhs = assemble_p1(structured_unit_square_mesh(fem_n))
+            fem, setup_s = amg_setup(torch, AMGSolver, A_fem, dev)
+            print(f"[fem] P1 on structured_unit_square_mesh({fem_n}): "
+                  f"{A_fem.shape[0]} dofs, {A_fem.nnz} nnz; set-up "
+                  f"{setup_s:.2f} s; levels {fem.level_sizes}")
+            for line in level_lines(fem):
+                print(f"[fem] {line}")
+            compare_twin_solves(torch, "fem", fem,
+                                cpu_twin_solver(torch, AMGSolver, fem), rhs,
+                                FEM_SOLVES)
+            out, _ = cli.communicate(timeout=600)
+        finally:
+            if cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        check(cli.returncode == 0, f"amg_main {argv} failed:\n{out}")
+        check("not converged" not in out, f"amg_main {argv}:\n{out}")
+        hist = load_vector(os.path.join(tmp, "amg_history.txt"))
+        x = load_vector(os.path.join(tmp, "x.mtx"))
+        ones = np.ones(fd_cli.shape[0])
+        rel = true_rel_residual(fd_cli, fd_cli.spmv(ones), x)
+        check(hist[-1] <= 1e-8 and x.size == fd_cli.shape[0] and rel <= 2e-8,
+              f"amg_main files: history {hist[-1]}, {x.size} values, true "
+              f"rel. residual {rel}")
+        said = [ln for ln in out.splitlines() if "iterations" in ln]
+        print(f"[cli] amg_main -matrix fd{cli_n}.mtx -precision ff32 -tol "
+              f"1e-8: {said[0] if said else '?'}; wrote amg_history.txt "
+              f"({len(hist)} entries, last {hist[-1]:.3e}) and x.mtx "
+              f"({x.size} values, true f64 rel. residual {rel:.3e})")
+    return dict(amg=amg, pair=pair, b_dev=b_dev, results=results, A=A)
+
+
+def time_amg(torch, ctx, card, times):
+    """The ELL kernels vs their twins (CUDA events, median of 10) on the
+    main AMG path's fine level (1024^2, RCM'd) and on FD 4096^2 (natural
+    order, the HBM-sized case), with the bytes each call must move; the
+    warm walls of the 1024^2 solves; one profiled run of each solve."""
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+
+    for n in AMG_TIME_NS:
+        E = (ctx["pair"] if n == AMG_N else
+             cv.CudaELL.build(poisson_fd_csr(n), pair=True, device="cuda"))
+        rows, m, K = E.shape[0], E.shape[1], E.k
+        gen = torch.Generator(device="cuda").manual_seed(n)
+        x = torch.randn(m, generator=gen, device="cuda")
+        bh = torch.randn(rows, generator=gen, device="cuda")
+        xl, bl = x * 1e-8, bh * 1e-8
+        calls = {  # name -> (kernel, twin, bytes a call must move)
+            "spmv": (lambda: E.spmv(x),
+                     lambda: cv.ell_spmv_plain(E.colsT, E.valsT, x),
+                     8 * K * rows + 4 * m + 4 * rows),
+            "ff_residual_ell": (
+                lambda: E.residual_ff(bh, bl, x, xl),
+                lambda: cv.ell_ff_residual_plain(E.colsT, E.valsT, E.valsT_lo,
+                                                 bh, bl, x, xl),
+                12 * K * rows + 8 * m + 12 * rows)}
+        for k, (kern, twin, nbytes) in calls.items():
+            t = (median_ms(torch, kern, runs=10),
+                 median_ms(torch, twin, runs=10))
+            times.setdefault(k, {})[n] = t
+            print(f"[time] {k} at FD {n}^2 ({rows} rows, K {K}, {E.nnz} nnz):"
+                  f" kernel {t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us; "
+                  f"kernel {nbytes / t[0] / 1e6:.0f} GB/s, "
+                  f"{E.nnz / t[0] / 1e6:.2f} Gnnz/s  ({card})")
+        del E, x, bh, xl, bl
+        torch.cuda.empty_cache()
+    amg, b_dev = ctx["amg"], ctx["b_dev"]
+    for method, (tol, res) in ctx["results"].items():
+        med, walls, out = median_wall(
+            torch, lambda: getattr(amg, method)(b_dev, tol=tol))
+        check(out.iterations == res.iterations, f"timed AMG {method} differs")
+        print(f"[time] amg {AMG_N}^2 {method}: median wall {med * 1e3:.2f} ms "
+              f"over 3 ({[round(w * 1e3, 2) for w in walls]} ms), "
+              f"{res.iterations} iterations  ({card})")
+        try:
+            wall, busy, nev, top = profile_run(
+                torch, lambda: getattr(amg, method)(b_dev, tol=tol))
+        except Exception as exc:  # the trace is a measurement aid only
+            print(f"[profile] amg {method}: not measured ({exc!r})")
+            continue
+        if not nev:
+            print(f"[profile] amg {method}: the trace shows no device time "
+                  "(not measured)")
+            continue
+        print(f"[profile] amg {AMG_N}^2 {method}: {nev} device ops "
+              f"({nev / res.iterations:.0f} per iteration), device busy "
+              f"{busy * 1e3:.2f} ms = {busy / wall:.1%} of the profiled wall "
+              f"{wall * 1e3:.2f} ms, {busy / med:.1%} of the unprofiled "
+              f"median  ({card})")
+        for name, (us, cnt) in top[:6]:
+            print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  {name[:90]}")
+
+
+def compare_twin_solves(torch, tag, solver, twin, b, solves):
+    """Each ``(method, tol)`` on ``solver`` (CUDA) and on ``twin`` (the same
+    hierarchy through the twins on the CPU): equal iterations, histories
+    within ``AMG_HISTORY_RTOL`` (+1e-12)."""
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+
+    for method, tol in solves:
+        cs.reset_launch_counts()
+        got = getattr(solver, method)(b, tol=tol)
+        sync(torch, solver.device)
+        counts = {k: cs.LAUNCHES[k] for k in KERNELS_AMG}
+        t0 = time.perf_counter()
+        want = getattr(twin, method)(b, tol=tol)
+        diff = abs(got.history - want.history)
+        rel = float((diff / want.history).max())
+        print(f"[{tag}] {method}(tol={tol}): {got.iterations} iterations to "
+              f"{got.rel_residual:.3e}, CPU twins {want.iterations} to "
+              f"{want.rel_residual:.3e} in {time.perf_counter() - t0:.1f} s; "
+              f"launches {counts}; max rel. history diff {rel:.3e} (bound "
+              f"{AMG_HISTORY_RTOL} + 1e-12)")
+        check(got.iterations == want.iterations and got.rel_residual <= tol,
+              f"{tag} {method}: {got.iterations} iterations vs CPU twins "
+              f"{want.iterations}")
+        check(bool((diff <= 1e-12 + AMG_HISTORY_RTOL * want.history).all()),
+              f"{tag} {method}: histories differ beyond the bound")
+        if torch.device(solver.device).type == "cuda":
+            check(counts["spmv"] > 0 and (counts["ff_residual_ell"] > 0)
+                  == (method == "solve_refined"),
+                  f"{tag} {method}: kernel launches {counts}")
 
 
 def main() -> int:
@@ -621,8 +1064,13 @@ def main() -> int:
           == cs.LAUNCHES["residual"] == res_bf.iterations,
           "2D smoother_dtype solve")
 
-    # 13. times: kernels vs twins at 1280^2 (warm L2) and 8448^2 (HBM), the
-    # 3D ones at 257^3 and 513^3, and warm solves
+    # 13.-16. AMG: kernels vs twins, the 1024^2 FD solves, 256^2 against
+    # the CPU twins, FEM and the amg_main CLI
+    amg_ctx = run_amg(torch, phases, launches, max_err)
+
+    # 17. times: kernels vs twins at 1280^2 (warm L2) and 8448^2 (HBM), the
+    # 3D ones at 257^3 and 513^3, the AMG ones at 1024^2 and 4096^2, and
+    # warm solves
     phases.next("times")
     times = {}
     for shape, logical in TIME_SHAPES:
@@ -667,11 +1115,19 @@ def main() -> int:
               f"iterations  ({card})")
     print(f"[time] 1025^2 solve: {main_launches} kernel launches "
           f"(wrapper counts)")
+    time_amg(torch, amg_ctx, card, times)
     phases.next(None)
     print(f"[time] chip_smoke total {time.perf_counter() - phases.t_start:.1f}"
           " s")
 
     def timing(k):
+        if k in KERNELS_AMG:
+            small, large = AMG_TIME_NS
+            return {"ms": times[k][small][0], "plain_ms": times[k][small][1],
+                    "ms_at": f"{small * small} rows (FD {small}^2, RCM)",
+                    "large_at": f"{large * large} rows (FD {large}^2)",
+                    "ms_large": times[k][large][0],
+                    "plain_ms_large": times[k][large][1]}
         shapes = TIME_SHAPES_3D if k in KERNELS_3D else TIME_SHAPES
         small, large = (shape for shape, _ in shapes)
         at = "x".join(map(str, small))
@@ -684,7 +1140,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][0], "launches": launches[k],
-         "max_abs_err": max_err[k], **timing(k)}
+         "max_abs_err": max_err[k], **timing(k),
+         **({"also_replaces": ALSO_REPLACES[k]} if k in ALSO_REPLACES
+            else {})}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

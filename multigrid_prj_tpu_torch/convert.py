@@ -1,4 +1,4 @@
-"""Build a port solver from a JAX solver's state given as numpy data.
+"""Build port solvers from a JAX solver's state given as numpy data.
 
 The JAX package is never imported here: the caller hands over plain values,
 e.g. for a JAX ``GMGSolver`` ``js``::
@@ -11,7 +11,17 @@ e.g. for a JAX ``GMGSolver`` ``js``::
                  cycle=js.cycle, coarse_tol=js.coarse_tol,
                  coarse_maxit=js.coarse_maxit)
 
-so that both sides run with the identical hierarchy and coarse inverse.
+so that both sides run with the identical hierarchy and coarse inverse;
+and for a JAX ``AMGSolver`` ``ja``::
+
+    csr = lambda M: (M.indptr, M.indices, M.data, M.shape)
+    state = dict(host_matrices=[csr(M) for M in ja.host_matrices],
+                 host_P=[csr(P) for P in ja.host_P], perm=ja._perm,
+                 lmax=[lvl.lmax for lvl in ja.levels],
+                 bottom_inv=np.asarray(ja._coarse_dense))
+
+so that both solvers compute from the same hierarchy without re-running
+the setup.
 """
 
 from __future__ import annotations
@@ -19,8 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multigrid_prj_tpu_torch.amg import AMGSolver
 from multigrid_prj_tpu_torch.gmg import GMGSolver
 from multigrid_prj_tpu_torch.grids import GridLevel
+from multigrid_prj_tpu_torch.ops.sparse import HostCSR
 
 _CONFIG_KEYS = ("length", "alpha", "tol", "maxit", "nu", "pre_sweeps",
                 "cycle", "coarse_tol", "coarse_maxit")
@@ -58,3 +70,28 @@ def solver_state_from_numpy(state: dict, device="cpu", smoother: str = "gs",
         solver._coarse_inv = torch.from_numpy(
             np.array(inv, dtype=np.float64)).to(solver.device)
     return solver
+
+
+def amg_solver_from_numpy(state: dict, device="cpu", **solver_kw) -> AMGSolver:
+    """A port ``AMGSolver`` on the hierarchy in ``state`` (keys:
+    ``host_matrices`` and ``host_P`` as ``(indptr, indices, data, shape)``
+    tuples in the solver's internal frame, ``perm`` (the RCM permutation or
+    None), ``lmax`` (per level, 0 where not estimated) and ``bottom_inv``,
+    the bottom level's inverse).  ``solver_kw`` are the solve options of
+    ``AMGSolver.from_hierarchy`` (``smoother``, ``dtype``, ``use_pallas``,
+    ``rhs``, ...), which the JAX solver does not keep in plain form."""
+
+    def csr(t):
+        indptr, indices, data, shape = t
+        return HostCSR(indptr=np.asarray(indptr, np.int64),
+                       indices=np.asarray(indices, np.int64),
+                       data=np.asarray(data, np.float64),
+                       shape=(int(shape[0]), int(shape[1])))
+
+    inv = state.get("bottom_inv")
+    return AMGSolver.from_hierarchy(
+        [csr(t) for t in state["host_matrices"]],
+        [csr(t) for t in state["host_P"]],
+        perm=state.get("perm"), lmax=state.get("lmax"),
+        bottom_inv=None if inv is None else np.asarray(inv, np.float64),
+        device=device, **solver_kw)

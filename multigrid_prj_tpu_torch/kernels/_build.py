@@ -1,9 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
-``nvcc`` compiles each source (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``)
-for ``sm_90a`` into an object file, all at once in parallel, and links them
-into one shared library with a plain C interface, which is loaded with
-``ctypes``.  The library goes to ``multigrid_prj_tpu_torch/build/``
+``nvcc`` compiles each source (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``,
+``csrc/spmv.cu``) for ``sm_90a`` into an object file, all at once in
+parallel, and links them into one shared library with a plain C interface,
+which is loaded with ``ctypes``.  The library goes to ``multigrid_prj_tpu_torch/build/``
 (git-ignored) and is rebuilt when any source is newer than it.  Nothing is
 built or loaded at import time.
 """
@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "stencil2d.cu", _PKG / "csrc" / "stencil3d.cu")
+SOURCES = (_PKG / "csrc" / "stencil2d.cu", _PKG / "csrc" / "stencil3d.cu",
+           _PKG / "csrc" / "spmv.cu")
 BUILD_DIR = _PKG / "build"
 LIBRARY = BUILD_DIR / "libmg_stencil.so"
 
@@ -46,6 +47,9 @@ _SIGNATURES = {
     "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
     "mg_jacobi3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _f, _f,
                     _vp],
+    "mg_ell_spmv": [_vp, _vp, _vp, _vp, _i, _i, _vp],
+    "mg_ell_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
+                           _vp],
 }
 
 

@@ -9,6 +9,7 @@ match the reference's table:
 Out-of-range indices fall back to test 0 with a warning.  ``f`` is sampled
 at interior nodes, ``g`` at boundary nodes, with ``coord(i, j) = (j h,
 L - i h)``.  Tensors are made on the given ``device`` in the given ``dtype``.
+``poisson_fd_csr`` builds the 5-point FD matrix of the AMG path on the host.
 """
 
 from __future__ import annotations
@@ -96,3 +97,30 @@ def assemble_rhs(level: GridLevel, length: float, test: int = 1,
     coords = grid_coords(level.shape, length, dtype=dtype, device=device)
     bmask = boundary_mask(level.shape, device=device)
     return torch.where(bmask, g(*coords), f(*coords)).to(dtype).contiguous()
+
+
+def poisson_fd_csr(nx: int, ny: int | None = None):
+    """5-point FD Laplacian on the ``nx x ny`` interior-node grid as a
+    :class:`~multigrid_prj_tpu_torch.ops.sparse.HostCSR` (Dirichlet
+    eliminated): the algebraic test system of the AMG path at sizes where
+    no mesh file exists.  Host NumPy; the same CSR (indptr, indices, data)
+    as the JAX package's, built without its sort: each row's entries are
+    laid out directly in column order (``i - ny``, ``i - 1``, ``i``,
+    ``i + 1``, ``i + ny``)."""
+    import numpy as np
+
+    from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+
+    ny = nx if ny is None else ny
+    n = nx * ny
+    idx = np.arange(n, dtype=np.int64)
+    ix, iy = idx // ny, idx % ny
+    # candidate neighbours in ascending column order, with their validity
+    cand = np.stack([idx - ny, idx - 1, idx, idx + 1, idx + ny], axis=1)
+    valid = np.stack([ix > 0, iy > 0, np.ones(n, dtype=bool), iy < ny - 1,
+                      ix < nx - 1], axis=1)
+    vals = np.where(cand == idx[:, None], 4.0, -1.0)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(valid.sum(axis=1), out=indptr[1:])
+    return HostCSR(indptr=indptr, indices=cand[valid], data=vals[valid],
+                   shape=(n, n))

@@ -1,0 +1,230 @@
+"""CUDA ELL kernels of the AMG solve, with their plain twins.
+
+Counterpart of ``multigrid_prj_tpu/ops/pallas_spmv.py`` (sources in
+``csrc/spmv.cu``):
+
+* ``ell_local_spmv`` / ``CudaELL.spmv`` replace ``PallasELL.spmv2d``
+  (``_spmv_kernel``, ``_spmv_compact_kernel``, ``_spmv_windowed_kernel``)
+  and ``ell_local_spmv2d`` (``_spmv_kernel``): 8 B per slot streamed plus
+  the x gather.
+* ``ell_ff_residual`` / ``CudaELL.residual_ff`` replace
+  ``PallasELL.residual_ff`` (``_ffres_kernel``, ``_ffres_compact_kernel``):
+  12 B per slot plus two gathers.
+
+One slot-major ELL layout serves every matrix: ``colsT`` (K, n) int32
+absolute column ids, ``valsT`` (K, n) f32 (plus ``valsT_lo`` in pair mode);
+K is the longest row; a padding slot has value 0 and its row's first
+column.  ``CudaELL.build`` takes any sparsity, RCM-ordered or not, square or
+rectangular, and never returns None: the TPU layouts' windows, compact
+tile lists and int16 relative ids were workarounds for Mosaic's gather and
+have no counterpart here.
+
+CPU tensors run the plain torch twin (``*_plain``: the kernel's operation
+order per slot, slots taken in order ``k = 0 .. K-1``, each step a separate
+torch op); CUDA tensors launch the kernel or raise, and operands
+split between the CPU and a card are refused.  There is no fallback.
+Each launch adds one to its ``cuda_stencil.LAUNCHES`` entry (``spmv``,
+``ff_residual_ell``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from multigrid_prj_tpu_torch.ops.cuda_stencil import (
+    LAUNCHES,
+    _lib,
+    _ptr,
+    _raise_on,
+    _stream,
+)
+from multigrid_prj_tpu_torch.ops.sparse import HostCSR, to_device
+from multigrid_prj_tpu_torch.ops.sparse_extended import (
+    ELLPair,
+    ell_residual_ff,
+)
+
+
+def _on_cpu(name, *tensors) -> bool:
+    """True when every operand lies on the CPU (the twin runs), False when
+    none does (the kernel launches); operands split across devices are
+    refused."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if "cpu" in kinds:
+        raise ValueError(f"{name}: operands on {sorted(kinds)}")
+    return False
+
+
+def _check_cuda_ell(name, colsT, vals, vecs):
+    """Raise on what the ELL kernels do not take: int32 (K, n) column ids,
+    f32 (K, n) values, f32 1D vectors, all contiguous on one CUDA device."""
+    for v in (*vals, *vecs):
+        if v.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name}: the CUDA kernels take float32, got {v.dtype} (the "
+                "AMG solver runs other dtypes on the plain gather path)")
+    if colsT.dtype != torch.int32 or colsT.ndim != 2:
+        raise ValueError(f"{name}: colsT must be a 2D int32 tensor")
+    if colsT.shape[1] >= 2 ** 31:
+        raise ValueError(f"{name}: {colsT.shape[1]} rows exceed int32")
+    for t in (colsT, *vals, *vecs):
+        if t.device != colsT.device:
+            raise ValueError(f"{name}: operands on {t.device} and "
+                             f"{colsT.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    for t in vals:
+        if t.shape != colsT.shape:
+            raise ValueError(f"{name}: values {tuple(t.shape)} and column "
+                             f"ids {tuple(colsT.shape)} differ")
+    for t in vecs:
+        if t.ndim != 1:
+            raise ValueError(f"{name}: vectors must be 1D, got "
+                             f"{tuple(t.shape)}")
+
+
+# ---------------------------------------------------------------------------
+# SpMV
+# ---------------------------------------------------------------------------
+
+
+def ell_spmv_plain(colsT, valsT, x):
+    """Twin of the SpMV kernel: ``acc = 0``, then per slot ``acc = acc +
+    valsT[k] * x[colsT[k]]``."""
+    acc = torch.zeros(colsT.shape[1], dtype=valsT.dtype, device=valsT.device)
+    for k in range(colsT.shape[0]):
+        acc = acc + valsT[k] * x[colsT[k]]
+    return acc
+
+
+def ell_local_spmv(colsT, valsT, x):
+    """``y = A x`` on raw slot-major arrays: ``colsT``/``valsT`` (K, n), ``x``
+    (m,) -> ``y`` (n,).  The counterpart of ``ell_local_spmv2d``."""
+    if _on_cpu("ell_local_spmv", colsT, valsT, x):
+        return ell_spmv_plain(colsT, valsT, x)
+    _check_cuda_ell("ell_local_spmv", colsT, (valsT,), (x,))
+    K, n = colsT.shape
+    y = torch.empty(n, dtype=torch.float32, device=x.device)
+    _raise_on(_lib().mg_ell_spmv(_ptr(colsT), _ptr(valsT), _ptr(x), _ptr(y),
+                                 n, K, _stream()), "ell_spmv")
+    LAUNCHES["spmv"] += 1
+    return y
+
+
+# ---------------------------------------------------------------------------
+# float-float residual
+# ---------------------------------------------------------------------------
+
+
+def ell_ff_residual_plain(colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo):
+    """Twin of the float-float residual kernel: the gather form
+    ``sparse_extended.ell_residual_ff`` on the slot-major arrays, which
+    runs ``_ffres_kernel``'s operation order per slot (``two_prod`` with
+    the Veltkamp splits, ``e + vh*gl + vl*gh``, the cascaded ``two_sum``
+    from ``(b_hi, b_lo)`` renormalised by ``fast_two_sum``; each a separate
+    torch op, so nothing is contracted)."""
+    A = ELLPair(cols=colsT.T, vals_hi=vhT.T, vals_lo=vlT.T,
+                shape=(colsT.shape[1], colsT.shape[1]))
+    return ell_residual_ff(A, b_hi, b_lo, x_hi, x_lo)
+
+
+def ell_ff_residual(colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo):
+    """``r = b - A x`` with ``A`` (``vhT + vlT``), ``b`` and ``x`` carried as
+    f32 pairs, on raw slot-major arrays (square A); returns f32 ``r``."""
+    if _on_cpu("ell_ff_residual", colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo):
+        return ell_ff_residual_plain(colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo)
+    _check_cuda_ell("ell_ff_residual", colsT, (vhT, vlT),
+                    (b_hi, b_lo, x_hi, x_lo))
+    K, n = colsT.shape
+    r = torch.empty(n, dtype=torch.float32, device=x_hi.device)
+    _raise_on(_lib().mg_ell_ff_residual(
+        _ptr(colsT), _ptr(vhT), _ptr(vlT), _ptr(x_hi), _ptr(x_lo),
+        _ptr(b_hi), _ptr(b_lo), _ptr(r), n, K, _stream()), "ell_ff_residual")
+    LAUNCHES["ff_residual_ell"] += 1
+    return r
+
+
+# ---------------------------------------------------------------------------
+# the matrix
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class CudaELL:
+    """A sparse matrix in the kernels' slot-major ELL layout on a device
+    (the counterpart of ``PallasELL``)."""
+
+    colsT: torch.Tensor  # (K, n) int32 absolute column ids
+    valsT: torch.Tensor  # (K, n) f32
+    shape: Tuple[int, int]
+    nnz: int
+    # pair mode: f64(vals) - f32(vals), same layout (for residual_ff)
+    valsT_lo: Optional[torch.Tensor] = None
+
+    @staticmethod
+    def build(csr: HostCSR, dtype=torch.float32, pair: bool = False,
+              device="cpu") -> "CudaELL":
+        """Lay ``csr`` out for the kernels (host NumPy, then one copy to
+        ``device``).  ``pair=True`` adds the low words for
+        :meth:`residual_ff`."""
+        n, m = csr.shape
+        lengths = csr.row_lengths
+        k = int(lengths.max()) if n else 0
+        starts = csr.indptr[:-1]
+        # padding slots read the row's first column (a column the row
+        # touches anyway); empty rows read column 0
+        first = np.zeros(n, dtype=np.int64)
+        full = lengths > 0
+        first[full] = csr.indices[starts[full]]
+        colsT = np.empty((k, n), dtype=np.int32)
+        valsT = np.zeros((k, n), dtype=np.float64)
+        last = max(csr.nnz - 1, 0)
+        for s in range(k):  # slot-major directly: one pass per slot
+            has = lengths > s
+            at = np.minimum(starts + s, last)
+            colsT[s] = np.where(has, csr.indices[at], first)
+            valsT[s] = np.where(has, csr.data[at], 0.0)
+        lo = None
+        if pair:
+            lo = to_device(valsT - valsT.astype(np.float32).astype(np.float64),
+                           torch.float32, device)
+        return CudaELL(colsT=to_device(colsT, torch.int32, device),
+                       valsT=to_device(valsT, dtype, device),
+                       shape=(n, m), nnz=csr.nnz, valsT_lo=lo)
+
+    @property
+    def k(self) -> int:
+        return self.colsT.shape[0]
+
+    @property
+    def nnz_dense(self) -> int:
+        """Stored slots including padding (the streamed footprint)."""
+        return self.colsT.numel()
+
+    def spmv(self, x: torch.Tensor) -> torch.Tensor:
+        """``y = A x`` for the logical (m,) vector ``x``."""
+        if x.shape != (self.shape[1],):
+            raise ValueError(f"x has shape {tuple(x.shape)}, the matrix "
+                             f"{self.shape}")
+        return ell_local_spmv(self.colsT, self.valsT, x)
+
+    def residual_ff(self, b_hi, b_lo, x_hi, x_lo) -> torch.Tensor:
+        """``r = b - A x`` with ``A``, ``b`` and ``x`` as f32 pairs (needs
+        ``build(pair=True)`` and a square matrix); returns f32 ``r``."""
+        if self.valsT_lo is None:
+            raise ValueError("residual_ff needs build(pair=True)")
+        if self.shape[0] != self.shape[1]:
+            raise ValueError(f"residual_ff needs a square matrix, got "
+                             f"{self.shape}")
+        for v in (b_hi, b_lo, x_hi, x_lo):
+            if v.shape != (self.shape[0],):
+                raise ValueError(f"a vector has shape {tuple(v.shape)}, "
+                                 f"the matrix {self.shape}")
+        return ell_ff_residual(self.colsT, self.valsT, self.valsT_lo, b_hi,
+                               b_lo, x_hi, x_lo)

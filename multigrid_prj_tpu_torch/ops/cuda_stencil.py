@@ -44,9 +44,11 @@ from multigrid_prj_tpu_torch.ops import transfer as _tr
 from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 
 # kernel name -> number of launches since the last reset_launch_counts()
+# (the ELL kernels of ops/cuda_spmv.py count here too)
 LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
-            "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0}
+            "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0,
+            "spmv": 0, "ff_residual_ell": 0}
 
 
 def reset_launch_counts() -> None:

@@ -113,7 +113,8 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     assert cs.LAUNCHES == {"rbgs_color": 6, "residual": 1, "ff_residual": 0,
                            "apply": 1, "jacobi": 3, "restrict_fw": 1,
                            "prolong_add": 1, "apply3d": 0, "residual3d": 0,
-                           "rbgs3d_color": 0, "jacobi3d": 0}
+                           "rbgs3d_color": 0, "jacobi3d": 0, "spmv": 0,
+                           "ff_residual_ell": 0}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -158,7 +159,8 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
     assert cs.LAUNCHES == {"rbgs_color": 0, "residual": 0, "ff_residual": 0,
                            "apply": 0, "jacobi": 0, "restrict_fw": 0,
                            "prolong_add": 0, "apply3d": 1, "residual3d": 1,
-                           "rbgs3d_color": 6, "jacobi3d": 3}
+                           "rbgs3d_color": 6, "jacobi3d": 3, "spmv": 0,
+                           "ff_residual_ell": 0}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -286,3 +288,118 @@ def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
     sor = GMGSolver(device="cuda", omega=1.2, **kw).solve(b)
     torch.cuda.synchronize()
     assert sor.converged and cs.LAUNCHES[smooth] == 0
+
+
+def _ell_matrices():
+    """name -> host CSR (port) of the ELL kernels' test matrices: the RCM'd
+    FD 128^2 level of the AMG path, a randomly permuted (non-banded) FD,
+    the smoothed P and its transpose, a Galerkin coarse operator (K in the
+    tens) and a scattered matrix with empty and long rows."""
+    from multigrid_prj_tpu_torch.amg import AMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+
+    fd = poisson_fd_csr(128)
+    s = AMGSolver(fd, num_levels=3, dtype=torch.float32, smoother="chebyshev",
+                  reorder="rcm", use_pallas=False)
+    rng = np.random.default_rng(11)
+    n = 5000
+    lengths = rng.integers(0, 40, n)
+    lengths[::97] = 0
+    rows = np.repeat(np.arange(n), lengths)
+    scattered = HostCSR.from_coo(rows, rng.integers(0, n, rows.size),
+                                 rng.standard_normal(rows.size), (n, n))
+    return {"fd_rcm": s.host_matrices[0],
+            "fd_random": fd.permute(rng.permutation(fd.shape[0])),
+            "P": s.host_P[0], "Pt": s.host_P[0].transpose(),
+            "coarse": s.host_matrices[2], "scattered": scattered}
+
+
+@pytest.mark.cuda
+def test_cuda_ell_kernels_equal_twins(cuda_device):
+    """The ELL SpMV on every test matrix and the float-float residual on
+    the square ones, bit-equal to their twins on the same CUDA inputs."""
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+    from multigrid_prj_tpu_torch.ops.sparse_extended import ff_pair_from_f64
+
+    rng = np.random.default_rng(2)
+    for name, M in _ell_matrices().items():
+        E = cv.CudaELL.build(M, pair=True, device=cuda_device)
+        assert E.colsT.device.type == cuda_device.type
+        assert E.k == int(M.row_lengths.max())
+        x = torch.from_numpy(rng.standard_normal(M.shape[1])
+                             .astype(np.float32)).to(cuda_device)
+        got = E.spmv(x)
+        assert torch.equal(got, cv.ell_spmv_plain(E.colsT, E.valsT, x)), name
+        if M.shape[0] != M.shape[1]:
+            continue
+        x64 = rng.standard_normal(M.shape[0])
+        b64 = M.spmv(x64) + 1e-6 * rng.standard_normal(M.shape[0])
+        bh, bl = ff_pair_from_f64(b64, device=cuda_device)
+        xh, xl = ff_pair_from_f64(x64, device=cuda_device)
+        got = E.residual_ff(bh, bl, xh, xl)
+        want = cv.ell_ff_residual_plain(E.colsT, E.valsT, E.valsT_lo, bh, bl,
+                                        xh, xl)
+        assert torch.equal(got, want), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_ell_wrappers_count_and_refuse(cuda_device):
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+
+    E = cv.CudaELL.build(poisson_fd_csr(20), pair=True, device=cuda_device)
+    x = torch.ones(400, device=cuda_device)
+    cs.reset_launch_counts()
+    E.spmv(x)
+    cv.ell_local_spmv(E.colsT, E.valsT, x)
+    E.residual_ff(x, x, x, x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "spmv": 2, "ff_residual_ell": 1}
+    with pytest.raises(NotImplementedError):
+        cv.ell_local_spmv(E.colsT, E.valsT.double(), x.double())
+    with pytest.raises(ValueError):
+        cv.ell_local_spmv(E.colsT.long(), E.valsT, x)
+    with pytest.raises(ValueError):
+        cv.ell_local_spmv(E.colsT.t(), E.valsT.t(), x)
+    with pytest.raises(ValueError):
+        cv.ell_local_spmv(E.colsT, E.valsT, x.cpu())
+    assert sum(cs.LAUNCHES.values()) == 3
+
+
+@pytest.mark.cuda
+def test_cuda_amg_solves_match_cpu_twins(cuda_device):
+    """FD 96^2 (9216 rows: the finest level and its transfers on the
+    kernels, the next levels dense and bottom) on the card vs the same
+    hierarchy through the twins on the CPU: the same iterations for
+    ``solve``, ``solve_pcg`` and ``solve_refined``; histories within 1e-2
+    relative (the dense matvecs, norms and dot products sum in another
+    order on the two devices) plus 1e-12 absolute."""
+    from multigrid_prj_tpu_torch.amg import AMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+
+    A = poisson_fd_csr(96)
+    gpu = AMGSolver(A, num_levels=6, min_coarse=500, device=cuda_device)
+    assert (gpu.dtype, gpu.smoother_name, gpu._use_pallas) == (
+        torch.float32, "chebyshev", True)
+    assert gpu.levels[0].A_fast is not None
+    cpu = AMGSolver.from_hierarchy(
+        gpu.host_matrices, gpu.host_P, perm=gpu._perm,
+        lmax=[lv.lmax for lv in gpu.levels], smoother="chebyshev",
+        dtype=torch.float32, use_pallas=True, device="cpu")
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    for method, tol in (("solve", 1e-5), ("solve_pcg", 1e-5),
+                        ("solve_refined", 1e-8)):
+        cs.reset_launch_counts()
+        got = getattr(gpu, method)(b, tol=tol)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["spmv"] > 0, method
+        assert (cs.LAUNCHES["ff_residual_ell"] > 0) == (
+            method == "solve_refined")
+        want = getattr(cpu, method)(b, tol=tol)
+        assert got.iterations == want.iterations, method
+        assert got.rel_residual <= tol
+        np.testing.assert_allclose(got.history, want.history, rtol=1e-2,
+                                   atol=1e-12)

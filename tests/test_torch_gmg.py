@@ -294,7 +294,14 @@ def test_port_imports_without_jax():
             "import multigrid_prj_tpu_torch.convert, "
             "multigrid_prj_tpu_torch.ops.krylov, "
             "multigrid_prj_tpu_torch.cli.gmg_main, "
-            "multigrid_prj_tpu_torch.kernels._build; "
+            "multigrid_prj_tpu_torch.kernels._build, "
+            "multigrid_prj_tpu_torch.amg, multigrid_prj_tpu_torch.native, "
+            "multigrid_prj_tpu_torch.ops.sparse, "
+            "multigrid_prj_tpu_torch.ops.cuda_spmv, "
+            "multigrid_prj_tpu_torch.ops.sparse_extended, "
+            "multigrid_prj_tpu_torch.models.fem, "
+            "multigrid_prj_tpu_torch.utils.metrics, "
+            "multigrid_prj_tpu_torch.cli.amg_main; "
             "assert p.GMGSolver; print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

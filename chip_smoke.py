@@ -25,20 +25,34 @@ paths' shapes.  Imports nothing of JAX.  The paths:
   1024^2 FD hierarchy (12 levels max, 2000-row bottom, Chebyshev, RCM,
   f32, the ELL kernels from 4096 rows) with ``solve``, ``solve_pcg`` and
   ``solve_refined``; 256^2 and the P1 FEM system of an 81 x 81 mesh against
-  their CPU-twin runs; ``amg_main -matrix`` on a MatrixMarket file.
+  their CPU-twin runs; ``amg_main -matrix`` on a MatrixMarket file;
+* the fused down-leg (``fuse_downleg=True``): the main path and the 8193^2
+  solve again, each equal to its unfused run bit for bit, and 129^2
+  against its CPU-twin run;
+* f64 with the kernels on (plain ops, as the JAX wrappers run XLA);
+* the public ops ``bench.py`` headlines: the apply chain of 8 at 8192^2
+  (``measure_stencil_chains``), the ELL SpMM of 4 vectors on
+  ``banded_csr(2**20)`` (``measure_ell_spmm``), and a red-black smoother
+  written with the public colour-sweep op at 1025^2.
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
-  1. device   2. build   3. 2D kernel vs twin   4. 3D kernel vs twin
-  5. main path (+ CPU-twin run)   6. 8193^2   7. 1025^2 inner_cg / Jacobi
-  (+ CPU-twin runs)   8. plain ops   9. CLI   10. 3D paths A, B, C
-  11. 3D variants D (+ CPU-twin runs)   12. options   13. AMG set-up
-  14. AMG kernels vs twins   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU
-  twins, FEM and the AMG CLI   17. times (with one profiled run of each
-  AMG solve)
-The line before the last is the kernel table as one JSON object; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
-rest of the repository beside it, it exits non-zero and prints no result.
+  1. device   2. build   3. 2D kernel vs twin (with the down-leg, apply
+  chain and colour sweep)   4. 3D kernel vs twin   5. main path (+ CPU-twin
+  run)   5b. main path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2
+  (plain, inner_cg=4, fuse_downleg)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
+  runs)   8. plain ops   9. CLI   10. 3D paths A, B, C   11. 3D variants D
+  (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
+  paths: apply chain, colour sweep   13. AMG set-up   14. AMG kernels vs
+  twins (with the SpMM)   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU twins,
+  FEM and the AMG CLI   16b. bench SpMM path   17. times (with profiled
+  runs of the 1025^2 solves and of each AMG solve)
+The line before the last is the kernel table as one JSON object (each
+kernel's time at its shapes, with the least time the card could take for
+the same work, ``bound_ms``, and one PyTorch call's time for the same
+function where there is one, ``library_ms``); the last line is ``{"ok":
+true, "device": {...}}``.  Without CUDA, or without the rest of the
+repository beside it, it exits non-zero and prints no result.
 
 Usage (from the repository root, one card):  python3 chip_smoke.py
 """
@@ -79,8 +93,33 @@ KERNEL_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
                  ((8448, 8448), (8193, 8193)), ((4224, 4224), (4097, 4097)),
                  ((2112, 2112), (2049, 2049)), ((1056, 1056), (1025, 1025)),
                  ((528, 528), (513, 513)), ((264, 264), (257, 257)),
-                 ((132, 132), (129, 129)), ((66, 66), (65, 65))]
+                 ((132, 132), (129, 129)), ((66, 66), (65, 65)),
+                 ((256, 384), (201, 329))]  # ragged, non-square
 TIME_SHAPES = [((1280, 1280), (1025, 1025)), ((8448, 8448), (8193, 8193))]
+# the f32 relative residual of a plain .solve floors at ~6e-3 at 1025^2
+# (the CPU twins: 0.0072 at iteration 4, then 0.0059 flat), so the fused /
+# unfused .solve runs to 1e-2
+SOLVE_TOL = 1e-2
+# f64 solve_refined of the main path with use_pallas=True: the JAX package
+# in f64 on the CPU (XLA, use_pallas True or False) takes 9 iterations to
+# 1.794e-9
+F64_ITERATIONS = 9
+# bench.py's headline chain (measure_stencil_chains): A^8 u per pass at
+# 8192^2 on u = 1e-3 sin(0.01 i) cos(0.013 j).  With bench's alpha = 10,
+# h = 10/(n-1) (c = 6.7e6) A^7 u overflows f32 there (the CPU twins: inf at
+# the 7th apply), so the path runs alpha = h^2 (c = 1), as the JAX chain
+# test does, and stays finite
+BENCH_N = 8192
+CHAIN_FUSE = 8
+CHAIN_PASSES = 4
+# bench.py's measure_ell_spmm: banded_csr(2**20), 4 vectors
+SPMM_N = 1 << 20
+SPMM_NVEC = 4
+SPMM_PASSES = 3
+# published H100 SXM peaks (NVIDIA's H100 datasheet): HBM bytes/s and
+# f32 flop/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 _PS = "multigrid_prj_tpu/ops/pallas_stencil.py"
 _PS3 = "multigrid_prj_tpu/ops/pallas_stencil_3d.py"
 _SRC2 = "multigrid_prj_tpu_torch/csrc/stencil2d.cu"
@@ -105,9 +144,24 @@ KERNELS.update({
     # PallasELL.spmv2d (:613) and ell_local_spmv2d (:877): one CUDA kernel
     "spmv": (f"{_PSPMV}:613", _SRCS),
     "ff_residual_ell": (f"{_PSPMV}:695", _SRCS),
+    "rbgs_resfilter": (f"{_PS}:497", _SRC2),
+    "apply_chain": (f"{_PS}:871", _SRC2),
+    "rbgs_color_sweep": (f"{_PS}:321", _SRC2),
+    "ell_spmm": (f"{_PSPMV}:274", _SRCS),
 })
 KERNELS_AMG = ("spmv", "ff_residual_ell")
-ALSO_REPLACES = {"spmv": f"{_PSPMV}:877"}
+ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412"}
+# (bytes, flops) per point of each stencil kernel's timed call, f32: every
+# input read once and every output written once (the transfers per fine
+# point); the timed calls are 2 sweeps of the smoothers (Jacobi and 3D
+# Jacobi with omega 0.8), the down-leg with 2 sweeps, 8 chained applies
+STENCIL_COST = {
+    "rbgs_color": (12, 12), "residual": (12, 7), "ff_residual": (24, 60),
+    "apply": (8, 6), "jacobi": (12, 18), "restrict_fw": (5, 5),
+    "prolong_add": (9, 3), "rbgs_resfilter": (13, 24),
+    "apply_chain": (8, 48), "rbgs_color_sweep": (12, 3),
+    "apply3d": (8, 8), "residual3d": (12, 9), "rbgs3d_color": (12, 18),
+    "jacobi3d": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
 # it (poisson_fd_csr(1024): 1,048,576 rows, 5,238,784 nnz; b from
@@ -244,6 +298,14 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     }
 
 
+def bench_u(torch, n, device="cuda"):
+    """bench.py's chain input (``measure_stencil_chains``):
+    ``1e-3 sin(0.01 i) cos(0.013 j)`` in f32."""
+    i = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    j = torch.arange(n, dtype=torch.float32, device=device)[None, :]
+    return (1e-3 * torch.sin(0.01 * i) * torch.cos(0.013 * j)).contiguous()
+
+
 def kernel_inputs(torch, shape, logical, seed):
     gen = torch.Generator().manual_seed(seed)
     u, b, u_lo = (torch.randn(shape, generator=gen) for _ in range(3))
@@ -282,6 +344,18 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
             lambda w=w: cs.jacobi_plain(u, b, alpha, h, w, 2, logical))
             for w in (1.0, 0.8)],
     }
+    calls["rbgs_color_sweep"] = [(
+        f"color {col}",
+        lambda col=col: cs.rbgs_color_sweep(u, b, alpha, h, col, logical),
+        lambda col=col: cs.rbgs_color_sweep_plain(u, b, alpha, h, col,
+                                                  logical))
+        for col in (0, 1)]
+    # alpha = h^2 (c = 1) keeps 11 applies of a unit-size field finite
+    calls["apply_chain"] = [(
+        f"{s} applies, alpha = h^2",
+        lambda s=s: cs.poisson_apply_chain(u, h * h, h, s, logical),
+        lambda s=s: cs.poisson_apply_chain_plain(u, h * h, h, s, logical))
+        for s in (1, 3, 11, 8)]
     n, m = u.shape
     if n % 2 == 0 and m % 2 == 0:  # the transfers live on padded levels
         lg = logical or (n, m)
@@ -294,7 +368,79 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
             f"from {tuple(e.shape)}",
             lambda: cs.prolong_add_padded_fast(e, u),
             lambda: cs.prolong_add_padded_fast_plain(e, u))]
+    if n % 2 == 0 and m % 2 == 0 and logical is not None:
+        calls["rbgs_resfilter"] = downleg_calls(cs, u, b, h, logical, alpha)
     return calls
+
+
+def downleg_calls(cs, u, b, h, logical, alpha):
+    """The fused down-leg (u2 and the coarse residual, flattened into one
+    tensor) against its twin and against the three kernels it fuses; the
+    last case, 2 sweeps against the twin, is the one timed, the one before
+    it the composition timed beside it."""
+    import torch
+
+    def flat(u2, rc):
+        return torch.cat([u2.reshape(-1), rc.reshape(-1)])
+
+    def fused(s):
+        return flat(*cs.rbgs_residual_restrict(u, b, alpha, h, s, logical))
+
+    def twin(s):
+        return flat(*cs.rbgs_residual_restrict_plain(u, b, alpha, h, s,
+                                                     logical))
+
+    def composition(s):
+        u2 = cs.red_black_gauss_seidel(u, b, alpha, h, sweeps=s,
+                                       logical_shape=logical)
+        r = cs.poisson_residual(u2, b, alpha, h, logical)
+        return flat(u2, cs.restrict_fw_padded_fast(r, logical))
+
+    return ([(f"sweeps {s}", lambda s=s: fused(s), lambda s=s: twin(s))
+             for s in (1, 3)]
+            + [(f"sweeps {s} vs the kernels it fuses", lambda s=s: fused(s),
+                lambda s=s: composition(s)) for s in (1, 3, 2)]
+            + [("sweeps 2", lambda: fused(2), lambda: twin(2))])
+
+
+def bound(nbytes, flops):
+    """The least time (ms) the card could take for work that moves
+    ``nbytes`` and does ``flops`` f32 operations, and which of the two
+    bounds it (published H100 SXM peaks)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ell_cost(kname, E, nvec=1):
+    """(bytes, flops) of one ELL kernel call on the CudaELL ``E``: the slot
+    arrays as stored, the vectors read and written once; flops of the
+    stored nonzeros."""
+    K, n = E.colsT.shape
+    m = E.shape[1]
+    if kname == "ff_residual_ell":
+        return 12 * K * n + 8 * m + 12 * n, 30 * E.nnz
+    return 8 * K * n + 4 * nvec * (m + n), 2 * E.nnz * nvec
+
+
+def csr_library(torch, M, device="cuda"):
+    """``M`` as a ``torch.sparse_csr_tensor`` (f32, int32 indices) on the
+    card: the library yardstick (cuSPARSE) timed beside the ELL kernels and
+    used nowhere in the port."""
+    import numpy as np
+
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(M.indptr.astype(np.int32)),
+        torch.from_numpy(M.indices.astype(np.int32)),
+        torch.from_numpy(M.data.astype(np.float32)), M.shape,
+        check_invariants=True).to(device)
+
+
+def record(at, ms, plain_ms, nbytes, flops, library_ms=None, **extra):
+    """One timing entry of the kernel table."""
+    b_ms, by = bound(nbytes, flops)
+    return dict(at=at, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                library_ms=library_ms, **extra)
 
 
 def median_ms(torch, fn, runs=25, warmup=3):
@@ -404,6 +550,43 @@ def check_spmv_cases(torch, cv, cases, dev, seed):
     return worst
 
 
+def check_spmm_cases(torch, cv, cases, dev, seed):
+    """Each ``(label, host CSR, CudaELL)``: the SpMM kernel with 1, 4 and 9
+    vectors (9: two launches) vs its twin and, column by column, the SpMV
+    kernel (``torch.equal``), and vs the f64 product of the same matrix
+    within 4 ulp (f32) of ``|A| |X|``; returns the largest |kernel -
+    twin|."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for label, M, E in cases:
+        E64 = cv.CudaELL.build(M, dtype=torch.float64, device=dev)
+        for nvec in (1, 4, 9):
+            X = torch.randn(E.shape[1], nvec, generator=gen, device=dev)
+            got = E.spmm(X)
+            want = cv.ell_spmm_plain(E.colsT, E.valsT, X)
+            sync(torch, dev)
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(got, want),
+                  f"ell_spmm != twin on {label}, {nvec} vectors ({err})")
+            check(all(torch.equal(got[:, j], E.spmv(X[:, j].contiguous()))
+                      for j in range(nvec)),
+                  f"ell_spmm != per-column spmv on {label}, {nvec} vectors")
+            exact = cv.ell_spmm_plain(E64.colsT, E64.valsT, X.double())
+            scale = cv.ell_spmm_plain(E64.colsT, E64.valsT.abs(),
+                                      X.double().abs())
+            ratio = float(((got.double() - exact).abs()
+                           / (4 * EPS32 * scale).clamp_min(1e-300)).max())
+            check(ratio <= 1.0, f"ell_spmm on {label}, {nvec} vectors: "
+                  f"{ratio:.3g} of the f64 bound")
+        print(f"[amg kernels] ell_spmm on {label}: {E.shape[0]} x "
+              f"{E.shape[1]}, K {E.k}, 1 / 4 / 9 vectors: equal to its twin "
+              "and to per-column spmv (torch.equal); within 4 ulp of "
+              "|A||X| of the f64 product")
+        del E64
+    return worst
+
+
 def check_ff_residual(torch, cv, HostCSR, ff_pair_from_f64, A, E, dev, seed):
     """The float-float residual kernel on ``A`` (its pair layout ``E``) with
     random pairs near a solution, vs its twin (``torch.equal``) and vs the
@@ -477,8 +660,10 @@ def profile_run(torch, fn):
 
 
 def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
-            twin_n=AMG_TWIN_N, fem_n=FEM_N, cli_n=CLI_N, expected=True):
-    """The AMG phases: kernels vs twins on the path's matrices, the n^2 FD
+            twin_n=AMG_TWIN_N, fem_n=FEM_N, cli_n=CLI_N, spmm_n=SPMM_N,
+            expected=True):
+    """The AMG phases: kernels vs twins on the path's matrices (with the
+    SpMM on banded_csr(spmm_n) and the level-0 operators), the n^2 FD
     solves (the main AMG path, counted into ``launches``), the twin_n^2
     CUDA-vs-CPU-twin solves, the FEM solves and the ``amg_main`` CLI.
     ``expected`` holds the n = 1024 counts.  Returns what the times phase
@@ -491,7 +676,10 @@ def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
         assemble_p1,
         structured_unit_square_mesh,
     )
-    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.models.poisson import (
+        banded_csr,
+        poisson_fd_csr,
+    )
     from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
     from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
     from multigrid_prj_tpu_torch.ops.sparse import HostCSR
@@ -535,6 +723,17 @@ def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
     del shuffled
     max_err["spmv"] = max(max_err["spmv"],
                           check_spmv_cases(torch, cv, cases, dev, seed=7))
+    host0, hP = amg.host_matrices[0], amg.host_P[0]
+    spmm_cases = [(f"banded_csr({spmm_n})", banded_csr(spmm_n), None),
+                  (f"the RCM'd FD {n}^2 (level 0)", host0, lv[0].A_fast),
+                  ("level 0 P", hP, lv[0].P_fast),
+                  ("level 0 P^T", hP.transpose(), lv[0].Pt_fast)]
+    spmm_cases = [(label, M, E if E is not None
+                   else cv.CudaELL.build(M, device=dev))
+                  for label, M, E in spmm_cases]
+    max_err["ell_spmm"] = max(max_err["ell_spmm"], check_spmm_cases(
+        torch, cv, spmm_cases, dev, seed=9))
+    del spmm_cases
     pair = cv.CudaELL.build(amg.host_matrices[0], pair=True, device=dev)
     err, ratio, plain_ratio = check_ff_residual(
         torch, cv, HostCSR, ff_pair_from_f64, amg.host_matrices[0], pair, dev,
@@ -607,7 +806,8 @@ def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
         fd_cli = poisson_fd_csr(cli_n)
         mtx = os.path.join(tmp, f"fd{cli_n}.mtx")
         save_matrix_market(mtx, *fd_cli.to_coo(), fd_cli.shape)
-        argv = ["-matrix", mtx, "-precision", "ff32", "-tol", "1e-8"]
+        argv = ["-matrix", mtx, "-precision", "ff32", "-tol", "1e-8",
+                "-device", torch.device(dev).type]
         cli = subprocess.Popen(
             [sys.executable, "-m", "multigrid_prj_tpu_torch.cli.amg_main",
              *argv], cwd=tmp, env=env, stdout=subprocess.PIPE,
@@ -654,31 +854,42 @@ def time_amg(torch, ctx, card, times):
     from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
 
     for n in AMG_TIME_NS:
+        M = ctx["amg"].host_matrices[0] if n == AMG_N else poisson_fd_csr(n)
         E = (ctx["pair"] if n == AMG_N else
-             cv.CudaELL.build(poisson_fd_csr(n), pair=True, device="cuda"))
+             cv.CudaELL.build(M, pair=True, device="cuda"))
+        lib = csr_library(torch, M)
         rows, m, K = E.shape[0], E.shape[1], E.k
         gen = torch.Generator(device="cuda").manual_seed(n)
         x = torch.randn(m, generator=gen, device="cuda")
         bh = torch.randn(rows, generator=gen, device="cuda")
         xl, bl = x * 1e-8, bh * 1e-8
-        calls = {  # name -> (kernel, twin, bytes a call must move)
+        xcol = x[:, None].contiguous()
+        calls = {  # name -> (kernel, twin, library call or None)
             "spmv": (lambda: E.spmv(x),
                      lambda: cv.ell_spmv_plain(E.colsT, E.valsT, x),
-                     8 * K * rows + 4 * m + 4 * rows),
+                     lambda: lib @ xcol),
             "ff_residual_ell": (
                 lambda: E.residual_ff(bh, bl, x, xl),
                 lambda: cv.ell_ff_residual_plain(E.colsT, E.valsT, E.valsT_lo,
                                                  bh, bl, x, xl),
-                12 * K * rows + 8 * m + 12 * rows)}
-        for k, (kern, twin, nbytes) in calls.items():
+                None)}  # no library call carries the float-float pair
+        at = (f"{rows} rows (FD {n}^2, RCM)" if n == AMG_N
+              else f"{rows} rows (FD {n}^2)")
+        for k, (kern, twin, libcall) in calls.items():
             t = (median_ms(torch, kern, runs=10),
                  median_ms(torch, twin, runs=10))
-            times.setdefault(k, {})[n] = t
+            t_lib = median_ms(torch, libcall, runs=10) if libcall else None
+            nbytes, flops = ell_cost(k, E)
+            rec = record(at, t[0], t[1], nbytes, flops, t_lib)
+            times.setdefault(k, []).append(rec)
             print(f"[time] {k} at FD {n}^2 ({rows} rows, K {K}, {E.nnz} nnz):"
-                  f" kernel {t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us; "
-                  f"kernel {nbytes / t[0] / 1e6:.0f} GB/s, "
+                  f" kernel {t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us, "
+                  f"library (cuSPARSE CSR) "
+                  f"{'none' if t_lib is None else f'{t_lib * 1e3:.1f} us'}; "
+                  f"bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']});"
+                  f" kernel {nbytes / t[0] / 1e6:.0f} GB/s, "
                   f"{E.nnz / t[0] / 1e6:.2f} Gnnz/s  ({card})")
-        del E, x, bh, xl, bl
+        del E, x, bh, xl, bl, lib, xcol
         torch.cuda.empty_cache()
     amg, b_dev = ctx["amg"], ctx["b_dev"]
     for method, (tol, res) in ctx["results"].items():
@@ -739,6 +950,7 @@ def compare_twin_solves(torch, tag, solver, twin, b, solves):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -752,6 +964,7 @@ def main() -> int:
     from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
     from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
     from multigrid_prj_tpu_torch.ops import extended as text
+    from multigrid_prj_tpu_torch.ops.transfer import pad_to
     from multigrid_prj_tpu_torch.utils.io import load_vector
 
     phases = Phases()
@@ -793,6 +1006,24 @@ def main() -> int:
         print(f"[kernels] {shape} logical {logical}: {', '.join(done)} equal "
               "to their twins (torch.equal)")
         del u, b, u_lo
+    # sweeps 4 does not fit the down-leg's halo: the wrapper runs the
+    # kernels it fuses, with no fused launch
+    (shape, logical), sweeps = KERNEL_SHAPES[0], 4
+    u, b, _, h = kernel_inputs(torch, shape, logical, seed=0)
+    cs.reset_launch_counts()
+    got = torch.cat([x.reshape(-1) for x in cs.rbgs_residual_restrict(
+        u, b, 10.0, h, sweeps, logical)])
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in cs.LAUNCHES.items() if v}
+    n_fused = cs.LAUNCHES["rbgs_resfilter"]
+    want = torch.cat([x.reshape(-1) for x in cs.rbgs_residual_restrict_plain(
+        u, b, 10.0, h, sweeps, logical)])
+    print(f"[kernels] down-leg with sweeps {sweeps} at {shape}: {n_fused} "
+          f"fused launches, launches {counts}; equal to its twin: "
+          f"{torch.equal(got, want)}")
+    check(n_fused == 0 and torch.equal(got, want),
+          f"down-leg with sweeps {sweeps}")
+    del u, b, got, want
     torch.cuda.empty_cache()
 
     # 4. 3D kernel vs twin: every level of paths A-D (C's finest is 513^3)
@@ -819,16 +1050,19 @@ def main() -> int:
 
     launches = {k: 0 for k in KERNELS}
 
-    def run_path(solver, b, method="solve_refined", **kw):
-        """One solve with the counters set to 0 just before and read just
-        after; adds them to ``launches``."""
+    def run_counted(fn):
+        """One run of a path with the counters set to 0 just before and
+        read just after; adds them to ``launches``."""
         cs.reset_launch_counts()
-        res = getattr(solver, method)(b, **kw)
+        out = fn()
         torch.cuda.synchronize()
         counts = dict(cs.LAUNCHES)
         for k, v in counts.items():
             launches[k] += v
-        return res, counts
+        return out, counts
+
+    def run_path(solver, b, method="solve_refined", **kw):
+        return run_counted(lambda: getattr(solver, method)(b, **kw))
 
     def check_solve(tag, res, shape, tol, expected, counts, need):
         print(f"[{tag}] {res.iterations} iterations (expected {expected} "
@@ -864,8 +1098,34 @@ def main() -> int:
         check(bool((diff <= HISTORY_ATOL + rtol * ref.history).all()),
               f"{tag}: histories differ beyond the bound")
 
+    def check_fused_equal(tag, res_f, counts_f, res_u, counts_u):
+        """A fuse_downleg solve against the unfused one of the same run:
+        the same history and solution bit for bit, and each fused launch
+        in place of one residual and one restriction launch (and of its
+        smoother's colour launches)."""
+        n = counts_f["rbgs_resfilter"]
+        print(f"[{tag}] {n} rbgs_resfilter launches; unfused -> fused: "
+              f"residual {counts_u['residual']} -> {counts_f['residual']}, "
+              f"restrict_fw {counts_u['restrict_fw']} -> "
+              f"{counts_f['restrict_fw']}, rbgs_color "
+              f"{counts_u['rbgs_color']} -> {counts_f['rbgs_color']}; all "
+              f"launches {sum(counts_u.values())} -> "
+              f"{sum(counts_f.values())}; history equal to the unfused "
+              "one (bit for bit)")
+        check(np.array_equal(res_f.history, res_u.history)
+              and torch.equal(res_f.u, res_u.u),
+              f"{tag}: differs from the unfused solve")
+        check(n > 0 and counts_u["rbgs_resfilter"] == 0
+              and counts_u["residual"] - counts_f["residual"] == n
+              and counts_u["restrict_fw"] - counts_f["restrict_fw"] == n,
+              f"{tag}: launches {counts_f}, unfused {counts_u}")
+
     gs_need = ("rbgs_color", "residual", "ff_residual", "restrict_fw",
                "prolong_add")
+    # every level above the bottom is padded, so the fused down-leg takes
+    # all the cycle's residual and restriction launches
+    fused_need = ("rbgs_color", "ff_residual", "prolong_add",
+                  "rbgs_resfilter")
 
     # 5. main path: 1025^2 ff32-refined V(2,2) solve on the card
     phases.next("main path 1025^2")
@@ -876,6 +1136,37 @@ def main() -> int:
     check_solve("main", res, SHAPE, 1e-8, TPU_ITERATIONS, counts, gs_need)
     main_launches = sum(counts.values())
     check_twins("main", res, SOLVER_KW, b)
+
+    # 5b. the main path with fuse_downleg: bit-equal to the unfused run, one
+    # fused launch in place of each level's smoother, residual and
+    # restriction; .solve as well; 129^2 against its CPU-twin run
+    phases.next("main path 1025^2, fuse_downleg")
+    fsolver = GMGSolver(**SOLVER_KW, fuse_downleg=True, device="cuda")
+    res_f, counts_f = run_path(fsolver, b)
+    check_solve("main fuse_downleg", res_f, SHAPE, 1e-8, TPU_ITERATIONS,
+                counts_f, fused_need)
+    check_fused_equal("main fuse_downleg", res_f, counts_f, res, counts)
+    fused_launches = sum(counts_f.values())
+    for fuse in (False, True):
+        tag = f"1025 .solve to {SOLVE_TOL}, fuse_downleg={fuse}"
+        s = GMGSolver(**dict(SOLVER_KW, tol=SOLVE_TOL), fuse_downleg=fuse,
+                      device="cuda")
+        out, c = run_path(s, b, "solve")
+        print(f"[{tag}] {out.iterations} iterations to "
+              f"{float(out.history[-1]):.3e}; launches {c}")
+        check(out.converged and bool(torch.isfinite(out.u).all()),
+              f"{tag}: not converged")
+        if fuse:
+            check_fused_equal(tag, out, c, res_s, counts_s)
+        res_s, counts_s = out, c
+    kw129 = dict(SOLVER_KW, shape=(129, 129), num_levels=4, pad_align=128,
+                 fuse_downleg=True)
+    s129 = GMGSolver(**kw129, device="cuda")
+    b129 = assemble_rhs(s129.levels[0], 10.0, test=1, device="cuda")
+    res129, c129 = run_path(s129, b129)
+    check(res129.converged and c129["rbgs_resfilter"] > 0,
+          f"129^2 fuse_downleg: {c129}")
+    check_twins("129 fuse_downleg", res129, kw129, b129)
 
     # 6. at scale: 8193^2, plain and inner_cg=4
     phases.next("8193^2")
@@ -895,8 +1186,17 @@ def main() -> int:
                     counts, gs_need + (("apply",) if inner else ()))
         print(f"[{tag}] peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        big_res[inner] = res8
+        big_res[inner] = (res8, counts)
         del res8
+    t0 = time.perf_counter()
+    big_f = GMGSolver(**SCALE_KW, fuse_downleg=True, device="cuda")
+    print(f"[8193 fuse_downleg] solver set-up {time.perf_counter() - t0:.1f} "
+          "s")
+    res8f, counts = run_path(big_f, big_b)
+    check_solve("8193 fuse_downleg", res8f, (8193, 8193), 1e-7,
+                SCALE_ITERATIONS[0], counts, fused_need)
+    check_fused_equal("8193 fuse_downleg", res8f, counts, *big_res[0])
+    del res8f
 
     # 7. 1025^2 inner_cg=4 and Jacobi omega 0.8, each against its CPU twins
     phases.next("1025^2 inner_cg / Jacobi")
@@ -1036,20 +1336,31 @@ def main() -> int:
     check(res_sor.converged and cs.LAUNCHES["rbgs3d_color"] == 0,
           "3D omega=1.2 solve")
 
-    # 12. options: fuse_downleg and f64 with the kernels still raise; the
+    # 12. options: f64 with the kernels on runs the plain ops (the JAX
+    # wrappers send f64 to XLA) and takes the JAX package's iterations; the
     # bf16 defect correction runs in 2D too (3D: paths A-D)
     phases.next("options")
-    for label, make in [
-            ("fuse_downleg", lambda: GMGSolver(**SOLVER_KW, fuse_downleg=True,
-                                               device="cuda")),
-            ("f64 with use_pallas", lambda: solver.solve_refined(b.double()))]:
-        try:
-            make()
-        except NotImplementedError as exc:
-            print(f"[options] {label}: NotImplementedError: {exc}")
-        else:
-            check(False, f"{label} did not raise on CUDA")
-    bf16_2d = dict(SOLVER_KW, shape=(129, 129), num_levels=4, pad_align=128,
+    cs.reset_launch_counts()
+    res64 = solver.solve_refined(b.double())
+    torch.cuda.synchronize()
+    n64 = sum(cs.LAUNCHES.values())
+    t0 = time.perf_counter()
+    ref64 = GMGSolver(**SOLVER_KW, use_pallas=False, device="cpu") \
+        .solve_refined(b.double().cpu())
+    diff = abs(res64.history - ref64.history)
+    print(f"[options] f64 solve_refined with use_pallas=True: "
+          f"{res64.iterations} iterations to {float(res64.history[-1]):.4e} "
+          f"(JAX f64: {F64_ITERATIONS}); {n64} kernel launches; the CPU f64 "
+          f"plain solve {ref64.iterations} iterations in "
+          f"{time.perf_counter() - t0:.1f} s, max history diff "
+          f"{float(diff.max()):.3e}")
+    # the f64 round-off floor of a relative residual at 1025^2 is
+    # eps_f64 kappa(A) ~ 1e-10; the two devices sum in other orders
+    check(n64 == 0 and res64.converged and res64.iterations == F64_ITERATIONS
+          == ref64.iterations and res64.u.dtype == torch.float64
+          and bool((diff <= 1e-10 + 1e-6 * ref64.history).all()),
+          "f64 solve_refined with use_pallas=True")
+    bf16_2d =dict(SOLVER_KW, shape=(129, 129), num_levels=4, pad_align=128,
                    tol=1e-3, smoother_dtype=torch.bfloat16)
     b129 = assemble_rhs(build_hierarchy((129, 129), 10.0, 4,
                                         pad_align=128)[0], 10.0, test=1,
@@ -1064,48 +1375,235 @@ def main() -> int:
           == cs.LAUNCHES["residual"] == res_bf.iterations,
           "2D smoother_dtype solve")
 
+    # 12b. the public ops bench.py headlines: the apply chain (A^8 u per
+    # pass at 8192^2, bench's u; alpha = h^2, see BENCH_N), held to its
+    # twin; its kernel against the twin at 1, 3, 8 and 11 applies there; and
+    # a red-black smoother written with the public colour-sweep op on the
+    # main path's finest level, held to its twin and to the RB-GS kernel
+    phases.next("bench paths: apply chain, colour sweep")
+    h_b = 10.0 / (BENCH_N - 1)
+    u_b = bench_u(torch, BENCH_N)
+
+    def chain_path():
+        x = u_b
+        for _ in range(CHAIN_PASSES):
+            x = cs.poisson_apply_chain(x, h_b * h_b, h_b, CHAIN_FUSE)
+        return x
+
+    x_c, c_c = run_counted(chain_path)
+    twin_c = cs.poisson_apply_chain_plain(u_b, h_b * h_b, h_b,
+                                          CHAIN_FUSE * CHAIN_PASSES)
+    print(f"[bench chain] {CHAIN_PASSES} passes of A^{CHAIN_FUSE} u at "
+          f"{BENCH_N}^2: launches {({k: v for k, v in c_c.items() if v})}; "
+          f"max |x| {float(x_c.abs().max()):.3e}; equal to "
+          f"{CHAIN_FUSE * CHAIN_PASSES} twin applies: "
+          f"{torch.equal(x_c, twin_c)}")
+    check(c_c["apply_chain"] == CHAIN_PASSES == sum(c_c.values())
+          and torch.equal(x_c, twin_c) and bool(torch.isfinite(x_c).all()),
+          "bench chain path")
+    del x_c, twin_c
+    for s in (1, 3, 8, 11):
+        got = cs.poisson_apply_chain(u_b, h_b * h_b, h_b, s)
+        want = cs.poisson_apply_chain_plain(u_b, h_b * h_b, h_b, s)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err["apply_chain"] = max(max_err["apply_chain"], err)
+        check(torch.equal(got, want),
+              f"apply_chain ({s} applies) != twin at {BENCH_N}^2 ({err})")
+    print(f"[kernels] apply_chain at {BENCH_N}^2, 1 / 3 / 8 / 11 applies: "
+          "equal to its twin (torch.equal)")
+    lev0 = solver.levels[0]
+    b_pad = pad_to(b, lev0.padded_shape)
+
+    def sweep_path(sweep):
+        x = torch.zeros_like(b_pad)
+        for _ in range(2):
+            for col in (0, 1):
+                x = sweep(x, b_pad, 10.0, lev0.h, col, lev0.shape)
+        return x
+
+    x_s, c_s = run_counted(lambda: sweep_path(cs.rbgs_color_sweep))
+    twin_s = sweep_path(cs.rbgs_color_sweep_plain)
+    gs2 = cs.red_black_gauss_seidel(torch.zeros_like(b_pad), b_pad, 10.0,
+                                    lev0.h, sweeps=2,
+                                    logical_shape=lev0.shape)
+    torch.cuda.synchronize()
+    d_gs = float((x_s - gs2).abs().max())
+    ulp = float(np.spacing(np.float32(float(x_s.abs().max()))))
+    print(f"[colour sweep] 2 red-black sweeps from the public op at "
+          f"{tuple(b_pad.shape)}: launches "
+          f"{({k: v for k, v in c_s.items() if v})}; equal to the twins: "
+          f"{torch.equal(x_s, twin_s)}; against the RB-GS kernel (which "
+          f"multiplies by 1/c where this op divides by c) {d_gs:.3e} = "
+          f"{d_gs / ulp:.3g} ulp of the field's largest value")
+    check(c_s["rbgs_color_sweep"] == 4 == sum(c_s.values())
+          and torch.equal(x_s, twin_s) and d_gs <= 4 * ulp,
+          "colour-sweep path")
+    del x_s, twin_s, gs2, u_b
+
     # 13.-16. AMG: kernels vs twins, the 1024^2 FD solves, 256^2 against
     # the CPU twins, FEM and the amg_main CLI
     amg_ctx = run_amg(torch, phases, launches, max_err)
 
+    # 16b. bench.py's measure_ell_spmm path: X <- A X, 4 vectors, on
+    # banded_csr(2**20), held to its twin
+    phases.next("bench SpMM path")
+    from multigrid_prj_tpu_torch.models.poisson import banded_csr
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+
+    banded = banded_csr(SPMM_N)
+    E_b = cv.CudaELL.build(banded, device="cuda")
+    X0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (SPMM_N, SPMM_NVEC)).astype(np.float32)).cuda()
+
+    def spmm_path(spmm):
+        X = X0
+        for _ in range(SPMM_PASSES):
+            X = spmm(X)
+        return X
+
+    X_s, c_m = run_counted(lambda: spmm_path(E_b.spmm))
+    twin_m = spmm_path(lambda X: cv.ell_spmm_plain(E_b.colsT, E_b.valsT, X))
+    print(f"[bench spmm] {SPMM_PASSES} passes of X <- A X on "
+          f"banded_csr({SPMM_N}) (K {E_b.k}, {E_b.nnz} nnz), "
+          f"{SPMM_NVEC} vectors: launches "
+          f"{({k: v for k, v in c_m.items() if v})}; equal to the twin: "
+          f"{torch.equal(X_s, twin_m)}")
+    check(c_m["ell_spmm"] == SPMM_PASSES == sum(c_m.values())
+          and torch.equal(X_s, twin_m) and bool(torch.isfinite(X_s).all()),
+          "bench SpMM path")
+    del X_s, twin_m
+    missing = [k for k in KERNELS if launches[k] == 0]
+    check(not missing, f"kernels no path launched: {missing}")
+
     # 17. times: kernels vs twins at 1280^2 (warm L2) and 8448^2 (HBM), the
-    # 3D ones at 257^3 and 513^3, the AMG ones at 1024^2 and 4096^2, and
-    # warm solves
+    # 3D ones at 257^3 and 513^3, the bench chain at 8192^2 and SpMM at
+    # 2^20 x 4, the AMG ones at 1024^2 and 4096^2, each with its bound and
+    # its library call where there is one; warm solves, the 1025^2 and
+    # 8193^2 ones fused and unfused in alternating order
     phases.next("times")
     times = {}
+
+    def add_time(k, label, rec, note=""):
+        times.setdefault(k, []).append(rec)
+        lib = rec["library_ms"]
+        lib = "none" if lib is None else f"{lib * 1e3:.1f} us"
+        print(f"[time] {k} {label} at {rec['at']}: kernel "
+              f"{rec['ms'] * 1e3:.1f} us, twin {rec['plain_ms'] * 1e3:.1f} "
+              f"us, library {lib}; bound {rec['bound_ms'] * 1e3:.1f} us "
+              f"({rec['bound_by']}){note}  ({card})")
+
+    # bench.py's headline: A^8 u in one launch against 8 single applies
+    n_b = BENCH_N
+    u_b = bench_u(torch, n_b)
+    a_b = h_b * h_b
+
+    def singles():
+        x = u_b
+        for _ in range(CHAIN_FUSE):
+            x = cs.poisson_apply(x, a_b, h_b)
+        return x
+
+    t_k = median_ms(torch, lambda: cs.poisson_apply_chain(u_b, a_b, h_b,
+                                                          CHAIN_FUSE))
+    t_p = median_ms(torch, lambda: cs.poisson_apply_chain_plain(
+        u_b, a_b, h_b, CHAIN_FUSE), runs=10)
+    t_s = median_ms(torch, singles)
+    nnz = n_b * n_b + 4 * (n_b - 2) ** 2  # bench.py's count
+    per = STENCIL_COST["apply_chain"]
+    rec = record(f"{n_b}x{n_b} (bench.py's chain, c = 1)", t_k, t_p,
+                 per[0] * n_b * n_b, per[1] * n_b * n_b,
+                 single_applies_ms=t_s,
+                 nnz_per_s=nnz * CHAIN_FUSE / (t_k * 1e-3),
+                 single_nnz_per_s=nnz * CHAIN_FUSE / (t_s * 1e-3))
+    add_time("apply_chain", f"{CHAIN_FUSE} applies", rec,
+             f"; {CHAIN_FUSE} single applies {t_s * 1e3:.1f} us; "
+             f"{rec['nnz_per_s']:.4g} nnz/s fused, "
+             f"{rec['single_nnz_per_s']:.4g} single")
+    del u_b
     for shape, logical in TIME_SHAPES:
         u, bb, u_lo, h = kernel_inputs(torch, shape, logical, seed=99)
+        npts = shape[0] * shape[1]
         for kname, cases in kernel_calls(cs, text, u, bb, u_lo, h,
                                          logical).items():
             label, kern, twin = cases[-1]
             t = (median_ms(torch, kern), median_ms(torch, twin))
-            times.setdefault(kname, {})[shape[0]] = t
-            print(f"[time] {kname} {label} at {shape[0]}^2: kernel "
-                  f"{t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us  ({card})")
+            per = STENCIL_COST[kname]
+            extra, note = {}, ""
+            if kname == "rbgs_resfilter":  # and the kernels it fuses
+                extra["composition_ms"] = median_ms(torch, cases[-2][2])
+                note = (f"; smoother + residual + restriction kernels "
+                        f"{extra['composition_ms'] * 1e3:.1f} us")
+            add_time(kname, label, record(
+                "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
+                per[1] * npts, **extra), note)
         del u, bb, u_lo
         torch.cuda.empty_cache()
     for shape, logical in TIME_SHAPES_3D:
         u, bb, h = kernel_inputs_3d(torch, shape, logical, seed=99)
+        npts = shape[0] * shape[1] * shape[2]
         for kname, cases in kernel_calls_3d(c3, u, bb, h, logical).items():
             label, kern, twin = cases[-1]
             t = (median_ms(torch, kern, runs=10),
                  median_ms(torch, twin, runs=10))
-            times.setdefault(kname, {})[shape[0]] = t
-            print(f"[time] {kname} {label} at {shape[0]}^3: kernel "
-                  f"{t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us  ({card})")
+            per = STENCIL_COST[kname]
+            add_time(kname, label, record(
+                "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
+                per[1] * npts))
         del u, bb
         torch.cuda.empty_cache()
+    # bench.py's measure_ell_spmm: 4 vectors on banded_csr(2**20), against
+    # 4 SpMV launches and one cuSPARSE CSR product
+    lib = csr_library(torch, banded)
+    cols = [X0[:, j].contiguous() for j in range(SPMM_NVEC)]
+    t_k = median_ms(torch, lambda: E_b.spmm(X0))
+    t_p = median_ms(torch, lambda: cv.ell_spmm_plain(E_b.colsT, E_b.valsT,
+                                                     X0), runs=10)
+    t_4 = median_ms(torch, lambda: [E_b.spmv(c) for c in cols])
+    t_l = median_ms(torch, lambda: lib @ X0)
+    nbytes, flops = ell_cost("ell_spmm", E_b, SPMM_NVEC)
+    rec = record(f"{SPMM_N} rows x {SPMM_NVEC} vectors (banded_csr, K "
+                 f"{E_b.k})", t_k, t_p, nbytes, flops, t_l,
+                 spmv_calls_ms=t_4,
+                 effective_nnz_per_s=E_b.nnz_dense * SPMM_NVEC / (t_k * 1e-3))
+    add_time("ell_spmm", f"{SPMM_NVEC} vectors", rec,
+             f"; {SPMM_NVEC} spmv launches {t_4 * 1e3:.1f} us; "
+             f"{rec['effective_nnz_per_s']:.4g} effective nnz/s "
+             "(bench.py's count)")
+    del lib, cols, E_b, X0
+    torch.cuda.empty_cache()
+
+    # the 1025^2 and 8193^2 solves, unfused (U) and fused (F), in the order
+    # U F F U U F: median of 3 each, after one warm run of each
+    for tag, pair, iters in [
+            ("1025^2", (solver, fsolver, b), res.iterations),
+            ("8193^2", (big, big_f, big_b), big_res[0][0].iterations)]:
+        su, sf, bvec = pair
+        fns = {"unfused": lambda su=su, bvec=bvec: su.solve_refined(bvec),
+               "fuse_downleg": lambda sf=sf, bvec=bvec: sf.solve_refined(bvec)}
+        walls = {k: [] for k in fns}
+        for k in fns:
+            fns[k]()
+        for k in ("unfused", "fuse_downleg", "fuse_downleg", "unfused",
+                  "unfused", "fuse_downleg"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[k]()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+            check(out.iterations == iters, f"timed {tag} {k} differs")
+        for k, w in walls.items():
+            print(f"[time] solve_refined {tag} {k}: median wall "
+                  f"{statistics.median(w) * 1e3:.2f} ms over 3 "
+                  f"({[round(x * 1e3, 2) for x in w]} ms, alternating), "
+                  f"{iters} iterations  ({card})")
     walls_3d = [(f"solve_refined 3D {tag}",
                  lambda s3=s3, b3=b3: s3.solve_refined(b3), res3.iterations)
                 for tag, (s3, b3, res3) in paths3d.items()]
     for tag, fn, iters in [
-            ("solve_refined 1025^2", lambda: solver.solve_refined(b),
-             res.iterations),
-            ("solve_refined 8193^2", lambda: big.solve_refined(big_b),
-             big_res[0].iterations),
             ("solve_refined 8193^2 inner_cg=4",
              lambda: big.solve_refined(big_b, inner_cg=4),
-             big_res[4].iterations),
+             big_res[4][0].iterations),
             ("solve_refined 1025^2 jacobi", lambda: jac.solve_refined(b),
              res_jac.iterations)] + walls_3d:
         med, walls, out = median_wall(torch, fn)
@@ -1113,28 +1611,38 @@ def main() -> int:
         print(f"[time] {tag}: median wall {med * 1e3:.2f} ms over 3 "
               f"({[round(w * 1e3, 2) for w in walls]} ms), {iters} "
               f"iterations  ({card})")
-    print(f"[time] 1025^2 solve: {main_launches} kernel launches "
-          f"(wrapper counts)")
+    print(f"[time] 1025^2 solve: {main_launches} kernel launches, "
+          f"{fused_launches} with fuse_downleg (wrapper counts)")
+    for tag, s in (("unfused", solver), ("fuse_downleg", fsolver)):
+        try:
+            wall, busy, nev, top = profile_run(
+                torch, lambda s=s: s.solve_refined(b))
+        except Exception as exc:  # the trace is a measurement aid only
+            print(f"[profile] 1025^2 {tag}: not measured ({exc!r})")
+            continue
+        print(f"[profile] 1025^2 solve_refined {tag}: {nev} device ops, "
+              f"device busy {busy * 1e3:.2f} ms = "
+              f"{busy / max(wall, 1e-12):.1%} of the profiled wall "
+              f"{wall * 1e3:.2f} ms  ({card})")
+        for kname, (us, cnt) in top[:6]:
+            print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  {kname[:90]}")
     time_amg(torch, amg_ctx, card, times)
     phases.next(None)
     print(f"[time] chip_smoke total {time.perf_counter() - phases.t_start:.1f}"
           " s")
 
     def timing(k):
-        if k in KERNELS_AMG:
-            small, large = AMG_TIME_NS
-            return {"ms": times[k][small][0], "plain_ms": times[k][small][1],
-                    "ms_at": f"{small * small} rows (FD {small}^2, RCM)",
-                    "large_at": f"{large * large} rows (FD {large}^2)",
-                    "ms_large": times[k][large][0],
-                    "plain_ms_large": times[k][large][1]}
-        shapes = TIME_SHAPES_3D if k in KERNELS_3D else TIME_SHAPES
-        small, large = (shape for shape, _ in shapes)
-        at = "x".join(map(str, small))
-        return {"ms": times[k][small[0]][0], "plain_ms": times[k][small[0]][1],
-                "ms_at": at, "large_at": "x".join(map(str, large)),
-                "ms_large": times[k][large[0]][0],
-                "plain_ms_large": times[k][large[0]][1]}
+        """The kernel's first timed shape at the top level, the others
+        under ``more``."""
+        first, *rest = times[k]
+        out = {key: first[key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+        out["ms_at"] = first["at"]
+        out.update({key: v for key, v in first.items()
+                    if key not in out and key != "at"})
+        if rest:
+            out["more"] = rest
+        return out
 
     print(card)
     print(json.dumps({"kernels": [

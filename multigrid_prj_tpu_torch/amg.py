@@ -555,7 +555,8 @@ def chebyshev_smooth(level: AMGLevel, x, b, degree: int = 3,
 class AMGSolver:
     """Classical AMG: host setup, solve on a torch device.
 
-    Parameters mirror the JAX ``AMGSolver``, plus ``device``; ``use_pallas``
+    Parameters mirror the JAX ``AMGSolver``, plus ``device`` (default the
+    card; ``device="cpu"`` for the CPU); ``use_pallas``
     keeps its JAX meaning (route the f32 level operators and the float-float
     residual through the kernel functions) and defaults to True on CUDA.  On
     the CPU, ``use_pallas=True`` runs the kernels' torch twins.
@@ -577,7 +578,7 @@ class AMGSolver:
         use_pallas: bool | None = None,
         reorder: str = "auto",  # "rcm" | "none" | "auto" (rcm iff kernels)
         pallas_min_rows: int = 4096,
-        device="cpu",
+        device="cuda",
     ):
         self._configure(theta, smoother, cheb_degree, dtype, use_pallas,
                         pallas_min_rows, device)
@@ -612,7 +613,7 @@ class AMGSolver:
     def from_hierarchy(cls, host_matrices, host_P, perm=None, lmax=None,
                        bottom_inv=None, rhs=None, theta=THETA_DEFAULT,
                        smoother="auto", cheb_degree=3, dtype=None,
-                       use_pallas=None, pallas_min_rows=4096, device="cpu"):
+                       use_pallas=None, pallas_min_rows=4096, device="cuda"):
         """A solver on a hierarchy set up elsewhere (``convert.py``): the
         host operators and prolongations in the internal (permuted) frame,
         the permutation, per-level ``lmax`` estimates (0 or None where not

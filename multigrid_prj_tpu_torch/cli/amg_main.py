@@ -8,9 +8,10 @@ Dirichlet lifting, run AMG, export ``output.vtu`` — but with a real CLI
 V-cycle iteration to tolerance in place of the reference's single sawtooth
 pass (available via ``--reference-pass``).
 
-The device is CUDA when a card is present, else the CPU (as the JAX CLI
-takes the default backend); ``-precision auto`` is f64 on the CPU and ff32
-(f32 cycles, float-float outer residuals) on CUDA.
+The device is the card (``-device cuda``, the default) unless ``-device
+cpu`` asks for the CPU; without a card and without ``-device cpu`` the CLI
+fails and says so.  ``-precision auto`` is f64 on the CPU and ff32 (f32
+cycles, float-float outer residuals) on CUDA.
 
 Usage:
   python -m multigrid_prj_tpu_torch.cli.amg_main -mesh mesh1.msh -levels 5
@@ -76,6 +77,9 @@ def main(argv=None) -> int:
                    help="auto = f64 on the CPU, ff32 iterative refinement "
                         "on CUDA; f32 = plain single precision (residual "
                         "floor ~eps_f32 * kappa)")
+    p.add_argument("-device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the solver runs: the card unless asked for "
+                        "the CPU")
     p.add_argument("-o", default="output.vtu")
     p.add_argument("--reference-pass", action="store_true",
                    help="run ONE reference-style sawtooth pass (10/200/10 GS "
@@ -86,6 +90,7 @@ def main(argv=None) -> int:
     import torch
 
     from multigrid_prj_tpu_torch.amg import AMGSolver
+    from multigrid_prj_tpu_torch.cli.gmg_main import NO_CARD
     from multigrid_prj_tpu_torch.models.fem import (
         assemble_p1,
         assemble_p2,
@@ -98,7 +103,10 @@ def main(argv=None) -> int:
         parse_msh,
     )
 
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = args.device
+    if device == "cuda" and not torch.cuda.is_available():
+        print(NO_CARD)
+        return 1
     use_f64 = args.precision == "f64" or (args.precision == "auto"
                                           and device == "cpu")
     t0 = time.perf_counter()

@@ -1,11 +1,12 @@
 """GMG command-line driver (port of ``multigrid_prj_tpu/cli/gmg_main.py``).
 
-Reference flags ``-n -a -w -ml -test -smt`` plus ``-cycle -tol -pad``; the
-outer loop runs to ``TOL = 1e-11`` / 1000 iterations; prints the
-``||``-prefixed timing line and writes ``MGGS4.txt`` and ``x.mtx``.
+Reference flags ``-n -a -w -ml -test -smt`` plus ``-cycle -tol -pad
+-device``; the outer loop runs to ``TOL = 1e-11`` / 1000 iterations; prints
+the ``||``-prefixed timing line and writes ``MGGS4.txt`` and ``x.mtx``.
 
-The device is CUDA when a card is present, else the CPU (as the JAX CLI
-takes the default backend).  Auto dtype is f64 on the CPU and f32 on CUDA,
+The device is the card (``-device cuda``, the default) unless ``-device
+cpu`` asks for the CPU; without a card and without ``-device cpu`` the CLI
+fails and says so.  Auto dtype is f64 on the CPU and f32 on CUDA,
 where the tolerance is raised to at least 1e-6.  ``-smt 1`` runs the Jacobi
 smoother; ``-smt 2`` runs BiCGSTAB on the plain operator apply, preconditioned
 by one multigrid step, exactly as the JAX CLI does (which also fails with
@@ -21,6 +22,9 @@ import time
 
 import torch
 
+NO_CARD = ("Error: no CUDA device found; the solver runs on the card unless "
+           "asked for the CPU: run with -device cpu")
+
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -32,7 +36,10 @@ def main(argv=None) -> int:
     from multigrid_prj_tpu_torch.utils.io import save_history, save_vector
 
     cfg = parse_gmg_args(argv)
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = cfg.device
+    if device == "cuda" and not torch.cuda.is_available():
+        print(NO_CARD)
+        return 1
     dtype = cfg.dtype
     if dtype == "auto":
         dtype = "float64" if device == "cpu" else "float32"

@@ -38,20 +38,22 @@ _CONFIG_KEYS = ("length", "alpha", "tol", "maxit", "nu", "pre_sweeps",
                 "cycle", "coarse_tol", "coarse_maxit")
 
 
-def solver_state_from_numpy(state: dict, device="cpu", smoother: str = "gs",
+def solver_state_from_numpy(state: dict, device="cuda", smoother: str = "gs",
                             use_pallas: bool | None = None,
                             omega: float = 1.0,
-                            smoother_dtype: torch.dtype | None = None
-                            ) -> GMGSolver:
-    """A port ``GMGSolver`` whose levels, coarse inverse and scalar config
-    are those in ``state`` (keys: ``levels`` as ``(shape, h, level,
-    padded_shape)`` tuples, 2D or 3D, ``coarse_inv`` as a numpy array or
-    None -- None when the coarsest level is above the dense inverse's
-    cap -- and the scalar config keys of the JAX solver).  ``smoother`` and
-    ``omega`` are given separately, since the JAX solver keeps them only
-    inside its smoother, and so is ``smoother_dtype``, a torch dtype where
-    the JAX solver holds a jax one.  Raises ``ValueError`` if the levels
-    are not the hierarchy the port builds for the same shape."""
+                            smoother_dtype: torch.dtype | None = None,
+                            fuse_downleg: bool = False) -> GMGSolver:
+    """A port ``GMGSolver`` (on ``device``, the card unless the caller names
+    another) whose levels, coarse inverse and scalar config are those in
+    ``state`` (keys: ``levels`` as ``(shape, h, level, padded_shape)``
+    tuples, 2D or 3D, ``coarse_inv`` as a numpy array or None -- None when
+    the coarsest level is above the dense inverse's cap -- and the scalar
+    config keys of the JAX solver).  ``smoother``, ``omega`` and
+    ``fuse_downleg`` are given separately, since the JAX solver keeps them
+    only inside its smoother and its down-leg hook, and so is
+    ``smoother_dtype``, a torch dtype where the JAX solver holds a jax one.
+    Raises ``ValueError`` if the levels are not the hierarchy the port
+    builds for the same shape."""
     levels = [GridLevel(tuple(int(s) for s in shape), float(h), int(level),
                         None if padded is None else tuple(int(p) for p in padded))
               for shape, h, level, padded in state["levels"]]
@@ -60,7 +62,8 @@ def solver_state_from_numpy(state: dict, device="cpu", smoother: str = "gs",
                        smoother=smoother, omega=omega,
                        smoother_dtype=smoother_dtype,
                        pad_align=lev0.padded_shape,
-                       use_pallas=use_pallas, coarse="none", device=device,
+                       use_pallas=use_pallas, coarse="none",
+                       fuse_downleg=fuse_downleg, device=device,
                        **{k: state[k] for k in _CONFIG_KEYS})
     if solver.levels != levels:
         raise ValueError(f"levels {levels} differ from the port's hierarchy "
@@ -72,8 +75,10 @@ def solver_state_from_numpy(state: dict, device="cpu", smoother: str = "gs",
     return solver
 
 
-def amg_solver_from_numpy(state: dict, device="cpu", **solver_kw) -> AMGSolver:
-    """A port ``AMGSolver`` on the hierarchy in ``state`` (keys:
+def amg_solver_from_numpy(state: dict, device="cuda",
+                          **solver_kw) -> AMGSolver:
+    """A port ``AMGSolver`` on ``device`` (the card unless the caller names
+    another) on the hierarchy in ``state`` (keys:
     ``host_matrices`` and ``host_P`` as ``(indptr, indices, data, shape)``
     tuples in the solver's internal frame, ``perm`` (the RCM permutation or
     None), ``lmax`` (per level, 0 where not estimated) and ``bottom_inv``,

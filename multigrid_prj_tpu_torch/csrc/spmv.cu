@@ -1,5 +1,5 @@
 // ELL sparse matrix-vector kernels for Hopper (sm_90a): the SpMV and the
-// float-float residual of the AMG solve.
+// float-float residual of the AMG solve, and the block product A X.
 //
 // Ports of the Pallas TPU kernels in multigrid_prj_tpu/ops/pallas_spmv.py:
 //   ell_spmv         <- PallasELL.spmv2d (_spmv_kernel, _spmv_compact_kernel,
@@ -7,6 +7,7 @@
 //                       (_spmv_kernel)
 //   ell_ff_residual  <- PallasELL.residual_ff (_ffres_kernel,
 //                       _ffres_compact_kernel)
+//   ell_spmm         <- PallasELL.spmm / spmm2d (_spmm_kernel)
 //
 // Layout: one slot-major ELL serves every matrix (square A, rectangular P
 // and P^T; RCM-ordered or not).  colsT (K, n) int32 holds absolute column
@@ -29,7 +30,8 @@
 // Bound: memory.  The SpMV streams 8 B per slot (value and column id) plus
 // the x gather (L2-resident for the banded matrices of the AMG path) and
 // 4 B per row written; 2 flops per slot.  The ff residual streams 12 B per
-// slot plus two gathers, ~30 flops per slot.  These are simple first
+// slot plus two gathers, ~30 flops per slot.  The SpMM streams the 8 B per
+// slot once for all its vectors.  These are simple first
 // versions: one thread per row, no shared-memory x tiles, no warp-per-row
 // for long coarse rows, no vector loads.
 
@@ -102,9 +104,47 @@ __global__ void ell_ff_residual_kernel(
   r[row] = __fadd_rn(acc_h, acc_l);
 }
 
+// Y = A X for a row-major (m, NV) block X, NV <= 8 (replaces _spmm_kernel):
+// one thread per row as ell_spmv_kernel, NV accumulators in registers, and
+// per slot one gather of the contiguous row X[col, 0:NV] (16 B at NV = 4).
+// Each column is ell_spmv_kernel's sum in the same order, so the result is
+// bit-equal to NV SpMVs.  Bytes: A once (8 B per slot) plus the gathered X
+// rows and Y, against NV x (A + x + y) for NV SpMVs.
+template <int NV>
+__global__ void ell_spmm_kernel(const int* __restrict__ colsT,
+                                const float* __restrict__ valsT,
+                                const float* __restrict__ X,
+                                float* __restrict__ Y, int n, int K) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float acc[NV];
+#pragma unroll
+  for (int v = 0; v < NV; ++v) acc[v] = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const long long p = (long long)k * n + row;
+    const float a = valsT[p];
+    const float* __restrict__ xr = X + (long long)colsT[p] * NV;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      acc[v] = __fadd_rn(acc[v], __fmul_rn(a, __ldg(&xr[v])));
+    }
+  }
+  float* __restrict__ yr = Y + (long long)row * NV;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) yr[v] = acc[v];
+}
+
 constexpr int kBlock = 256;
 
 int blocks_for(int n) { return (n + kBlock - 1) / kBlock; }
+
+template <int NV>
+int launch_spmm(const int* colsT, const float* valsT, const float* X,
+                float* Y, int n, int K, cudaStream_t stream) {
+  ell_spmm_kernel<NV><<<blocks_for(n), kBlock, 0, stream>>>(colsT, valsT, X,
+                                                            Y, n, K);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -128,6 +168,23 @@ int mg_ell_ff_residual(const int* colsT, const float* vhT, const float* vlT,
   ell_ff_residual_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(
       colsT, vhT, vlT, xh, xl, bh, bl, r, n, K);
   return (int)cudaGetLastError();
+}
+
+int mg_ell_spmm(const int* colsT, const float* valsT, const float* X,
+                float* Y, int n, int K, int nvec, void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (nvec) {
+    case 1: return launch_spmm<1>(colsT, valsT, X, Y, n, K, s);
+    case 2: return launch_spmm<2>(colsT, valsT, X, Y, n, K, s);
+    case 3: return launch_spmm<3>(colsT, valsT, X, Y, n, K, s);
+    case 4: return launch_spmm<4>(colsT, valsT, X, Y, n, K, s);
+    case 5: return launch_spmm<5>(colsT, valsT, X, Y, n, K, s);
+    case 6: return launch_spmm<6>(colsT, valsT, X, Y, n, K, s);
+    case 7: return launch_spmm<7>(colsT, valsT, X, Y, n, K, s);
+    case 8: return launch_spmm<8>(colsT, valsT, X, Y, n, K, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // 2D Poisson stencil and grid-transfer kernels for Hopper (sm_90a): every
-// kernel of the padded GMG V-cycle, its ff32 refinement, the inner_cg apply
-// and the Jacobi smoother, in this one source file.
+// kernel of the padded GMG V-cycle, its ff32 refinement and fused down-leg,
+// the inner_cg apply, the Jacobi smoother, the apply chain and the single
+// colour sweep, in this one source file.
 //
 // Ports of the Pallas TPU kernels in multigrid_prj_tpu/ops/pallas_stencil.py:
 //   rbgs_color  <- red_black_gauss_seidel (_rbgs_fused_kernel /
@@ -13,6 +14,12 @@
 //   restrict_fw <- restrict_fw_padded_fast (_fw_filter2d_kernel plus the
 //                  wrapper's decimation and edge fix-up)
 //   prolong_add <- prolong_add_padded_fast (_prolong_add_kernel)
+//   rbgs_resfilter   <- rbgs_residual_restrict (_rbgs_resfilter_kernel plus
+//                       the wrapper's decimation fw_decimate_padded)
+//   apply_chain      <- poisson_apply_chain (_apply_fused_kernel /
+//                       _apply_fused2d_kernel, shared body
+//                       _fused_apply_passes)
+//   rbgs_color_sweep <- rbgs_color_sweep (_rbgs_color_kernel)
 //
 // Layout: one thread per output point of a row-major f32 array, on a 2D grid
 // of blocks, with 64-bit offsets.  For the stencils (nl, ml) are the logical
@@ -32,7 +39,9 @@
 // Jacobi sweep (the TPU fuses up to 4 / 8 sweeps per memory pass) and no
 // shared-memory tiling.  Each kernel streams its operands from HBM once per
 // launch and is bound by memory bandwidth (bytes per point are noted at each
-// kernel).
+// kernel).  The two temporally fused kernels (rbgs_resfilter, apply_chain)
+// are the exception: they keep a halo tile in shared memory, described
+// above them.
 
 #include <cuda_runtime.h>
 
@@ -269,6 +278,240 @@ __global__ void prolong_add_kernel(const float* __restrict__ e,
   out[p] = __fadd_rn(u[p], v);
 }
 
+// One colour of Gauss-Seidel, out of place (u -> out), as _rbgs_color_kernel:
+// every boundary point (of either colour) gets b, interior points of this
+// colour (b / c + N + S + E + W) * 0.25 -- a true division, where the fused
+// smoothers multiply by 1/c -- and the other colour keeps u.  Out of place
+// because the pin of the other colour's boundary points would race with
+// this colour's neighbour reads in place.  12 B/point: read u and b, write
+// out.
+__global__ void rbgs_color_sweep_kernel(const float* __restrict__ u,
+                                        const float* __restrict__ b,
+                                        float* __restrict__ out, int n, int m,
+                                        int nl, int ml, float c, int color) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= n || j >= m) return;
+  const long long p = (long long)i * m + j;
+  if (is_boundary(i, j, nl, ml)) {
+    out[p] = b[p];
+    return;
+  }
+  if (((i + j) & 1) != color) {
+    out[p] = u[p];
+    return;
+  }
+  float s = __fdiv_rn(b[p], c);
+  s = __fadd_rn(s, u[p - m]);  // north
+  s = __fadd_rn(s, u[p + m]);  // south
+  s = __fadd_rn(s, u[p + 1]);  // east
+  s = __fadd_rn(s, u[p - 1]);  // west
+  out[p] = __fmul_rn(s, 0.25f);
+}
+
+// ---------------------------------------------------------------------------
+// Temporally fused kernels: one block per kTile x kTile core tile, whose
+// operands sit in shared memory with a halo of kHalo cells on each side.
+//
+// The ring argument of pallas_stencil.py (_rbgs_resfilter_kernel, :507-509;
+// _apply_fused_kernel, :875-882): a pass that updates a cell from its four
+// neighbours cannot update the tile's outermost ring (its neighbours are not
+// loaded), so each dependent pass leaves one more ring stale, counted from
+// the tile's edge.  After p passes rings 0 .. p-1 may be wrong and every
+// cell at distance >= p from the edge holds exactly what p separate launches
+// give.  The core starts kHalo cells in, so up to kHalo dependent passes
+// keep it exact.  Cells outside the array are loaded as 0 and never updated;
+// only boundary points (which read no neighbour) sit next to them, so no
+// interior point ever reads one.  Every op is the separate kernels' op in
+// the same order, so the core is bit-equal to them.
+//
+// Bound: memory.  The tile halo makes each block re-read (48/32)^2 = 2.25x
+// its core from L2 (HBM sees about the core once when neighbouring tiles'
+// halos hit L2); the passes themselves run in shared memory.  Larger or
+// rectangular tiles would cut the halo share; that is later tuning.
+constexpr int kTile = 32;
+constexpr int kHalo = 8;
+constexpr int kExt = kTile + 2 * kHalo;  // 48
+constexpr int kExt2 = kExt * kExt;
+constexpr int kFusedThreads = 256;
+
+__device__ __forceinline__ bool on_tile_edge(int li, int lj) {
+  return li == 0 || lj == 0 || li == kExt - 1 || lj == kExt - 1;
+}
+
+// Load the (kExt, kExt) tile of x whose cell (0, 0) is array point (i0, j0);
+// cells outside the array get 0.
+__device__ __forceinline__ void load_tile(float* __restrict__ s,
+                                          const float* __restrict__ x, int i0,
+                                          int j0, int n, int m) {
+  for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
+    const int i = i0 + q / kExt;
+    const int j = j0 + q % kExt;
+    s[q] = (i >= 0 && j >= 0 && i < n && j < m) ? x[(long long)i * m + j]
+                                                : 0.0f;
+  }
+}
+
+// Axis-0 pass of the restriction at local fine cell (li, lj) of the
+// residual tile s, for coarse row k: fw_rows on shared memory.
+__device__ __forceinline__ float fw_rows_tile(const float* __restrict__ s,
+                                              int li, int lj, int k,
+                                              int nc_r) {
+  const int p = li * kExt + lj;
+  if (k == 0 || k == nc_r - 1) return s[p];
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, s[p - kExt]),
+                             __fmul_rn(0.5f, s[p])),
+                   __fmul_rn(0.25f, s[p + kExt]));
+}
+
+// V-cycle down-leg in one pass (replaces _rbgs_resfilter_kernel and the
+// decimation fw_decimate_padded): `sweeps` (<= 3) red-black sweeps, the
+// residual of the result, and the full-weighting restriction, for a fine
+// (n, m) tile (n, m even) with logical extents (nl, ml).  Writes the core
+// of the smoothed u2 and the coarse points (k, q) whose fine point (2k, 2q)
+// lies in the core; no fine-size intermediate leaves the SM.
+//
+// Ring count: 2 per sweep, 1 for the residual, 1 for the filter:
+// 2*3 + 2 = 8 = kHalo.  The colour passes are rbgs_color_kernel's, in place
+// in shared memory (one colour reads only the other); the residual is
+// residual_kernel's, written over b (each cell reads only its own b); the
+// restriction is restrict_fw_kernel's per coarse point (rows first, edges
+// injected, dead zone 0), so the result equals smoother + residual +
+// restriction for every logical shape.  (The TPU kernel filtered every fine
+// point and zeroed the coarse edges in XLA, which equals this when the
+// smoothed residual is 0 on the logical boundary, as it is for the odd
+// logical extents of the 2^k+1 hierarchies.)
+//
+// 13 B per fine point: read u and b, write u2 and a quarter-size rc
+// (the composition it replaces moves about 65 B: 4 colour launches, the
+// clone, the residual and the restriction).
+__global__ void __launch_bounds__(kFusedThreads)
+    rbgs_resfilter_kernel(const float* __restrict__ u,
+                          const float* __restrict__ b, float* __restrict__ u2,
+                          float* __restrict__ rc, int n, int m, int nl, int ml,
+                          float inv_c, float c, int sweeps) {
+  __shared__ float su[kExt2];
+  __shared__ float sb[kExt2];  // b, then the residual
+  const int i0 = blockIdx.y * kTile - kHalo;
+  const int j0 = blockIdx.x * kTile - kHalo;
+  load_tile(su, u, i0, j0, n, m);
+  load_tile(sb, b, i0, j0, n, m);
+  __syncthreads();
+  for (int s = 0; s < sweeps; ++s) {
+    for (int color = 0; color < 2; ++color) {
+      for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
+        const int li = q / kExt, lj = q % kExt;
+        const int i = i0 + li, j = j0 + lj;
+        if (i < 0 || j < 0 || i >= n || j >= m || on_tile_edge(li, lj) ||
+            ((i + j) & 1) != color) {
+          continue;
+        }
+        if (is_boundary(i, j, nl, ml)) {
+          su[q] = sb[q];
+          continue;
+        }
+        float t = __fmul_rn(sb[q], inv_c);
+        t = __fadd_rn(t, su[q - kExt]);  // north
+        t = __fadd_rn(t, su[q + kExt]);  // south
+        t = __fadd_rn(t, su[q + 1]);     // east
+        t = __fadd_rn(t, su[q - 1]);     // west
+        su[q] = __fmul_rn(t, 0.25f);
+      }
+      __syncthreads();
+    }
+  }
+  for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
+    const int li = q / kExt, lj = q % kExt;
+    const int i = i0 + li, j = j0 + lj;
+    if (i < 0 || j < 0 || i >= n || j >= m || on_tile_edge(li, lj)) continue;
+    const float uc = su[q];
+    float a = uc;
+    if (!is_boundary(i, j, nl, ml)) {
+      float t = __fmul_rn(4.0f, uc);
+      t = __fsub_rn(t, su[q - kExt]);  // north
+      t = __fsub_rn(t, su[q + kExt]);  // south
+      t = __fsub_rn(t, su[q + 1]);     // east
+      t = __fsub_rn(t, su[q - 1]);     // west
+      a = __fmul_rn(c, t);
+    }
+    sb[q] = __fsub_rn(sb[q], a);
+  }
+  __syncthreads();
+  for (int q = threadIdx.x; q < kTile * kTile; q += kFusedThreads) {
+    const int li = kHalo + q / kTile, lj = kHalo + q % kTile;
+    const int i = i0 + li, j = j0 + lj;
+    if (i < n && j < m) u2[(long long)i * m + j] = su[li * kExt + lj];
+  }
+  constexpr int kHalf = kTile / 2;
+  const int mc = m / 2;
+  const int nc_r = (nl + 1) / 2, nc_c = (ml + 1) / 2;
+  for (int q = threadIdx.x; q < kHalf * kHalf; q += kFusedThreads) {
+    const int kk = q / kHalf, qq = q % kHalf;
+    const int k = blockIdx.y * kHalf + kk;
+    const int qc = blockIdx.x * kHalf + qq;
+    if (k >= n / 2 || qc >= mc) continue;
+    const long long o = (long long)k * mc + qc;
+    if (k >= nc_r || qc >= nc_c) {
+      rc[o] = 0.0f;
+      continue;
+    }
+    const int li = kHalo + 2 * kk, lj = kHalo + 2 * qq;  // fine (2k, 2qc)
+    if (qc == 0 || qc == nc_c - 1) {
+      rc[o] = fw_rows_tile(sb, li, lj, k, nc_r);
+      continue;
+    }
+    const float w = fw_rows_tile(sb, li, lj - 1, k, nc_r);
+    const float ce = fw_rows_tile(sb, li, lj, k, nc_r);
+    const float e = fw_rows_tile(sb, li, lj + 1, k, nc_r);
+    rc[o] = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, w), __fmul_rn(0.5f, ce)),
+                      __fmul_rn(0.25f, e));
+  }
+}
+
+// y = A^applies u (applies <= kHalo = 8) in one pass, replacing
+// _apply_fused_kernel / _apply_fused2d_kernel: apply_kernel's expression
+// per apply, the Dirichlet identity rows replayed on every apply, the
+// applies ping-ponging two shared buffers; only the core is written.
+// 8 B per point per call of up to 8 applies (8 B per point per apply as
+// separate launches).
+__global__ void __launch_bounds__(kFusedThreads)
+    apply_chain_kernel(const float* __restrict__ u, float* __restrict__ y,
+                       int n, int m, int nl, int ml, float c, int applies) {
+  __shared__ float sx[2][kExt2];
+  const int i0 = blockIdx.y * kTile - kHalo;
+  const int j0 = blockIdx.x * kTile - kHalo;
+  load_tile(sx[0], u, i0, j0, n, m);
+  __syncthreads();
+  int cur = 0;
+  for (int a = 0; a < applies; ++a) {
+    const float* __restrict__ x = sx[cur];
+    float* __restrict__ z = sx[cur ^ 1];
+    for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
+      const int li = q / kExt, lj = q % kExt;
+      const int i = i0 + li, j = j0 + lj;
+      const float xc = x[q];
+      float out = xc;  // identity rows, the stale ring, outside the array
+      if (i >= 0 && j >= 0 && i < n && j < m && !on_tile_edge(li, lj) &&
+          !is_boundary(i, j, nl, ml)) {
+        float t = __fmul_rn(4.0f, xc);
+        t = __fsub_rn(t, x[q - kExt]);  // north
+        t = __fsub_rn(t, x[q + kExt]);  // south
+        t = __fsub_rn(t, x[q + 1]);     // east
+        t = __fsub_rn(t, x[q - 1]);     // west
+        out = __fmul_rn(c, t);
+      }
+      z[q] = out;
+    }
+    __syncthreads();
+    cur ^= 1;
+  }
+  for (int q = threadIdx.x; q < kTile * kTile; q += kFusedThreads) {
+    const int li = kHalo + q / kTile, lj = kHalo + q % kTile;
+    const int i = i0 + li, j = j0 + lj;
+    if (i < n && j < m) y[(long long)i * m + j] = sx[cur][li * kExt + lj];
+  }
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -333,6 +576,34 @@ int mg_prolong_add(const float* e, const float* u, float* out, int pc_r,
                    int pc_c, void* stream) {
   prolong_add_kernel<<<grid_for(2 * pc_r, 2 * pc_c), dim3(kBlockX, kBlockY), 0,
                        (cudaStream_t)stream>>>(e, u, out, pc_r, pc_c);
+  return (int)cudaGetLastError();
+}
+
+int mg_rbgs_color_sweep(const float* u, const float* b, float* out, int n,
+                        int m, int nl, int ml, float c, int color,
+                        void* stream) {
+  rbgs_color_sweep_kernel<<<grid_for(n, m), dim3(kBlockX, kBlockY), 0,
+                            (cudaStream_t)stream>>>(u, b, out, n, m, nl, ml, c,
+                                                    color);
+  return (int)cudaGetLastError();
+}
+
+int mg_rbgs_resfilter(const float* u, const float* b, float* u2, float* rc,
+                      int n, int m, int nl, int ml, float inv_c, float c,
+                      int sweeps, void* stream) {
+  if (sweeps < 0 || 2 * sweeps + 2 > kHalo) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
+  rbgs_resfilter_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+      u, b, u2, rc, n, m, nl, ml, inv_c, c, sweeps);
+  return (int)cudaGetLastError();
+}
+
+int mg_apply_chain(const float* u, float* y, int n, int m, int nl, int ml,
+                   float c, int applies, void* stream) {
+  if (applies < 1 || applies > kHalo) return (int)cudaErrorInvalidValue;
+  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
+  apply_chain_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+      u, y, n, m, nl, ml, c, applies);
   return (int)cudaGetLastError();
 }
 

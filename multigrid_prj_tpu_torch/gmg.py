@@ -16,15 +16,16 @@ Python loops that fetch one scalar per outer iteration (the residual norm
 that goes into ``history``).  History semantics are the same: entry 0 is the
 initial residual, and the loop stops at ``tol`` or ``maxit``.
 
-Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there.
-With ``use_pallas`` (the default on CUDA) the smoothers, residuals, padded
-grid transfers and the ``inner_cg`` operator apply run through the
-hand-written kernels of ``ops/cuda_stencil.py`` (3D: ``ops/cuda_stencil_3d.py``
-for the smoothers, residual and apply; the 3D transfers and float-float
-residual are plain ops, as in the JAX package).  As in the JAX kernel
-wrappers, a cycle in a dtype narrower than f32 runs the plain ops.  What the
-kernels do not cover raises ``NotImplementedError`` naming its ROADMAP.md
-item.
+Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there,
+on the card unless the caller names another device.  With ``use_pallas``
+(the default on CUDA) the smoothers, residuals, padded grid transfers, the
+fused down-leg (``fuse_downleg``) and the ``inner_cg`` operator apply run
+through the hand-written kernels of ``ops/cuda_stencil.py`` (3D:
+``ops/cuda_stencil_3d.py`` for the smoothers, residual and apply; the 3D
+transfers and float-float residual are plain ops, as in the JAX package).
+As in the JAX kernel wrappers, which take float32 only, a cycle or residual
+in any other dtype (f64, or the bf16 ``smoother_dtype`` cycle) runs the
+plain ops on every device and launches nothing.
 """
 
 from __future__ import annotations
@@ -236,11 +237,17 @@ class GMGSolver:
     """Geometric multigrid solver for the Dirichlet Poisson problem.
 
     Parameters mirror the JAX ``GMGSolver`` (and through it the reference
-    CLI), plus ``device``.  ``use_pallas`` keeps its JAX meaning -- route
-    the smoother, residuals, padded transfers and ``inner_cg`` apply through
-    the kernel functions -- and defaults to True on CUDA and False on the
-    CPU.  On the CPU, ``use_pallas=True`` runs the kernels' torch twins;
-    ``False`` runs the XLA-order plain ops on any device.
+    CLI), plus ``device`` (default the card; ``device="cpu"`` for the CPU).
+    ``use_pallas`` keeps its JAX meaning -- route the smoother, residuals,
+    padded transfers and ``inner_cg`` apply through the kernel functions --
+    and defaults to True on CUDA and False on the CPU.  On the CPU,
+    ``use_pallas=True`` runs the kernels' torch twins; ``False`` runs the
+    XLA-order plain ops on any device.  ``fuse_downleg`` (with
+    ``use_pallas``, ``smoother="gs"`` and ``omega=1``) runs each padded
+    level's pre-smoothing, residual and restriction as one
+    ``rbgs_residual_restrict`` call, bit-equal to the three separate ones;
+    that kernel is 2D, as the JAX one is, so a 3D solver keeps the separate
+    ops.
     """
 
     def __init__(
@@ -263,7 +270,7 @@ class GMGSolver:
         use_pallas: bool | None = None,
         coarse: str = "direct",
         fuse_downleg: bool = False,
-        device="cpu",
+        device="cuda",
     ):
         self.device = torch.device(device)
         self.levels = build_hierarchy(shape, length, num_levels,
@@ -280,10 +287,6 @@ class GMGSolver:
         if use_pallas is None:
             use_pallas = self.device.type == "cuda"
         self._use_pallas = bool(use_pallas)
-        if self._use_pallas and fuse_downleg:
-            raise NotImplementedError(
-                "fuse_downleg needs the rbgs_residual_restrict kernel: "
-                "ROADMAP.md queue B item 7")
         self.smoother_dtype = smoother_dtype
         self._plain_smoother = make_smoother(smoother, omega=omega)
         self.smoother = self._plain_smoother
@@ -320,6 +323,15 @@ class GMGSolver:
             # points, a TPU measurement that does not carry over)
             self._restrict_padded_fn = _cs.restrict_fw_padded_fast
             self._prolong_add_fn = _cs.prolong_add_padded_fast
+            if fuse_downleg and smoother == "gs" and omega == 1.0:
+                def _downleg(u, b, lev, nxt, nu1):
+                    u2, rc = _cs.rbgs_residual_restrict(
+                        u, b, self.alpha, lev.h, nu1, lev.shape)
+                    if nxt.padded_shape is None:
+                        rc = crop_to(rc, nxt.shape)
+                    return u2, rc
+
+                self._downleg_fn = _downleg
         # direct bottom solve: dense inverse of the coarsest operator, built
         # once in f64 on the host and kept on the device (f64); solves use a
         # copy cast to their dtype
@@ -381,25 +393,29 @@ class GMGSolver:
 
         return apply_inv
 
+    def _on_kernels(self, dtype) -> bool:
+        """Whether work in ``dtype`` takes the kernel route: the JAX kernel
+        wrappers take float32 only and send every other dtype (f64, the
+        bf16 ``smoother_dtype`` cycle) to XLA ops (``_is_supported``), so
+        here such work runs the plain ops on every device and launches
+        nothing."""
+        return self._use_pallas and dtype == torch.float32
+
     def _smoother_for(self, dtype):
-        """The smoother for a cycle in ``dtype``: the JAX kernel wrappers
-        take f32 only and run a narrower dtype (the ``smoother_dtype``
-        cycle) as XLA ops, so such a cycle runs the plain ops here and
-        launches nothing.  f64 stays on the kernel route, whose wrappers
-        refuse it off the CPU (ROADMAP.md queue A item 9a)."""
-        if torch.finfo(dtype).bits < 32:
-            return self._plain_smoother
-        return self.smoother
+        """The smoother for a cycle in ``dtype`` (see :meth:`_on_kernels`)."""
+        if self._on_kernels(dtype):
+            return self.smoother
+        return self._plain_smoother
 
     def _cycle(self, u, b, cinv=None):
         smoother = self._smoother_for(u.dtype)
-        if smoother is self._plain_smoother:
-            hooks = dict(residual=poisson_residual,
-                         padded_restrict=restrict_fw_padded)
-        else:
+        if self._on_kernels(u.dtype):
             hooks = dict(residual=self._residual_fn, downleg=self._downleg_fn,
                          padded_restrict=self._restrict_padded_fn,
                          prolong_add=self._prolong_add_fn)
+        else:
+            hooks = dict(residual=poisson_residual,
+                         padded_restrict=restrict_fw_padded)
         hooks.update(nu1=self.pre_sweeps, nu2=self.nu,
                      coarse_apply=self._coarse_apply_of(cinv))
         if self.cycle == "sawtooth":
@@ -433,13 +449,15 @@ class GMGSolver:
                              f"{phys}, got u {tuple(u.shape)} and b "
                              f"{tuple(b.shape)}")
         if self.smoother_dtype is not None:
-            r = self._residual_fn(u, b, self.alpha, self.levels[0].h,
-                                  self._logical0)
+            residual = (self._residual_fn if self._on_kernels(u.dtype)
+                        else poisson_residual)
+            r = residual(u, b, self.alpha, self.levels[0].h, self._logical0)
             e = self._error_cycle(r.to(self.smoother_dtype), cinv)
             return u + e.to(u.dtype)
         if self.cycle == "sawtooth":
-            u = self.smoother(u, b, self.alpha, self.levels[0].h,
-                              self.pre_sweeps, logical_shape=self._logical0)
+            u = self._smoother_for(u.dtype)(u, b, self.alpha,
+                                            self.levels[0].h, self.pre_sweeps,
+                                            logical_shape=self._logical0)
         return self._cycle(u, b, cinv)
 
     def _error_cycle(self, r, cinv=None):
@@ -507,10 +525,14 @@ class GMGSolver:
         d_hi, d_lo = ff_from_div(b, c)
         b2 = norm2(b)
         cinv = self._coarse_inv_as(b.dtype)
+        on_kernels = self._on_kernels(b.dtype)
+        ff_residual = (self._ff_residual_fn if on_kernels
+                       else _ff_residual_plain)
+        apply_op = self._apply_fn if on_kernels else poisson_apply
 
         def residual(u_hi, u_lo):
-            return self._ff_residual_fn(u_hi, u_lo, d_hi, d_lo, b, self.alpha,
-                                        h0, self._logical0)
+            return ff_residual(u_hi, u_lo, d_hi, d_lo, b, self.alpha, h0,
+                               self._logical0)
 
         def rel(r):
             return float(torch.sqrt(norm2(r) / b2))
@@ -524,8 +546,7 @@ class GMGSolver:
                 # operator, and A and the cycle preserve that subspace: run
                 # CG there and solve the identity rows directly
                 e, _, _, _ = cg_arrays(
-                    lambda v: self._apply_fn(v, self.alpha, h0,
-                                             self._logical0),
+                    lambda v: apply_op(v, self.alpha, h0, self._logical0),
                     r.masked_fill(bmask, 0.0), tol=0.0, maxit=inner_cg,
                     M=lambda rr: self._error_cycle(rr, cinv))
                 return torch.where(bmask, r, e)
@@ -561,8 +582,9 @@ class GMGSolver:
         b = self._input(b, "b")
         check_finite(b, "rhs b")
         if fmg_start and u0 is None:
-            u0 = fmg(self._padded(b), self.levels, self.alpha, self.smoother,
-                     nu1=self.pre_sweeps, nu2=self.nu)
+            u0 = fmg(self._padded(b), self.levels, self.alpha,
+                     self._smoother_for(b.dtype), nu1=self.pre_sweeps,
+                     nu2=self.nu)
         u0 = torch.zeros_like(b) if u0 is None else self._input(u0, "u0")
         # the bottom solve runs in the cycle's dtype: the defect-correction
         # cycle's is smoother_dtype (one cast from the f64 inverse)

@@ -50,6 +50,11 @@ _SIGNATURES = {
     "mg_ell_spmv": [_vp, _vp, _vp, _vp, _i, _i, _vp],
     "mg_ell_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                            _vp],
+    "mg_rbgs_color_sweep": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_rbgs_resfilter": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _i,
+                          _vp],
+    "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
 }
 
 

@@ -8,8 +8,10 @@ match the reference's table:
             ``g = sin(30 r)``, ``r = sqrt(x^2 + y^2)``
 Out-of-range indices fall back to test 0 with a warning.  ``f`` is sampled
 at interior nodes, ``g`` at boundary nodes, with ``coord(i, j) = (j h,
-L - i h)``.  Tensors are made on the given ``device`` in the given ``dtype``.
-``poisson_fd_csr`` builds the 5-point FD matrix of the AMG path on the host.
+L - i h)``.  Tensors are made on the given ``device`` (the card unless the
+caller names another) in the given ``dtype``.  ``poisson_fd_csr`` builds the
+5-point FD matrix of the AMG path on the host, ``banded_csr`` the banded
+matrix of the SpMV / SpMM benchmarks.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ def get_test_functions(i: int) -> tuple[Callable, Callable]:
 
 
 def grid_coords(shape: Sequence[int], length: float,
-                dtype=torch.float32, device="cpu"):
+                dtype=torch.float32, device="cuda"):
     """Node coordinates: 2D ``x[i, j] = j h``, ``y[i, j] = L - i h``; 3D
     adds ``z[k] = L - k h`` on the leading axis."""
     shape = tuple(int(s) for s in shape)
@@ -87,7 +89,7 @@ def grid_coords(shape: Sequence[int], length: float,
 
 def assemble_rhs(level: GridLevel, length: float, test: int = 1,
                  f: Callable | None = None, g: Callable | None = None,
-                 dtype=torch.float32, device="cpu") -> torch.Tensor:
+                 dtype=torch.float32, device="cuda") -> torch.Tensor:
     """Sample ``f`` on interior nodes and ``g`` on boundary nodes of the
     LOGICAL grid.  Custom ``f``/``g`` callables override the registry."""
     if f is None or g is None:
@@ -124,3 +126,24 @@ def poisson_fd_csr(nx: int, ny: int | None = None):
     np.cumsum(valid.sum(axis=1), out=indptr[1:])
     return HostCSR(indptr=indptr, indices=cand[valid], data=vals[valid],
                    shape=(n, n))
+
+
+def banded_csr(n: int, half_band: int = 3, extra: int = 2):
+    """The banded test matrix of the SpMV / SpMM benchmarks
+    (``benchmarks/spmv_bench.py``): 8 on the diagonal, -1 on the offsets
+    -1, 1, -17 * half_band and half_band * (i + 2) for ``i < extra``, so
+    K = 4 + extra.  Host NumPy, the same CSR as the benchmark's."""
+    import numpy as np
+
+    from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+
+    offs = [0, -1, 1, -half_band * 17] + [half_band * (i + 2)
+                                          for i in range(extra)]
+    rows_l, cols_l, vals_l = [], [], []
+    for o in offs:
+        r = np.arange(max(0, -o), min(n, n - o), dtype=np.int64)
+        rows_l.append(r)
+        cols_l.append(r + o)
+        vals_l.append(np.full(r.size, 8.0 if o == 0 else -1.0))
+    return HostCSR.from_coo(np.concatenate(rows_l), np.concatenate(cols_l),
+                            np.concatenate(vals_l), (n, n))

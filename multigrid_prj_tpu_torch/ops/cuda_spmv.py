@@ -10,6 +10,10 @@ Counterpart of ``multigrid_prj_tpu/ops/pallas_spmv.py`` (sources in
 * ``ell_ff_residual`` / ``CudaELL.residual_ff`` replace
   ``PallasELL.residual_ff`` (``_ffres_kernel``, ``_ffres_compact_kernel``):
   12 B per slot plus two gathers.
+* ``ell_spmm`` / ``CudaELL.spmm`` replace ``PallasELL.spmm`` / ``spmm2d``
+  (``_spmm_kernel``): 8 B per slot once for up to 8 vectors, plus the
+  gathered rows of ``X``.  ``ELLMatrix.spmm`` stays the plain op, as in
+  the JAX package.
 
 One slot-major ELL layout serves every matrix: ``colsT`` (K, n) int32
 absolute column ids, ``valsT`` (K, n) f32 (plus ``valsT_lo`` in pair mode);
@@ -24,7 +28,7 @@ order per slot, slots taken in order ``k = 0 .. K-1``, each step a separate
 torch op); CUDA tensors launch the kernel or raise, and operands
 split between the CPU and a card are refused.  There is no fallback.
 Each launch adds one to its ``cuda_stencil.LAUNCHES`` entry (``spmv``,
-``ff_residual_ell``).
+``ff_residual_ell``, ``ell_spmm``).
 """
 
 from __future__ import annotations
@@ -118,6 +122,50 @@ def ell_local_spmv(colsT, valsT, x):
 
 
 # ---------------------------------------------------------------------------
+# SpMM
+# ---------------------------------------------------------------------------
+
+# vectors one SpMM launch carries (its accumulators live in registers);
+# wider blocks go in chunks, as PallasELL.spmm chunks what VMEM cannot hold
+MAX_SPMM_VECTORS = 8
+
+
+def ell_spmm_plain(colsT, valsT, X):
+    """Twin of the SpMM kernel: ``acc = 0``, then per slot ``acc = acc +
+    valsT[k][:, None] * X[colsT[k]]``; column by column the SpMV twin."""
+    acc = torch.zeros((colsT.shape[1], X.shape[1]), dtype=valsT.dtype,
+                      device=valsT.device)
+    for k in range(colsT.shape[0]):
+        acc = acc + valsT[k][:, None] * X[colsT[k]]
+    return acc
+
+
+def ell_spmm(colsT, valsT, X):
+    """``Y = A X`` on raw slot-major arrays: ``colsT``/``valsT`` (K, n),
+    ``X`` (m, nvec) -> ``Y`` (n, nvec); up to ``MAX_SPMM_VECTORS`` vectors
+    per launch, wider blocks in chunks."""
+    if _on_cpu("ell_spmm", colsT, valsT, X):
+        return ell_spmm_plain(colsT, valsT, X)
+    if X.ndim != 2:
+        raise ValueError(f"ell_spmm: X must be 2D, got {tuple(X.shape)}")
+    K, n = colsT.shape
+    outs = []
+    for s in range(0, X.shape[1], MAX_SPMM_VECTORS):
+        Xc = X[:, s:s + MAX_SPMM_VECTORS].contiguous()
+        _check_cuda_ell("ell_spmm", colsT, (valsT,), (Xc.view(-1),))
+        Y = torch.empty((n, Xc.shape[1]), dtype=torch.float32,
+                        device=X.device)
+        _raise_on(_lib().mg_ell_spmm(_ptr(colsT), _ptr(valsT), _ptr(Xc),
+                                     _ptr(Y), n, K, Xc.shape[1], _stream()),
+                  "ell_spmm")
+        LAUNCHES["ell_spmm"] += 1
+        outs.append(Y)
+    if not outs:
+        return torch.empty((n, 0), dtype=torch.float32, device=X.device)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
 # float-float residual
 # ---------------------------------------------------------------------------
 
@@ -169,7 +217,7 @@ class CudaELL:
 
     @staticmethod
     def build(csr: HostCSR, dtype=torch.float32, pair: bool = False,
-              device="cpu") -> "CudaELL":
+              device="cuda") -> "CudaELL":
         """Lay ``csr`` out for the kernels (host NumPy, then one copy to
         ``device``).  ``pair=True`` adds the low words for
         :meth:`residual_ff`."""
@@ -213,6 +261,14 @@ class CudaELL:
             raise ValueError(f"x has shape {tuple(x.shape)}, the matrix "
                              f"{self.shape}")
         return ell_local_spmv(self.colsT, self.valsT, x)
+
+    def spmm(self, X: torch.Tensor) -> torch.Tensor:
+        """Block product ``Y = A X`` for ``X`` of shape ``(m, nvec)``: A
+        streams once per launch of up to ``MAX_SPMM_VECTORS`` vectors."""
+        if X.ndim != 2 or X.shape[0] != self.shape[1]:
+            raise ValueError(f"X has shape {tuple(X.shape)}, the matrix "
+                             f"{self.shape}")
+        return ell_spmm(self.colsT, self.valsT, X)
 
     def residual_ff(self, b_hi, b_lo, x_hi, x_lo) -> torch.Tensor:
         """``r = b - A x`` with ``A``, ``b`` and ``x`` as f32 pairs (needs

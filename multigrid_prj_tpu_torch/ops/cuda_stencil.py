@@ -2,8 +2,9 @@
 twins.
 
 Counterpart of ``multigrid_prj_tpu/ops/pallas_stencil.py`` for the kernels
-the padded 2D V-cycle, its ``inner_cg`` variant and the Jacobi smoother
-reach (sources in ``csrc/stencil2d.cu``):
+the padded 2D V-cycle, its ``inner_cg`` variant, the fused down-leg, the
+Jacobi smoother and the public apply-chain and colour-sweep ops reach
+(sources in ``csrc/stencil2d.cu``):
 
 ============================  =============================  ===============
 function                      replaces (pallas_stencil.py)   bytes per point
@@ -20,6 +21,11 @@ function                      replaces (pallas_stencil.py)   bytes per point
                               wrapper's edge fix-up          point
 ``prolong_add_padded_fast``   ``_prolong_add_kernel``        ~9 per fine
                                                              point
+``rbgs_residual_restrict``    ``_rbgs_resfilter_kernel`` +   ~13 per fine
+                              ``fw_decimate_padded``         point
+``poisson_apply_chain``       ``_apply_fused_kernel`` /      8 per group of
+                              ``_apply_fused2d_kernel``      <= 8 applies
+``rbgs_color_sweep``          ``_rbgs_color_kernel``         12
 ============================  =============================  ===============
 
 Each public function keeps the JAX signature.  As in the JAX wrappers, a 3D
@@ -30,8 +36,9 @@ the device of its tensors: a CPU tensor runs the plain torch twin
 (``*_plain``, the kernel's operation order, which matches the JAX Pallas
 function in interpret mode); a CUDA tensor launches the kernel or raises
 ``NotImplementedError``.  There is no fallback.  All kernels are
-memory-bound simple first versions (one launch per colour or sweep, no
-temporal fusion); ``LAUNCHES`` counts each kernel launch.
+memory-bound simple first versions (one launch per colour or sweep; only
+the down-leg and the apply chain fuse passes, in a shared-memory halo
+tile); ``LAUNCHES`` counts each kernel launch.
 """
 
 from __future__ import annotations
@@ -48,7 +55,13 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
             "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0,
-            "spmv": 0, "ff_residual_ell": 0}
+            "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
+            "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0}
+
+# passes one fused launch holds: the halo of csrc/stencil2d.cu's tiles is 8
+# cells, and each colour pass, residual, filter or apply costs one
+_MAX_DOWNLEG_SWEEPS = 3  # 2 * 3 + 2 <= 8
+_MAX_FUSED_APPLIES = 8
 
 
 def reset_launch_counts() -> None:
@@ -77,8 +90,9 @@ def _check_cuda(name, *tensors, same_shape=True):
             "kernel for it either, and the 3D path runs the plain ops")
     if t0.dtype != torch.float32:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels take float32, got {t0.dtype} "
-            "(ROADMAP.md queue A item 9a)")
+            f"{name}: the CUDA kernels take float32, got {t0.dtype}; "
+            "GMGSolver runs other dtypes on the plain ops, as the JAX "
+            "package runs them on XLA (ROADMAP.md queue A item 9a)")
     for t in tensors:
         if (t.device != t0.device or t.dtype != t0.dtype or t.ndim != 2
                 or (same_shape and t.shape != t0.shape)):
@@ -374,4 +388,143 @@ def prolong_add_padded_fast(e, u):
     _raise_on(_lib().mg_prolong_add(_ptr(e), _ptr(u), _ptr(out), e.shape[0],
                                     e.shape[1], _stream()), "prolong_add")
     LAUNCHES["prolong_add"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused down-leg: smoother + residual + restriction
+# ---------------------------------------------------------------------------
+
+
+def rbgs_residual_restrict_plain(u, b, alpha, h, sweeps, logical_shape):
+    """Twin of the down-leg kernel: the composition it fuses,
+    ``red_black_gauss_seidel_plain`` -> ``poisson_residual_plain`` ->
+    ``transfer.restrict_fw_padded``."""
+    u2 = red_black_gauss_seidel_plain(u, b, alpha, h, sweeps, logical_shape)
+    r = poisson_residual_plain(u2, b, alpha, h, logical_shape)
+    return u2, _tr.restrict_fw_padded(r, logical_shape)
+
+
+def rbgs_residual_restrict(u, b, alpha, h, sweeps, logical_shape):
+    """Fused V-cycle down-leg on the padded layout: ``sweeps`` RB-GS sweeps,
+    the residual and the full-weighting restriction in one pass.  Returns
+    ``(u_smoothed, r_coarse)``, ``r_coarse`` of shape ``(n//2, m//2)``,
+    equal to the composition of the three kernels.  ``sweeps > 3`` runs
+    that composition (as the JAX wrapper does), with no fused launch."""
+    if logical_shape is None:
+        raise ValueError("rbgs_residual_restrict needs a logical_shape")
+    if u.ndim != 2:
+        raise NotImplementedError("rbgs_residual_restrict is 2D, as the "
+                                  "JAX kernel is")
+    if u.device.type == "cpu":
+        return rbgs_residual_restrict_plain(u, b, alpha, h, sweeps,
+                                            logical_shape)
+    if sweeps > _MAX_DOWNLEG_SWEEPS:
+        u2 = red_black_gauss_seidel(u, b, alpha, h, sweeps=sweeps,
+                                    logical_shape=logical_shape)
+        r = poisson_residual(u2, b, alpha, h, logical_shape)
+        return u2, restrict_fw_padded_fast(r, logical_shape)
+    _check_cuda("rbgs_residual_restrict", u, b)
+    n, m = u.shape
+    if n % 2 or m % 2:
+        raise ValueError(f"rbgs_residual_restrict: fine shape {(n, m)} must "
+                         "be even on both axes")
+    nl, ml = _logical(u.shape, logical_shape)
+    c = alpha / (h * h)
+    u2 = torch.empty_like(u)
+    rc = torch.empty((n // 2, m // 2), dtype=u.dtype, device=u.device)
+    _raise_on(_lib().mg_rbgs_resfilter(_ptr(u), _ptr(b), _ptr(u2), _ptr(rc),
+                                       n, m, nl, ml, 1.0 / c, c, int(sweeps),
+                                       _stream()), "rbgs_resfilter")
+    LAUNCHES["rbgs_resfilter"] += 1
+    return u2, rc
+
+
+# ---------------------------------------------------------------------------
+# apply chain
+# ---------------------------------------------------------------------------
+
+
+def poisson_apply_chain_plain(u, alpha, h, applies, logical_shape=None):
+    """Twin of the apply-chain kernel: ``applies`` calls of
+    ``poisson_apply_plain``."""
+    x = u
+    for _ in range(applies):
+        x = poisson_apply_plain(x, alpha, h, logical_shape)
+    return x if applies else u.clone()
+
+
+def poisson_apply_chain(u, alpha, h, applies: int, logical_shape=None):
+    """``A^applies u``, up to 8 applies per launch (longer chains in groups
+    of at most 8, ping-ponging two tensors), equal to ``applies`` calls of
+    :func:`poisson_apply`.  A 3D tensor chains the 3D apply kernel, as the
+    JAX wrapper does.  The Pallas version's ``dst`` has no counterpart (see
+    :func:`poisson_apply`)."""
+    if u.ndim == 3:
+        x = u
+        for _ in range(applies):
+            x = poisson_apply(x, alpha, h, logical_shape)
+        return x if applies else u.clone()
+    if u.device.type == "cpu":
+        return poisson_apply_chain_plain(u, alpha, h, applies, logical_shape)
+    _check_cuda("poisson_apply_chain", u)
+    if applies < 1:
+        return u.clone()
+    n, m = u.shape
+    nl, ml = _logical(u.shape, logical_shape)
+    c = alpha / (h * h)
+    fn = _lib().mg_apply_chain
+    bufs = [torch.empty_like(u)
+            for _ in range(min(-(-applies // _MAX_FUSED_APPLIES), 2))]
+    x, done, g = u, 0, 0
+    while done < applies:
+        s = min(_MAX_FUSED_APPLIES, applies - done)
+        y = bufs[g % 2]
+        _raise_on(fn(_ptr(x), _ptr(y), n, m, nl, ml, c, s, _stream()),
+                  "apply_chain")
+        LAUNCHES["apply_chain"] += 1
+        x, done, g = y, done + s, g + 1
+    return x
+
+
+# ---------------------------------------------------------------------------
+# one colour sweep
+# ---------------------------------------------------------------------------
+
+
+def rbgs_color_sweep_plain(u, b, alpha, h, color: int, logical_shape=None):
+    """Twin of the colour-sweep kernel (``_rbgs_color_kernel``):
+    ``where(boundary, b, where(parity == color, gs, u))`` with ``gs = (b / c
+    + N + S + E + W) * 0.25`` summed left to right, ``b / c`` a true
+    division (a 0-dim tensor divisor; torch on CUDA divides by a Python
+    scalar as a multiply by its rounded reciprocal)."""
+    c = alpha / (h * h)
+    bnd = boundary_mask(u.shape, logical_shape, u.device)
+    parity = _sm._parity(u.shape, u.device)
+    north, south, east, west = _neighbors(u)
+    b_over_c = b / torch.full((), c, dtype=b.dtype, device=b.device)
+    gs = (b_over_c + north + south + east + west) * 0.25
+    return torch.where(bnd, b, torch.where(parity == color, gs, u))
+
+
+def rbgs_color_sweep(u, b, alpha, h, color: int, logical_shape=None):
+    """One red (``color=0``) or black (``color=1``) half-sweep of
+    Gauss-Seidel, out of place, with every boundary point pinned to ``b``.
+    Takes every 2D shape (the JAX kernel needs an aligned one); the kernel
+    takes float32."""
+    if u.ndim != 2:
+        raise ValueError(f"rbgs_color_sweep is 2D, got shape "
+                         f"{tuple(u.shape)}")
+    if color not in (0, 1):
+        raise ValueError(f"color must be 0 or 1, got {color}")
+    if u.device.type == "cpu":
+        return rbgs_color_sweep_plain(u, b, alpha, h, color, logical_shape)
+    _check_cuda("rbgs_color_sweep", u, b)
+    n, m = u.shape
+    nl, ml = _logical(u.shape, logical_shape)
+    out = torch.empty_like(u)
+    _raise_on(_lib().mg_rbgs_color_sweep(_ptr(u), _ptr(b), _ptr(out), n, m,
+                                         nl, ml, alpha / (h * h), int(color),
+                                         _stream()), "rbgs_color_sweep")
+    LAUNCHES["rbgs_color_sweep"] += 1
     return out

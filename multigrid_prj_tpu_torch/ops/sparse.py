@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 
-def to_device(x, dtype=None, device="cpu") -> torch.Tensor:
+def to_device(x, dtype=None, device="cuda") -> torch.Tensor:
     """Host array -> tensor on ``device`` (numpy casts to ``dtype`` first;
     ``dtype`` is a torch dtype)."""
     a = np.ascontiguousarray(np.asarray(x))
@@ -303,7 +303,7 @@ class ELLMatrix:
 
     @staticmethod
     def from_host_csr(csr: HostCSR, k: int | None = None,
-                      dtype=torch.float32, device="cpu") -> "ELLMatrix":
+                      dtype=torch.float32, device="cuda") -> "ELLMatrix":
         n, m = csr.shape
         lengths = csr.row_lengths
         kmax = int(lengths.max()) if n else 0

@@ -56,7 +56,7 @@ class ELLPair:
     shape: Tuple[int, int]
 
     @staticmethod
-    def from_host_csr(csr: HostCSR, device="cpu") -> "ELLPair":
+    def from_host_csr(csr: HostCSR, device="cuda") -> "ELLPair":
         k = int(csr.row_lengths.max()) if csr.shape[0] else 0
         cols, v64 = _ell_slots(csr, k)
         hi = v64.astype(np.float32)
@@ -85,7 +85,7 @@ def ell_residual_ff(A: ELLPair, b_hi, b_lo, x_hi, x_lo):
     return acc_hi + acc_lo
 
 
-def ff_pair_from_f64(v, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+def ff_pair_from_f64(v, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
     """Split an f64 vector (numpy, or a tensor on any device) into an f32
     ``(hi, lo)`` pair on ``device``.  A tensor is split in f64 where it
     lies (``v - hi`` is exact in f64, and each rounding to f32 is correctly

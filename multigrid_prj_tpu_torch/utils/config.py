@@ -25,6 +25,7 @@ Options:
   -ml, insert multigrid level
   -test, insert type of function in input to test it
   -smt, you can choose your favourite smoother (0 GS, 1 Jacobi, 2 BiCGSTAB)
+  -device, cuda (the default) or cpu
   --help, Display this help message
 """
 
@@ -46,6 +47,7 @@ class GMGConfig:
     maxit: int = 1000
     dtype: str = "auto"  # auto: f64 on the CPU, f32 on CUDA
     pad: int = 0  # tile-aligned padded layout (e.g. 256); 0 = exact layout
+    device: str = "cuda"  # "cuda" or "cpu": the card unless asked for the CPU
 
     @property
     def smoother_name(self) -> str:
@@ -131,6 +133,11 @@ def parse_gmg_args(argv: list[str]) -> GMGConfig:
             i += 2
         elif tok == "-pad" and has_next:
             cfg.pad = _int("-pad")
+            i += 2
+        elif tok == "-device" and has_next:
+            cfg.device = argv[i + 1]
+            if cfg.device not in ("cuda", "cpu"):
+                _fail("Error: -device takes cuda or cpu")
             i += 2
         elif tok == "-n" or tok in ("-a", "-w", "-ml", "-test", "-smt"):
             _fail("Error: Please, insert something")

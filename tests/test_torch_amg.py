@@ -53,7 +53,7 @@ def test_setup_matches_jax(name, kw):
     Aj, At, _ = _system(name)
     kw = dict(dict(num_levels=4), **kw)
     js = jamg.AMGSolver(Aj, **kw)
-    ts = tamg.AMGSolver(At, **kw)
+    ts = tamg.AMGSolver(At, device="cpu", **kw)
     assert ts.level_sizes == js.level_sizes and len(ts.levels) > 2
     assert ts.operator_complexity == js.operator_complexity
     for Mj, Mt in zip(js.host_matrices + js.host_P,
@@ -75,7 +75,7 @@ def test_setup_matches_jax(name, kw):
 def test_vcycle_and_solve_f64_match_jax(smoother):
     Aj, At, b = _system("fd32")
     js = jamg.AMGSolver(Aj, num_levels=4, smoother=smoother)
-    ts = tamg.AMGSolver(At, num_levels=4, smoother=smoother)
+    ts = tamg.AMGSolver(At, device="cpu", num_levels=4, smoother=smoother)
     assert ts.dtype == torch.float64
     x = np.random.default_rng(1).standard_normal(Aj.shape[0])
     got = ts.vcycle(torch.from_numpy(x), torch.from_numpy(b)).numpy()
@@ -102,7 +102,7 @@ def test_vcycle_and_solve_f64_match_jax(smoother):
 def test_solve_pcg_matches_jax(name, smoother):
     Aj, At, b = _system(name)
     js = jamg.AMGSolver(Aj, num_levels=3, smoother=smoother)
-    ts = tamg.AMGSolver(At, num_levels=3, smoother=smoother)
+    ts = tamg.AMGSolver(At, device="cpu", num_levels=3, smoother=smoother)
     oj = js.solve_pcg(b, tol=1e-10, maxit=100)
     ot = ts.solve_pcg(b, tol=1e-10, maxit=100)
     assert ot.iterations == oj.iterations and ot.rel_residual <= 1e-10
@@ -123,7 +123,8 @@ def test_f32_kernel_path_matches_jax_pallas():
               pallas_min_rows=512)
     js = jamg.AMGSolver(Aj, dtype=jnp.float32, use_pallas=True,
                         pallas_interpret=True, **kw)
-    ts = tamg.AMGSolver(At, dtype=torch.float32, use_pallas=True, **kw)
+    ts = tamg.AMGSolver(At, device="cpu", dtype=torch.float32,
+                        use_pallas=True, **kw)
     assert [lv.A_fast is not None for lv in ts.levels] == \
         [lv.A_fast is not None for lv in js.levels] == [True, True, False]
     assert [lv.A_dense is not None for lv in ts.levels] == [True, True, False]
@@ -150,8 +151,8 @@ def test_refined_gather_path_matches_jax():
     kw = dict(num_levels=3, reorder="rcm", use_pallas=False)
     oj = jamg.AMGSolver(Aj, dtype=jnp.float32, **kw).solve_refined(
         b, tol=1e-9, maxit=60)
-    ot = tamg.AMGSolver(At, dtype=torch.float32, **kw).solve_refined(
-        b, tol=1e-9, maxit=60)
+    ot = tamg.AMGSolver(At, device="cpu", dtype=torch.float32,
+                        **kw).solve_refined(b, tol=1e-9, maxit=60)
     assert ot.iterations == oj.iterations and ot.history[0] == 1.0
     assert ot.history[-1] <= 1e-9
     np.testing.assert_allclose(ot.history, oj.history, rtol=1e-3)
@@ -160,7 +161,7 @@ def test_refined_gather_path_matches_jax():
 def test_reference_sawtooth_pass_matches_jax():
     Aj, At, rhs = _system("p1_mesh17")
     js = jamg.AMGSolver(Aj, num_levels=3, rhs=rhs)
-    ts = tamg.AMGSolver(At, num_levels=3, rhs=rhs)
+    ts = tamg.AMGSolver(At, device="cpu", num_levels=3, rhs=rhs)
     x0 = np.zeros(Aj.shape[0])
     xj = js.reference_sawtooth_pass(x0, pre=4, coarse=50, post=4)
     xt = ts.reference_sawtooth_pass(x0, pre=4, coarse=50, post=4)
@@ -170,7 +171,8 @@ def test_reference_sawtooth_pass_matches_jax():
     np.testing.assert_allclose(r1, js.residual_norm(xj, rhs), rtol=1e-10)
     assert r1 < 0.5 * r0
     with pytest.raises(ValueError, match="rhs"):
-        tamg.AMGSolver(At, num_levels=2).reference_sawtooth_pass(x0)
+        tamg.AMGSolver(At, device="cpu",
+                       num_levels=2).reference_sawtooth_pass(x0)
 
 
 def test_history_cap_semantics(monkeypatch):
@@ -180,7 +182,8 @@ def test_history_cap_semantics(monkeypatch):
     monkeypatch.setattr(jamg, "HIST_CAP", 3)
     monkeypatch.setattr(tamg, "HIST_CAP", 3)
     oj = jamg.AMGSolver(Aj, num_levels=3).solve(b, tol=1e-30, maxit=6)
-    ot = tamg.AMGSolver(At, num_levels=3).solve(b, tol=1e-30, maxit=6)
+    ot = tamg.AMGSolver(At, device="cpu", num_levels=3).solve(b, tol=1e-30,
+                                                             maxit=6)
     assert ot.iterations == oj.iterations == 6
     assert ot.history_truncated and oj.history_truncated
     assert ot.history.shape == oj.history.shape == (4,)
@@ -199,7 +202,7 @@ def test_convert_from_jax_state():
                  host_P=[csr(P) for P in js.host_P], perm=js._perm,
                  lmax=[lv.lmax for lv in js.levels],
                  bottom_inv=np.asarray(js._coarse_dense))
-    ts = amg_solver_from_numpy(state, smoother="chebyshev")
+    ts = amg_solver_from_numpy(state, device="cpu", smoother="chebyshev")
     assert ts.level_sizes == js.level_sizes
     assert [lv.lmax for lv in ts.levels] == [lv.lmax for lv in js.levels]
     np.testing.assert_array_equal(ts._coarse_dense.numpy(),
@@ -214,15 +217,16 @@ def test_convert_from_jax_state():
 
 def test_defaults_inputs_and_mcgs_fixed_point():
     _, At, b = _system("fd6")
-    ts = tamg.AMGSolver(At, num_levels=1)
+    ts = tamg.AMGSolver(At, device="cpu", num_levels=1)
     assert (ts.dtype, ts.smoother_name, ts._use_pallas, ts._perm) == \
         (torch.float64, "mcgs", False, None)
     # f32 without the kernel path: no CudaELL anywhere
-    t32 = tamg.AMGSolver(At, num_levels=2, dtype=torch.float32,
+    t32 = tamg.AMGSolver(At, device="cpu", num_levels=2, dtype=torch.float32,
                          use_pallas=False, pallas_min_rows=1)
     assert all(lv.A_fast is None and lv.A_dense is None for lv in t32.levels)
     # f64 with use_pallas: the JAX rule keeps the kernel path f32-only
-    assert not tamg.AMGSolver(At, num_levels=2, use_pallas=True)._use_pallas
+    assert not tamg.AMGSolver(At, device="cpu", num_levels=2,
+                              use_pallas=True)._use_pallas
     x_exact = np.linalg.solve(At.to_dense(), b)
     lvl = ts.levels[0]
     np.testing.assert_allclose(

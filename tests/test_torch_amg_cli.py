@@ -19,6 +19,7 @@ from test_torch_fem import _write_msh
 
 torch.set_num_threads(1)
 HIST_ATOL = 1e-14
+CPU = ["-device", "cpu"]  # the port's CLI runs on the card unless asked
 
 
 @pytest.fixture
@@ -53,7 +54,7 @@ def test_amg_cli_matrix_f64_matches_jax(system, monkeypatch, argv):
     argv = [a.format(d=d) for a in argv]
     jd = _run(jcli.main, argv + ["-metrics", "m.json"], d / "jax",
               monkeypatch)
-    td = _run(tcli.main, argv + ["-metrics", "m.json"], d / "torch",
+    td = _run(tcli.main, argv + ["-metrics", "m.json"] + CPU, d / "torch",
               monkeypatch)
     jh, th = (tio.load_vector(p / "amg_history.txt") for p in (jd, td))
     jx, tx = (tio.load_vector(p / "x.mtx") for p in (jd, td))
@@ -70,7 +71,7 @@ def test_amg_cli_mesh_and_reference_pass_match_jax(tmp_path, monkeypatch):
     _write_msh(str(msh), tfem.structured_unit_square_mesh(17))
     argv = ["-mesh", str(msh), "-levels", "4"]
     jd = _run(jcli.main, argv, tmp_path / "jax", monkeypatch)
-    td = _run(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    td = _run(tcli.main, argv + CPU, tmp_path / "torch", monkeypatch)
     np.testing.assert_allclose(tio.load_vector(td / "amg_history.txt"),
                                tio.load_vector(jd / "amg_history.txt"),
                                rtol=1e-10, atol=HIST_ATOL)
@@ -82,7 +83,7 @@ def test_amg_cli_mesh_and_reference_pass_match_jax(tmp_path, monkeypatch):
     A = poisson_fd_csr(12)
     tio.save_matrix_market(tmp_path / "fd.mtx", *A.to_coo(), A.shape)
     jd = _run(jcli.main, argv, tmp_path / "jax_ref", monkeypatch)
-    td = _run(tcli.main, argv, tmp_path / "torch_ref", monkeypatch)
+    td = _run(tcli.main, argv + CPU, tmp_path / "torch_ref", monkeypatch)
     jx, tx = (tio.load_vector(p / "x.mtx") for p in (jd, td))
     np.testing.assert_allclose(tx, jx, rtol=1e-10,
                                atol=1e-10 * np.abs(jx).max())
@@ -94,7 +95,8 @@ def test_amg_cli_ff32_and_errors(system, monkeypatch, capsys):
     (the gather form), to 1e-8; and the CLI's input errors."""
     d, A, _ = system
     td = _run(tcli.main, ["-matrix", str(d / "fd20.mtx"), "-precision",
-                          "ff32", "-tol", "1e-8"], d / "ff32", monkeypatch)
+                          "ff32", "-tol", "1e-8", *CPU], d / "ff32",
+              monkeypatch)
     out = capsys.readouterr().out
     assert "ff32-refined V-cycle iterations" in out and "not conv" not in out
     h = tio.load_vector(td / "amg_history.txt")
@@ -102,10 +104,10 @@ def test_amg_cli_ff32_and_errors(system, monkeypatch, capsys):
     x = tio.load_vector(td / "x.mtx")
     r = A.spmv(np.ones(A.shape[0])) - A.spmv(x)
     assert np.linalg.norm(r) <= 2e-8 * np.linalg.norm(A.spmv(np.ones(400)))
-    assert tcli.main(["-matrix", str(d / "missing.mtx")]) == 1
+    assert tcli.main(["-matrix", str(d / "missing.mtx"), *CPU]) == 1
     A2 = poisson_fd_csr(3)
     rows, cols, vals = A2.to_coo()
     tio.save_matrix_market(d / "rect.mtx", rows, cols, vals, (9, 10))
-    assert tcli.main(["-matrix", str(d / "rect.mtx")]) == 1
+    assert tcli.main(["-matrix", str(d / "rect.mtx"), *CPU]) == 1
     assert tcli.main(["-matrix", str(d / "fd20.mtx"), "-rhs",
-                      str(d / "missing.mtx")]) == 1
+                      str(d / "missing.mtx"), *CPU]) == 1

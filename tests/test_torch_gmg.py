@@ -1,7 +1,10 @@
 """The port's GMG slice vs the JAX package on the CPU: hierarchy, RHS, the
 solver (``solve`` / ``solve_refined`` with and without ``inner_cg``, the
-Jacobi smoother, ``fmg_start``), the CLI (``-smt 0/1/2``), the refusals of
-what is not ported yet, and that the port imports without jax.
+Jacobi smoother, ``fmg_start``), the CLI (``-smt 0/1/2``, ``-device``), the
+f64 route of the kernel solver (the plain ops, as the JAX wrappers run XLA),
+where ``fuse_downleg`` applies, the card as the default device, and that the
+port imports without jax.  The fused down-leg's solves are in
+``tests/test_torch_fused2d.py``.
 
 The JAX solver runs with ``use_pallas=True`` in Pallas interpret mode where
 the port runs its kernel twins, and with the plain XLA path where the port
@@ -36,6 +39,7 @@ from multigrid_prj_tpu_torch.utils.guards import check_finite
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = ["-device", "cpu"]  # the port's CLI runs on the card unless asked
 
 
 def _state(js):
@@ -65,7 +69,8 @@ def test_assemble_rhs_matches_jax(test):
     cos(30 r) reach arguments of ~420, whose range reduction differs: the
     measured largest relative difference is 2.4e-13."""
     lev = tgrids.build_hierarchy((65, 65), 10.0, 1)[0]
-    got = tpoisson.assemble_rhs(lev, 10.0, test=test, dtype=torch.float64)
+    got = tpoisson.assemble_rhs(lev, 10.0, test=test, dtype=torch.float64,
+                                device="cpu")
     want = np.asarray(jpoisson.assemble_rhs(lev, 10.0, test=test,
                                             dtype=jnp.float64))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
@@ -163,7 +168,7 @@ def test_solve_f64_matches_jax_xla(cycle, fmg_start):
 def test_port_solver_builds_the_same_coarse_inverse():
     kw = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=128)
     js = jgmg.GMGSolver(use_pallas=False, **kw)
-    ts = tgmg.GMGSolver(**kw)
+    ts = tgmg.GMGSolver(**kw, device="cpu")
     np.testing.assert_array_equal(ts._coarse_inv.numpy(),
                                   np.asarray(js._coarse_inv))
 
@@ -175,7 +180,7 @@ def test_convert_refuses_other_levels():
     state["levels"] = state["levels"][:2]
     state["levels"][1] = ((34, 34), *state["levels"][1][1:])
     with pytest.raises(ValueError):
-        solver_state_from_numpy(state)
+        solver_state_from_numpy(state, device="cpu")
 
 
 def _run_cli(main, argv, cwd, monkeypatch):
@@ -193,7 +198,7 @@ def test_cli_65_test0_f64_matches_jax_cli(tmp_path, monkeypatch):
     (tmp_path / "jax").mkdir()
     (tmp_path / "torch").mkdir()
     jh, jx = _run_cli(jcli.main, argv, tmp_path / "jax", monkeypatch)
-    th, tx = _run_cli(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    th, tx = _run_cli(tcli.main, argv + CPU, tmp_path / "torch", monkeypatch)
     assert len(th) == len(jh) == 12  # 1.0 + 11 iterations
     np.testing.assert_allclose(th, jh, rtol=1e-8)
     assert th[-1] < 1e-11
@@ -211,7 +216,7 @@ def test_cli_jacobi_65_f64_matches_jax_cli(tmp_path, monkeypatch):
     (tmp_path / "jax").mkdir()
     (tmp_path / "torch").mkdir()
     jh, jx = _run_cli(jcli.main, argv, tmp_path / "jax", monkeypatch)
-    th, tx = _run_cli(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    th, tx = _run_cli(tcli.main, argv + CPU, tmp_path / "torch", monkeypatch)
     assert len(th) == len(jh) == 707  # 1.0 + 706 iterations
     np.testing.assert_allclose(th, jh, rtol=1e-6)
     assert th[-1] <= 1e-6
@@ -228,7 +233,7 @@ def test_cli_bicgstab_65_f64_matches_jax_cli(tmp_path, monkeypatch):
     (tmp_path / "jax").mkdir()
     (tmp_path / "torch").mkdir()
     jh, jx = _run_cli(jcli.main, argv, tmp_path / "jax", monkeypatch)
-    th, tx = _run_cli(tcli.main, argv, tmp_path / "torch", monkeypatch)
+    th, tx = _run_cli(tcli.main, argv + CPU, tmp_path / "torch", monkeypatch)
     assert th.size == jh.size == 1 and th[0] < 1e-11
     np.testing.assert_allclose(th, jh, rtol=1e-6)
     assert tx.size == 65 * 65
@@ -244,37 +249,118 @@ def test_cli_bicgstab_with_pad_fails_on_both_sides(tmp_path, monkeypatch):
     with pytest.raises((AssertionError, TypeError)):
         jcli.main(argv)
     with pytest.raises(ValueError, match="finest-level buffers"):
-        tcli.main(argv)
+        tcli.main(argv + CPU)
 
 
-@pytest.mark.parametrize("kw", [dict(fuse_downleg=True)])
-def test_unported_options_raise_on_cuda(kw):
-    """Refused before any tensor is made, so this runs without a card."""
-    args = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=256,
-                device="cuda")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tgmg.GMGSolver(**args)
+_KERNEL_WRAPPERS = ("red_black_gauss_seidel", "jacobi", "poisson_residual",
+                    "ff_poisson_residual", "poisson_apply",
+                    "restrict_fw_padded_fast", "prolong_add_padded_fast",
+                    "rbgs_residual_restrict")
 
 
-def test_f64_solve_with_kernels_is_refused_off_the_cpu():
-    """f64 with ``use_pallas=True`` off the CPU raises at the first kernel
-    wrapper (a meta tensor stands in for a CUDA one, so this runs without a
+@pytest.mark.parametrize("method,kw", [("solve_refined", {}),
+                                       ("solve_refined", dict(inner_cg=2)),
+                                       ("solve", {}),
+                                       ("solve", dict(fmg_start=True))])
+def test_f64_with_kernels_runs_the_plain_ops(monkeypatch, method, kw):
+    """The JAX kernel wrappers take f32 only and send f64 to XLA ops
+    (``_is_supported``); so ``use_pallas=True`` in f64 runs the plain ops on
+    every device: no kernel wrapper is called, and the solve equals the
+    ``use_pallas=False`` one bit for bit (the same solver in f32 does call
+    the wrappers)."""
+    called = []
+    for name in _KERNEL_WRAPPERS:
+        def spy(*a, _orig=getattr(cs, name), _name=name, **k):
+            called.append(_name)
+            return _orig(*a, **k)
+
+        monkeypatch.setattr(cs, name, spy)
+    args = dict(shape=(65, 65), num_levels=3, cycle="v", nu=2, tol=1e-10,
+                maxit=30, pad_align=128, fuse_downleg=True, device="cpu")
+    ts = tgmg.GMGSolver(use_pallas=True, **args)
+    b = tpoisson.assemble_rhs(ts.levels[0], 10.0, test=1,
+                              dtype=torch.float64, device="cpu")
+    got = getattr(ts, method)(b, **kw)
+    assert not called
+    want = getattr(tgmg.GMGSolver(use_pallas=False, **args), method)(b, **kw)
+    assert got.converged and got.iterations == want.iterations
+    np.testing.assert_array_equal(got.history, want.history)
+    assert torch.equal(got.u, want.u)
+    getattr(ts, method)(b.float(), **kw)
+    assert called
+
+
+def test_fuse_downleg_takes_the_gs_kernel_route_only():
+    """``fuse_downleg`` wires the fused down-leg where the JAX solver does:
+    the kernel route, RB-GS, omega 1; and only in 2D, the kernel being 2D
+    (``coarse="none"`` makes no tensor, so the CUDA solver builds without a
     card)."""
-    ts = tgmg.GMGSolver(shape=(33, 33), num_levels=3, cycle="v",
-                        pad_align=64, use_pallas=True, device="meta")
-    b = torch.empty((33, 33), dtype=torch.float64, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.solve_refined(b)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ts.solve_refined(b, inner_cg=2)
+    base = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=128,
+                coarse="none", fuse_downleg=True)
+    assert tgmg.GMGSolver(**base, device="cpu")._downleg_fn is None
+    assert tgmg.GMGSolver(**base, device="cuda")._downleg_fn is not None
+    assert tgmg.GMGSolver(**base, use_pallas=True,
+                          device="cpu")._downleg_fn is not None
+    for kw in (dict(smoother="jacobi"), dict(omega=1.2),
+               dict(shape=(17, 17, 17), num_levels=3,
+                    pad_align=(8, 8, 128))):
+        assert tgmg.GMGSolver(**dict(base, **kw), use_pallas=True,
+                              device="cpu")._downleg_fn is None, kw
+
+
+def _device_defaults():
+    from multigrid_prj_tpu_torch import amg, convert
+    from multigrid_prj_tpu_torch.ops import cuda_spmv, sparse, sparse_extended
+
+    return [tgmg.GMGSolver, amg.AMGSolver, amg.AMGSolver.from_hierarchy,
+            convert.solver_state_from_numpy, convert.amg_solver_from_numpy,
+            tpoisson.grid_coords, tpoisson.assemble_rhs,
+            sparse.ELLMatrix.from_host_csr, sparse.to_device,
+            cuda_spmv.CudaELL.build, sparse_extended.ELLPair.from_host_csr,
+            sparse_extended.ff_pair_from_f64]
+
+
+@pytest.mark.parametrize("fn", _device_defaults(),
+                         ids=lambda fn: fn.__qualname__)
+def test_the_card_is_the_default_device(fn):
+    """Every function that makes a solver or its device data runs on the
+    card unless the caller names another device."""
+    import inspect
+
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("cli", ["gmg", "amg"])
+def test_cli_without_a_card_asks_for_device_cpu(cli, monkeypatch, capsys,
+                                               tmp_path):
+    """Without a card and without ``-device cpu`` both CLIs fail and name
+    the flag, writing nothing; ``-device`` takes cuda or cpu."""
+    from multigrid_prj_tpu_torch.cli import amg_main as tamg_cli
+    from multigrid_prj_tpu_torch.utils.config import parse_gmg_args
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    main, argv = ((tcli.main, ["-n", "17", "-ml", "2"]) if cli == "gmg"
+                  else (tamg_cli.main, ["-matrix", "fd.mtx"]))
+    assert main(argv) == 1
+    assert "-device cpu" in capsys.readouterr().out
+    assert not any(tmp_path.iterdir())
+    if cli == "gmg":
+        assert parse_gmg_args(["-n", "17"]).device == "cuda"
+        assert parse_gmg_args(["-device", "cpu"]).device == "cpu"
+        with pytest.raises(SystemExit):
+            parse_gmg_args(["-device", "tpu"])
+    else:
+        with pytest.raises(SystemExit):
+            main(["-matrix", "fd.mtx", "-device", "tpu"])
 
 
 def test_solver_is_pure_and_checks_inputs():
     # tol above the f32 floor eps_f32 * kappa(A) (~6e-6 at 33^2)
     ts = tgmg.GMGSolver(shape=(33, 33), num_levels=3, cycle="v", tol=1e-4,
-                        pad_align=64, use_pallas=True)
-    b = tpoisson.assemble_rhs(ts.levels[0], 10.0, test=1, dtype=torch.float32)
+                        pad_align=64, use_pallas=True, device="cpu")
+    b = tpoisson.assemble_rhs(ts.levels[0], 10.0, test=1, dtype=torch.float32,
+                              device="cpu")
     b0 = b.clone()
     cs.reset_launch_counts()
     out = ts.solve(b)

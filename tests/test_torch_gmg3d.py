@@ -169,7 +169,7 @@ def test_bf16_cycle_runs_plain_ops_in_bf16():
     is never called, and the bottom solve gets the inverse in bf16."""
     ts = tgmg.GMGSolver(shape=(17, 17, 17), num_levels=3, tol=1e-3,
                         maxit=10, smoother_dtype=torch.bfloat16,
-                        use_pallas=True, **CONFIG4)
+                        use_pallas=True, device="cpu", **CONFIG4)
     assert ts._residual_fn is cs.poisson_residual
     seen = []
 

@@ -58,7 +58,8 @@ def _sides(precond):
                      alpha=js.alpha, tol=js.tol, maxit=js.maxit, nu=js.nu,
                      pre_sweeps=js.pre_sweeps, cycle=js.cycle,
                      coarse_tol=js.coarse_tol, coarse_maxit=js.coarse_maxit)
-        ts = solver_state_from_numpy(state, use_pallas=False)
+        ts = solver_state_from_numpy(state, device="cpu",
+                                     use_pallas=False)
         jM = lambda r: js.step(jnp.zeros_like(r), r)
         tM = lambda r: ts.step(torch.zeros_like(r), r)
     jside = (lambda x: jst.poisson_apply(x, ALPHA, H), jnp.asarray(b), jM)

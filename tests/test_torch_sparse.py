@@ -102,7 +102,8 @@ def test_ell_spmv_spmm_match_jax(name, k_extra):
     Aj, At = _systems(name)
     k = int(At.row_lengths.max()) + k_extra
     Ej = jsparse.ELLMatrix.from_host_csr(Aj, k=k, dtype=jnp.float64)
-    Et = tsparse.ELLMatrix.from_host_csr(At, k=k, dtype=torch.float64)
+    Et = tsparse.ELLMatrix.from_host_csr(At, k=k, dtype=torch.float64,
+                                         device="cpu")
     assert Et.cols.dtype == torch.int32 and Et.k == k
     assert np.array_equal(np.asarray(Ej.cols), Et.cols.numpy())
     assert np.array_equal(np.asarray(Ej.vals), Et.vals.numpy())
@@ -133,6 +134,6 @@ def test_coo_spmv_matches_jax():
 
 
 def test_to_device_casts():
-    t = tsparse.to_device(np.arange(4), torch.float32)
+    t = tsparse.to_device(np.arange(4), torch.float32, device="cpu")
     assert t.dtype == torch.float32 and t.device.type == "cpu"
-    assert tsparse.to_device(np.ones(3)).dtype == torch.float64
+    assert tsparse.to_device(np.ones(3), device="cpu").dtype == torch.float64

@@ -59,7 +59,7 @@ def _spmv_bound(A, x):
 def test_ell_spmv_twin_matches_pallas(name):
     A = _matrix(name)
     pA = PallasELL.build(A, dtype=jnp.float32, block_rows=1024)
-    E = cv.CudaELL.build(_port(A))
+    E = cv.CudaELL.build(_port(A), device="cpu")
     x = np.random.default_rng(0).standard_normal(A.shape[1]) \
         .astype(np.float32)
     cs.reset_launch_counts()
@@ -86,7 +86,7 @@ def test_ell_spmv_non_banded_matches_oracle():
                          rng.standard_normal(3 * n), (n, n))
     assert PallasELL.build(S, max_t_win=4) is None
     for M in (_port(A), S):
-        E = cv.CudaELL.build(M)
+        E = cv.CudaELL.build(M, device="cpu")
         x = rng.standard_normal(M.shape[1]).astype(np.float32)
         got = E.spmv(torch.from_numpy(x)).numpy()
         assert np.all(np.abs(got - M.spmv(x.astype(np.float64)))
@@ -97,7 +97,7 @@ def test_cuda_ell_layout():
     # row 0: 2 entries, row 1: empty, row 2: 3 entries; 4 columns
     M = HostCSR.from_coo([0, 0, 2, 2, 2], [3, 1, 0, 2, 3],
                          [1.0, 2.0, 3.0, 4.0, 5.0], (3, 4))
-    E = cv.CudaELL.build(M, pair=True)
+    E = cv.CudaELL.build(M, pair=True, device="cpu")
     assert E.colsT.dtype == torch.int32 and E.valsT.dtype == torch.float32
     assert E.k == 3 and E.nnz == 5 and E.nnz_dense == 9
     # padding slots: value 0 at the row's first column (empty rows: 0)
@@ -112,7 +112,7 @@ def test_cuda_ell_layout():
     with pytest.raises(ValueError):  # rectangular
         E.residual_ff(x, x, x, x)
     with pytest.raises(ValueError):  # no low words
-        cv.CudaELL.build(_port(poisson_fd_csr(3))).residual_ff(
+        cv.CudaELL.build(_port(poisson_fd_csr(3)), device="cpu").residual_ff(
             *[torch.zeros(9)] * 4)
     # operands split between the CPU and another device are refused
     with pytest.raises(ValueError, match="operands on"):
@@ -128,7 +128,8 @@ def _ff_case(A, seed):
     rng = np.random.default_rng(seed)
     x64 = rng.standard_normal(A.shape[0])
     b64 = A.spmv(x64) + 1e-6 * rng.standard_normal(A.shape[0])
-    return ff_pair_from_f64(b64) + ff_pair_from_f64(x64)
+    return (ff_pair_from_f64(b64, device="cpu")
+            + ff_pair_from_f64(x64, device="cpu"))
 
 
 def _ff_oracle(A, bh, bl, xh, xl):
@@ -146,7 +147,7 @@ def _ff_oracle(A, bh, bl, xh, xl):
 def test_ell_ff_residual_twin_matches_pallas_and_f64(name):
     A = _matrix(name)
     pA = PallasELL.build(A, dtype=jnp.float32, block_rows=1024, pair=True)
-    E = cv.CudaELL.build(_port(A), pair=True)
+    E = cv.CudaELL.build(_port(A), pair=True, device="cpu")
     bh, bl, xh, xl = _ff_case(A, 7)
     got = E.residual_ff(bh, bl, xh, xl).numpy()
     assert np.array_equal(got, cv.ell_ff_residual_plain(
@@ -160,7 +161,8 @@ def test_ell_ff_residual_twin_matches_pallas_and_f64(name):
     assert np.all(np.abs(want - r64) <= bound)
     assert np.all(np.abs(got - want) <= 2 * bound)
     # the gather form (the solver's path with the kernels off) agrees too
-    gat = ell_residual_ff(ELLPair.from_host_csr(_port(A)), bh, bl, xh, xl)
+    gat = ell_residual_ff(ELLPair.from_host_csr(_port(A), device="cpu"), bh,
+                          bl, xh, xl)
     assert np.all(np.abs(gat.numpy() - r64) <= bound)
     # and a plain f32 residual cannot: the point of the pair arithmetic
     plain = (bh - E.spmv(xh)).numpy()
@@ -171,13 +173,14 @@ def test_ff_pair_from_tensor_equals_host_split():
     """A tensor is split where it lies; the pair equals the host split of
     the same values to the bit (f64 and f32 inputs)."""
     v = np.random.default_rng(4).standard_normal(1000) * 1e3
-    want = ff_pair_from_f64(v)
+    want = ff_pair_from_f64(v, device="cpu")
     for t in (torch.from_numpy(v), torch.from_numpy(v).float()):
-        got = ff_pair_from_f64(t)
-        ref = ff_pair_from_f64(t.double().numpy())
+        got = ff_pair_from_f64(t, device="cpu")
+        ref = ff_pair_from_f64(t.double().numpy(), device="cpu")
         assert all(g.dtype == torch.float32 for g in got)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
-    got = ff_pair_from_f64(torch.from_numpy(v))
+    got = ff_pair_from_f64(torch.from_numpy(v), device="cpu")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    # an f32 vector has no low word
     assert torch.count_nonzero(ff_pair_from_f64(
-        torch.from_numpy(v).float())[1]) == 0  # an f32 vector has no low word
+        torch.from_numpy(v).float(), device="cpu")[1]) == 0

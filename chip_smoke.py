@@ -33,7 +33,15 @@ paths' shapes.  Imports nothing of JAX.  The paths:
 * the public ops ``bench.py`` headlines: the apply chain of 8 at 8192^2
   (``measure_stencil_chains``), the ELL SpMM of 4 vectors on
   ``banded_csr(2**20)`` (``measure_ell_spmm``), and a red-black smoother
-  written with the public colour-sweep op at 1025^2.
+  written with the public colour-sweep op at 1025^2;
+* the sharded GMG path (``parallel/``): README.md's ``ShardedGMGSolver``
+  at 8192^2, 6 levels, on one rank through ``maybe_initialize_distributed``
+  (NCCL, a world of one), 8 cycles on the extended-slab kernel
+  ``rbgs_fused_ext`` against the per-colour and grouped plain schedules, a
+  step timed against the unsharded ``GMGSolver`` step (``bench.py``'s
+  ``measure_sharded_on_one``); 4 gloo ranks on the card at 2048^2 on the
+  ("x",) and ("dcn", "x") layouts against one rank; 2 gloo ranks at 256^2
+  against the same ranks on the CPU (the twin).
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
@@ -45,8 +53,10 @@ non-zero):
   (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
   paths: apply chain, colour sweep   13. AMG set-up   14. AMG kernels vs
   twins (with the SpMM)   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU twins,
-  FEM and the AMG CLI   16b. bench SpMM path   17. times (with profiled
-  runs of the 1025^2 solves and of each AMG solve)
+  FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin
+  16d. sharded 8192^2, one rank (NCCL)   16e. sharded 2048^2, 4 ranks on one
+  card (gloo)   17. times (with profiled runs of the 1025^2 solves and of
+  each AMG solve)
 The line before the last is the kernel table as one JSON object (each
 kernel's time at its shapes, with the least time the card could take for
 the same work, ``bound_ms``, and one PyTorch call's time for the same
@@ -149,6 +159,7 @@ KERNELS.update({
     "rbgs_color_sweep": (f"{_PS}:321", _SRC2),
     "ell_spmm": (f"{_PSPMV}:274", _SRCS),
 })
+KERNELS["rbgs_fused_ext"] = (f"{_PS}:476", _SRC2)
 KERNELS_AMG = ("spmv", "ff_residual_ell")
 ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
@@ -161,7 +172,7 @@ STENCIL_COST = {
     "prolong_add": (9, 3), "rbgs_resfilter": (13, 24),
     "apply_chain": (8, 48), "rbgs_color_sweep": (12, 3),
     "apply3d": (8, 8), "residual3d": (12, 9), "rbgs3d_color": (12, 18),
-    "jacobi3d": (12, 24)}
+    "jacobi3d": (12, 24), "rbgs_fused_ext": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
 # it (poisson_fd_csr(1024): 1,048,576 rows, 5,238,784 nnz; b from
@@ -224,6 +235,31 @@ INNER_CG_HISTORY_RTOL = 1e-1
 # on both devices, the bf16 bottom matvec (cuBLAS vs the CPU BLAS) and the
 # f32 norms do not; each such rounding is 2^-8 relative in a correction
 BF16_HISTORY_RTOL = 1e-1
+
+# the sharded GMG path (README.md's ShardedGMGSolver example, 8192^2, 6
+# levels), f32, one rank on the card (NCCL): a fixed number of cycles, as f32
+# floors far above the default tol at this size; the per-colour and grouped
+# plain schedules agree with the kernel route to SHARD_HISTORY_RTOL where
+# the history lies above 1e-3 (tests/test_sharded_gmg.py:252-255)
+SHARD_KW = dict(shape=(8192, 8192), num_levels=6)
+SHARD_CYCLES = 8
+SHARD_HISTORY_RTOL = 2e-2
+# rbgs_fused_extended against its twin and against colour sweeps of the
+# global grid: slabs of R + 16 rows starting at global row row0 (the first,
+# an interior and the last slab of 8192 rows), full and ragged widths, and a
+# logical shape smaller than the buffer; alpha 1, h 1/2 (c = 4, so the
+# colour sweep's b / c equals the kernel's b * (1/c))
+EXT_ROWS = (8, 64, 2048)
+EXT_ROW0 = (-8, 0, 4088, 8184)
+EXT_GRIDS = ((8192, (8192, 8192)), (330, (8192, 330)), (330, (8000, 300)))
+EXT_TIME_SHAPE = (8208, 8192)  # one 8192-row slab with its halos
+# several ranks on the one card (gloo; NCCL refuses two ranks on one GPU):
+# 4 ranks at 2048^2 (bench.py's measure_sharded_on_one size, 5 levels) for
+# GLOO_STEPS steps against one rank, and 2 ranks at 256^2 against the same
+# ranks on the CPU (the twin)
+GLOO_N, GLOO_LEVELS, GLOO_STEPS = 2048, 5, 3
+GLOO_SOLVE = dict(shape=(256, 256), num_levels=4, tol=1e-2, maxit=60)
+GLOO_DEADLINE_S = 600
 
 
 def check(cond, msg):
@@ -949,6 +985,206 @@ def compare_twin_solves(torch, tag, solver, twin, b, solves):
                   f"{tag} {method}: kernel launches {counts}")
 
 
+# -- the sharded GMG path (device-generic where it can be, so the phases can
+# be rehearsed on the CPU at small sizes) ------------------------------------
+
+
+def ext_slab(torch, g, row0, rows):
+    """Rows ``row0 .. row0 + rows + 15`` of the global array ``g``, zeros
+    where they fall outside it: an extended slab with the edge exchange's
+    zero halos."""
+    ne = rows + 16
+    out = torch.zeros((ne, g.shape[1]), dtype=g.dtype, device=g.device)
+    lo, hi = max(row0, 0), min(row0 + ne, g.shape[0])
+    if hi > lo:
+        out[lo - row0:hi - row0] = g[lo:hi]
+    return out
+
+
+def check_fused_ext(torch, cs, max_err, n=8192, rows=EXT_ROWS,
+                    row0s=EXT_ROW0, grids=EXT_GRIDS, dev="cuda"):
+    """rbgs_fused_extended against its twin (torch.equal) at sweeps 1-4 for
+    every slab, and its core against 2 * sweeps colour sweeps of the global
+    grid, cropped (rows past the global buffer must be 0: pinned)."""
+    alpha, h = 1.0, 0.5
+    done = 0
+    for m, logical in grids:
+        gen = torch.Generator(device=dev).manual_seed(m + logical[0])
+        gu, gb = (torch.randn((n, m), generator=gen, device=dev)
+                  for _ in range(2))
+        for sweeps in (1, 2, 3, 4):
+            ref = gu
+            for _ in range(sweeps):
+                for col in (0, 1):
+                    ref = cs.rbgs_color_sweep(ref, gb, alpha, h, col, logical)
+            for r in rows:
+                for row0 in row0s:
+                    ue, be = ext_slab(torch, gu, row0, r), ext_slab(
+                        torch, gb, row0, r)
+                    got = cs.rbgs_fused_extended(ue, be, row0, logical,
+                                                 alpha, h, sweeps)
+                    want = cs.rbgs_fused_extended_plain(ue, be, row0,
+                                                        logical, alpha, h,
+                                                        sweeps)
+                    err = float((got - want).abs().max())
+                    max_err["rbgs_fused_ext"] = max(
+                        max_err["rbgs_fused_ext"], err)
+                    k = max(0, min(r, n - (row0 + 8)))
+                    tag = (f"rbgs_fused_ext sweeps {sweeps}, R {r}, m {m}, "
+                           f"row0 {row0}, logical {logical}")
+                    check(torch.equal(got, want),
+                          f"{tag} != twin (max abs diff {err})")
+                    check(torch.equal(got[:k], ref[row0 + 8:row0 + 8 + k])
+                          and not bool(got[k:].any()),
+                          f"{tag} != {2 * sweeps} colour sweeps, cropped")
+                    done += 1
+        del gu, gb, ref
+    return done
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def init_one_rank_nccl():
+    """maybe_initialize_distributed with a world of one rank in the
+    environment, as torchrun would set it: the NCCL process group."""
+    import torch.distributed as dist
+
+    from multigrid_prj_tpu_torch.parallel import maybe_initialize_distributed
+
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port()),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    os.environ.update(env)
+    try:
+        multi = maybe_initialize_distributed()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+    check(not multi and dist.is_initialized()
+          and str(dist.get_backend()) == "nccl",
+          f"one-rank NCCL group: multi {multi}, backend "
+          f"{dist.get_backend() if dist.is_initialized() else None}")
+    return str(dist.get_backend())
+
+
+def gloo_steps(torch, mesh, dev, n=GLOO_N, levels=GLOO_LEVELS,
+               steps=GLOO_STEPS):
+    """``steps`` sharded V-cycles at ``n``^2 from zero on ``mesh``: the
+    gathered u, the launches and the collective counts."""
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.parallel import ShardedGMGSolver
+    from multigrid_prj_tpu_torch.parallel.sharded_gmg import (
+        gather_slabs,
+        scatter_slabs,
+    )
+
+    s = ShardedGMGSolver(shape=(n, n), mesh=mesh, num_levels=levels,
+                         device=dev, use_pallas=True)
+    b = scatter_slabs(assemble_rhs(s.levels[0], 10.0, test=1,
+                                   dtype=torch.float32, device=dev), mesh)
+    cs.reset_launch_counts()
+    mesh.reset_counts()
+    u = torch.zeros_like(b)
+    for _ in range(steps):
+        u = s.step(u, b)
+    sync(torch, dev)
+    return dict(u=gather_slabs(u, mesh).cpu().numpy(),
+                launches=cs.LAUNCHES["rbgs_fused_ext"],
+                counts=dict(mesh.counts), num_sharded=s.num_sharded,
+                backend=mesh.backend)
+
+
+def gloo_solves(torch, mesh, devs, kw=GLOO_SOLVE):
+    """The 256^2 solve on ``mesh`` on each device of ``devs`` from one
+    right-hand side (the kernel route; its twin on the CPU)."""
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.parallel import ShardedGMGSolver
+    from multigrid_prj_tpu_torch.parallel.sharded_gmg import (
+        gather_slabs,
+        scatter_slabs,
+    )
+
+    out = {}
+    for dev in devs:
+        s = ShardedGMGSolver(mesh=mesh, device=dev, use_pallas=True, **kw)
+        b = scatter_slabs(assemble_rhs(s.levels[0], 10.0, test=1,
+                                       dtype=torch.float32, device="cpu"),
+                          mesh, device=dev)
+        cs.reset_launch_counts()
+        r = s.solve(b)
+        out[dev] = dict(history=r.history, iterations=r.iterations,
+                        converged=r.converged,
+                        u=gather_slabs(r.u, mesh).cpu().numpy(),
+                        launches=cs.LAUNCHES["rbgs_fused_ext"])
+    return out
+
+
+def gloo_rank(rank, world, init_file, out_path, dev="cuda",
+              solve_devs=("cuda", "cpu"), n=GLOO_N):
+    """One rank of the several-ranks-on-one-card phase (spawned; gloo over
+    a file in a temporary directory): 4 ranks run ``gloo_steps`` on the
+    ("x",) and ("dcn", "x") layouts, 2 ranks ``gloo_solves``; rank 0
+    pickles the results to ``out_path``."""
+    import pickle
+
+    sys.path.insert(0, REPO)
+    import torch
+    import torch.distributed as dist
+
+    from multigrid_prj_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        if world == 4:
+            out = {layout: gloo_steps(torch, make_mesh(*layout), dev, n=n)
+                   for layout in ((4,), (2, 2))}
+        else:
+            out = gloo_solves(torch, make_mesh(world), solve_devs)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(world, tmp, dev="cuda", solve_devs=("cuda", "cpu"),
+                n=GLOO_N, deadline_s=GLOO_DEADLINE_S):
+    """Run ``gloo_rank`` in ``world`` spawned processes and return rank 0's
+    results; a rank's exception fails the phase, and ranks still running
+    at the deadline are stopped and fail it."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    out_path = os.path.join(tmp, f"ranks{world}.pkl")
+    ctx = mp.spawn(gloo_rank, args=(world, os.path.join(tmp, f"init{world}"),
+                                    out_path, dev, solve_devs, n),
+                   nprocs=world, join=False)
+    t_end = time.perf_counter() + deadline_s
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < t_end,
+                  f"{world} gloo ranks still running after {deadline_s} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    with open(out_path, "rb") as f:
+        return pickle.load(f)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1473,6 +1709,146 @@ def main() -> int:
           and torch.equal(X_s, twin_m) and bool(torch.isfinite(X_s).all()),
           "bench SpMM path")
     del X_s, twin_m
+
+    # 16c. the sharded smoother's kernel against its twin and against
+    # colour sweeps of the global grid
+    phases.next("sharded kernel vs twin")
+    n_ext = check_fused_ext(torch, cs, max_err)
+    print(f"[kernels] rbgs_fused_ext: {n_ext} slabs (R {EXT_ROWS}, row0 "
+          f"{EXT_ROW0}, grids {EXT_GRIDS}, sweeps 1-4) equal to the twin and "
+          "to 2 x sweeps colour sweeps of the global grid, cropped "
+          "(torch.equal)")
+    torch.cuda.empty_cache()
+
+    # 16d. the sharded path, one rank on the card (NCCL): README.md's
+    # ShardedGMGSolver at 8192^2, kernel route, against the per-colour and
+    # grouped plain schedules; one step against the unsharded GMGSolver's
+    phases.next("sharded 8192^2, one rank (NCCL)")
+    import torch.distributed as dist
+
+    from multigrid_prj_tpu_torch.parallel import ShardedGMGSolver, make_mesh
+
+    backend = init_one_rank_nccl()
+    mesh1 = make_mesh()
+    shard_kw = dict(SHARD_KW, mesh=mesh1, tol=0.0, maxit=SHARD_CYCLES,
+                    device="cuda")
+    sh = ShardedGMGSolver(**shard_kw, use_pallas=True)
+    sh_b = assemble_rhs(sh.levels[0], 10.0, test=1, dtype=torch.float32,
+                        device="cuda")
+    mesh1.reset_counts()
+    sh_res, c_sh = run_counted(lambda: sh.solve(sh_b))
+    hist = sh_res.history
+    n_ext_launch = c_sh["rbgs_fused_ext"]
+    print(f"[sharded 8192] backend {backend}, mesh {mesh1.axis_names} of "
+          f"{mesh1.size}; {sh.num_sharded} sharded levels; "
+          f"{sh_res.iterations} cycles; history "
+          f"{[float(x) for x in hist]}")
+    print(f"[sharded 8192] launches {({k: v for k, v in c_sh.items() if v})}"
+          f" ({n_ext_launch / (sh.num_sharded * SHARD_CYCLES):.1f} "
+          f"rbgs_fused_ext per sharded level visit); collectives "
+          f"{dict(mesh1.counts)}")
+    check(sh_res.iterations == SHARD_CYCLES
+          and bool(np.all(np.diff(hist[1:]) < 0))
+          and bool(torch.isfinite(sh_res.u).all())
+          and tuple(sh_res.u.shape) == SHARD_KW["shape"],
+          "sharded 8192^2: the history does not fall each cycle, or u is "
+          "not finite")
+    check(n_ext_launch == 2 * sh.num_sharded * SHARD_CYCLES
+          and sum(c_sh.values()) == n_ext_launch,
+          f"sharded 8192^2: launches {c_sh}")
+
+    def rel_diff(got, want):
+        """Largest relative difference where ``want`` lies above 1e-3."""
+        sel = want > 1e-3
+        return float((abs(got[sel] - want[sel]) / want[sel]).max())
+
+    plain = {}
+    for grouped in (False, True):
+        ref, c_ref = run_counted(lambda grouped=grouped: ShardedGMGSolver(
+            **shard_kw, use_pallas=False, use_grouped=grouped).solve(sh_b))
+        plain[grouped] = ref.history
+        check(sum(c_ref.values()) == 0,
+              f"sharded 8192^2, use_pallas=False: launches {c_ref}")
+        del ref
+    diffs = {"kernel route vs per-colour": rel_diff(hist, plain[False]),
+             "grouped vs per-colour": rel_diff(plain[True], plain[False])}
+    print(f"[sharded 8192] use_pallas=False, per colour: history "
+          f"{[float(x) for x in plain[False]]}; grouped: "
+          f"{[float(x) for x in plain[True]]}; no launches; max rel. history "
+          f"diffs {diffs} (bound {SHARD_HISTORY_RTOL})")
+    check(all(d <= SHARD_HISTORY_RTOL for d in diffs.values()),
+          f"sharded 8192^2: histories differ: {diffs}")
+    un = GMGSolver(shape=SHARD_KW["shape"], num_levels=SHARD_KW["num_levels"],
+                   cycle="v", nu=2, pre_sweeps=2, device="cuda")
+    u_sh = torch.zeros_like(sh_b)
+    fns = {"sharded": lambda: sh.step(u_sh, sh_b),
+           "unsharded": lambda: un.step(u_sh, sh_b)}
+    step_walls = {k: [] for k in fns}
+    for k in fns:
+        fns[k]()
+    for k in ("sharded", "unsharded", "unsharded", "sharded", "sharded",
+              "unsharded"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[k]()
+        torch.cuda.synchronize()
+        step_walls[k].append(time.perf_counter() - t0)
+    for k, w in step_walls.items():
+        print(f"[time] one V(2,2) step at 8192^2, {k}: median wall "
+              f"{statistics.median(w) * 1e3:.2f} ms over 3 "
+              f"({[round(x * 1e3, 2) for x in w]} ms, alternating)  ({card})")
+    for k in fns:
+        try:
+            wall, busy, nev, top = profile_run(torch, fns[k])
+        except Exception as exc:  # the trace is a measurement aid only
+            print(f"[profile] 8192^2 {k} step: not measured ({exc!r})")
+            continue
+        print(f"[profile] 8192^2 {k} step: {nev} device ops, device busy "
+              f"{busy * 1e3:.2f} ms = {busy / max(wall, 1e-12):.1%} of the "
+              f"profiled wall {wall * 1e3:.2f} ms  ({card})")
+        for kname, (us, cnt) in top[:6]:
+            print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  {kname[:90]}")
+    del un, u_sh, fns
+    torch.cuda.empty_cache()
+
+    # 16e. several ranks on the one card (gloo): 4 ranks at 2048^2 on both
+    # layouts against one rank, 2 ranks at 256^2 against the CPU twin
+    phases.next("sharded 2048^2, 4 ranks on one card (gloo)")
+    one = gloo_steps(torch, mesh1, "cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        four = spawn_ranks(4, tmp)
+        t4 = time.perf_counter() - t0
+        two = spawn_ranks(2, tmp)
+        t2 = time.perf_counter() - t0 - t4
+    ulp = float(np.spacing(np.float32(abs(one["u"]).max())))
+    for layout, r in four.items():
+        d = float(abs(r["u"] - one["u"]).max())
+        print(f"[gloo 2048] mesh {layout} ({r['backend']}): "
+              f"{GLOO_STEPS} steps, u against one rank: max |du| {d:.3e} "
+              f"({d / ulp:.3g} ulp of max |u|); rank 0 launches "
+              f"{r['launches']}, collectives {r['counts']}")
+        check(r["backend"] == "gloo" and d <= 4 * ulp
+              and r["num_sharded"] == one["num_sharded"]
+              and r["launches"] == 2 * r["num_sharded"] * GLOO_STEPS,
+              f"4 gloo ranks, mesh {layout}: u or launches")
+    check(np.array_equal(four[(4,)]["u"], four[(2, 2)]["u"]),
+          "4 gloo ranks: (dcn, x) differs from (x,)")
+    print("[gloo 2048] (x,) and (dcn, x) equal bit for bit")
+    cu, cpu = two["cuda"], two["cpu"]
+    diff = abs(cu["history"] - cpu["history"])
+    print(f"[gloo 256] 2 ranks: card {cu['iterations']} iterations "
+          f"({cu['launches']} launches on rank 0), CPU twin "
+          f"{cpu['iterations']}; max rel. history diff "
+          f"{float((diff / cpu['history']).max()):.3e} (bound "
+          f"{HISTORY_RTOL}); spawns {t4:.1f} s (4 ranks), {t2:.1f} s (2)")
+    check(cu["converged"] and cu["iterations"] == cpu["iterations"]
+          and cu["launches"] > 0 and cpu["launches"] == 0
+          and bool((diff <= HISTORY_ATOL + HISTORY_RTOL
+                    * cpu["history"]).all()),
+          "2 gloo ranks at 256^2: card vs CPU twin")
+    dist.destroy_process_group()
+
     missing = [k for k in KERNELS if launches[k] == 0]
     check(not missing, f"kernels no path launched: {missing}")
 
@@ -1552,6 +1928,30 @@ def main() -> int:
                 per[1] * npts))
         del u, bb
         torch.cuda.empty_cache()
+    # the sharded smoother's kernel on one 8192-row slab with its 8-row
+    # halos (README.md's 8192^2 on one rank): 4 sweeps and the path's 2,
+    # against its twin and against 2 x sweeps rbgs_color launches on the
+    # same slab (that wrapper's clone of u included)
+    ne, m = EXT_TIME_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(98)
+    ue, be = (torch.randn(EXT_TIME_SHAPE, generator=gen, device="cuda")
+              for _ in range(2))
+    lg = SHARD_KW["shape"]
+    h_e = 10.0 / (lg[0] - 1)
+    per = STENCIL_COST["rbgs_fused_ext"]  # per point for 4 sweeps
+    for sw in (4, 2):
+        t_k = median_ms(torch, lambda sw=sw: cs.rbgs_fused_extended(
+            ue, be, -8, lg, 10.0, h_e, sw))
+        t_p = median_ms(torch, lambda sw=sw: cs.rbgs_fused_extended_plain(
+            ue, be, -8, lg, 10.0, h_e, sw), runs=10)
+        t_c = median_ms(torch, lambda sw=sw: cs.red_black_gauss_seidel(
+            ue, be, 10.0, h_e, sweeps=sw))
+        add_time("rbgs_fused_ext", f"sweeps {sw}", record(
+            f"{ne}x{m} ({sw} sweeps, row0 -8)", t_k, t_p, per[0] * ne * m,
+            per[1] * ne * m * sw // 4, colour_launches_ms=t_c),
+            f"; {2 * sw} rbgs_color launches {t_c * 1e3:.1f} us")
+    del ue, be
+    torch.cuda.empty_cache()
     # bench.py's measure_ell_spmm: 4 vectors on banded_csr(2**20), against
     # 4 SpMV launches and one cuSPARSE CSR product
     lib = csr_library(torch, banded)
@@ -1570,6 +1970,16 @@ def main() -> int:
              f"; {SPMM_NVEC} spmv launches {t_4 * 1e3:.1f} us; "
              f"{rec['effective_nnz_per_s']:.4g} effective nnz/s "
              "(bench.py's count)")
+    # the least times of the design probes in benchmarks/ (PERF.md's kernel
+    # table rows 20-21, not ported): the apply probes move 8192^2 f32 in
+    # and out (8 B per point), the SpMV probes the ELL slots (8 B each) and
+    # x and y of banded_csr(2**20)
+    b20 = bound(8 * BENCH_N * BENCH_N, 6 * BENCH_N * BENCH_N)
+    b21 = bound(*ell_cost("spmv", E_b))
+    print(f"[bound] benchmarks/stencil_ablation.py probes at {BENCH_N}^2: "
+          f"{b20[0] * 1e3:.1f} us ({b20[1]}); benchmarks/spmv_ablation.py "
+          f"probes on banded_csr({SPMM_N}), K {E_b.k}: {b21[0] * 1e3:.1f} us "
+          f"({b21[1]})  (published H100 SXM peaks)")
     del lib, cols, E_b, X0
     torch.cuda.empty_cache()
 

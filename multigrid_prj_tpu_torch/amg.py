@@ -52,6 +52,7 @@ from multigrid_prj_tpu_torch.ops.sparse_extended import (
     ell_residual_ff,
     ff_pair_from_f64,
 )
+from multigrid_prj_tpu_torch.utils.config import on_cuda_flag
 from multigrid_prj_tpu_torch.utils.guards import check_finite
 
 THETA_DEFAULT = 0.2  # AMG/include/AMG.hpp:21 (EPSILON)
@@ -558,8 +559,9 @@ class AMGSolver:
     Parameters mirror the JAX ``AMGSolver``, plus ``device`` (default the
     card; ``device="cpu"`` for the CPU); ``use_pallas``
     keeps its JAX meaning (route the f32 level operators and the float-float
-    residual through the kernel functions) and defaults to True on CUDA.  On
-    the CPU, ``use_pallas=True`` runs the kernels' torch twins.
+    residual through the kernel functions); ``None`` and ``"auto"`` mean "on
+    CUDA", as the JAX ``"auto"`` means "on a TPU backend".  On the CPU,
+    ``use_pallas=True`` runs the kernels' torch twins.
     """
 
     def __init__(
@@ -575,7 +577,7 @@ class AMGSolver:
         min_coarse: int = 8,
         dtype: torch.dtype | None = None,
         rhs: Optional[np.ndarray] = None,
-        use_pallas: bool | None = None,
+        use_pallas: bool | str | None = None,
         reorder: str = "auto",  # "rcm" | "none" | "auto" (rcm iff kernels)
         pallas_min_rows: int = 4096,
         device="cuda",
@@ -645,9 +647,8 @@ class AMGSolver:
             smoother = "chebyshev" if on_cuda else "mcgs"
         self.smoother_name = smoother
         self.cheb_degree = int(cheb_degree)
-        if use_pallas is None:
-            use_pallas = on_cuda
-        self._use_pallas = bool(use_pallas) and dtype == torch.float32
+        self._use_pallas = (on_cuda_flag(use_pallas, self.device, "use_pallas")
+                            and dtype == torch.float32)
         self._pallas_min_rows = int(pallas_min_rows)
         self._perm = None
         self._perm_dev = self._inv_perm_dev = None

@@ -21,7 +21,15 @@ and for a JAX ``AMGSolver`` ``ja``::
                  bottom_inv=np.asarray(ja._coarse_dense))
 
 so that both solvers compute from the same hierarchy without re-running
-the setup.
+the setup; and for a JAX ``ShardedGMGSolver`` ``jsh``::
+
+    state = dict(levels=[dataclasses.astuple(l) for l in jsh.levels],
+                 alpha=jsh.alpha, nu1=jsh.nu1, nu2=jsh.nu2,
+                 coarse_sweeps=jsh.coarse_sweeps, tol=jsh.tol,
+                 maxit=jsh.maxit, use_pallas=jsh.use_pallas,
+                 use_grouped=jsh.use_grouped)
+
+so that both sides run the same hierarchy and sweep schedule.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from multigrid_prj_tpu_torch.amg import AMGSolver
 from multigrid_prj_tpu_torch.gmg import GMGSolver
 from multigrid_prj_tpu_torch.grids import GridLevel
 from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+from multigrid_prj_tpu_torch.parallel.sharded_gmg import ShardedGMGSolver
 
 _CONFIG_KEYS = ("length", "alpha", "tol", "maxit", "nu", "pre_sweeps",
                 "cycle", "coarse_tol", "coarse_maxit")
@@ -100,3 +109,36 @@ def amg_solver_from_numpy(state: dict, device="cuda",
         perm=state.get("perm"), lmax=state.get("lmax"),
         bottom_inv=None if inv is None else np.asarray(inv, np.float64),
         device=device, **solver_kw)
+
+
+def sharded_solver_from_numpy(state: dict, mesh,
+                              device="cuda") -> ShardedGMGSolver:
+    """A port ``ShardedGMGSolver`` on ``mesh`` (``device``: the card unless
+    the caller names another) with the levels, sweep counts, tolerances and
+    schedule flags in ``state`` (keys: ``levels`` as ``(shape, h, level,
+    padded_shape)`` tuples; ``alpha``, ``nu1``, ``nu2``, ``coarse_sweeps``,
+    ``tol``, ``maxit``, ``use_pallas``, ``use_grouped`` as the JAX solver
+    resolved them; optionally ``num_sharded``, which is checked).  The
+    levels are taken as given, so both sides use the same spacings.
+    Raises ``ValueError`` if their shapes are not the port's hierarchy for
+    the same grid, or if the number of sharded levels differs."""
+    levels = [GridLevel(tuple(int(s) for s in shape), float(h), int(level),
+                        None if padded is None
+                        else tuple(int(p) for p in padded))
+              for shape, h, level, padded in state["levels"]]
+    lev0 = levels[0]
+    solver = ShardedGMGSolver(
+        shape=lev0.shape, mesh=mesh, length=lev0.h * (lev0.shape[0] - 1),
+        alpha=state["alpha"], num_levels=len(levels), nu1=int(state["nu1"]),
+        nu2=int(state["nu2"]), coarse_sweeps=int(state["coarse_sweeps"]),
+        tol=state["tol"], maxit=state["maxit"],
+        use_pallas=bool(state["use_pallas"]),
+        use_grouped=bool(state["use_grouped"]), device=device)
+    if [lev.shape for lev in solver.levels] != [lev.shape for lev in levels]:
+        raise ValueError(f"levels {levels} differ from the port's hierarchy "
+                         f"{solver.levels}")
+    if state.get("num_sharded", solver.num_sharded) != solver.num_sharded:
+        raise ValueError(f"{state['num_sharded']} sharded levels in the "
+                         f"state, {solver.num_sharded} here")
+    solver.levels = levels
+    return solver

@@ -1,7 +1,7 @@
 // 2D Poisson stencil and grid-transfer kernels for Hopper (sm_90a): every
 // kernel of the padded GMG V-cycle, its ff32 refinement and fused down-leg,
-// the inner_cg apply, the Jacobi smoother, the apply chain and the single
-// colour sweep, in this one source file.
+// the inner_cg apply, the Jacobi smoother, the apply chain, the single
+// colour sweep and the sharded solver's smoother, in this one source file.
 //
 // Ports of the Pallas TPU kernels in multigrid_prj_tpu/ops/pallas_stencil.py:
 //   rbgs_color  <- red_black_gauss_seidel (_rbgs_fused_kernel /
@@ -20,6 +20,8 @@
 //                       _apply_fused2d_kernel, shared body
 //                       _fused_apply_passes)
 //   rbgs_color_sweep <- rbgs_color_sweep (_rbgs_color_kernel)
+//   rbgs_fused_ext   <- rbgs_fused_extended (_rbgs_fused_offset_kernel,
+//                       shared body _fused_rbgs_passes)
 //
 // Layout: one thread per output point of a row-major f32 array, on a 2D grid
 // of blocks, with 64-bit offsets.  For the stencils (nl, ml) are the logical
@@ -512,6 +514,73 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
+// `sweeps` (<= 4) red-black sweeps on a shard's rows extended by kHalo
+// halo rows above and below (replaces _rbgs_fused_offset_kernel, through
+// _fused_rbgs_passes, for parallel/sharded_gmg.rbgs_local_pallas).  The
+// extended slab (ne, m) starts at global row row0 (row0 < 0 on the first
+// shard), so the colour and the Dirichlet pinning are taken in global
+// coordinates: parity (row0 + i + j) & 1 (`&`, not `%`: C's `%` truncates
+// towards zero for the negative rows), boundary row <= 0 | row >= nl - 1 |
+// col <= 0 | col >= ml - 1 (`<=` and `>=`: the halo rows outside the domain
+// hold the zeros of the edge exchange and stay pinned to be, which is_boundary
+// would not do at the low edge).  Each colour pass is rbgs_color_kernel's,
+// in place in shared memory (a colour reads only the other colour; its own
+// boundary points are pinned in its own pass, so after each full sweep the
+// tile equals the TPU's out-of-place passes, which pin both colours each
+// pass).  2 * 4 passes <= kHalo keeps the core exact; the stale ring that
+// starts at the slab's own first and last rows (cells outside the slab load
+// as 0) reaches at most 8 rows in, so only rows kHalo .. ne - kHalo - 1 are
+// written, as out rows 0 .. ne - 2 kHalo - 1.
+//
+// 12 B per extended point: read ue and be, write the core.  Bound like
+// rbgs_resfilter_kernel by instruction issue in shared memory, not bytes.
+__global__ void __launch_bounds__(kFusedThreads)
+    rbgs_fused_ext_kernel(const float* __restrict__ ue,
+                          const float* __restrict__ be,
+                          float* __restrict__ out, int ne, int m, int row0,
+                          int nl, int ml, float inv_c, int sweeps) {
+  __shared__ float su[kExt2];
+  __shared__ float sb[kExt2];
+  // tile cell (kHalo, kHalo) is core cell (blockIdx.y * kTile, blockIdx.x *
+  // kTile), i.e. slab row kHalo + blockIdx.y * kTile
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile - kHalo;
+  load_tile(su, ue, i0, j0, ne, m);
+  load_tile(sb, be, i0, j0, ne, m);
+  __syncthreads();
+  for (int s = 0; s < sweeps; ++s) {
+    for (int color = 0; color < 2; ++color) {
+      for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
+        const int li = q / kExt, lj = q % kExt;
+        const int i = i0 + li, j = j0 + lj;
+        const int row = row0 + i;
+        if (i >= ne || j < 0 || j >= m || on_tile_edge(li, lj) ||
+            ((row + j) & 1) != color) {
+          continue;
+        }
+        if (row <= 0 || row >= nl - 1 || j <= 0 || j >= ml - 1) {
+          su[q] = sb[q];
+          continue;
+        }
+        float t = __fmul_rn(sb[q], inv_c);
+        t = __fadd_rn(t, su[q - kExt]);  // north
+        t = __fadd_rn(t, su[q + kExt]);  // south
+        t = __fadd_rn(t, su[q + 1]);     // east
+        t = __fadd_rn(t, su[q - 1]);     // west
+        su[q] = __fmul_rn(t, 0.25f);
+      }
+      __syncthreads();
+    }
+  }
+  const int r = ne - 2 * kHalo;
+  for (int q = threadIdx.x; q < kTile * kTile; q += kFusedThreads) {
+    const int li = kHalo + q / kTile, lj = kHalo + q % kTile;
+    const int k = blockIdx.y * kTile + q / kTile;  // out row
+    const int j = j0 + lj;
+    if (k < r && j < m) out[(long long)k * m + j] = su[li * kExt + lj];
+  }
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -604,6 +673,20 @@ int mg_apply_chain(const float* u, float* y, int n, int m, int nl, int ml,
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
   apply_chain_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
       u, y, n, m, nl, ml, c, applies);
+  return (int)cudaGetLastError();
+}
+
+int mg_rbgs_fused_ext(const float* ue, const float* be, float* out, int ne,
+                      int m, int row0, int nl, int ml, float inv_c, int sweeps,
+                      void* stream) {
+  if (sweeps < 0 || 2 * sweeps > kHalo || ne < 2 * kHalo) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int r = ne - 2 * kHalo;
+  if (r == 0) return (int)cudaSuccess;
+  const dim3 grid((m + kTile - 1) / kTile, (r + kTile - 1) / kTile);
+  rbgs_fused_ext_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+      ue, be, out, ne, m, row0, nl, ml, inv_c, sweeps);
   return (int)cudaGetLastError();
 }
 

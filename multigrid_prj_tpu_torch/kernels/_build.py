@@ -55,6 +55,7 @@ _SIGNATURES = {
                           _vp],
     "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp],
 }
 
 

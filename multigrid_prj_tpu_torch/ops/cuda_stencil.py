@@ -26,6 +26,9 @@ function                      replaces (pallas_stencil.py)   bytes per point
 ``poisson_apply_chain``       ``_apply_fused_kernel`` /      8 per group of
                               ``_apply_fused2d_kernel``      <= 8 applies
 ``rbgs_color_sweep``          ``_rbgs_color_kernel``         12
+``rbgs_fused_extended``       ``_rbgs_fused_offset_kernel``  12 per extended
+                                                             point per group
+                                                             of <= 4 sweeps
 ============================  =============================  ===============
 
 Each public function keeps the JAX signature.  As in the JAX wrappers, a 3D
@@ -37,8 +40,9 @@ the device of its tensors: a CPU tensor runs the plain torch twin
 function in interpret mode); a CUDA tensor launches the kernel or raises
 ``NotImplementedError``.  There is no fallback.  All kernels are
 memory-bound simple first versions (one launch per colour or sweep; only
-the down-leg and the apply chain fuse passes, in a shared-memory halo
-tile); ``LAUNCHES`` counts each kernel launch.
+the down-leg, the apply chain and the sharded solver's extended-slab
+smoother fuse passes, in a shared-memory halo tile); ``LAUNCHES`` counts
+each kernel launch.
 """
 
 from __future__ import annotations
@@ -56,12 +60,15 @@ LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
             "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
-            "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0}
+            "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
+            "rbgs_fused_ext": 0}
 
 # passes one fused launch holds: the halo of csrc/stencil2d.cu's tiles is 8
 # cells, and each colour pass, residual, filter or apply costs one
 _MAX_DOWNLEG_SWEEPS = 3  # 2 * 3 + 2 <= 8
 _MAX_FUSED_APPLIES = 8
+_MAX_FUSED_SWEEPS = 4  # 2 * 4 colour passes <= 8
+_EXT_HALO = 8  # halo rows on each side of rbgs_fused_extended's slab
 
 
 def reset_launch_counts() -> None:
@@ -527,4 +534,91 @@ def rbgs_color_sweep(u, b, alpha, h, color: int, logical_shape=None):
                                          nl, ml, alpha / (h * h), int(color),
                                          _stream()), "rbgs_color_sweep")
     LAUNCHES["rbgs_color_sweep"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# fused RB-GS on a shard's halo-extended slab
+# ---------------------------------------------------------------------------
+
+
+def fused_extended_supported(local_shape, dtype) -> bool:
+    """Can :func:`rbgs_fused_extended` run on this shard-local block?  The
+    kernel takes every 2D float32 shape; the JAX predicate's other terms
+    (``m % 128``, a VMEM block size from ``_pick_block_rows_fused``) are
+    Mosaic constraints with no counterpart here.  The caller also needs at
+    least 8 local rows, since the 8-row halos come from the nearest
+    neighbour shard only."""
+    return len(local_shape) == 2 and dtype == torch.float32
+
+
+def _extended_args(ue, be, logical_shape, sweeps):
+    if sweeps > _MAX_FUSED_SWEEPS:
+        raise ValueError(f"at most {_MAX_FUSED_SWEEPS} fused sweeps")
+    if ue.ndim != 2 or ue.shape != be.shape or ue.shape[0] < 2 * _EXT_HALO:
+        raise ValueError(f"rbgs_fused_extended takes 2D slabs of >= "
+                         f"{2 * _EXT_HALO} rows of one shape, got "
+                         f"{tuple(ue.shape)} and {tuple(be.shape)}")
+    nl, ml = int(logical_shape[0]), int(logical_shape[1])
+    if nl < 2 or not 2 <= ml <= ue.shape[1]:
+        raise ValueError(f"logical shape {(nl, ml)} does not fit slabs of "
+                         f"{ue.shape[1]} columns")
+    return nl, ml
+
+
+def rbgs_fused_extended_plain(ue, be, row0, logical_shape, alpha, h,
+                              sweeps):
+    """Twin of the extended-slab kernel (``_rbgs_fused_offset_kernel``
+    through ``_fused_rbgs_passes``): per colour (0 first),
+    ``x <- where(boundary, be, where(parity == colour, gs, x))`` on the whole
+    slab, with ``gs = (be * (1/c) + N + S + E + W) * 0.25`` summed left to
+    right, ``parity = (row0 + i + j) % 2`` (a floor modulo, 0 or 1 for the
+    negative rows too) and ``boundary = row <= 0 | row >= nl - 1 | col <= 0
+    | col >= ml - 1`` for global row ``row0 + i``.  The slab's first and last
+    rows see themselves as N / S neighbours, as in the TPU block; those rows
+    are stale and not returned.  Returns the core rows ``8 .. ne - 9``."""
+    nl, ml = _extended_args(ue, be, logical_shape, sweeps)
+    ne, m = ue.shape
+    c = alpha / (h * h)
+    row = (torch.arange(ne, device=ue.device) + int(row0))[:, None]
+    col = torch.arange(m, device=ue.device)[None, :]
+    boundary = (row <= 0) | (row >= nl - 1) | (col <= 0) | (col >= ml - 1)
+    parity = (row + col) % 2
+    b_over_c = be * (1.0 / c)
+    x = ue
+    for _ in range(sweeps):
+        for color in (0, 1):
+            north = torch.cat([x[:1], x[:-1]])
+            south = torch.cat([x[1:], x[-1:]])
+            east = torch.roll(x, -1, 1)
+            west = torch.roll(x, 1, 1)
+            gs = (b_over_c + north + south + east + west) * 0.25
+            x = torch.where(boundary, be, torch.where(parity == color, gs, x))
+    return x[_EXT_HALO:ne - _EXT_HALO].clone()
+
+
+def rbgs_fused_extended(ue, be, row0, logical_shape, alpha: float, h: float,
+                        sweeps: int):
+    """``sweeps`` (<= 4) fused RB-GS sweeps on a shard's rows extended by 8
+    halo rows above and below (``parallel/sharded_gmg.rbgs_local_pallas``
+    delivers them).  ``row0`` is the global row of ``ue[0]`` (the shard's
+    first row minus 8; -8 on the first shard), so the colour and the
+    Dirichlet pinning are global.  Returns the updated core rows
+    ``ue[8:-8]``, equal to ``2 * sweeps`` colour passes on the global grid.
+    A CPU tensor runs :func:`rbgs_fused_extended_plain`; a CUDA float32 one
+    launches ``rbgs_fused_ext_kernel`` (one launch per call)."""
+    nl, ml = _extended_args(ue, be, logical_shape, sweeps)
+    if ue.device.type == "cpu":
+        return rbgs_fused_extended_plain(ue, be, row0, logical_shape, alpha,
+                                         h, sweeps)
+    _check_cuda("rbgs_fused_extended", ue, be)
+    ne, m = ue.shape
+    c = alpha / (h * h)
+    out = torch.empty((ne - 2 * _EXT_HALO, m), dtype=ue.dtype,
+                      device=ue.device)
+    _raise_on(_lib().mg_rbgs_fused_ext(_ptr(ue), _ptr(be), _ptr(out), ne, m,
+                                       int(row0), nl, ml, 1.0 / c,
+                                       int(sweeps), _stream()),
+              "rbgs_fused_ext")
+    LAUNCHES["rbgs_fused_ext"] += 1
     return out

@@ -48,6 +48,11 @@ def ff_add_f(x_hi, x_lo, y):
     return fast_two_sum(s, e)
 
 
+def ff_neg(x_hi, x_lo):
+    """Negated pair."""
+    return -x_hi, -x_lo
+
+
 def ff_from_div(b: torch.Tensor, c: float):
     """Pair representation of ``b / c`` (refined with one Newton remainder).
 

@@ -35,6 +35,11 @@ def boundary_mask(shape, logical_shape=None, device=None) -> torch.Tensor:
     return m.expand(shape)
 
 
+def interior_mask(shape) -> torch.Tensor:
+    """Boolean mask of the interior nodes (``~boundary_mask``)."""
+    return ~boundary_mask(shape)
+
+
 def shift_fill_zero(u: torch.Tensor, axis: int, offset: int) -> torch.Tensor:
     """``u`` shifted by ``offset`` along ``axis``; vacated entries are zero.
 
@@ -60,6 +65,11 @@ def neighbor_sum(u: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def poisson_diag(ndim: int, alpha: float, h: float) -> float:
+    """Interior diagonal ``2 * ndim * alpha / h^2``."""
+    return 2.0 * ndim * alpha / (h * h)
+
+
 def poisson_apply(u: torch.Tensor, alpha: float, h: float,
                   logical_shape=None) -> torch.Tensor:
     """``y = A u``: identity at boundary rows,
@@ -74,3 +84,8 @@ def poisson_residual(u: torch.Tensor, b: torch.Tensor, alpha: float, h: float,
                      logical_shape=None) -> torch.Tensor:
     """``r = b - A u`` including boundary rows (``r = b - u`` there)."""
     return b - poisson_apply(u, alpha, h, logical_shape)
+
+
+# The JAX package jit-compiles ``poisson_apply`` under this name; torch runs
+# eagerly, so here it is the same function.
+poisson_apply_jit = poisson_apply

@@ -14,6 +14,8 @@ from __future__ import annotations
 import dataclasses
 import sys
 
+import torch
+
 SMOOTHER_NAMES = {0: "gs", 1: "jacobi", 2: "bicgstab"}
 
 HELP_TEXT = """Usage: python -m multigrid_prj_tpu_torch.cli.gmg_main [OPTIONS]
@@ -144,3 +146,16 @@ def parse_gmg_args(argv: list[str]) -> GMGConfig:
         else:
             i += 1
     return cfg
+
+
+def on_cuda_flag(value, device, name: str) -> bool:
+    """A kernel-route flag as the solvers take it: ``True`` / ``False``, or
+    ``"auto"`` / ``None`` for "on CUDA" (the JAX package's ``"auto"`` means
+    "on a TPU backend": the kernels' device).  Any other string raises
+    ``ValueError``."""
+    if value is None or value == "auto":
+        return torch.device(device).type == "cuda"
+    if isinstance(value, str):
+        raise ValueError(f"{name} must be True, False, None or 'auto', got "
+                         f"{value!r}")
+    return bool(value)

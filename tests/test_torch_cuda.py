@@ -537,3 +537,68 @@ def test_cuda_f64_with_kernels_launches_nothing(cuda_device):
         assert got.converged and got.iterations == want.iterations
         np.testing.assert_allclose(got.history, want.history, rtol=1e-8,
                                    atol=1e-12)
+
+
+# the sharded solver's extended-slab smoother: (rows R, columns m) of the
+# slab, global logical shape, and the slab's first global row
+EXT_CASES = [(64, 330, (8192, 330), -8), (64, 330, (8000, 300), 7990),
+             (2048, 256, (8192, 256), 4088), (8, 128, (8192, 128), 8184)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,m,logical,row0", EXT_CASES)
+def test_cuda_fused_ext_equals_twin(cuda_device, rows, m, logical, row0):
+    """The extended-slab kernel against its twin, bit for bit, at sweeps
+    1-4; one launch per call, and more than 4 sweeps refused."""
+    rng = np.random.default_rng(2)
+    ue, be = (torch.from_numpy(rng.standard_normal((rows + 16, m)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    h = 10.0 / (logical[0] - 1)
+    for sweeps in (1, 2, 3, 4):
+        cs.reset_launch_counts()
+        got = cs.rbgs_fused_extended(ue, be, row0, logical, ALPHA, h, sweeps)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["rbgs_fused_ext"] == 1
+        want = cs.rbgs_fused_extended_plain(ue, be, row0, logical, ALPHA, h,
+                                            sweeps)
+        assert torch.equal(got, want), sweeps
+    with pytest.raises(ValueError, match="at most 4"):
+        cs.rbgs_fused_extended(ue, be, row0, logical, ALPHA, h, 5)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_one_rank_step(cuda_device):
+    """A one-rank sharded step on the card (no process group: the one-rank
+    mesh): ``"auto"`` takes the kernel route and the grouped schedule there,
+    two extended-slab launches per sharded level, and the step agrees with
+    the same step on the CPU (the twin; the plain ops' sums and the
+    replicated bottom's ``b / c`` round differently on the two devices) to
+    1e-5 of the scale."""
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.parallel import ShardedGMGSolver, make_mesh
+
+    kw = dict(shape=(256, 256), mesh=make_mesh(), num_levels=4)
+    s = ShardedGMGSolver(**kw, device="cuda")
+    assert s.use_pallas and s.use_grouped
+    b = assemble_rhs(s.levels[0], 10.0, test=1, dtype=torch.float32,
+                     device="cuda")
+    cs.reset_launch_counts()
+    got = s.step(torch.zeros_like(b), b)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["rbgs_fused_ext"] == 2 * s.num_sharded
+    cpu = ShardedGMGSolver(**kw, device="cpu", use_pallas=True)
+    want = cpu.step(torch.zeros_like(b.cpu()), b.cpu())
+    scale = float(want.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_auto_means_on_cuda(cuda_device):
+    """``use_pallas="auto"`` on the card: the AMG solver takes RCM and the
+    kernel route (ROADMAP.md fault C2)."""
+    from multigrid_prj_tpu_torch.amg import AMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+
+    s = AMGSolver(poisson_fd_csr(16), num_levels=2, use_pallas="auto",
+                  device="cuda")
+    assert s._use_pallas and s._perm is not None

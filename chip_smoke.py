@@ -41,7 +41,10 @@ paths' shapes.  Imports nothing of JAX.  The paths:
   step timed against the unsharded ``GMGSolver`` step (``bench.py``'s
   ``measure_sharded_on_one``); 4 gloo ranks on the card at 2048^2 on the
   ("x",) and ("dcn", "x") layouts against one rank; 2 gloo ranks at 256^2
-  against the same ranks on the CPU (the twin).
+  against the same ranks on the CPU (the twin);
+* the design probes of ``benchmarks/`` (``csrc/ablation.cu``): the port's
+  ``stencil_ablation`` and ``spmv_ablation`` harnesses at their full size
+  (8192^2 f32; ``banded_csr(2**20)``), each probe kernel against its twin.
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
@@ -55,12 +58,17 @@ non-zero):
   twins (with the SpMM)   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU twins,
   FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin
   16d. sharded 8192^2, one rank (NCCL)   16e. sharded 2048^2, 4 ranks on one
-  card (gloo)   17. times (with profiled runs of the 1025^2 solves and of
-  each AMG solve)
+  card (gloo)   16f. design probes: the stencil and SpMV probe kernels vs
+  their twins   17. times (with profiled runs of the 1025^2 solves and of
+  each AMG solve; the two probe harnesses' mains as the probes' path)
 The line before the last is the kernel table as one JSON object (each
-kernel's time at its shapes, with the least time the card could take for
-the same work, ``bound_ms``, and one PyTorch call's time for the same
-function where there is one, ``library_ms``); the last line is ``{"ok":
+kernel's time at its shapes: one call between CUDA events, ``ms``, and
+per call from CUDA-graph replays, ``device_ms``, where the probes' ``ms``
+is already that; the least time the card could take for the same work,
+``bound_ms``; one PyTorch call's time for the same function where there
+is one, ``library_ms``; ``launches`` counts wrapper calls, a graph's
+capture included, and the probes' ``launches_executed`` what the card
+ran, graph replays included); the last line is ``{"ok":
 true, "device": {...}}``.  Without CUDA, or without the rest of the
 repository beside it, it exits non-zero and prints no result.
 
@@ -161,6 +169,29 @@ KERNELS.update({
 })
 KERNELS["rbgs_fused_ext"] = (f"{_PS}:476", _SRC2)
 KERNELS_AMG = ("spmv", "ff_residual_ell")
+# the design probes of benchmarks/ (csrc/ablation.cu, ROADMAP B17 / B18),
+# driven through the port's two harnesses (multigrid_prj_tpu_torch/
+# benchmarks/), whose mains are their path; checked for launches after it
+_SAB = "benchmarks/stencil_ablation.py"
+_SPAB = "benchmarks/spmv_ablation.py"
+_SRCA = "multigrid_prj_tpu_torch/csrc/ablation.cu"
+PROBES = {
+    "probe_copy": (f"{_SAB}:75", _SRCA),
+    "probe_rolls": (f"{_SAB}:89", _SRCA),
+    "probe_shifts": (f"{_SAB}:106", _SRCA),
+    "probe_halo": (f"{_SAB}:125", _SRCA),
+    "probe_full": (f"{_SAB}:149", _SRCA),
+    "probe_carry": (f"{_SAB}:180", _SRCA),
+    "probe_stream": (f"{_SPAB}:67", _SRCA),
+    "probe_staticwin": (f"{_SPAB}:49", _SRCA),
+    "probe_noshuffle": (f"{_SPAB}:30", _SRCA),
+}
+# flops per point of the stencil probes (each moves 8 B per point: u read
+# once, y written once); the harness's chain is 5 + 24 applies
+PROBE_FLOPS = {"copy": 1, "rolls": 3, "shifts": 3, "halo": 3, "full": 6,
+               "carry": 6}
+PROBE_N = 8192
+PROBE_CHAIN = 29
 ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
 # input read once and every output written once (the transfers per fine
@@ -494,6 +525,26 @@ def median_ms(torch, fn, runs=25, warmup=3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, reps=20, runs=10):
+    """Device time (ms) per call of ``fn`` with the host out of the way:
+    ``reps`` calls as one program (``benchmarks/program.py``: one CUDA
+    graph), its replays timed with CUDA events (median of ``runs``).  For
+    kernels shorter than the Python wrapper's launch cost, where
+    ``median_ms`` of one call times the host."""
+    from multigrid_prj_tpu_torch.benchmarks.program import Program
+
+    prog = Program(fn, reps=reps, cuda=True)
+    ms = median_ms(torch, prog.replay, runs=runs, warmup=2)
+    del prog
+    return ms / reps
+
+
+def device_ms(torch, fn, npts):
+    """``graph_ms`` of one kernel call on ``npts`` points: the yardstick of
+    the probes (rows 20-21) for the kernels timed one call at a time."""
+    return graph_ms(torch, fn, reps=20 if npts < 4_000_000 else 5, runs=5)
 
 
 def median_wall(torch, fn, runs=3):
@@ -916,10 +967,12 @@ def time_amg(torch, ctx, card, times):
                  median_ms(torch, twin, runs=10))
             t_lib = median_ms(torch, libcall, runs=10) if libcall else None
             nbytes, flops = ell_cost(k, E)
-            rec = record(at, t[0], t[1], nbytes, flops, t_lib)
+            rec = record(at, t[0], t[1], nbytes, flops, t_lib,
+                         device_ms=device_ms(torch, kern, rows))
             times.setdefault(k, []).append(rec)
             print(f"[time] {k} at FD {n}^2 ({rows} rows, K {K}, {E.nnz} nnz):"
-                  f" kernel {t[0] * 1e3:.1f} us, twin {t[1] * 1e3:.1f} us, "
+                  f" kernel {t[0] * 1e3:.1f} us (device "
+                  f"{rec['device_ms'] * 1e3:.1f} us), twin {t[1] * 1e3:.1f} us, "
                   f"library (cuSPARSE CSR) "
                   f"{'none' if t_lib is None else f'{t_lib * 1e3:.1f} us'}; "
                   f"bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']});"
@@ -1223,7 +1276,7 @@ def main() -> int:
 
     # 3. 2D kernel vs twin (torch.equal at every path shape)
     phases.next("2D kernel vs twin")
-    max_err = {k: 0.0 for k in KERNELS}
+    max_err = {k: 0.0 for k in {**KERNELS, **PROBES}}
     for i, (shape, logical) in enumerate(KERNEL_SHAPES):
         u, b, u_lo, h = kernel_inputs(torch, shape, logical, seed=i)
         done = []
@@ -1284,7 +1337,7 @@ def main() -> int:
         del u, b
     torch.cuda.empty_cache()
 
-    launches = {k: 0 for k in KERNELS}
+    launches = {k: 0 for k in {**KERNELS, **PROBES}}
 
     def run_counted(fn):
         """One run of a path with the counters set to 0 just before and
@@ -1849,6 +1902,71 @@ def main() -> int:
           "2 gloo ranks at 256^2: card vs CPU twin")
     dist.destroy_process_group()
 
+    # 16f. the design probes of benchmarks/: every stencil probe at 8192^2
+    # and each R of its harness, one apply and the harness's 29-apply chain,
+    # and every SpMV probe on banded_csr(2**20) at each block size, against
+    # its twin (torch.equal); orig is the SpMV kernel
+    phases.next("design probes")
+    from multigrid_prj_tpu_torch.benchmarks import program as pgm
+    from multigrid_prj_tpu_torch.benchmarks import spmv_ablation as spab
+    from multigrid_prj_tpu_torch.benchmarks import stencil_ablation as sab
+
+    check(sab.N == sab.M == PROBE_N, "stencil_ablation's N, M")
+    u_p = sab.make_u("cuda")
+    probe_twins = {}
+    for label, mk, rs in sab.VARIANTS:
+        kind = mk.__name__[2:]
+        for r in rs:
+            twin = ((lambda u, r=r: mk.plain(u, r)) if kind == "carry"
+                    else mk.plain)
+            probe_twins[kind, r] = twin
+            for tag, fn_k, fn_p in (
+                    ("one apply", mk(r), twin),
+                    (f"{PROBE_CHAIN} applies", sab.chain(mk(r))(PROBE_CHAIN),
+                     sab.chain(twin)(PROBE_CHAIN))):
+                got, want = fn_k(u_p), fn_p(u_p)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                key = f"probe_{kind}"
+                max_err[key] = max(max_err[key], err)
+                check(torch.equal(got, want), f"{key} R={r} ({tag}) != twin "
+                      f"(max abs diff {err})")
+                del got, want
+        print(f"[probes] {label}: probe_{kind} at {PROBE_N}^2, R {rs}, one "
+              f"apply and {PROBE_CHAIN} applies equal to the twin "
+              "(torch.equal)")
+    n_p = PROBE_N
+    halo = sab.v_halo(32)(u_p)
+    edges = (torch.equal(halo[0], (4.0 * u_p[0] - u_p[7]) - u_p[1])
+             and torch.equal(halo[n_p - 1], (4.0 * u_p[n_p - 1]
+                                              - u_p[n_p - 2]) - u_p[n_p - 8]))
+    full = sab.v_full(32)(u_p)
+    carry_eq = all(torch.equal(sab.v_carry(r)(u_p), full) for r in (32, 64))
+    print(f"[probes] probe_halo edge rows (row 0's north u[7], row {n_p - 1}'s"
+          f" south u[{n_p - 8}]): {edges}; probe_carry == probe_full at R 32, "
+          f"64: {carry_eq}")
+    check(edges and carry_eq, "probe_halo edge rows / probe_carry")
+    del halo, full
+    x_p = spab.pad_x(torch.from_numpy(np.random.default_rng(0).standard_normal(
+        SPMM_N).astype(np.float32)).cuda())
+    for tag, kern, _ in spab.VARIANTS:
+        for br in spab.BLOCK_ROWS:
+            got = spab.spmv_variant(E_b, x_p, kern, br)
+            if tag == "orig":
+                want = E_b.spmv(x_p[:SPMM_N])
+                also = cv.ell_spmv_plain(E_b.colsT, E_b.valsT, x_p)
+                check(torch.equal(got, also), f"orig br{br} != SpMV twin")
+            else:
+                want = spab._PLAIN[tag](E_b.colsT, E_b.valsT, x_p)
+                err = float((got - want).abs().max())
+                max_err[tag] = max(max_err[tag], err)
+            check(torch.equal(got, want), f"{tag} br{br} != its twin")
+        print(f"[probes] {tag} on banded_csr({SPMM_N}), K {E_b.k}, block rows "
+              f"{spab.BLOCK_ROWS}: equal to "
+              f"{'CudaELL.spmv and its twin' if tag == 'orig' else 'its twin'}"
+              " (torch.equal)")
+    torch.cuda.empty_cache()
+
     missing = [k for k in KERNELS if launches[k] == 0]
     check(not missing, f"kernels no path launched: {missing}")
 
@@ -1864,8 +1982,11 @@ def main() -> int:
         times.setdefault(k, []).append(rec)
         lib = rec["library_ms"]
         lib = "none" if lib is None else f"{lib * 1e3:.1f} us"
+        dev = ("" if "device_ms" not in rec else
+               f" (device {rec['device_ms'] * 1e3:.1f} us)")
         print(f"[time] {k} {label} at {rec['at']}: kernel "
-              f"{rec['ms'] * 1e3:.1f} us, twin {rec['plain_ms'] * 1e3:.1f} "
+              f"{rec['ms'] * 1e3:.1f} us{dev}, twin "
+              f"{rec['plain_ms'] * 1e3:.1f} "
               f"us, library {lib}; bound {rec['bound_ms'] * 1e3:.1f} us "
               f"({rec['bound_by']}){note}  ({card})")
 
@@ -1889,6 +2010,8 @@ def main() -> int:
     per = STENCIL_COST["apply_chain"]
     rec = record(f"{n_b}x{n_b} (bench.py's chain, c = 1)", t_k, t_p,
                  per[0] * n_b * n_b, per[1] * n_b * n_b,
+                 device_ms=device_ms(torch, lambda: cs.poisson_apply_chain(
+                     u_b, a_b, h_b, CHAIN_FUSE), n_b * n_b),
                  single_applies_ms=t_s,
                  nnz_per_s=nnz * CHAIN_FUSE / (t_k * 1e-3),
                  single_nnz_per_s=nnz * CHAIN_FUSE / (t_s * 1e-3))
@@ -1905,7 +2028,7 @@ def main() -> int:
             label, kern, twin = cases[-1]
             t = (median_ms(torch, kern), median_ms(torch, twin))
             per = STENCIL_COST[kname]
-            extra, note = {}, ""
+            extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
             if kname == "rbgs_resfilter":  # and the kernels it fuses
                 extra["composition_ms"] = median_ms(torch, cases[-2][2])
                 note = (f"; smoother + residual + restriction kernels "
@@ -1925,7 +2048,7 @@ def main() -> int:
             per = STENCIL_COST[kname]
             add_time(kname, label, record(
                 "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
-                per[1] * npts))
+                per[1] * npts, device_ms=device_ms(torch, kern, npts)))
         del u, bb
         torch.cuda.empty_cache()
     # the sharded smoother's kernel on one 8192-row slab with its 8-row
@@ -1948,7 +2071,9 @@ def main() -> int:
             ue, be, 10.0, h_e, sweeps=sw))
         add_time("rbgs_fused_ext", f"sweeps {sw}", record(
             f"{ne}x{m} ({sw} sweeps, row0 -8)", t_k, t_p, per[0] * ne * m,
-            per[1] * ne * m * sw // 4, colour_launches_ms=t_c),
+            per[1] * ne * m * sw // 4, colour_launches_ms=t_c,
+            device_ms=device_ms(torch, lambda sw=sw: cs.rbgs_fused_extended(
+                ue, be, -8, lg, 10.0, h_e, sw), ne * m)),
             f"; {2 * sw} rbgs_color launches {t_c * 1e3:.1f} us")
     del ue, be
     torch.cuda.empty_cache()
@@ -1964,23 +2089,73 @@ def main() -> int:
     nbytes, flops = ell_cost("ell_spmm", E_b, SPMM_NVEC)
     rec = record(f"{SPMM_N} rows x {SPMM_NVEC} vectors (banded_csr, K "
                  f"{E_b.k})", t_k, t_p, nbytes, flops, t_l,
+                 device_ms=device_ms(torch, lambda: E_b.spmm(X0), SPMM_N),
                  spmv_calls_ms=t_4,
                  effective_nnz_per_s=E_b.nnz_dense * SPMM_NVEC / (t_k * 1e-3))
     add_time("ell_spmm", f"{SPMM_NVEC} vectors", rec,
              f"; {SPMM_NVEC} spmv launches {t_4 * 1e3:.1f} us; "
              f"{rec['effective_nnz_per_s']:.4g} effective nnz/s "
              "(bench.py's count)")
-    # the least times of the design probes in benchmarks/ (PERF.md's kernel
-    # table rows 20-21, not ported): the apply probes move 8192^2 f32 in
-    # and out (8 B per point), the SpMV probes the ELL slots (8 B each) and
-    # x and y of banded_csr(2**20)
-    b20 = bound(8 * BENCH_N * BENCH_N, 6 * BENCH_N * BENCH_N)
-    b21 = bound(*ell_cost("spmv", E_b))
-    print(f"[bound] benchmarks/stencil_ablation.py probes at {BENCH_N}^2: "
-          f"{b20[0] * 1e3:.1f} us ({b20[1]}); benchmarks/spmv_ablation.py "
-          f"probes on banded_csr({SPMM_N}), K {E_b.k}: {b21[0] * 1e3:.1f} us "
-          f"({b21[1]})  (published H100 SXM peaks)")
-    del lib, cols, E_b, X0
+    del lib, cols, X0
+    # the design probes (PERF.md rows 20-21): both harnesses' mains at full
+    # size are the probes' path (launches counted); then each kernel per R /
+    # block size against its twin, with its bound: device time per call from
+    # CUDA-graph replays, since an SpMV probe (~20 us) is shorter than its
+    # Python wrapper's launch
+    pgm.reset_program_counts()
+    (st_out, sp_out), c_pr = run_counted(lambda: (sab.main([]),
+                                                  spab.main([])))
+    ran = pgm.executed_launches()
+    print(f"[probes] launches of the harness run: wrapper calls (eager + "
+          f"captured) {({k: c_pr[k] for k in (*PROBES, 'spmv')})}; executed "
+          f"on the card (eager + graph replays) "
+          f"{({k: ran[k] for k in (*PROBES, 'spmv')})}")
+    for label, r, dt in st_out:
+        print(f"[probes] stencil_ablation {label} R={r}: {dt * 1e3:.4f} ms "
+              f"per apply, {8.0 * n_p * n_p / dt / 1e9:.1f} GB/s effective "
+              f"((5+{sab.ITERS})-chain minus 5-chain, each one CUDA graph, "
+              f"best of 4)  ({card})")
+    for rec in sp_out:
+        print(f"[probes] spmv_ablation {rec['variant']}: "
+              f"{rec['us_per_spmv']:.3f} us per SpMV, {rec['gb_s']:.1f} GB/s "
+              f"of slots (50 chained in one CUDA graph, best of 3)  ({card})")
+    missing = [k for k in PROBES if c_pr[k] == 0]
+    check(not missing and c_pr["spmv"] > 0,
+          f"probes the harnesses did not launch: {missing}")
+    npts = n_p * n_p
+    for label, mk, rs in sab.VARIANTS:
+        kind = mk.__name__[2:]
+        for r in rs:
+            t_k = graph_ms(torch, lambda mk=mk, r=r: mk(r)(u_p))
+            t_p = graph_ms(torch, lambda t=probe_twins[kind, r]: t(u_p),
+                           reps=2, runs=5)
+            t_l = (graph_ms(torch, lambda: torch.add(u_p, 1.0))
+                   if kind == "copy" else None)
+            add_time(f"probe_{kind}", f"R={r}", record(
+                f"{n_p}x{n_p}, R={r}", t_k, t_p, 8 * npts,
+                PROBE_FLOPS[kind] * npts, t_l))
+    copy_ms = min(rec["ms"] for rec in times["probe_copy"])
+    print(f"[roofline] measured copy (probe_copy, u + 1 at {n_p}^2, best R, "
+          f"CUDA-graph replays): {8 * npts / (copy_ms * 1e-3) / 1e12:.3f} TB/s = "
+          f"{8 * npts / (copy_ms * 1e-3) / HBM_BYTES_PER_S:.1%} of the "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s datasheet rate  ({card})")
+    K_b, n_b2 = E_b.colsT.shape
+    x_bytes = {"probe_stream": 0, "probe_staticwin": 4 * 1024,
+               "probe_noshuffle": 4 * x_p.shape[0]}
+    # orig, the SpMV kernel on the same matrix: the gap to probe_stream is
+    # the cost of the gather
+    t_orig = graph_ms(torch, lambda: E_b.spmv(x_p[:SPMM_N]))
+    for tag, kern, _ in spab.VARIANTS[1:]:
+        for br in spab.BLOCK_ROWS:
+            t_k = graph_ms(torch, lambda k=kern, br=br: spab.spmv_variant(
+                E_b, x_p, k, br))
+            t_p = graph_ms(torch, lambda tag=tag: spab._PLAIN[tag](
+                E_b.colsT, E_b.valsT, x_p), reps=5)
+            add_time(tag, f"block rows {br}", record(
+                f"banded_csr({SPMM_N}), K {K_b}, block rows {br}", t_k, t_p,
+                8 * K_b * n_b2 + x_bytes[tag] + 4 * n_b2, 2 * K_b * n_b2,
+                orig_ms=t_orig), f"; orig (ell_spmv) {t_orig * 1e3:.1f} us")
+    del u_p, x_p, E_b
     torch.cuda.empty_cache()
 
     # the 1025^2 and 8193^2 solves, unfused (U) and fused (F), in the order
@@ -2055,13 +2230,15 @@ def main() -> int:
         return out
 
     print(card)
+    every = {**KERNELS, **PROBES}
     print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda", "source": KERNELS[k][1],
-         "replaces": KERNELS[k][0], "launches": launches[k],
+        {"name": k, "route": "cuda", "source": every[k][1],
+         "replaces": every[k][0], "launches": launches[k],
          "max_abs_err": max_err[k], **timing(k),
          **({"also_replaces": ALSO_REPLACES[k]} if k in ALSO_REPLACES
-            else {})}
-        for k in KERNELS]}))
+            else {}),
+         **({"launches_executed": ran[k]} if k in PROBES else {})}
+        for k in every]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
 ``nvcc`` compiles each source (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``,
-``csrc/spmv.cu``) for ``sm_90a`` into an object file, all at once in
+``csrc/spmv.cu``, ``csrc/ablation.cu``) for ``sm_90a`` into an object file, all at once in
 parallel, and links them into one shared library with a plain C interface,
 which is loaded with ``ctypes``.  The library goes to ``multigrid_prj_tpu_torch/build/``
 (git-ignored) and is rebuilt when any source is newer than it.  Nothing is
@@ -21,7 +21,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "stencil2d.cu", _PKG / "csrc" / "stencil3d.cu",
-           _PKG / "csrc" / "spmv.cu")
+           _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "ablation.cu")
 BUILD_DIR = _PKG / "build"
 LIBRARY = BUILD_DIR / "libmg_stencil.so"
 
@@ -56,6 +56,10 @@ _SIGNATURES = {
     "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_probe_copy": [_vp, _vp, _i, _i, _i, _vp],
+    "mg_probe_neighbour": [_vp, _vp, _i, _i, _i, _i, _vp],
+    "mg_probe_carry": [_vp, _vp, _i, _i, _i, _vp],
+    "mg_probe_spmv": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
 }
 
 

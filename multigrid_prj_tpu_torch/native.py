@@ -11,12 +11,20 @@ path is active.  Which path runs matters for parity: the native
 ``csr_transpose`` keeps explicit zeros that the fallback drops.
 
 The library is built on demand with ``make -C native`` (g++, no external
-deps) at the first call that needs it, never at import.
+deps) at the first call that needs it, never at import.  Several processes
+(pytest workers, both packages) may load it at once on a fresh checkout,
+and the Makefile links straight onto its target, so a loader can meet a
+half-written file.  This loader therefore builds under an ``fcntl`` lock
+beside the library, links into a temporary file that ``os.replace`` puts
+in place, and when the file is cut short or ``CDLL`` refuses it, rebuilds
+it under the lock and tries once more before falling back.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import os
 import subprocess
 from typing import Optional
@@ -34,34 +42,95 @@ _PD = ctypes.POINTER(ctypes.c_double)
 _PU8 = ctypes.POINTER(ctypes.c_ubyte)
 
 
+@contextlib.contextmanager
+def build_lock():
+    """Hold the exclusive ``fcntl`` lock that guards building ``_SO``."""
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    with open(_SO + ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _build() -> bool:
+    """``make`` the library into a temporary file and move it onto ``_SO``
+    (call with :func:`build_lock` held)."""
     makefile_dir = os.path.join(_HERE, "native")
     if not os.path.exists(os.path.join(makefile_dir, "Makefile")):
         return False
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["make", "-C", makefile_dir, "-s"],
+            ["make", "-C", makefile_dir, "-s", f"TARGET={tmp}"],
             check=True, capture_output=True, timeout=300,
         )
-        return os.path.exists(_SO)
+        os.replace(tmp, _SO)
+        return True
     except Exception:
         return False
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(tmp)
+
+
+def _stale() -> bool:
+    src = os.path.join(_HERE, "native", "mgtpu.cpp")
+    return (not os.path.exists(_SO)
+            or (os.path.exists(src)
+                and os.path.getmtime(src) > os.path.getmtime(_SO)))
+
+
+def _complete(path: str) -> bool:
+    """True when ``path`` holds a whole ELF64 file: the linker writes the
+    section header table last, at the end, so a file cut short of it is
+    still being written.  ``dlopen`` of such a file can kill the process
+    (a fault on a segment past the end) instead of raising ``OSError``."""
+    try:
+        with open(path, "rb") as fh:
+            head = fh.read(64)
+            size = os.fstat(fh.fileno()).st_size
+    except OSError:
+        return False
+    if len(head) < 64 or head[:5] != b"\x7fELF\x02":
+        return False
+    shoff = int.from_bytes(head[0x28:0x30], "little")
+    shentsize = int.from_bytes(head[0x3A:0x3C], "little")
+    shnum = int.from_bytes(head[0x3C:0x3E], "little")
+    return size >= shoff + shentsize * shnum > 0
+
+
+def _open() -> Optional[ctypes.CDLL]:
+    if not _complete(_SO):
+        return None
+    try:
+        return ctypes.CDLL(_SO)
+    except OSError:
+        return None
+
+
+def ensure_built() -> bool:
+    """Build the library under the lock if it is missing or stale; True
+    when a complete file is in place."""
+    with build_lock():
+        return (not _stale()) or _build()
 
 
 def _load() -> Optional[ctypes.CDLL]:
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
-    _tried = True
-    src = os.path.join(_HERE, "native", "mgtpu.cpp")
-    stale = (os.path.exists(_SO) and os.path.exists(src)
-             and os.path.getmtime(src) > os.path.getmtime(_SO))
-    if (not os.path.exists(_SO) or stale) and not _build():
-        if not os.path.exists(_SO):
-            return None
-    try:
-        lib = ctypes.CDLL(_SO)
-    except OSError:
+    with build_lock():
+        if _stale():
+            _build()  # on failure a stale file still loads, as before
+        lib = _open()
+        if lib is None and os.path.exists(_SO) and _build():
+            # another process may have been writing the file (the
+            # Makefile links in place): rebuild it here and try once more
+            lib = _open()
+    if lib is None:
+        _tried = True
         return None
     lib.mgtpu_free.argtypes = [ctypes.c_void_p]
     lib.mgtpu_coo_to_csr.restype = _LL

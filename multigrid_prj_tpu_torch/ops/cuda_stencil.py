@@ -55,13 +55,17 @@ from multigrid_prj_tpu_torch.ops import transfer as _tr
 from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 
 # kernel name -> number of launches since the last reset_launch_counts()
-# (the ELL kernels of ops/cuda_spmv.py count here too)
+# (the ELL kernels of ops/cuda_spmv.py and the design probes of benchmarks/
+# count here too)
 LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
             "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
-            "rbgs_fused_ext": 0}
+            "rbgs_fused_ext": 0,
+            "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,
+            "probe_halo": 0, "probe_full": 0, "probe_carry": 0,
+            "probe_stream": 0, "probe_staticwin": 0, "probe_noshuffle": 0}
 
 # passes one fused launch holds: the halo of csrc/stencil2d.cu's tiles is 8
 # cells, and each colour pass, residual, filter or apply costs one

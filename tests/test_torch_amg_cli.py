@@ -16,8 +16,10 @@ from multigrid_prj_tpu_torch.models import fem as tfem
 from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
 from multigrid_prj_tpu_torch.utils import io as tio
 from test_torch_fem import _write_msh
+from torch_native_parity import native_parity  # noqa: F401
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("native_parity")
 HIST_ATOL = 1e-14
 CPU = ["-device", "cpu"]  # the port's CLI runs on the card unless asked
 

@@ -602,3 +602,98 @@ def test_cuda_auto_means_on_cuda(cuda_device):
     s = AMGSolver(poisson_fd_csr(16), num_levels=2, use_pallas="auto",
                   device="cuda")
     assert s._use_pallas and s._perm is not None
+
+
+# the design probes of benchmarks/ (csrc/ablation.cu): stencil probes at a
+# ragged-free and a ragged width, each R of the harness
+PROBE_SHAPES = [(256, 512), (512, 8200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", PROBE_SHAPES)
+def test_cuda_stencil_probes_equal_twins(cuda_device, shape):
+    """Each stencil probe kernel, one apply and a 29-apply chain at every R
+    of the harness, bit-equal to its twin; the carry probe equal to the
+    full one; the halo probe's clamped edge rows."""
+    from multigrid_prj_tpu_torch.benchmarks import stencil_ablation as sa
+
+    rng = np.random.default_rng(5)
+    u = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+        cuda_device)
+    for name, mk, rs in sa.VARIANTS:
+        kind = mk.__name__[2:]
+        for r in rs:
+            plain = ((lambda v, r=r: mk.plain(v, r)) if kind == "carry"
+                     else mk.plain)
+            cs.reset_launch_counts()
+            got = mk(r)(u)
+            assert cs.LAUNCHES[f"probe_{kind}"] == 1, (name, r)
+            assert torch.equal(got, plain(u)), (name, r)
+            chained = sa.chain(mk(r))(29)(u)
+            twin = sa.chain(plain)(29)(u)
+            assert torch.equal(chained, twin), (name, r)
+    n = shape[0]
+    halo = sa.v_halo(32)(u)
+    assert torch.equal(halo[0], (4.0 * u[0] - u[7]) - u[1])
+    assert torch.equal(halo[n - 1], (4.0 * u[n - 1] - u[n - 2]) - u[n - 8])
+    assert torch.equal(sa.v_carry(64)(u), sa.v_full(32)(u))
+    assert torch.equal(sa.v_carry_plain(u.cpu(), 32), sa.v_full_plain(u.cpu()))
+    with pytest.raises(ValueError, match="divide"):
+        sa.v_copy(96)(u)
+    with pytest.raises(ValueError, match="made for"):
+        sa.v_copy(64)(u.cpu())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_spmv_probes_equal_twins(cuda_device):
+    """Each SpMV probe kernel at every block size on banded_csr and on the
+    scattered test matrix, bit-equal to its twin; ``orig`` is the SpMV
+    kernel."""
+    from multigrid_prj_tpu_torch.benchmarks import spmv_ablation as sp
+    from multigrid_prj_tpu_torch.models.poisson import banded_csr
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+
+    rng = np.random.default_rng(6)
+    for M in (banded_csr(40000), _ell_matrices()["scattered"]):
+        E = cv.CudaELL.build(M, device=cuda_device)
+        x = sp.pad_x(torch.from_numpy(rng.standard_normal(M.shape[1]).astype(
+            np.float32)).to(cuda_device))
+        for tag, kern, _ in sp.VARIANTS:
+            for br in sp.BLOCK_ROWS:
+                cs.reset_launch_counts()
+                got = sp.spmv_variant(E, x, kern, br)
+                if tag == "orig":
+                    assert cs.LAUNCHES["spmv"] == 1
+                    assert torch.equal(got, E.spmv(x[:M.shape[1]]))
+                    continue
+                assert cs.LAUNCHES[tag] == 1, (tag, br)
+                want = sp._PLAIN[tag](E.colsT, E.valsT, x)
+                assert torch.equal(got, want), (tag, br)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_program_counts_captured_and_replayed_launches(cuda_device):
+    """A harness chain as one CUDA graph: the wrapper counts its warm call
+    and its capture, the replays run the captured launches (counted in
+    ``REPLAYED``) and give the eager chain's result."""
+    from multigrid_prj_tpu_torch.benchmarks import program as pg
+    from multigrid_prj_tpu_torch.benchmarks import stencil_ablation as sa
+
+    u = torch.rand(256, 512, device=cuda_device)
+    out = []
+    chain = sa.chain(sa.v_full(32))(3)
+    cs.reset_launch_counts()
+    pg.reset_program_counts()
+    prog = pg.Program(lambda v: out.append(chain(v)), u, reps=2)
+    assert cs.LAUNCHES["probe_full"] == 3 + 6
+    assert pg.CAPTURED == {"probe_full": 6} and prog.launches == pg.CAPTURED
+    assert pg.executed_launches()["probe_full"] == 3
+    prog()
+    prog()
+    assert pg.REPLAYED == {"probe_full": 12}
+    assert pg.executed_launches()["probe_full"] == 3 + 12
+    assert cs.LAUNCHES["probe_full"] == 9
+    assert torch.equal(out[-1], chain(u)) and torch.equal(out[0], out[-1])
+    pg.reset_program_counts()

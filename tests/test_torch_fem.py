@@ -10,8 +10,10 @@ import torch
 from multigrid_prj_tpu.models import fem as jfem
 from multigrid_prj_tpu_torch import native as tnative
 from multigrid_prj_tpu_torch.models import fem as tfem
+from torch_native_parity import native_parity  # noqa: F401
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("native_parity")
 
 
 def _same_csr(a, b):

@@ -123,9 +123,17 @@ def test_solve_refined_129_variants_match_jax_pallas(kw, inner_cg, iters,
     ``inner_cg=2`` (V-cycle-preconditioned CG through ``poisson_apply``):
     JAX 5 iterations to 8.3e-12.  The twins differ from interpret mode by a
     rounding where XLA contracts an FMA; CG's dot products carry that into
-    every correction, and the last entries (~1e-11) are ratios of residuals
-    near the f32 floor of the inner solve: measured 3.7e-3 relative at most,
-    held to 1e-2.
+    every correction.  Held to 1e-2 relative plus an absolute floor: the
+    inner CG runs in f32, so its last correction is exact only to
+    u32 = 2^-24 relative, which moves the next entry by up to
+    u32 * kappa(A) * h[k-1] (kappa ~ 6.6e3 at 129^2, h[k-1] = 1.49e-8:
+    5.9e-12); entries near 1e-11 sit at that ff32 inner-solve floor, and
+    the solve stops at tol = 1e-11 there.  The floor is taken as tol / 10
+    = 1e-12 (chip_smoke's HISTORY_ATOL for the same solve on the card).
+    Measured: last entry 8.891e-12 here against 8.294e-12 in JAX, 5.97e-13
+    apart (7.2 % relative; 3.7e-3 relative on another CPU, as XLA's CPU
+    code generation contracts differently); every earlier entry within
+    1.2e-4 relative.
 
     Jacobi, omega 0.8 (the ``jacobi`` kernel): JAX 13 iterations to
     7.9e-9; measured 8.4e-5 relative at most, held to 1e-3."""
@@ -139,7 +147,9 @@ def test_solve_refined_129_variants_match_jax_pallas(kw, inner_cg, iters,
     assert all(v == 0 for v in cs.LAUNCHES.values())  # twins on the CPU
     assert want.iterations == iters and want.converged
     assert got.iterations == want.iterations and got.converged
-    np.testing.assert_allclose(got.history, want.history, rtol=hist_rtol)
+    floor = 1e-12 if inner_cg else 0.0  # the ff32 inner-solve floor
+    np.testing.assert_allclose(got.history, want.history, rtol=hist_rtol,
+                               atol=floor)
     np.testing.assert_allclose(got.u.numpy(), np.asarray(want.u),
                                atol=1e-6 * np.abs(np.asarray(want.u)).max())
 
@@ -376,6 +386,7 @@ def test_solver_is_pure_and_checks_inputs():
 def test_port_imports_without_jax():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['multigrid_prj_tpu'] = None; "
+            "sys.modules['benchmarks'] = None; "
             "import multigrid_prj_tpu_torch as p; "
             "import multigrid_prj_tpu_torch.convert, "
             "multigrid_prj_tpu_torch.ops.krylov, "
@@ -387,7 +398,10 @@ def test_port_imports_without_jax():
             "multigrid_prj_tpu_torch.ops.sparse_extended, "
             "multigrid_prj_tpu_torch.models.fem, "
             "multigrid_prj_tpu_torch.utils.metrics, "
-            "multigrid_prj_tpu_torch.cli.amg_main; "
+            "multigrid_prj_tpu_torch.cli.amg_main, "
+            "multigrid_prj_tpu_torch.benchmarks.program, "
+            "multigrid_prj_tpu_torch.benchmarks.stencil_ablation, "
+            "multigrid_prj_tpu_torch.benchmarks.spmv_ablation; "
             "assert p.GMGSolver; print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -18,8 +18,10 @@ from multigrid_prj_tpu_torch import native as tnative
 from multigrid_prj_tpu_torch.models import fem as tfem
 from multigrid_prj_tpu_torch.models import poisson as tpoisson
 from multigrid_prj_tpu_torch.ops import sparse as tsparse
+from torch_native_parity import native_parity  # noqa: F401
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("native_parity")
 
 
 def _systems(name):
@@ -50,6 +52,32 @@ def test_native_available_matches_jax():
     # keeps explicit zeros that the NumPy fallback drops)
     assert tnative.available() == jnative.available()
     assert tnative._SO == jnative._SO
+
+
+def test_native_loader_recovers_from_a_truncated_library(tmp_path,
+                                                         monkeypatch):
+    """A half-written library (what a loader meets in the build race) does
+    not leave the port's loader on the fallback, nor kill the process
+    (``dlopen`` of a file cut short can fault instead of raising): the
+    loader sees the file is incomplete, rebuilds it under the lock, loads
+    it, and later loads in the process get the library."""
+    assert tnative.ensure_built()
+    whole = open(tnative._SO, "rb").read()
+    so = tmp_path / "libmgtpu.so"
+    for cut in (len(whole) // 3, len(whole) - 1, 0):
+        so.write_bytes(whole[:cut])
+        assert not tnative._complete(str(so))
+    so.write_bytes(whole[: len(whole) // 3])
+    monkeypatch.setattr(tnative, "_SO", str(so))
+    monkeypatch.setattr(tnative, "_lib", None)
+    monkeypatch.setattr(tnative, "_tried", False)
+    lib = tnative._load()
+    assert lib is not None and not tnative._tried
+    assert so.stat().st_size == len(whole)
+    assert tnative.available() and tnative._load() is lib
+    indptr, indices, data = tnative.coo_to_csr([0, 1, 1], [1, 0, 1],
+                                               [2.0, 3.0, 4.0], 2)
+    assert indptr.tolist() == [0, 1, 3] and data.tolist() == [2.0, 3.0, 4.0]
 
 
 @pytest.mark.parametrize("name", ["fd32", "p1_mesh12"])

@@ -8,9 +8,13 @@ and the ``gmg_main`` CLI, and its AMG path through ``AMGSolver`` and the
 into one library) and holding each against its plain torch twin at the
 paths' shapes.  Imports nothing of JAX.  The paths:
 
-* main: ``solve_refined`` at 1025^2, 6 levels, V(2,2), pad 256, to 1e-8;
+* main: ``solve_refined`` at 1025^2, 6 levels, V(2,2), pad 256, to 1e-8,
+  one fused smoother launch per smoother call, and the same solve on the
+  per-colour path (the smoother swapped for the per-colour oracle, the
+  path before the fused kernel), equal to it bit for bit;
 * at scale: the same at 8193^2, 8 levels, to 1e-7, plain and with
-  ``inner_cg=4`` (``benchmarks/scale_bench.py``'s solve);
+  ``inner_cg=4`` (``benchmarks/scale_bench.py``'s solve), and on the
+  per-colour path;
 * 1025^2 with ``inner_cg=4``, and with the Jacobi smoother (omega 0.8);
 * the options that run plain ops on CUDA (``use_pallas=False``, SOR);
 * the CLI with ``-smt 0``, ``-smt 1`` and ``-smt 2``;
@@ -48,10 +52,13 @@ paths' shapes.  Imports nothing of JAX.  The paths:
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
-  1. device   2. build   3. 2D kernel vs twin (with the down-leg, apply
-  chain and colour sweep)   4. 3D kernel vs twin   5. main path (+ CPU-twin
-  run)   5b. main path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2
-  (plain, inner_cg=4, fuse_downleg)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
+  1. device   2. build (with the tile kernels' registers, spills and shared
+  memory)   3. 2D kernel vs twin (with the down-leg, apply chain and colour
+  sweep; the fused smoother at sweeps 0-9 and the down-leg at 0-3 also
+  against the per-colour oracle and the 48 x 48 tile)   4. 3D kernel vs
+  twin   5. main path (+ CPU-twin run, + the per-colour path)   5b. main
+  path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2 (plain,
+  inner_cg=4, fuse_downleg, the per-colour path)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
   runs)   8. plain ops   9. CLI   10. 3D paths A, B, C   11. 3D variants D
   (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
   paths: apply chain, colour sweep   13. AMG set-up   14. AMG kernels vs
@@ -59,8 +66,11 @@ non-zero):
   FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin
   16d. sharded 8192^2, one rank (NCCL)   16e. sharded 2048^2, 4 ranks on one
   card (gloo)   16f. design probes: the stencil and SpMV probe kernels vs
-  their twins   17. times (with profiled runs of the 1025^2 solves and of
-  each AMG solve; the two probe harnesses' mains as the probes' path)
+  their twins   17. times (with the per-pass ladder of the smoother and
+  the down-leg at 8448^2, L2-flushed times of the fused kernels and the
+  float-float residual there, the solves on three paths, profiled runs of
+  the 1025^2 solves and of each AMG solve; the two probe harnesses' mains
+  as the probes' path)
 The line before the last is the kernel table as one JSON object (each
 kernel's time at its shapes: one call between CUDA events, ``ms``, and
 per call from CUDA-graph replays, ``device_ms``, where the probes' ``ms``
@@ -114,6 +124,15 @@ KERNEL_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
                  ((132, 132), (129, 129)), ((66, 66), (65, 65)),
                  ((256, 384), (201, 329))]  # ragged, non-square
 TIME_SHAPES = [((1280, 1280), (1025, 1025)), ((8448, 8448), (8193, 8193))]
+# the fused smoother is held to its twin and to the per-colour oracle at
+# every sweep count here (9: one launch per group, 4 + 4 + 1), the down-leg
+# at 0-3; the per-pass ladder times both, and the kernels they replace, at
+# 8448^2 from graph replays
+FUSED_SWEEPS = tuple(range(10))
+DOWNLEG_SWEEPS = (0, 1, 2, 3)
+LADDER_SMOOTHER = (1, 2, 4)
+# an L2 flush between timed calls: read a buffer of 4x the 50 MB L2
+FLUSH_BYTES = 200 * 2 ** 20
 # the f32 relative residual of a plain .solve floors at ~6e-3 at 1025^2
 # (the CPU twins: 0.0072 at iteration 4, then 0.0059 flat), so the fused /
 # unfused .solve runs to 1e-2
@@ -143,6 +162,9 @@ _PS3 = "multigrid_prj_tpu/ops/pallas_stencil_3d.py"
 _SRC2 = "multigrid_prj_tpu_torch/csrc/stencil2d.cu"
 _SRC3 = "multigrid_prj_tpu_torch/csrc/stencil3d.cu"
 KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
+    "rbgs_fused": (f"{_PS}:456", _SRC2),
+    # the per-colour oracle of rbgs_fused and the down-leg, on no solver
+    # path: its launches are those of the per-colour path run beside them
     "rbgs_color": (f"{_PS}:456", _SRC2),
     "residual": (f"{_PS}:313", _SRC2),
     "ff_residual": (f"{_PS}:792", _SRC2),
@@ -192,13 +214,15 @@ PROBE_FLOPS = {"copy": 1, "rolls": 3, "shifts": 3, "halo": 3, "full": 6,
                "carry": 6}
 PROBE_N = 8192
 PROBE_CHAIN = 29
-ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412"}
+ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412",
+                 "rbgs_fused": f"{_PS}:392"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
 # input read once and every output written once (the transfers per fine
 # point); the timed calls are 2 sweeps of the smoothers (Jacobi and 3D
 # Jacobi with omega 0.8), the down-leg with 2 sweeps, 8 chained applies
 STENCIL_COST = {
-    "rbgs_color": (12, 12), "residual": (12, 7), "ff_residual": (24, 60),
+    "rbgs_fused": (12, 12), "rbgs_color": (12, 12), "residual": (12, 7),
+    "ff_residual": (24, 60),
     "apply": (8, 6), "jacobi": (12, 18), "restrict_fw": (5, 5),
     "prolong_add": (9, 3), "rbgs_resfilter": (13, 24),
     "apply_chain": (8, 48), "rbgs_color_sweep": (12, 3),
@@ -385,13 +409,28 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
     """name -> [(label, kernel call, twin call)] on the same inputs."""
     d_hi, d_lo = text.ff_from_div(b, alpha / (h * h))
     ff = (u, u_lo, d_hi, d_lo, b, alpha, h, logical)
+    def fused(s):
+        return cs.red_black_gauss_seidel(u, b, alpha, h, sweeps=s,
+                                         logical_shape=logical)
+
+    def twin(s):
+        return cs.red_black_gauss_seidel_plain(u, b, alpha, h, s, logical)
+
+    def oracle(s):
+        return cs._rbgs_per_colour(u, b, alpha, h, s, logical)
+
     calls = {
-        "rbgs_color": [(
-            "sweeps 2",
-            lambda: cs.red_black_gauss_seidel(u, b, alpha, h, sweeps=2,
-                                              logical_shape=logical),
-            lambda: cs.red_black_gauss_seidel_plain(u, b, alpha, h, 2,
-                                                    logical))],
+        # every sweep count against the per-colour oracle, then the twin;
+        # the last case, 2 sweeps (V(2,2)) against the twin, is the one
+        # timed, the first 2-sweep case the oracle timed beside it
+        "rbgs_fused": (
+            [(f"sweeps {s} vs the per-colour oracle", lambda s=s: fused(s),
+              lambda s=s: oracle(s))
+             for s in sorted(FUSED_SWEEPS, key=lambda s: s != 2)]
+            + [(f"sweeps {s}", lambda s=s: fused(s), lambda s=s: twin(s))
+               for s in FUSED_SWEEPS if s != 2]
+            + [("sweeps 2", lambda: fused(2), lambda: twin(2))]),
+        "rbgs_color": [("sweeps 2", lambda: oracle(2), lambda: twin(2))],
         "residual": [(
             "",
             lambda: cs.poisson_residual(u, b, alpha, h, logical),
@@ -440,34 +479,91 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
     return calls
 
 
+def flat(x):
+    """A call's result as one tensor: the down-leg returns u2 and the
+    coarse residual, compared flattened and timed as they are."""
+    if isinstance(x, tuple):
+        import torch
+
+        return torch.cat([t.reshape(-1) for t in x])
+    return x
+
+
 def downleg_calls(cs, u, b, h, logical, alpha):
-    """The fused down-leg (u2 and the coarse residual, flattened into one
-    tensor) against its twin and against the three kernels it fuses; the
-    last case, 2 sweeps against the twin, is the one timed, the one before
-    it the composition timed beside it."""
-    import torch
-
-    def flat(u2, rc):
-        return torch.cat([u2.reshape(-1), rc.reshape(-1)])
-
+    """The fused down-leg (u2 and the coarse residual) at sweeps 0-3
+    against its twin, against the three kernels it
+    fuses (the smoother as the fused kernel and as the per-colour oracle's
+    launches) and against the 48 x 48 tile it replaced; the last case, 2
+    sweeps against the twin, is the one timed, the one before it the
+    composition the path ran before (the per-colour oracle, the residual
+    and the restriction) timed beside it."""
     def fused(s):
-        return flat(*cs.rbgs_residual_restrict(u, b, alpha, h, s, logical))
+        return cs.rbgs_residual_restrict(u, b, alpha, h, s, logical)
 
     def twin(s):
-        return flat(*cs.rbgs_residual_restrict_plain(u, b, alpha, h, s,
-                                                     logical))
+        return cs.rbgs_residual_restrict_plain(u, b, alpha, h, s, logical)
 
-    def composition(s):
-        u2 = cs.red_black_gauss_seidel(u, b, alpha, h, sweeps=s,
-                                       logical_shape=logical)
+    def tile48(s):
+        return cs._downleg_launch(u, b, alpha, h, s, logical,
+                                  "rbgs_resfilter_tile48")
+
+    def composition(s, per_colour=True):
+        u2 = (cs._rbgs_per_colour(u, b, alpha, h, s, logical) if per_colour
+              else cs.red_black_gauss_seidel(u, b, alpha, h, sweeps=s,
+                                             logical_shape=logical))
         r = cs.poisson_residual(u2, b, alpha, h, logical)
-        return flat(u2, cs.restrict_fw_padded_fast(r, logical))
+        return u2, cs.restrict_fw_padded_fast(r, logical)
 
     return ([(f"sweeps {s}", lambda s=s: fused(s), lambda s=s: twin(s))
-             for s in (1, 3)]
+             for s in DOWNLEG_SWEEPS if s != 2]
+            + [(f"sweeps {s} vs the 48 x 48 tile", lambda s=s: fused(s),
+                lambda s=s: tile48(s)) for s in DOWNLEG_SWEEPS]
+            + [(f"sweeps {s} vs the kernels it fuses (fused smoother)",
+                lambda s=s: fused(s),
+                lambda s=s: composition(s, per_colour=False))
+               for s in DOWNLEG_SWEEPS]
             + [(f"sweeps {s} vs the kernels it fuses", lambda s=s: fused(s),
-                lambda s=s: composition(s)) for s in (1, 3, 2)]
+                lambda s=s: composition(s)) for s in (0, 1, 3, 2)]
             + [("sweeps 2", lambda: fused(2), lambda: twin(2))])
+
+
+def tile_kernel_report(cs, log):
+    """Registers, spills and shared memory of the colour-split tile kernels
+    (``rbgs_fused_kernel<S>``, ``rbgs_resfilter_kernel<S>``) from nvcc's
+    ``-Xptxas -v`` log; their shared memory is dynamic, so it comes from
+    the tile geometry the wrapper passes (``cs.rbgs_tile``)."""
+    import re
+
+    props, cur = {}, None
+    for ln in log.splitlines():
+        hit = re.search(r"(?:Compiling entry function|Function properties "
+                        r"for) '?(\w+)", ln)
+        if hit:
+            cur = hit.group(1)
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+        if spill and cur:
+            props.setdefault(cur, {})["spills"] = spill.groups()
+        used = re.search(r"Used (\d+) registers", ln)
+        if used and cur:
+            props.setdefault(cur, {})["regs"] = used.group(1)
+    out = []
+    for kind, extra in (("rbgs_fused_kernel", 0), ("rbgs_resfilter_kernel",
+                                                   2)):
+        for mangled, pr in sorted(props.items()):
+            hit = re.search(kind + r"ILi(\d)EE", mangled)
+            if not hit:
+                continue
+            sweeps = int(hit.group(1))
+            rows = cs.rbgs_tile(2 * sweeps + extra)[2]
+            smem = 4 * (rows * 64 + 16) * 4
+            st, ld = pr.get("spills", ("?", "?"))
+            out.append(f"{kind}<{sweeps}>: {pr.get('regs', '?')} registers, "
+                       f"spill stores {st} B, spill loads {ld} B, dynamic "
+                       f"shared memory {smem} B ({rows} x 128 tile of u and "
+                       "b, two colour planes each)")
+    return out
 
 
 def bound(nbytes, flops):
@@ -545,6 +641,41 @@ def device_ms(torch, fn, npts):
     """``graph_ms`` of one kernel call on ``npts`` points: the yardstick of
     the probes (rows 20-21) for the kernels timed one call at a time."""
     return graph_ms(torch, fn, reps=20 if npts < 4_000_000 else 5, runs=5)
+
+
+def flushed_ms(torch, fn, runs=10):
+    """Median device time (ms) of one call of ``fn`` with L2 flushed before
+    it: a read of ``FLUSH_BYTES``, enqueued first, lasts longer than the
+    host's launch of ``fn``, so the events time the kernel alone on a cold
+    L2 (CUDA events, synchronised per run)."""
+    buf = torch.ones(FLUSH_BYTES // 4, device="cuda")
+    sink = torch.empty((), device="cuda")
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.sum(buf, dim=0, out=sink)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del buf
+    return statistics.median(times)
+
+
+def stencil_bytes(kname, shape, logical):
+    """Bytes one call of a 2D stencil kernel must move at ``shape``:
+    ``STENCIL_COST``'s per-point count, except that the float-float
+    residual reads no ``d_hi`` / ``d_lo`` at boundary and dead-zone points
+    (16 B there, 24 B inside)."""
+    npts = shape[0] * shape[1]
+    if kname != "ff_residual":
+        return STENCIL_COST[kname][0] * npts
+    nl, ml = logical or shape
+    inside = (nl - 2) * (ml - 2)
+    return 24 * inside + 16 * (npts - inside)
 
 
 def median_wall(torch, fn, runs=3):
@@ -1272,6 +1403,8 @@ def main() -> int:
           f"{info['seconds']:.2f} s -> {info['path']}")
     for ln in regs:
         print(f"[build] {ln}")
+    for ln in tile_kernel_report(cs, info["log"]):
+        print(f"[build] {ln}")
     _build.library()
 
     # 3. 2D kernel vs twin (torch.equal at every path shape)
@@ -1283,7 +1416,7 @@ def main() -> int:
         for kname, cases in kernel_calls(cs, text, u, b, u_lo, h,
                                          logical).items():
             for label, kern, twin in cases:
-                got, want = kern(), twin()
+                got, want = flat(kern()), flat(twin())
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 max_err[kname] = max(max_err[kname], err)
@@ -1310,7 +1443,8 @@ def main() -> int:
     print(f"[kernels] down-leg with sweeps {sweeps} at {shape}: {n_fused} "
           f"fused launches, launches {counts}; equal to its twin: "
           f"{torch.equal(got, want)}")
-    check(n_fused == 0 and torch.equal(got, want),
+    check(n_fused == 0 and torch.equal(got, want) and counts == {
+        "rbgs_fused": 1, "residual": 1, "restrict_fw": 1},
           f"down-leg with sweeps {sweeps}")
     del u, b, got, want
     torch.cuda.empty_cache()
@@ -1337,7 +1471,7 @@ def main() -> int:
         del u, b
     torch.cuda.empty_cache()
 
-    launches = {k: 0 for k in {**KERNELS, **PROBES}}
+    launches = dict.fromkeys(cs.LAUNCHES, 0)
 
     def run_counted(fn):
         """One run of a path with the counters set to 0 just before and
@@ -1390,14 +1524,14 @@ def main() -> int:
     def check_fused_equal(tag, res_f, counts_f, res_u, counts_u):
         """A fuse_downleg solve against the unfused one of the same run:
         the same history and solution bit for bit, and each fused launch
-        in place of one residual and one restriction launch (and of its
-        smoother's colour launches)."""
+        in place of one smoother, one residual and one restriction
+        launch."""
         n = counts_f["rbgs_resfilter"]
         print(f"[{tag}] {n} rbgs_resfilter launches; unfused -> fused: "
               f"residual {counts_u['residual']} -> {counts_f['residual']}, "
               f"restrict_fw {counts_u['restrict_fw']} -> "
-              f"{counts_f['restrict_fw']}, rbgs_color "
-              f"{counts_u['rbgs_color']} -> {counts_f['rbgs_color']}; all "
+              f"{counts_f['restrict_fw']}, rbgs_fused "
+              f"{counts_u['rbgs_fused']} -> {counts_f['rbgs_fused']}; all "
               f"launches {sum(counts_u.values())} -> "
               f"{sum(counts_f.values())}; history equal to the unfused "
               "one (bit for bit)")
@@ -1406,15 +1540,53 @@ def main() -> int:
               f"{tag}: differs from the unfused solve")
         check(n > 0 and counts_u["rbgs_resfilter"] == 0
               and counts_u["residual"] - counts_f["residual"] == n
-              and counts_u["restrict_fw"] - counts_f["restrict_fw"] == n,
+              and counts_u["restrict_fw"] - counts_f["restrict_fw"] == n
+              and counts_u["rbgs_fused"] - counts_f["rbgs_fused"] == n,
               f"{tag}: launches {counts_f}, unfused {counts_u}")
 
-    gs_need = ("rbgs_color", "residual", "ff_residual", "restrict_fw",
+    gs_need = ("rbgs_fused", "residual", "ff_residual", "restrict_fw",
                "prolong_add")
     # every level above the bottom is padded, so the fused down-leg takes
     # all the cycle's residual and restriction launches
-    fused_need = ("rbgs_color", "ff_residual", "prolong_add",
+    fused_need = ("rbgs_fused", "ff_residual", "prolong_add",
                   "rbgs_resfilter")
+
+    def per_colour(s):
+        """``s`` with its smoother swapped for the per-colour oracle (2 x
+        sweeps ``rbgs_color`` launches on a clone of u, the path before the
+        fused smoother): the reference the fused paths are held to."""
+        def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
+            return cs._rbgs_per_colour(u, b, alpha, h, sweeps, logical_shape)
+
+        s.smoother = _sm
+        return s
+
+    def check_smoother_launches(tag, s, res, counts, fused):
+        """One fused launch per smoother call of <= 4 sweeps: 2 calls per
+        smoothed level and cycle (the bottom is the dense inverse), the
+        pre-smoothing in the down-leg when fused; no oracle launch."""
+        calls = (len(s.levels) - 1) * res.iterations * (1 if fused else 2)
+        print(f"[{tag}] smoother launches: rbgs_fused {counts['rbgs_fused']} "
+              f"(expected {calls}: one per call), rbgs_color "
+              f"{counts['rbgs_color']}")
+        check(s._coarse_inv is not None and counts["rbgs_fused"] == calls
+              and counts["rbgs_color"] == 0, f"{tag}: smoother launches")
+
+    def check_per_colour(tag, res_p, counts_p, res, counts):
+        """The per-colour path against the fused one of the same run: the
+        same history and solution bit for bit, 2 x sweeps colour launches
+        in place of each fused one."""
+        print(f"[{tag}] per-colour path: {res_p.iterations} iterations, "
+              f"rbgs_color {counts_p['rbgs_color']} launches (fused path: "
+              f"rbgs_fused {counts['rbgs_fused']}); all launches "
+              f"{sum(counts_p.values())} (fused path "
+              f"{sum(counts.values())}); history equal: "
+              f"{np.array_equal(res_p.history, res.history)}")
+        check(np.array_equal(res_p.history, res.history)
+              and torch.equal(res_p.u, res.u),
+              f"{tag}: the fused path differs from the per-colour path")
+        check(counts_p["rbgs_fused"] == 0 and counts_p["rbgs_color"]
+              == 4 * counts["rbgs_fused"], f"{tag}: per-colour launches")
 
     # 5. main path: 1025^2 ff32-refined V(2,2) solve on the card
     phases.next("main path 1025^2")
@@ -1423,8 +1595,13 @@ def main() -> int:
                      device="cuda")
     res, counts = run_path(solver, b)
     check_solve("main", res, SHAPE, 1e-8, TPU_ITERATIONS, counts, gs_need)
+    check_smoother_launches("main", solver, res, counts, fused=False)
     main_launches = sum(counts.values())
     check_twins("main", res, SOLVER_KW, b)
+    psolver = per_colour(GMGSolver(**SOLVER_KW, device="cuda"))
+    res_p, counts_p = run_path(psolver, b)
+    check_per_colour("main", res_p, counts_p, res, counts)
+    colour_launches = sum(counts_p.values())
 
     # 5b. the main path with fuse_downleg: bit-equal to the unfused run, one
     # fused launch in place of each level's smoother, residual and
@@ -1434,6 +1611,8 @@ def main() -> int:
     res_f, counts_f = run_path(fsolver, b)
     check_solve("main fuse_downleg", res_f, SHAPE, 1e-8, TPU_ITERATIONS,
                 counts_f, fused_need)
+    check_smoother_launches("main fuse_downleg", fsolver, res_f, counts_f,
+                            fused=True)
     check_fused_equal("main fuse_downleg", res_f, counts_f, res, counts)
     fused_launches = sum(counts_f.values())
     for fuse in (False, True):
@@ -1473,6 +1652,8 @@ def main() -> int:
         res8, counts = run_path(big, big_b, inner_cg=inner)
         check_solve(tag, res8, (8193, 8193), 1e-7, SCALE_ITERATIONS[inner],
                     counts, gs_need + (("apply",) if inner else ()))
+        if not inner:  # inner_cg's preconditioner cycles call it too
+            check_smoother_launches(tag, big, res8, counts, fused=False)
         print(f"[{tag}] peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         big_res[inner] = (res8, counts)
@@ -1484,8 +1665,14 @@ def main() -> int:
     res8f, counts = run_path(big_f, big_b)
     check_solve("8193 fuse_downleg", res8f, (8193, 8193), 1e-7,
                 SCALE_ITERATIONS[0], counts, fused_need)
+    check_smoother_launches("8193 fuse_downleg", big_f, res8f, counts,
+                            fused=True)
     check_fused_equal("8193 fuse_downleg", res8f, counts, *big_res[0])
     del res8f
+    big_p = per_colour(GMGSolver(**SCALE_KW, device="cuda"))
+    res8p, counts = run_path(big_p, big_b)
+    check_per_colour("8193", res8p, counts, *big_res[0])
+    del res8p
 
     # 7. 1025^2 inner_cg=4 and Jacobi omega 0.8, each against its CPU twins
     phases.next("1025^2 inner_cg / Jacobi")
@@ -1520,8 +1707,8 @@ def main() -> int:
     print(f"[plain] omega=1.2 (SOR, plain smoother): {res_sor.iterations} "
           f"iterations to {float(res_sor.history[-1]):.3e}; launches "
           f"{dict(cs.LAUNCHES)}")
-    check(res_sor.converged and cs.LAUNCHES["rbgs_color"] == 0,
-          "omega=1.2 solve")
+    check(res_sor.converged and cs.LAUNCHES["rbgs_fused"] == 0
+          and cs.LAUNCHES["rbgs_color"] == 0, "omega=1.2 solve")
 
     # 9. CLI on the card (three runs at once, one process each)
     phases.next("CLI")
@@ -2031,13 +2218,62 @@ def main() -> int:
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
             if kname == "rbgs_resfilter":  # and the kernels it fuses
                 extra["composition_ms"] = median_ms(torch, cases[-2][2])
-                note = (f"; smoother + residual + restriction kernels "
-                        f"{extra['composition_ms'] * 1e3:.1f} us")
+                extra["composition_device_ms"] = device_ms(
+                    torch, cases[-2][2], npts)
+                note = (f"; per-colour smoother + residual + restriction "
+                        f"kernels {extra['composition_ms'] * 1e3:.1f} us "
+                        f"(device {extra['composition_device_ms'] * 1e3:.1f}"
+                        " us)")
+            if kname == "rbgs_fused":  # and the per-colour oracle
+                extra["per_colour_ms"] = median_ms(torch, cases[0][2])
+                extra["per_colour_device_ms"] = device_ms(torch, cases[0][2],
+                                                          npts)
+                note = (f"; per-colour oracle (4 rbgs_color launches and "
+                        f"the clone) {extra['per_colour_ms'] * 1e3:.1f} us "
+                        f"(device {extra['per_colour_device_ms'] * 1e3:.1f}"
+                        " us)")
+            if npts > 4_000_000 and kname in ("rbgs_fused", "ff_residual",
+                                              "rbgs_resfilter"):
+                extra["flushed_ms"] = flushed_ms(torch, kern)
+                note += (f"; L2 flushed before each call "
+                         f"{extra['flushed_ms'] * 1e3:.1f} us")
             add_time(kname, label, record(
-                "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
-                per[1] * npts, **extra), note)
+                "x".join(map(str, shape)), t[0], t[1],
+                stencil_bytes(kname, shape, logical), per[1] * npts,
+                **extra), note)
         del u, bb, u_lo
         torch.cuda.empty_cache()
+    # the per-pass ladder at 8448^2, device time per call from graph
+    # replays: the down-leg at sweeps 0-3 on the colour-split tile and on
+    # the 48 x 48 tile it replaced; the smoother at 1, 2 and 4 sweeps, fused
+    # and as the per-colour oracle
+    (shape, logical) = TIME_SHAPES[1]
+    u, bb, _, h = kernel_inputs(torch, shape, logical, seed=97)
+    npts = shape[0] * shape[1]
+    ladder = {}
+    for s in DOWNLEG_SWEEPS:
+        for k in ("rbgs_resfilter", "rbgs_resfilter_tile48"):
+            ladder.setdefault(k, {})[s] = device_ms(
+                torch, lambda s=s, k=k: cs._downleg_launch(
+                    u, bb, 10.0, h, s, logical, k), npts)
+    for s in LADDER_SMOOTHER:
+        ladder.setdefault("rbgs_fused", {})[s] = device_ms(
+            torch, lambda s=s: cs.red_black_gauss_seidel(
+                u, bb, 10.0, h, sweeps=s, logical_shape=logical), npts)
+        ladder.setdefault("per-colour", {})[s] = device_ms(
+            torch, lambda s=s: cs._rbgs_per_colour(u, bb, 10.0, h, s,
+                                                   logical), npts)
+    for k, row in ladder.items():
+        print(f"[ladder] {k} at {shape[0]}x{shape[1]}, device us per call "
+              f"by sweeps: "
+              f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }  "
+              f"({card})")
+    times["rbgs_fused"][-1]["ladder_ms"] = {
+        k: ladder[k] for k in ("rbgs_fused", "per-colour")}
+    times["rbgs_resfilter"][-1]["ladder_ms"] = {
+        k: ladder[k] for k in ("rbgs_resfilter", "rbgs_resfilter_tile48")}
+    del u, bb
+    torch.cuda.empty_cache()
     for shape, logical in TIME_SHAPES_3D:
         u, bb, h = kernel_inputs_3d(torch, shape, logical, seed=99)
         npts = shape[0] * shape[1] * shape[2]
@@ -2053,8 +2289,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the sharded smoother's kernel on one 8192-row slab with its 8-row
     # halos (README.md's 8192^2 on one rank): 4 sweeps and the path's 2,
-    # against its twin and against 2 x sweeps rbgs_color launches on the
-    # same slab (that wrapper's clone of u included)
+    # against its twin, against 2 x sweeps rbgs_color launches on the same
+    # slab (the per-colour oracle, its clone of u included) and against the
+    # fused smoother's one launch there (the same sweeps without the row
+    # offset: the tile the next redesign of this kernel would take)
     ne, m = EXT_TIME_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(98)
     ue, be = (torch.randn(EXT_TIME_SHAPE, generator=gen, device="cuda")
@@ -2067,14 +2305,18 @@ def main() -> int:
             ue, be, -8, lg, 10.0, h_e, sw))
         t_p = median_ms(torch, lambda sw=sw: cs.rbgs_fused_extended_plain(
             ue, be, -8, lg, 10.0, h_e, sw), runs=10)
-        t_c = median_ms(torch, lambda sw=sw: cs.red_black_gauss_seidel(
-            ue, be, 10.0, h_e, sweeps=sw))
+        t_c = median_ms(torch, lambda sw=sw: cs._rbgs_per_colour(
+            ue, be, 10.0, h_e, sw))
+        t_f = device_ms(torch, lambda sw=sw: cs.red_black_gauss_seidel(
+            ue, be, 10.0, h_e, sweeps=sw), ne * m)
         add_time("rbgs_fused_ext", f"sweeps {sw}", record(
             f"{ne}x{m} ({sw} sweeps, row0 -8)", t_k, t_p, per[0] * ne * m,
             per[1] * ne * m * sw // 4, colour_launches_ms=t_c,
+            rbgs_fused_device_ms=t_f,
             device_ms=device_ms(torch, lambda sw=sw: cs.rbgs_fused_extended(
                 ue, be, -8, lg, 10.0, h_e, sw), ne * m)),
-            f"; {2 * sw} rbgs_color launches {t_c * 1e3:.1f} us")
+            f"; {2 * sw} rbgs_color launches {t_c * 1e3:.1f} us; the fused "
+            f"smoother on the slab {t_f * 1e3:.1f} us (device)")
     del ue, be
     torch.cuda.empty_cache()
     # bench.py's measure_ell_spmm: 4 vectors on banded_csr(2**20), against
@@ -2158,19 +2400,23 @@ def main() -> int:
     del u_p, x_p, E_b
     torch.cuda.empty_cache()
 
-    # the 1025^2 and 8193^2 solves, unfused (U) and fused (F), in the order
-    # U F F U U F: median of 3 each, after one warm run of each
-    for tag, pair, iters in [
-            ("1025^2", (solver, fsolver, b), res.iterations),
-            ("8193^2", (big, big_f, big_b), big_res[0][0].iterations)]:
-        su, sf, bvec = pair
+    # the 1025^2 and 8193^2 solves, unfused (U), fused (F) and on the
+    # per-colour path (P), in the order U F P P F U U P F: median of 3 each,
+    # after one warm run of each
+    for tag, group, iters in [
+            ("1025^2", (solver, fsolver, psolver, b), res.iterations),
+            ("8193^2", (big, big_f, big_p, big_b),
+             big_res[0][0].iterations)]:
+        su, sf, sp, bvec = group
         fns = {"unfused": lambda su=su, bvec=bvec: su.solve_refined(bvec),
-               "fuse_downleg": lambda sf=sf, bvec=bvec: sf.solve_refined(bvec)}
+               "fuse_downleg": lambda sf=sf, bvec=bvec: sf.solve_refined(bvec),
+               "per-colour": lambda sp=sp, bvec=bvec: sp.solve_refined(bvec)}
         walls = {k: [] for k in fns}
         for k in fns:
             fns[k]()
-        for k in ("unfused", "fuse_downleg", "fuse_downleg", "unfused",
-                  "unfused", "fuse_downleg"):
+        for k in ("unfused", "fuse_downleg", "per-colour", "per-colour",
+                  "fuse_downleg", "unfused", "unfused", "per-colour",
+                  "fuse_downleg"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fns[k]()
@@ -2197,8 +2443,10 @@ def main() -> int:
               f"({[round(w * 1e3, 2) for w in walls]} ms), {iters} "
               f"iterations  ({card})")
     print(f"[time] 1025^2 solve: {main_launches} kernel launches, "
-          f"{fused_launches} with fuse_downleg (wrapper counts)")
-    for tag, s in (("unfused", solver), ("fuse_downleg", fsolver)):
+          f"{fused_launches} with fuse_downleg, {colour_launches} on the "
+          "per-colour path (wrapper counts)")
+    for tag, s in (("unfused", solver), ("fuse_downleg", fsolver),
+                   ("per-colour", psolver)):
         try:
             wall, busy, nev, top = profile_run(
                 torch, lambda s=s: s.solve_refined(b))

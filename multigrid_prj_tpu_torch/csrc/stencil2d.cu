@@ -4,8 +4,11 @@
 // colour sweep and the sharded solver's smoother, in this one source file.
 //
 // Ports of the Pallas TPU kernels in multigrid_prj_tpu/ops/pallas_stencil.py:
-//   rbgs_color  <- red_black_gauss_seidel (_rbgs_fused_kernel /
-//                  _rbgs_fused2d_kernel, shared body _fused_rbgs_passes)
+//   rbgs_fused  <- red_black_gauss_seidel (_rbgs_fused_kernel /
+//                  _rbgs_fused2d_kernel, shared body _fused_rbgs_passes):
+//                  up to 4 sweeps per launch, as the TPU's contract
+//   rbgs_color  <- the same, one colour per launch: the per-colour oracle
+//                  that the fused tiles are held to (no solver path)
 //   residual    <- poisson_residual (_residual_kernel)
 //   ff_residual <- ff_poisson_residual (_ff_residual_kernel)
 //   apply       <- poisson_apply (_apply_kernel / _apply_carry_kernel)
@@ -37,15 +40,17 @@
 // torch twins in ops/cuda_stencil.py, so each kernel is bit-equal to its
 // twin.
 //
-// These are simple first versions: one launch per colour half-sweep or
-// Jacobi sweep (the TPU fuses up to 4 / 8 sweeps per memory pass) and no
-// shared-memory tiling.  Each kernel streams its operands from HBM once per
-// launch and is bound by memory bandwidth (bytes per point are noted at each
-// kernel).  The two temporally fused kernels (rbgs_resfilter, apply_chain)
-// are the exception: they keep a halo tile in shared memory, described
-// above them.
+// The single-pass kernels are simple first versions with no shared-memory
+// tiling: each streams its operands from HBM once per launch and is bound by
+// memory bandwidth (bytes per point are noted at each kernel).  Jacobi still
+// runs one launch per sweep (the TPU fuses up to 8).  The temporally fused
+// kernels keep a halo tile in shared memory: the red-black smoother and the
+// down-leg on the colour-split tile described above rbgs_fused_kernel, the
+// apply chain and the sharded smoother on the older 48 x 48 tile.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -53,7 +58,9 @@ __device__ __forceinline__ bool is_boundary(int i, int j, int nl, int ml) {
   return i == 0 || j == 0 || i >= nl - 1 || j >= ml - 1;
 }
 
-// One colour half-sweep of red-black Gauss-Seidel, in place on u.
+// One colour half-sweep of red-black Gauss-Seidel, in place on u: the
+// per-colour oracle of the fused tiles below (ops/cuda_stencil.
+// _rbgs_per_colour), on no solver path.
 // 12 B/point: read b and the other colour's neighbours, write this colour.
 //
 // A launch writes ONLY points of its own colour: boundary points of the
@@ -366,32 +373,19 @@ __device__ __forceinline__ float fw_rows_tile(const float* __restrict__ s,
                    __fmul_rn(0.25f, s[p + kExt]));
 }
 
-// V-cycle down-leg in one pass (replaces _rbgs_resfilter_kernel and the
-// decimation fw_decimate_padded): `sweeps` (<= 3) red-black sweeps, the
-// residual of the result, and the full-weighting restriction, for a fine
-// (n, m) tile (n, m even) with logical extents (nl, ml).  Writes the core
-// of the smoothed u2 and the coarse points (k, q) whose fine point (2k, 2q)
-// lies in the core; no fine-size intermediate leaves the SM.
-//
-// Ring count: 2 per sweep, 1 for the residual, 1 for the filter:
-// 2*3 + 2 = 8 = kHalo.  The colour passes are rbgs_color_kernel's, in place
-// in shared memory (one colour reads only the other); the residual is
-// residual_kernel's, written over b (each cell reads only its own b); the
-// restriction is restrict_fw_kernel's per coarse point (rows first, edges
-// injected, dead zone 0), so the result equals smoother + residual +
-// restriction for every logical shape.  (The TPU kernel filtered every fine
-// point and zeroed the coarse edges in XLA, which equals this when the
-// smoothed residual is 0 on the logical boundary, as it is for the odd
-// logical extents of the 2^k+1 hierarchies.)
-//
-// 13 B per fine point: read u and b, write u2 and a quarter-size rc
-// (the composition it replaces moves about 65 B: 4 colour launches, the
-// clone, the residual and the restriction).
+// The earlier down-leg on the 48 x 48 tile, kept only so that the
+// per-pass ladder of chip_smoke.py can time it beside its redesign
+// (rbgs_resfilter_kernel below, which replaces it on every path): `sweeps`
+// (<= 3) red-black sweeps, the residual and the full-weighting restriction,
+// every pass over all 2304 cells with per-cell div/mod, an 8-cell halo
+// whatever the sweep count, scalar synchronous loads.  Equal to the new
+// kernel bit for bit.
 __global__ void __launch_bounds__(kFusedThreads)
-    rbgs_resfilter_kernel(const float* __restrict__ u,
-                          const float* __restrict__ b, float* __restrict__ u2,
-                          float* __restrict__ rc, int n, int m, int nl, int ml,
-                          float inv_c, float c, int sweeps) {
+    rbgs_resfilter_tile48_kernel(const float* __restrict__ u,
+                                 const float* __restrict__ b,
+                                 float* __restrict__ u2,
+                                 float* __restrict__ rc, int n, int m, int nl,
+                                 int ml, float inv_c, float c, int sweeps) {
   __shared__ float su[kExt2];
   __shared__ float sb[kExt2];  // b, then the residual
   const int i0 = blockIdx.y * kTile - kHalo;
@@ -581,6 +575,437 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The colour-split red-black tile: rbgs_fused_kernel<SWEEPS> (the smoother,
+// up to 4 sweeps per launch: _rbgs_fused_kernel's contract, replacing 2 x
+// SWEEPS rbgs_color launches and the clone of u) and
+// rbgs_resfilter_kernel<SWEEPS> (the down-leg, up to 3 sweeps, the residual
+// and the restriction).
+//
+// Bound: memory.  A 2-sweep smoother call must move 12 B per point (read u
+// and b, write the result); the composition it replaces moved 4 x 12 B plus
+// the clone's 8 B.  What held the 48 x 48 tile at 7-9x its bound, and what
+// this tile does instead:
+// * Halo sized to the work.  The tile loses one ring per dependent pass
+//   (the ring argument above), so P = 2 x SWEEPS passes (+ 2 for the
+//   down-leg's residual and filter) need a row halo of P cells; the column
+//   halo is P rounded up to 4, so that tile origins and the core start on
+//   16-byte boundaries.  SWEEPS is a template argument: the geometry and the
+//   pass loops are compile-time constants.  Pass k updates only rows k ..
+//   EH-1-k, the rows that can still be exact.
+// * Large rectangular tiles: 128 columns by 64 rows, so a 2-sweep smoother
+//   tile (core 56 x 120) computes and loads 1.22x its core, and a 2-sweep
+//   down-leg tile (core 52 x 112) 1.41x, against 2.25x on the 48 x 48 tile.
+//   (On the H100, 48 and 96 rows ran slower at every pass count: 96 rows fit
+//   two blocks per SM, 64 rows three.)
+// * No idle lanes, no per-cell div/mod.  Shared memory holds the tile split
+//   by column parity: plane 0 the even local columns, plane 1 the odd ones
+//   ([plane][row][pair], 64 pairs a row).  Tile origins are even, so local
+//   parity is global parity, and on row i colour c lives in plane (i + c) & 1
+//   alone: 64 contiguous words, one cell for each of a row's 64 lanes, no
+//   bank conflict.  A thread keeps one pair index for the whole launch, so
+//   its column tests are made once, and walks a quarter of the rows in
+//   order, carrying the neighbours it shares with the next row in registers
+//   (rb_row): three shared loads per cell update instead of five.
+// * Asynchronous loads: each element is one 4-byte cp.async with zero fill
+//   (src-size 0 outside the array), straight into its plane; a warp's 32
+//   copies hit 32 banks since the planes sit 16 words apart.  Nothing is
+//   staged in registers, so three 64 KB tiles stay resident per SM and one
+//   block's loads overlap another's passes.
+// * The core is stored as float4 where the output is 16-byte aligned and m
+//   is a multiple of 4 (every 2^k-padded level), else one float at a time;
+//   both are plain copies, so bit-equal.
+// * One barrier per pass (4 for two sweeps) on 256 threads.
+//
+// Cells outside the array load as 0 and count as boundary cells (they fail
+// the same tests as the edge: row <= 0 or >= nl - 1, col <= 0 or >= ml - 1),
+// so they are pinned to their zero b and never read by an interior cell.
+// Every op is rbgs_color_kernel's (and residual_kernel's and
+// restrict_fw_kernel's) in the same order, so the core is bit-equal to the
+// per-colour launches.
+//
+// The geometry is mirrored by ops/cuda_stencil.rbgs_tile, which passes it to
+// the C entry points; a mismatch is refused there.
+constexpr int kRbCols = 128;             // tile width (local columns)
+constexpr int kRbPairs = kRbCols / 2;    // column pairs per row: one per lane
+constexpr int kRbThreads = 256;
+// thread groups of 64 lanes, a quarter of a pass's rows each
+constexpr int kRbGroups = kRbThreads / kRbPairs;
+constexpr int kRbPlanePad = 16;          // words between consecutive planes
+
+template <int P>  // P: dependent passes the halo must cover
+struct RbTile {
+  static constexpr int H = P;                 // row halo
+  static constexpr int HC = (P + 3) & ~3;     // column halo
+  static constexpr int EH = 64;               // tile rows
+  static constexpr int CH = EH - 2 * H;       // core rows (even)
+  static constexpr int CW = kRbCols - 2 * HC; // core columns (multiple of 4)
+  static constexpr int PLANE = EH * kRbPairs + kRbPlanePad;  // words
+  static constexpr int SMEM = 4 * PLANE * (int)sizeof(float);  // u and b
+  static_assert(CH > 0 && CW > 0 && CH % 2 == 0 && CW % 4 == 0, "tile");
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Copy the (EH, kRbCols) tile of x whose cell (0, 0) is array point (i0, j0)
+// into the two planes at s; cells outside the array get 0.  A thread keeps
+// one column (256 threads = 2 rows of 128) and walks the rows.
+template <class T>
+__device__ __forceinline__ void rb_load(float* s, const float* __restrict__ x,
+                                        int i0, int j0, int n, int m) {
+  const int col = threadIdx.x & (kRbCols - 1);
+  const int j = j0 + col;
+  const bool jin = j >= 0 && j < m;
+  float* dst = s + (col & 1) * T::PLANE + (col >> 1);
+#pragma unroll 4
+  for (int r = threadIdx.x / kRbCols; r < T::EH; r += kRbThreads / kRbCols) {
+    const int i = i0 + r;
+    const bool in = jin && i >= 0 && i < n;
+    cp_async4(dst + r * kRbPairs, in ? x + (long long)i * m + j : x, in);
+  }
+}
+
+// The rows of a pass a thread walks: thread group g = threadIdx.x / 64 (a
+// warp pair, so no warp diverges) takes the g-th quarter of rows k ..
+// EH-1-k, its lane p the column pair p.
+template <class T>
+__device__ __forceinline__ bool rb_rows(int k, int* rs, int* re) {
+  const int len = (T::EH - 2 * k + kRbGroups - 1) / kRbGroups;
+  *rs = k + static_cast<int>(threadIdx.x / kRbPairs) * len;
+  *re = min(*rs + len, T::EH - k);
+  return *rs < *re;
+}
+
+// Row r of a colour pass at pair p, active plane A: rbgs_color_kernel's
+// update.  A thread walks its rows in order, carrying two values from one
+// row to the next (no cell it reads is written in the pass: a colour reads
+// only the other colour): n, the active plane's cell above (row r - 1),
+// and x, the other plane's pair p on row r, one of the W / E neighbours;
+// the next row's n is this row's x and its x this row's S.  So each row
+// loads S, the other W / E neighbour and b.  At the tile's edge columns
+// (pair 0 of plane 0, pair 63 of plane 1) that neighbour is a cell of the
+// row before or after: the edge ring is stale after the first pass anyway.
+template <class T, int A>
+__device__ __forceinline__ void rb_row(float* su, const float* sb, int r,
+                                       int p, float& n, float& x, bool bcol,
+                                       int rlo, int rhi, float inv_c) {
+  const int q = r * kRbPairs + p;
+  float* cell = su + A * T::PLANE + q;
+  const float* other = su + (A ^ 1) * T::PLANE + q;
+  const float south = cell[kRbPairs];
+  const float y = other[A ? 1 : -1];
+  const float bv = sb[A * T::PLANE + q];
+  float t = __fmul_rn(bv, inv_c);
+  t = __fadd_rn(t, n);          // north
+  t = __fadd_rn(t, south);      // south
+  t = __fadd_rn(t, A ? y : x);  // east
+  t = __fadd_rn(t, A ? x : y);  // west
+  const bool bnd = bcol || r < rlo || r > rhi;
+  *cell = bnd ? bv : __fmul_rn(t, 0.25f);
+  n = x;
+  x = south;
+}
+
+template <class T, int A0>
+__device__ __forceinline__ void rb_walk(float* su, const float* sb, int rs,
+                                        int re, int p, bool bcol0, bool bcol1,
+                                        int rlo, int rhi, float inv_c) {
+  float n = su[A0 * T::PLANE + (rs - 1) * kRbPairs + p];
+  float x = su[(A0 ^ 1) * T::PLANE + rs * kRbPairs + p];
+  int r = rs;
+  for (; r + 1 < re; r += 2) {
+    rb_row<T, A0>(su, sb, r, p, n, x, A0 ? bcol1 : bcol0, rlo, rhi, inv_c);
+    rb_row<T, A0 ^ 1>(su, sb, r + 1, p, n, x, A0 ? bcol0 : bcol1, rlo, rhi,
+                      inv_c);
+  }
+  if (r < re) {
+    rb_row<T, A0>(su, sb, r, p, n, x, A0 ? bcol1 : bcol0, rlo, rhi, inv_c);
+  }
+}
+
+// Colour pass k (1-based) of the tile: colour (k - 1) & 1 on rows k ..
+// EH-1-k, in place.  (bcol0, bcol1): whether the pair's even / odd column
+// is a boundary column; rows rlo .. rhi are the interior rows.
+template <class T>
+__device__ __forceinline__ void rb_color_pass(float* su, const float* sb,
+                                              int k, int i0, bool bcol0,
+                                              bool bcol1, int rlo, int rhi,
+                                              float inv_c) {
+  int rs, re;
+  if (!rb_rows<T>(k, &rs, &re)) return;
+  const int p = threadIdx.x & (kRbPairs - 1);
+  // the active plane of row rs: (i + colour) & 1
+  if (((i0 + rs + k - 1) & 1) == 0) {
+    rb_walk<T, 0>(su, sb, rs, re, p, bcol0, bcol1, rlo, rhi, inv_c);
+  } else {
+    rb_walk<T, 1>(su, sb, rs, re, p, bcol0, bcol1, rlo, rhi, inv_c);
+  }
+}
+
+// Write the tile's core (local rows H .., columns HC ..) to y.
+template <class T>
+__device__ __forceinline__ void rb_store_core(float* __restrict__ y,
+                                              const float* su, int i0, int j0,
+                                              int n, int m, bool vec) {
+  if (vec) {
+    constexpr int Q = T::CW / 4;  // float4 per core row
+    for (int t = threadIdx.x; t < T::CH * Q; t += kRbThreads) {
+      const int r = T::H + t / Q;
+      const int lc = T::HC + 4 * (t % Q);
+      const int i = i0 + r, j = j0 + lc;
+      if (i >= n || j >= m) continue;
+      const int q = r * kRbPairs + lc / 2;
+      const float2 e = *reinterpret_cast<const float2*>(su + q);
+      const float2 o = *reinterpret_cast<const float2*>(su + T::PLANE + q);
+      *reinterpret_cast<float4*>(y + (long long)i * m + j) =
+          make_float4(e.x, o.x, e.y, o.y);
+    }
+    return;
+  }
+  for (int t = threadIdx.x; t < T::CH * T::CW; t += kRbThreads) {
+    const int r = T::H + t / T::CW;
+    const int lc = T::HC + t % T::CW;
+    const int i = i0 + r, j = j0 + lc;
+    if (i < n && j < m) {
+      y[(long long)i * m + j] =
+          su[(lc & 1) * T::PLANE + r * kRbPairs + (lc >> 1)];
+    }
+  }
+}
+
+// `SWEEPS` red-black sweeps, out of place (u -> out): the 2 x SWEEPS colour
+// passes of rbgs_color_kernel on one tile, then its core.
+template <int SWEEPS>
+__global__ void __launch_bounds__(kRbThreads)
+    rbgs_fused_kernel(const float* __restrict__ u, const float* __restrict__ b,
+                      float* __restrict__ out, int n, int m, int nl, int ml,
+                      float inv_c, int vec) {
+  using T = RbTile<2 * SWEEPS>;
+  extern __shared__ __align__(16) float rb_smem[];
+  float* su = rb_smem;
+  float* sb = rb_smem + 2 * T::PLANE;
+  const int i0 = blockIdx.y * T::CH - T::H;
+  const int j0 = blockIdx.x * T::CW - T::HC;
+  rb_load<T>(su, u, i0, j0, n, m);
+  rb_load<T>(sb, b, i0, j0, n, m);
+  const int j = j0 + 2 * static_cast<int>(threadIdx.x & (kRbPairs - 1));
+  const bool bcol0 = j <= 0 || j >= ml - 1;
+  const bool bcol1 = j + 1 <= 0 || j + 1 >= ml - 1;
+  const int rlo = 1 - i0, rhi = nl - 2 - i0;  // the interior rows
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int k = 1; k <= 2 * SWEEPS; ++k) {
+    rb_color_pass<T>(su, sb, k, i0, bcol0, bcol1, rlo, rhi, inv_c);
+    __syncthreads();
+  }
+  rb_store_core<T>(out, su, i0, j0, n, m, vec != 0);
+}
+
+// residual_kernel on rows k .. EH-1-k of both planes, over b in place (each
+// cell reads only its own b): a thread walks its rows at pair p, carrying
+// both planes' cells of the row above and of its own row, so each row loads
+// the two cells below, the two outer W / E neighbours and the two b.
+template <class T>
+__device__ __forceinline__ void rb_residual(const float* su, float* sb, int k,
+                                            bool bcol0, bool bcol1, int rlo,
+                                            int rhi, float c) {
+  int rs, re;
+  if (!rb_rows<T>(k, &rs, &re)) return;
+  const int p = threadIdx.x & (kRbPairs - 1);
+  const float* u0 = su + p;             // even columns: pair p is 2p
+  const float* u1 = su + T::PLANE + p;  // odd columns: 2p + 1
+  float* b0 = sb + p;
+  float* b1 = sb + T::PLANE + p;
+  float n0 = u0[(rs - 1) * kRbPairs], n1 = u1[(rs - 1) * kRbPairs];
+  float c0 = u0[rs * kRbPairs], c1 = u1[rs * kRbPairs];
+  for (int r = rs; r < re; ++r) {
+    const int q = r * kRbPairs;
+    const float s0 = u0[q + kRbPairs], s1 = u1[q + kRbPairs];
+    const float w0 = u1[q - 1];  // column 2p - 1
+    const float e1 = u0[q + 1];  // column 2p + 2
+    const bool brow = r < rlo || r > rhi;
+    float a0 = c0, a1 = c1;
+    if (!(brow || bcol0)) {
+      float t = __fmul_rn(4.0f, c0);
+      t = __fsub_rn(t, n0);  // north
+      t = __fsub_rn(t, s0);  // south
+      t = __fsub_rn(t, c1);  // east
+      t = __fsub_rn(t, w0);  // west
+      a0 = __fmul_rn(c, t);
+    }
+    if (!(brow || bcol1)) {
+      float t = __fmul_rn(4.0f, c1);
+      t = __fsub_rn(t, n1);  // north
+      t = __fsub_rn(t, s1);  // south
+      t = __fsub_rn(t, e1);  // east
+      t = __fsub_rn(t, c0);  // west
+      a1 = __fmul_rn(c, t);
+    }
+    b0[q] = __fsub_rn(b0[q], a0);
+    b1[q] = __fsub_rn(b1[q], a1);
+    n0 = c0;
+    n1 = c1;
+    c0 = s0;
+    c1 = s1;
+  }
+}
+
+// Axis-0 pass of the restriction at a fine cell of one residual plane
+// (row lr, pair index pi), for coarse row k: fw_rows on the split tile.
+__device__ __forceinline__ float fw_rows_split(const float* plane, int lr,
+                                               int pi, int k, int nc_r) {
+  const float* x = plane + lr * kRbPairs + pi;
+  if (k == 0 || k == nc_r - 1) return *x;
+  return __fadd_rn(
+      __fadd_rn(__fmul_rn(0.25f, x[-kRbPairs]), __fmul_rn(0.5f, *x)),
+      __fmul_rn(0.25f, x[kRbPairs]));
+}
+
+// V-cycle down-leg in one pass (replaces _rbgs_resfilter_kernel and the
+// decimation fw_decimate_padded): `SWEEPS` (<= 3) red-black sweeps, the
+// residual of the result, and the full-weighting restriction, for a fine
+// (n, m) array (n, m even) with logical extents (nl, ml).  Writes the core
+// of the smoothed u2 and the coarse points (k, q) whose fine point (2k, 2q)
+// lies in the core (core rows and columns start even); no fine-size
+// intermediate leaves the SM.
+//
+// Rings: 2 per sweep, 1 for the residual, 1 for the filter.  The colour
+// passes are rbgs_fused_kernel's; the residual is residual_kernel's, on
+// rows 2 SWEEPS + 1 .., written over b (each cell reads only its own b);
+// the restriction is restrict_fw_kernel's per coarse point (rows first,
+// edges injected, dead zone 0), so the result equals smoother + residual +
+// restriction for every logical shape.  (The TPU kernel filtered every fine
+// point and zeroed the coarse edges in XLA, which equals this when the
+// smoothed residual is 0 on the logical boundary, as it is for the odd
+// logical extents of the 2^k+1 hierarchies.)
+//
+// 13 B per fine point: read u and b, write u2 and a quarter-size rc (the
+// composition it replaces moves 12 B for the smoother, 12 B for the
+// residual and ~5 B for the restriction).
+template <int SWEEPS>
+__global__ void __launch_bounds__(kRbThreads)
+    rbgs_resfilter_kernel(const float* __restrict__ u,
+                          const float* __restrict__ b, float* __restrict__ u2,
+                          float* __restrict__ rc, int n, int m, int nl, int ml,
+                          float inv_c, float c, int vec) {
+  using T = RbTile<2 * SWEEPS + 2>;
+  extern __shared__ __align__(16) float rb_smem[];
+  float* su = rb_smem;
+  float* sb = rb_smem + 2 * T::PLANE;  // b, then the residual
+  const int i0 = blockIdx.y * T::CH - T::H;
+  const int j0 = blockIdx.x * T::CW - T::HC;
+  rb_load<T>(su, u, i0, j0, n, m);
+  rb_load<T>(sb, b, i0, j0, n, m);
+  const int j = j0 + 2 * static_cast<int>(threadIdx.x & (kRbPairs - 1));
+  const bool bcol0 = j <= 0 || j >= ml - 1;
+  const bool bcol1 = j + 1 <= 0 || j + 1 >= ml - 1;
+  const int rlo = 1 - i0, rhi = nl - 2 - i0;  // the interior rows
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int k = 1; k <= 2 * SWEEPS; ++k) {
+    rb_color_pass<T>(su, sb, k, i0, bcol0, bcol1, rlo, rhi, inv_c);
+    __syncthreads();
+  }
+  rb_residual<T>(su, sb, 2 * SWEEPS + 1, bcol0, bcol1, rlo, rhi, c);
+  __syncthreads();
+  rb_store_core<T>(u2, su, i0, j0, n, m, vec != 0);
+  // the coarse points whose fine point lies in the core: a coarse row per
+  // 64 lanes, CW / 2 of them active
+  constexpr int kCr = T::CH / 2, kCc = T::CW / 2;
+  const int mc = m / 2, ncr = n / 2;
+  const int nc_r = (nl + 1) / 2, nc_c = (ml + 1) / 2;
+  const float* r0 = sb;             // residual plane 0: even local columns
+  const float* r1 = sb + T::PLANE;  // plane 1: odd
+  for (int t = threadIdx.x; t < kCr * kRbPairs; t += kRbThreads) {
+    const int kk = t / kRbPairs, qq = t & (kRbPairs - 1);
+    if (qq >= kCc) continue;
+    const int k = blockIdx.y * kCr + kk;
+    const int qc = blockIdx.x * kCc + qq;
+    if (k >= ncr || qc >= mc) continue;
+    const long long o = (long long)k * mc + qc;
+    if (k >= nc_r || qc >= nc_c) {
+      rc[o] = 0.0f;
+      continue;
+    }
+    // fine (2k, 2qc) is local (H + 2kk, HC + 2qq): plane 0, pair HC/2 + qq
+    const int lr = T::H + 2 * kk, pi = T::HC / 2 + qq;
+    const float ce = fw_rows_split(r0, lr, pi, k, nc_r);
+    if (qc == 0 || qc == nc_c - 1) {
+      rc[o] = ce;
+      continue;
+    }
+    const float w = fw_rows_split(r1, lr, pi - 1, k, nc_r);
+    const float e = fw_rows_split(r1, lr, pi, k, nc_r);
+    rc[o] = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, w), __fmul_rn(0.5f, ce)),
+                      __fmul_rn(0.25f, e));
+  }
+}
+
+// The geometry check of the C entry points: the caller's tile (row halo,
+// column halo, rows, columns) must be the one compiled for its pass count.
+template <class T>
+bool rb_geometry_ok(const int* geom) {
+  return geom[0] == T::H && geom[1] == T::HC && geom[2] == T::EH &&
+         geom[3] == kRbCols;
+}
+
+// Launch `kernel` on the tiles of an (n, m) array; the dynamic shared
+// memory above 48 KB is allowed once per kernel.
+template <class T, class K, class... Args>
+int rb_launch(K kernel, bool& smem_set, int n, int m, cudaStream_t stream,
+              Args... args) {
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((m + T::CW - 1) / T::CW, (n + T::CH - 1) / T::CH);
+  kernel<<<grid, kRbThreads, T::SMEM, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int rbgs_fused_launch(const float* u, const float* b, float* out, int n,
+                      int m, int nl, int ml, float inv_c, const int* geom,
+                      int vec, cudaStream_t stream) {
+  using T = RbTile<2 * S>;
+  static bool smem_set = false;
+  if (!rb_geometry_ok<T>(geom)) return (int)cudaErrorInvalidValue;
+  return rb_launch<T>(rbgs_fused_kernel<S>, smem_set, n, m, stream, u, b, out,
+                      n, m, nl, ml, inv_c, vec);
+}
+
+template <int S>
+int rbgs_resfilter_launch(const float* u, const float* b, float* u2,
+                          float* rc, int n, int m, int nl, int ml, float inv_c,
+                          float c, const int* geom, int vec,
+                          cudaStream_t stream) {
+  using T = RbTile<2 * S + 2>;
+  static bool smem_set = false;
+  if (!rb_geometry_ok<T>(geom)) return (int)cudaErrorInvalidValue;
+  return rb_launch<T>(rbgs_resfilter_kernel<S>, smem_set, n, m, stream, u, b,
+                      u2, rc, n, m, nl, ml, inv_c, c, vec);
+}
+
+// float4 stores need m % 4 == 0 and a 16-byte aligned output
+int rb_vec(int m, const void* out) {
+  return m % 4 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -657,12 +1082,43 @@ int mg_rbgs_color_sweep(const float* u, const float* b, float* out, int n,
   return (int)cudaGetLastError();
 }
 
+// `sweeps` (1 .. 4) red-black sweeps u -> out on the colour-split tile;
+// geom = (row halo, column halo, tile rows, tile columns) as the caller
+// computed it, refused unless it is the compiled one.
+int mg_rbgs_fused(const float* u, const float* b, float* out, int n, int m,
+                  int nl, int ml, float inv_c, int sweeps, const int* geom,
+                  void* stream) {
+  static const decltype(&rbgs_fused_launch<1>) kLaunch[] = {
+      rbgs_fused_launch<1>, rbgs_fused_launch<2>, rbgs_fused_launch<3>,
+      rbgs_fused_launch<4>};
+  if (sweeps < 1 || sweeps > 4) return (int)cudaErrorInvalidValue;
+  return kLaunch[sweeps - 1](u, b, out, n, m, nl, ml, inv_c, geom,
+                             rb_vec(m, out), (cudaStream_t)stream);
+}
+
+// The down-leg with `sweeps` (0 .. 3) sweeps on the colour-split tile; geom
+// as for mg_rbgs_fused.
 int mg_rbgs_resfilter(const float* u, const float* b, float* u2, float* rc,
                       int n, int m, int nl, int ml, float inv_c, float c,
-                      int sweeps, void* stream) {
+                      int sweeps, const int* geom, void* stream) {
+  static const decltype(&rbgs_resfilter_launch<0>) kLaunch[] = {
+      rbgs_resfilter_launch<0>, rbgs_resfilter_launch<1>,
+      rbgs_resfilter_launch<2>, rbgs_resfilter_launch<3>};
+  if (n % 2 || m % 2 || sweeps < 0 || sweeps > 3) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return kLaunch[sweeps](u, b, u2, rc, n, m, nl, ml, inv_c, c, geom,
+                         rb_vec(m, u2), (cudaStream_t)stream);
+}
+
+// The earlier down-leg on the 48 x 48 tile (the ladder's reference only).
+int mg_rbgs_resfilter_tile48(const float* u, const float* b, float* u2,
+                             float* rc, int n, int m, int nl, int ml,
+                             float inv_c, float c, int sweeps, void* stream) {
   if (sweeps < 0 || 2 * sweeps + 2 > kHalo) return (int)cudaErrorInvalidValue;
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  rbgs_resfilter_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+  rbgs_resfilter_tile48_kernel<<<grid, kFusedThreads, 0,
+                                 (cudaStream_t)stream>>>(
       u, b, u2, rc, n, m, nl, ml, inv_c, c, sweeps);
   return (int)cudaGetLastError();
 }

@@ -34,8 +34,10 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ip = ctypes.POINTER(ctypes.c_int)  # the tile geometry of the fused RB-GS
 _SIGNATURES = {
     "mg_rbgs_color": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_rbgs_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _ip, _vp],
     "mg_residual": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_apply": [_vp, _vp, _i, _i, _i, _i, _f, _vp],
@@ -52,7 +54,9 @@ _SIGNATURES = {
                            _vp],
     "mg_rbgs_color_sweep": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_rbgs_resfilter": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _i,
-                          _vp],
+                          _ip, _vp],
+    "mg_rbgs_resfilter_tile48": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f,
+                                 _i, _vp],
     "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp],

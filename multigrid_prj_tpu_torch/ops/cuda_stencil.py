@@ -9,8 +9,8 @@ Jacobi smoother and the public apply-chain and colour-sweep ops reach
 ============================  =============================  ===============
 function                      replaces (pallas_stencil.py)   bytes per point
 ============================  =============================  ===============
-``red_black_gauss_seidel``    ``_rbgs_fused_kernel`` /       12 per colour
-                              ``_rbgs_fused2d_kernel``       pass
+``red_black_gauss_seidel``    ``_rbgs_fused_kernel`` /       12 per group of
+                              ``_rbgs_fused2d_kernel``       <= 4 sweeps
 ``poisson_residual``          ``_residual_kernel``           12
 ``ff_poisson_residual``       ``_ff_residual_kernel``        24
 ``poisson_apply``             ``_apply_kernel`` /            8
@@ -39,10 +39,11 @@ the device of its tensors: a CPU tensor runs the plain torch twin
 (``*_plain``, the kernel's operation order, which matches the JAX Pallas
 function in interpret mode); a CUDA tensor launches the kernel or raises
 ``NotImplementedError``.  There is no fallback.  All kernels are
-memory-bound simple first versions (one launch per colour or sweep; only
-the down-leg, the apply chain and the sharded solver's extended-slab
-smoother fuse passes, in a shared-memory halo tile); ``LAUNCHES`` counts
-each kernel launch.
+memory-bound.  The red-black smoother and the down-leg fuse their passes on
+the colour-split shared-memory tile whose geometry :func:`rbgs_tile`
+gives; the apply chain and the sharded solver's extended-slab smoother on
+the older 48 x 48 tile; the rest make one pass per launch (Jacobi one
+launch per sweep).  ``LAUNCHES`` counts each kernel launch.
 """
 
 from __future__ import annotations
@@ -57,22 +58,69 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 # kernel name -> number of launches since the last reset_launch_counts()
 # (the ELL kernels of ops/cuda_spmv.py and the design probes of benchmarks/
 # count here too)
-LAUNCHES = {"rbgs_color": 0, "residual": 0, "ff_residual": 0, "apply": 0,
+LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
+            "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
             "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
+            "rbgs_resfilter_tile48": 0,
             "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
             "rbgs_fused_ext": 0,
             "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,
             "probe_halo": 0, "probe_full": 0, "probe_carry": 0,
             "probe_stream": 0, "probe_staticwin": 0, "probe_noshuffle": 0}
 
-# passes one fused launch holds: the halo of csrc/stencil2d.cu's tiles is 8
-# cells, and each colour pass, residual, filter or apply costs one
-_MAX_DOWNLEG_SWEEPS = 3  # 2 * 3 + 2 <= 8
-_MAX_FUSED_APPLIES = 8
-_MAX_FUSED_SWEEPS = 4  # 2 * 4 colour passes <= 8
+# passes one fused launch holds: each colour pass, residual, filter or
+# apply loses one ring of its tile
+_MAX_FUSED_SWEEPS = 4  # the smoother's tile: a halo of 2 * sweeps <= 8
+_MAX_DOWNLEG_SWEEPS = 3  # the down-leg's: 2 * sweeps + 2 <= 8
+_MAX_FUSED_APPLIES = 8  # the 48 x 48 tile's 8-cell halo
 _EXT_HALO = 8  # halo rows on each side of rbgs_fused_extended's slab
+_RB_TILE_ROWS = 64  # the colour-split tile: 64 rows of 64 column pairs,
+_RB_TILE_COLS = 128  # one pair per lane
+
+
+def rbgs_tile(passes: int):
+    """Geometry of the colour-split tile of ``csrc/stencil2d.cu``
+    (``RbTile<P>``) for ``passes`` dependent passes (2 per sweep, plus 2
+    for the down-leg's residual and filter): ``(row halo, column halo,
+    tile rows, tile columns)``.  The halo is one ring per pass, the column
+    halo rounded up to 4 cells; tiles are 128 columns by 64 rows, cores
+    ``64 - 2 * row halo`` by ``128 - 2 * column halo``.  The C entry points
+    refuse a geometry other than the one compiled."""
+    if not 0 < passes <= 8:
+        raise ValueError(f"the fused RB-GS tiles take 1 .. 8 passes, got "
+                         f"{passes}")
+    return passes, -(-passes // 4) * 4, _RB_TILE_ROWS, _RB_TILE_COLS
+
+
+def _geometry(passes):
+    import ctypes
+
+    return (ctypes.c_int * 4)(*rbgs_tile(passes))
+
+
+def _groups(sweeps, max_fused=_MAX_FUSED_SWEEPS):
+    """``sweeps`` as fused groups of at most ``max_fused``, as the JAX
+    wrappers' ``_pingpong_groups`` runs them (9 -> 4, 4, 1; none for
+    ``sweeps <= 0``)."""
+    full, rem = divmod(max(sweeps, 0), max_fused)
+    return [max_fused] * full + ([rem] if rem else [])
+
+
+def _pingpong(u, groups, launch):
+    """``launch(x, y, s)`` for each group size ``s`` in turn, out of place,
+    ping-ponging two scratch tensors, as the JAX wrappers'
+    ``_pingpong_groups``: ``u`` is only read, and no group gives a copy."""
+    if not groups:
+        return u.clone()
+    bufs = [torch.empty_like(u) for _ in range(min(len(groups), 2))]
+    x = u
+    for g, s in enumerate(groups):
+        y = bufs[g % 2]
+        launch(x, y, s)
+        x = y
+    return x
 
 
 def reset_launch_counts() -> None:
@@ -176,9 +224,12 @@ def red_black_gauss_seidel_plain(u, b, alpha, h, sweeps: int = 1,
 
 def red_black_gauss_seidel(u, b, alpha, h, sweeps: int = 1,
                            omega: float = 1.0, logical_shape=None):
-    """``sweeps`` RB-GS sweeps.  The kernel is ``omega == 1`` only: SOR runs
-    the XLA-order plain smoother on every device, as the JAX kernel wrapper
-    does (``pallas_stencil.red_black_gauss_seidel``), and is no launch."""
+    """``sweeps`` RB-GS sweeps: one launch of ``rbgs_fused_kernel`` per
+    group of at most 4 sweeps, out of place, the groups ping-ponging two
+    scratch tensors (``u`` is only read, never cloned; ``sweeps == 0``
+    returns a copy).  The kernel is ``omega == 1`` only: SOR runs the
+    XLA-order plain smoother on every device, as the JAX kernel wrapper does
+    (``pallas_stencil.red_black_gauss_seidel``), and is no launch."""
     if u.ndim == 3:
         return _cs3d().red_black_gauss_seidel_3d(
             u, b, alpha, h, sweeps=sweeps, omega=omega,
@@ -194,8 +245,28 @@ def red_black_gauss_seidel(u, b, alpha, h, sweeps: int = 1,
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
     c = alpha / (h * h)
+    fn = _lib().mg_rbgs_fused
+
+    def launch(x, y, s):
+        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), n, m, nl, ml, 1.0 / c, s,
+                     _geometry(2 * s), _stream()), "rbgs_fused")
+        LAUNCHES["rbgs_fused"] += 1
+
+    return _pingpong(u, _groups(sweeps), launch)
+
+
+def _rbgs_per_colour(u, b, alpha, h, sweeps: int = 1, logical_shape=None):
+    """The per-colour oracle of the fused smoother on CUDA float32 tensors:
+    ``2 * sweeps`` in-place launches of ``rbgs_color_kernel`` on a clone of
+    ``u``.  On no solver path: the card's checks hold the fused kernels to
+    it, and ``chip_smoke.py`` times it as the path they replace."""
+    _check_cuda("_rbgs_per_colour", u, b)
+    if u.device.type != "cuda":
+        raise ValueError("_rbgs_per_colour launches CUDA kernels only")
+    n, m = u.shape
+    nl, ml = _logical(u.shape, logical_shape)
+    c = alpha / (h * h)
     fn = _lib().mg_rbgs_color
-    # the kernel updates in place: work on a clone so ``u`` is not mutated
     x = u.clone()
     for _ in range(sweeps):
         for color in (0, 1):
@@ -334,22 +405,18 @@ def jacobi(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
     if u.device.type == "cpu":
         return jacobi_plain(u, b, alpha, h, omega, sweeps, logical_shape)
     _check_cuda("jacobi", u, b)
-    if sweeps < 1:
-        return u.clone()
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
     c = alpha / (h * h)
     fn = _lib().mg_jacobi
-    bufs = [torch.empty_like(u) for _ in range(min(sweeps, 2))]
-    x = u
-    for s in range(sweeps):
-        y = bufs[s % 2]
+
+    def launch(x, y, _s):
         _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), n, m, nl, ml, 1.0 / c,
                      int(omega != 1.0), 1.0 - omega, omega, _stream()),
                   "jacobi")
         LAUNCHES["jacobi"] += 1
-        x = y
-    return x
+
+    return _pingpong(u, [1] * sweeps, launch)
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +502,14 @@ def rbgs_residual_restrict(u, b, alpha, h, sweeps, logical_shape):
                                     logical_shape=logical_shape)
         r = poisson_residual(u2, b, alpha, h, logical_shape)
         return u2, restrict_fw_padded_fast(r, logical_shape)
+    return _downleg_launch(u, b, alpha, h, sweeps, logical_shape,
+                           "rbgs_resfilter")
+
+
+def _downleg_launch(u, b, alpha, h, sweeps, logical_shape, kernel):
+    """One launch of the down-leg ``kernel``: ``rbgs_resfilter`` (the
+    colour-split tile) or ``rbgs_resfilter_tile48`` (the 48 x 48 tile it
+    replaced, which only ``chip_smoke.py``'s per-pass ladder calls)."""
     _check_cuda("rbgs_residual_restrict", u, b)
     n, m = u.shape
     if n % 2 or m % 2:
@@ -444,10 +519,12 @@ def rbgs_residual_restrict(u, b, alpha, h, sweeps, logical_shape):
     c = alpha / (h * h)
     u2 = torch.empty_like(u)
     rc = torch.empty((n // 2, m // 2), dtype=u.dtype, device=u.device)
-    _raise_on(_lib().mg_rbgs_resfilter(_ptr(u), _ptr(b), _ptr(u2), _ptr(rc),
-                                       n, m, nl, ml, 1.0 / c, c, int(sweeps),
-                                       _stream()), "rbgs_resfilter")
-    LAUNCHES["rbgs_resfilter"] += 1
+    args = [_ptr(u), _ptr(b), _ptr(u2), _ptr(rc), n, m, nl, ml, 1.0 / c, c,
+            int(sweeps)]
+    if kernel == "rbgs_resfilter":
+        args.append(_geometry(2 * int(sweeps) + 2))
+    _raise_on(getattr(_lib(), f"mg_{kernel}")(*args, _stream()), kernel)
+    LAUNCHES[kernel] += 1
     return u2, rc
 
 
@@ -479,23 +556,17 @@ def poisson_apply_chain(u, alpha, h, applies: int, logical_shape=None):
     if u.device.type == "cpu":
         return poisson_apply_chain_plain(u, alpha, h, applies, logical_shape)
     _check_cuda("poisson_apply_chain", u)
-    if applies < 1:
-        return u.clone()
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
     c = alpha / (h * h)
     fn = _lib().mg_apply_chain
-    bufs = [torch.empty_like(u)
-            for _ in range(min(-(-applies // _MAX_FUSED_APPLIES), 2))]
-    x, done, g = u, 0, 0
-    while done < applies:
-        s = min(_MAX_FUSED_APPLIES, applies - done)
-        y = bufs[g % 2]
+
+    def launch(x, y, s):
         _raise_on(fn(_ptr(x), _ptr(y), n, m, nl, ml, c, s, _stream()),
                   "apply_chain")
         LAUNCHES["apply_chain"] += 1
-        x, done, g = y, done + s, g + 1
-    return x
+
+    return _pingpong(u, _groups(applies, _MAX_FUSED_APPLIES), launch)
 
 
 # ---------------------------------------------------------------------------

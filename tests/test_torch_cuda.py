@@ -111,7 +111,7 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "rbgs_color": 6, "residual": 1, "apply": 1, "jacobi": 3,
+        "rbgs_fused": 1, "residual": 1, "apply": 1, "jacobi": 3,
         "restrict_fw": 1, "prolong_add": 1}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError):
@@ -120,6 +120,86 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
         cs.restrict_fw_padded_fast(u[:, :159].contiguous(), (129, 129))
     with pytest.raises(ValueError):
         cs.prolong_add_padded_fast(rc[:, :79].contiguous(), u)
+
+
+# the fused smoother's shapes: the 1025^2 path's levels (with an exact odd
+# layout, whose m % 4 != 0 takes the scalar stores), the 8193^2 finest
+# level, and an odd unpadded shape smaller than two tiles across
+FUSED_SHAPES = CUDA_SHAPES + [SCALE_SHAPE, ((255, 383), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", FUSED_SHAPES)
+def test_cuda_fused_rbgs_equals_twin_and_per_colour_oracle(cuda_device,
+                                                           shape, logical):
+    """The fused smoother at sweeps 0-9 (one launch per group of <= 4:
+    9 -> 4 + 4 + 1), bit-equal to its twin and to the per-colour oracle's
+    2 x sweeps ``rbgs_color`` launches; ``u`` is never written."""
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    u0 = u.clone()
+    for sweeps in range(10):
+        cs.reset_launch_counts()
+        got = cs.red_black_gauss_seidel(u, b, ALPHA, h, sweeps=sweeps,
+                                        logical_shape=logical)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["rbgs_fused"] == -(-sweeps // 4), sweeps
+        assert sum(cs.LAUNCHES.values()) == -(-sweeps // 4), sweeps
+        assert got.data_ptr() != u.data_ptr()
+        want = cs.red_black_gauss_seidel_plain(u, b, ALPHA, h, sweeps,
+                                               logical)
+        assert torch.equal(got, want), sweeps
+        oracle = cs._rbgs_per_colour(u, b, ALPHA, h, sweeps, logical)
+        assert cs.LAUNCHES["rbgs_color"] == 2 * sweeps
+        assert torch.equal(got, oracle), sweeps
+        assert torch.equal(u, u0), sweeps
+        del got, want, oracle
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_rbgs_refusals(cuda_device):
+    """What the fused kernels do not take is refused, by the wrapper or by
+    the C entry point (a group of more than 4 sweeps, a down-leg of more
+    than 3, a tile geometry other than the compiled one), before any
+    launch."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    u, b, _, h = _cuda_inputs((160, 160), (129, 129), cuda_device)
+    out = torch.empty_like(u)
+    rc = torch.empty((80, 80), device=cuda_device)
+    lib, stream = library(), cs._stream()
+    p = cs._ptr
+    good = cs._geometry(4)
+    assert lib.mg_rbgs_fused(p(u), p(b), p(out), 160, 160, 129, 129, 0.1, 2,
+                             good, stream) == 0
+    for sweeps, geom in ((5, cs._geometry(8)), (0, good), (1, good),
+                         (2, (ctypes.c_int * 4)(4, 4, 96, 128))):
+        assert lib.mg_rbgs_fused(p(u), p(b), p(out), 160, 160, 129, 129, 0.1,
+                                 sweeps, geom, stream) != 0, sweeps
+    for sweeps, geom in ((4, cs._geometry(8)), (2, good)):
+        assert lib.mg_rbgs_resfilter(p(u), p(b), p(out), p(rc), 160, 160,
+                                     129, 129, 0.1, 10.0, sweeps, geom,
+                                     stream) != 0, sweeps
+    assert lib.mg_rbgs_resfilter(p(u), p(b), p(out), p(rc), 159, 160, 129,
+                                 129, 0.1, 10.0, 2, cs._geometry(6),
+                                 stream) != 0
+    cs.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cs.red_black_gauss_seidel(u.double(), b.double(), ALPHA, h)
+    with pytest.raises(ValueError):
+        cs.red_black_gauss_seidel(u, b[:, :159].contiguous(), ALPHA, h)
+    with pytest.raises(ValueError):
+        cs.red_black_gauss_seidel(u.t(), b, ALPHA, h)
+    with pytest.raises(ValueError):
+        cs._rbgs_per_colour(u.cpu(), b.cpu(), ALPHA, h)
+    with pytest.raises(ValueError, match="even"):
+        cs.rbgs_residual_restrict(u[:159].contiguous(),
+                                  b[:159].contiguous(), ALPHA, h, 2,
+                                  (129, 129))
+    assert sum(cs.LAUNCHES.values()) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -193,10 +273,11 @@ def test_cuda_solve_refined_matches_cpu_twins(cuda_device, extra, inner_cg,
     b = assemble_rhs(gpu.levels[0], 10.0, test=1, device="cuda")
     cs.reset_launch_counts()
     got = gpu.solve_refined(b, inner_cg=inner_cg)
-    smoother = "jacobi" if extra else "rbgs_color"
+    smoother = "jacobi" if extra else "rbgs_fused"
     for k in (smoother, "residual", "ff_residual", "restrict_fw",
               "prolong_add") + need:
         assert cs.LAUNCHES[k] > 0, k
+    assert cs.LAUNCHES["rbgs_color"] == 0  # the oracle is on no path
     want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
         b.cpu(), inner_cg=inner_cg)
     assert got.converged and got.iterations == want.iterations
@@ -239,10 +320,10 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     torch.cuda.synchronize()
     for k in need:
         assert cs.LAUNCHES[k] > 0, k
-    assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_color", "residual",
-                                              "ff_residual", "apply",
-                                              "jacobi", "restrict_fw",
-                                              "prolong_add"))
+    assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_fused", "rbgs_color",
+                                              "residual", "ff_residual",
+                                              "apply", "jacobi",
+                                              "restrict_fw", "prolong_add"))
     want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
         b.cpu(), inner_cg=inner_cg)
     assert got.converged and got.iterations == want.iterations
@@ -264,7 +345,7 @@ def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
 
     if dims == 2:
         kw = dict(shape=(129, 129), num_levels=4, pad_align=128, tol=1e-3)
-        res, smooth = "residual", "rbgs_color"
+        res, smooth = "residual", "rbgs_fused"
     else:
         kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
                   pad_align=(8, 8, 128), tol=2e-3)
@@ -283,6 +364,7 @@ def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
     sor = GMGSolver(device="cuda", omega=1.2, **kw).solve(b)
     torch.cuda.synchronize()
     assert sor.converged and cs.LAUNCHES[smooth] == 0
+    assert cs.LAUNCHES["rbgs_color"] == 0
 
 
 def _ell_matrices():
@@ -401,32 +483,47 @@ def test_cuda_amg_solves_match_cpu_twins(cuda_device):
 
 
 # the padded levels of the 1025^2 / pad 256 path, the finest level of the
-# 8193^2 one, and a ragged logical shape in a non-square buffer
+# 8193^2 one, a ragged logical shape in a non-square buffer, and an
+# unpadded (even) one whose m % 4 != 0 takes the scalar stores
 DOWNLEG_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
-                  ((160, 160), (129, 129)), ((80, 80), (65, 65)),
-                  ((256, 384), (201, 329)), ((8448, 8448), (8193, 8193))]
+                  ((320, 320), (257, 257)), ((160, 160), (129, 129)),
+                  ((80, 80), (65, 65)), ((40, 40), (33, 33)),
+                  ((256, 384), (201, 329)), ((8448, 8448), (8193, 8193)),
+                  ((386, 258), (386, 258))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,logical", DOWNLEG_SHAPES)
 def test_cuda_downleg_equals_twin_and_composition(cuda_device, shape,
                                                   logical):
-    """The fused down-leg kernel, sweeps 1-3, bit-equal to its twin and to
-    the three kernels it replaces; sweeps 4 runs those kernels and makes
-    no fused launch."""
+    """The fused down-leg kernel, sweeps 0-3, bit-equal to its twin, to the
+    three kernels it replaces (the smoother as the per-colour oracle's
+    launches and as the fused smoother) and to the 48 x 48 tile it
+    replaced; sweeps 4 runs the composition and makes no fused launch;
+    ``u`` is never written."""
     u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
-    for sweeps in (1, 2, 3, 4):
+    u0 = u.clone()
+    for sweeps in (0, 1, 2, 3, 4):
         cs.reset_launch_counts()
         u2, rc = cs.rbgs_residual_restrict(u, b, ALPHA, h, sweeps, logical)
+        torch.cuda.synchronize()
         assert cs.LAUNCHES["rbgs_resfilter"] == (sweeps <= 3)
+        assert cs.LAUNCHES["rbgs_fused"] == (sweeps > 3)
         tu, trc = cs.rbgs_residual_restrict_plain(u, b, ALPHA, h, sweeps,
                                                   logical)
         assert torch.equal(u2, tu) and torch.equal(rc, trc), sweeps
-        cu = cs.red_black_gauss_seidel(u, b, ALPHA, h, sweeps=sweeps,
-                                       logical_shape=logical)
-        r = cs.poisson_residual(cu, b, ALPHA, h, logical)
-        assert torch.equal(u2, cu)
-        assert torch.equal(rc, cs.restrict_fw_padded_fast(r, logical))
+        for smooth in (cs._rbgs_per_colour, lambda *a: (
+                cs.red_black_gauss_seidel(*a[:4], sweeps=a[4],
+                                          logical_shape=a[5]))):
+            cu = smooth(u, b, ALPHA, h, sweeps, logical)
+            r = cs.poisson_residual(cu, b, ALPHA, h, logical)
+            assert torch.equal(u2, cu), sweeps
+            assert torch.equal(rc, cs.restrict_fw_padded_fast(r, logical))
+        if sweeps <= 3:
+            o2, orc = cs._downleg_launch(u, b, ALPHA, h, sweeps, logical,
+                                         "rbgs_resfilter_tile48")
+            assert torch.equal(u2, o2) and torch.equal(rc, orc), sweeps
+        assert torch.equal(u, u0)
     torch.cuda.synchronize()
 
 

@@ -4,7 +4,7 @@
 Drives the port's 2D and 3D GMG paths on the card through ``GMGSolver``
 and the ``gmg_main`` CLI, and its AMG path through ``AMGSolver`` and the
 ``amg_main`` CLI, after building the CUDA kernels from
-``multigrid_prj_tpu_torch/csrc`` (all three sources, compiled in parallel,
+``multigrid_prj_tpu_torch/csrc`` (every source, compiled in parallel,
 into one library) and holding each against its plain torch twin at the
 paths' shapes.  Imports nothing of JAX.  The paths:
 
@@ -20,10 +20,12 @@ paths' shapes.  Imports nothing of JAX.  The paths:
 * the CLI with ``-smt 0``, ``-smt 1`` and ``-smt 2``;
 * 3D (BASELINE config 4 and around it, ``bench.py``'s ``measure_vcycle3d``
   RHS): A. config 4 verbatim, 257^3, 5 levels, bf16 ``smoother_dtype``,
-  ``solve_refined`` to 1e-8; B. the same with ``pad_align=(8, 8, 128)``;
-  C. 513^3, 6 levels, to 1e-8; D. 65^3 with ``pad_align=(8, 8, 128)``
-  (GS, ``inner_cg=4``, Jacobi omega 0.8, and the bf16 defect-correction
-  ``.solve``), each against its CPU-twin run;
+  ``solve_refined`` to 1e-8, one fused smoother launch per smoother call
+  (the 17^3 bottom's 100 sweeps in one resident launch), and the same
+  solve on the per-colour path, equal to it bit for bit; B. the same with
+  ``pad_align=(8, 8, 128)``; C. 513^3, 6 levels, to 1e-8; D. 65^3 with
+  ``pad_align=(8, 8, 128)`` (GS, ``inner_cg=4``, Jacobi omega 0.8, and the
+  bf16 defect-correction ``.solve``), each against its CPU-twin run;
 * ``smoother_dtype`` (bf16 defect correction) in 2D;
 * AMG (BASELINE config 3's FD system, ``benchmarks/amg_bench.py``): the
   1024^2 FD hierarchy (12 levels max, 2000-row bottom, Chebyshev, RCM,
@@ -56,21 +58,26 @@ non-zero):
   memory)   3. 2D kernel vs twin (with the down-leg, apply chain and colour
   sweep; the fused smoother at sweeps 0-9 and the down-leg at 0-3 also
   against the per-colour oracle and the 48 x 48 tile)   4. 3D kernel vs
-  twin   5. main path (+ CPU-twin run, + the per-colour path)   5b. main
+  twin (the fused smoother at sweeps 0-9, and 100 on the resident route,
+  also against the per-colour oracle; the route of each shape)   5. main
+  path (+ CPU-twin run, + the per-colour path)   5b. main
   path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2 (plain,
   inner_cg=4, fuse_downleg, the per-colour path)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
   runs)   8. plain ops   9. CLI   10. 3D paths A, B, C   11. 3D variants D
   (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
   paths: apply chain, colour sweep   13. AMG set-up   14. AMG kernels vs
   twins (with the SpMM)   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU twins,
-  FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin
+  FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin (and colour sweeps of the global grid)
   16d. sharded 8192^2, one rank (NCCL)   16e. sharded 2048^2, 4 ranks on one
   card (gloo)   16f. design probes: the stencil and SpMV probe kernels vs
   their twins   17. times (with the per-pass ladder of the smoother and
-  the down-leg at 8448^2, L2-flushed times of the fused kernels and the
-  float-float residual there, the solves on three paths, profiled runs of
-  the 1025^2 solves and of each AMG solve; the two probe harnesses' mains
-  as the probes' path)
+  the down-leg at 8448^2, of the 3D smoother at 257^3 and 513^3 and of the
+  sharded smoother at 8208 x 8192, each against the kernels it replaced;
+  L2-flushed times of the fused kernels and the float-float residual; the
+  17^3 bottom's 100 sweeps; the solves on three paths and config 4 and
+  513^3 fused against per colour; profiled runs of the 1025^2 and config 4
+  solves and of each AMG solve; the two probe harnesses' mains as the
+  probes' path)
 The line before the last is the kernel table as one JSON object (each
 kernel's time at its shapes: one call between CUDA events, ``ms``, and
 per call from CUDA-graph replays, ``device_ms``, where the probes' ``ms``
@@ -174,10 +181,16 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     "prolong_add": (f"{_PS}:631", _SRC2),
     "apply3d": (f"{_PS3}:107", _SRC3),
     "residual3d": (f"{_PS3}:117", _SRC3),
+    # the 3D smoother: the z-marching tile, or the whole array resident in
+    # shared memory (the 17^3 bottom); rbgs3d_color is its per-colour
+    # oracle, on no solver path: its launches are those of the per-colour
+    # path run beside it
+    "rbgs3d_fused": (f"{_PS3}:128", _SRC3),
     "rbgs3d_color": (f"{_PS3}:128", _SRC3),
     "jacobi3d": (f"{_PS3}:141", _SRC3),
 }
-KERNELS_3D = ("apply3d", "residual3d", "rbgs3d_color", "jacobi3d")
+KERNELS_3D = ("apply3d", "residual3d", "rbgs3d_fused", "rbgs3d_color",
+              "jacobi3d")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -216,6 +229,8 @@ PROBE_N = 8192
 PROBE_CHAIN = 29
 ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412",
                  "rbgs_fused": f"{_PS}:392"}
+# the JAX wrapper that reaches the kernel body in "replaces"
+VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
 # input read once and every output written once (the transfers per fine
 # point); the timed calls are 2 sweeps of the smoothers (Jacobi and 3D
@@ -226,7 +241,8 @@ STENCIL_COST = {
     "apply": (8, 6), "jacobi": (12, 18), "restrict_fw": (5, 5),
     "prolong_add": (9, 3), "rbgs_resfilter": (13, 24),
     "apply_chain": (8, 48), "rbgs_color_sweep": (12, 3),
-    "apply3d": (8, 8), "residual3d": (12, 9), "rbgs3d_color": (12, 18),
+    "apply3d": (8, 8), "residual3d": (12, 9), "rbgs3d_fused": (12, 18),
+    "rbgs3d_color": (12, 18),
     "jacobi3d": (12, 24), "rbgs_fused_ext": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
@@ -262,15 +278,33 @@ CONFIG4_KW = dict(shape=(257, 257, 257), length=1.0, alpha=1.0, num_levels=5,
 CONFIG4_ITERATIONS = 11  # BENCH_r05.json, vcycle3d_257_iters (TPU)
 PADDED4_KW = dict(CONFIG4_KW, pad_align=(8, 8, 128))
 SCALE3D_KW = dict(CONFIG4_KW, shape=(513, 513, 513), num_levels=6)
+SCALE3D_ITERATIONS = 12  # the CPU twins and every earlier card run
+# smoother launches per solve: config 4's 11 iterations x (4 smoothed levels
+# x 2 calls + the 17^3 bottom's one), 513^3's 12 x (5 x 2 + 1); the
+# per-colour path's 2 x sweeps rbgs3d_color launches per call (2 sweeps, the
+# bottom's 100)
+CONFIG4_FUSED_LAUNCHES = 11 * (4 * 2 + 1)
+SCALE3D_FUSED_LAUNCHES = 12 * (5 * 2 + 1)
+CONFIG4_COLOUR_LAUNCHES = 11 * (4 * 2 * 4 + 2 * 100)
 # D: 65^3 in (72, 72, 128) buffers, 4 levels, 9^3 bottom (dense inverse);
 # the bf16 .solve's tolerance sits above its f32 residual floor (the JAX
 # package on the CPU floors at 8.4e-4 there and passes 2e-3 at iteration 6)
 VARIANT3D_KW = dict(CONFIG4_KW, shape=(65, 65, 65), num_levels=4,
                     pad_align=(8, 8, 128), maxit=40)
 BF16_TOL = 2e-3
-# the non-cubic shape (physical, logical) that catches swapped axes
+# the non-cubic shape (physical, logical) that catches swapped axes, and
+# one whose x-y extents are no multiple of the z-marching tile's core
 NONCUBIC_3D = ((20, 24, 136), (17, 21, 129))
+RAGGED_3D = ((19, 53, 101), None)
 TIME_SHAPES_3D = [((257, 257, 257), None), ((513, 513, 513), None)]
+CONFIG4_BOTTOM = (17, 17, 17)
+# the fused 3D smoother is held to its twin and to the per-colour oracle at
+# every sweep count here on the z-marching route, at these and 100 on the
+# resident one (the 17^3 bottom's coarse_sweeps); its ladder at 257^3 and
+# 513^3
+FUSED3D_SWEEPS = tuple(range(10))
+BOTTOM_SWEEPS = 100
+LADDER_3D = (1, 2, 4)
 # CPU twins vs CUDA kernels: the same ops, but the coarse matvec (cuBLAS vs
 # the CPU BLAS) and the norms and dot products sum in another order on the
 # two devices; the f32 cycle carries those roundings into every correction,
@@ -305,7 +339,7 @@ SHARD_HISTORY_RTOL = 2e-2
 # logical shape smaller than the buffer; alpha 1, h 1/2 (c = 4, so the
 # colour sweep's b / c equals the kernel's b * (1/c))
 EXT_ROWS = (8, 64, 2048)
-EXT_ROW0 = (-8, 0, 4088, 8184)
+EXT_ROW0 = (-8, 0, 4088, 8184, -7, 57)  # odd first rows: the parity
 EXT_GRIDS = ((8192, (8192, 8192)), (330, (8192, 330)), (330, (8000, 300)))
 EXT_TIME_SHAPE = (8208, 8192)  # one 8192-row slab with its halos
 # several ranks on the one card (gloo; NCCL refuses two ranks on one GPU):
@@ -364,14 +398,31 @@ def kernel_inputs_3d(torch, shape, logical, seed):
 
 
 def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
-    """name -> [(label, kernel call, twin call)] on the same 3D inputs."""
+    """name -> [(label, kernel call, twin call)] on the same 3D inputs.
+    The fused smoother runs every sweep count against the per-colour oracle
+    and against the twin (the resident route also the bottom's 100); the
+    last case, 2 sweeps (V(2,2)) against the twin, is the one timed."""
+    def fused(s):
+        return c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=s,
+                                            logical_shape=logical)
+
+    def twin(s):
+        return c3.red_black_gauss_seidel_3d_plain(u, b, alpha, h, s, logical)
+
+    def oracle(s):
+        return c3._rbgs3d_per_colour(u, b, alpha, h, s, logical)
+
+    counts = list(FUSED3D_SWEEPS)
+    if c3.rbgs3d_route(u.shape) == "resident":
+        counts.append(BOTTOM_SWEEPS)
     return {
-        "rbgs3d_color": [(
-            "sweeps 2",
-            lambda: c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=2,
-                                                 logical_shape=logical),
-            lambda: c3.red_black_gauss_seidel_3d_plain(u, b, alpha, h, 2,
-                                                       logical))],
+        "rbgs3d_fused": (
+            [(f"sweeps {s} vs the per-colour oracle", lambda s=s: fused(s),
+              lambda s=s: oracle(s)) for s in counts]
+            + [(f"sweeps {s}", lambda s=s: fused(s), lambda s=s: twin(s))
+               for s in counts if s != 2]
+            + [("sweeps 2", lambda: fused(2), lambda: twin(2))]),
+        "rbgs3d_color": [("sweeps 2", lambda: oracle(2), lambda: twin(2))],
         "residual3d": [(
             "",
             lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
@@ -527,11 +578,13 @@ def downleg_calls(cs, u, b, h, logical, alpha):
             + [("sweeps 2", lambda: fused(2), lambda: twin(2))])
 
 
-def tile_kernel_report(cs, log):
+def tile_kernel_report(cs, c3, log):
     """Registers, spills and shared memory of the colour-split tile kernels
-    (``rbgs_fused_kernel<S>``, ``rbgs_resfilter_kernel<S>``) from nvcc's
-    ``-Xptxas -v`` log; their shared memory is dynamic, so it comes from
-    the tile geometry the wrapper passes (``cs.rbgs_tile``)."""
+    (``rbgs_fused_kernel<S>``, ``rbgs_resfilter_kernel<S>``,
+    ``rbgs_fused_ext_kernel<S>``) and of the z-marching 3D tile
+    (``rbgs3d_zmarch_kernel<S>``) from nvcc's ``-Xptxas -v`` log; their
+    shared memory is dynamic, so it comes from the tile geometry the
+    wrapper passes (``cs.rbgs_tile``, ``c3.rbgs3d_tile``)."""
     import re
 
     props, cur = {}, None
@@ -550,19 +603,28 @@ def tile_kernel_report(cs, log):
             props.setdefault(cur, {})["regs"] = used.group(1)
     out = []
     for kind, extra in (("rbgs_fused_kernel", 0), ("rbgs_resfilter_kernel",
-                                                   2)):
+                                                   2),
+                        ("rbgs_fused_ext_kernel", 0),
+                        ("rbgs3d_zmarch_kernel", None)):
         for mangled, pr in sorted(props.items()):
             hit = re.search(kind + r"ILi(\d)EE", mangled)
             if not hit:
                 continue
             sweeps = int(hit.group(1))
-            rows = cs.rbgs_tile(2 * sweeps + extra)[2]
-            smem = 4 * (rows * 64 + 16) * 4
+            if extra is None:
+                _, _, rows, cols, ru, rb = c3.rbgs3d_tile(2 * sweeps)
+                smem = 4 * (ru + rb) * rows * cols
+                what = (f"rings of {ru} u and {rb} b planes of a {rows} x "
+                        f"{cols} tile, two colour planes each")
+            else:
+                rows = cs.rbgs_tile(2 * sweeps + extra)[2]
+                smem = 4 * (rows * 64 + 16) * 4
+                what = (f"{rows} x 128 tile of u and b, two colour planes "
+                        "each")
             st, ld = pr.get("spills", ("?", "?"))
             out.append(f"{kind}<{sweeps}>: {pr.get('regs', '?')} registers, "
                        f"spill stores {st} B, spill loads {ld} B, dynamic "
-                       f"shared memory {smem} B ({rows} x 128 tile of u and "
-                       "b, two colour planes each)")
+                       f"shared memory {smem} B ({what})")
     return out
 
 
@@ -1403,7 +1465,7 @@ def main() -> int:
           f"{info['seconds']:.2f} s -> {info['path']}")
     for ln in regs:
         print(f"[build] {ln}")
-    for ln in tile_kernel_report(cs, info["log"]):
+    for ln in tile_kernel_report(cs, c3, info["log"]):
         print(f"[build] {ln}")
     _build.library()
 
@@ -1453,9 +1515,11 @@ def main() -> int:
     # and the non-cubic shape
     phases.next("3D kernel vs twin")
     shapes_3d = level_shapes_3d(build_hierarchy, CONFIG4_KW, PADDED4_KW,
-                                SCALE3D_KW, VARIANT3D_KW) + [NONCUBIC_3D]
+                                SCALE3D_KW, VARIANT3D_KW) + [NONCUBIC_3D,
+                                                             RAGGED_3D]
     for i, (shape, logical) in enumerate(shapes_3d):
         u, b, h = kernel_inputs_3d(torch, shape, logical, seed=100 + i)
+        route = c3.rbgs3d_route(shape)
         for kname, cases in kernel_calls_3d(c3, u, b, h, logical).items():
             for label, kern, twin in cases:
                 got, want = kern(), twin()
@@ -1463,11 +1527,14 @@ def main() -> int:
                 err = float((got - want).abs().max())
                 max_err[kname] = max(max_err[kname], err)
                 check(torch.equal(got, want),
-                      f"{kname} ({label}) != twin at {shape} logical "
-                      f"{logical} (max abs diff {err})")
+                      f"{kname} ({label}, {route}) != twin at {shape} "
+                      f"logical {logical} (max abs diff {err})")
                 del got, want
         print(f"[kernels3d] {shape} logical {logical}: "
-              f"{', '.join(KERNELS_3D)} equal to their twins (torch.equal)")
+              f"{', '.join(KERNELS_3D)} equal to their twins (torch.equal); "
+              f"rbgs3d_fused on the {route} route, sweeps "
+              f"{'0-9 and 100' if route == 'resident' else '0-9'} also "
+              "equal to the per-colour oracle")
         del u, b
     torch.cuda.empty_cache()
 
@@ -1743,8 +1810,26 @@ def main() -> int:
 
     # 10. 3D paths A (config 4 verbatim), B (padded), C (513^3)
     phases.next("3D paths A, B, C")
-    need3d = ("rbgs3d_color", "residual3d")
-    paths3d = {}
+    need3d = ("rbgs3d_fused", "residual3d")
+    paths3d, colour3d = {}, {}
+
+    def per_colour3d(s):
+        """``s`` with its smoother swapped for the 3D per-colour oracle (2 x
+        sweeps ``rbgs3d_color`` launches on a clone of u, the path before
+        the fused smoother)."""
+        def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
+            return c3._rbgs3d_per_colour(u, b, alpha, h, sweeps,
+                                         logical_shape)
+
+        s.smoother = _sm
+        return s
+
+    def smoother3d_calls(s, res):
+        """Smoother calls of a 3D solve: 2 per smoothed level and iteration,
+        and the bottom's, which runs the smoother when the coarsest level is
+        above the dense inverse's cap."""
+        bottom = s._coarse_inv is None
+        return ((len(s.levels) - 1) * 2 + bottom) * res.iterations, bottom
     for tag, kw in [("A 257^3", CONFIG4_KW), ("B 257^3 pad (8,8,128)",
                                                PADDED4_KW),
                     ("C 513^3", SCALE3D_KW)]:
@@ -1759,8 +1844,9 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         res3, counts = run_path(s3, b3)
         if tag[0] == "C":
-            check(res3.converged and float(res3.history[-1]) <= 1e-8,
-                  f"{tag}: not converged")
+            check(res3.converged and float(res3.history[-1]) <= 1e-8
+                  and res3.iterations == SCALE3D_ITERATIONS,
+                  f"{tag}: not converged in {SCALE3D_ITERATIONS} iterations")
             print(f"[{tag}] {res3.iterations} iterations, final rel. "
                   f"residual {float(res3.history[-1]):.3e}; history "
                   f"{[float(x) for x in res3.history]}")
@@ -1771,11 +1857,42 @@ def main() -> int:
         check(all(counts[k] > 0 for k in need3d)
               and tuple(res3.u.shape) == kw["shape"]
               and bool(torch.isfinite(res3.u).all()), f"{tag}: solution")
+        # one fused launch per smoother call: 2-sweep calls on the
+        # z-marching tile, the 17^3 bottom's 100 sweeps on the resident route
+        calls, bottom = smoother3d_calls(s3, res3)
+        print(f"[{tag}] smoother launches: rbgs3d_fused "
+              f"{counts['rbgs3d_fused']} (expected {calls}: one per call, the "
+              f"bottom's {s3.levels[-1].physical} on the "
+              f"{c3.rbgs3d_route(s3.levels[-1].physical)} route: {bottom}), "
+              f"rbgs3d_color {counts['rbgs3d_color']}")
+        check(counts["rbgs3d_fused"] == calls and counts["rbgs3d_color"] == 0,
+              f"{tag}: smoother launches")
         print(f"[{tag}] peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"{sum(counts.values()) / res3.iterations:.1f} kernel launches "
               "per iteration (wrapper counts)")
         paths3d[tag] = (s3, b3, res3)
+        if tag[0] == "A":  # and on the per-colour path
+            check(calls == CONFIG4_FUSED_LAUNCHES, f"{tag}: {calls} calls")
+            ps3 = per_colour3d(GMGSolver(**kw, **extra, device="cuda"))
+            res3p, counts_p = run_path(ps3, b3)
+            print(f"[{tag}] per-colour path: {res3p.iterations} iterations, "
+                  f"rbgs3d_color {counts_p['rbgs3d_color']} launches (fused "
+                  f"path: rbgs3d_fused {counts['rbgs3d_fused']}); all "
+                  f"launches {sum(counts_p.values())} (fused path "
+                  f"{sum(counts.values())}); history and solution equal: "
+                  f"{np.array_equal(res3p.history, res3.history)}, "
+                  f"{torch.equal(res3p.u, res3.u)}")
+            check(res3p.iterations == res3.iterations == CONFIG4_ITERATIONS
+                  and np.array_equal(res3p.history, res3.history)
+                  and torch.equal(res3p.u, res3.u),
+                  f"{tag}: the fused path differs from the per-colour path")
+            check(counts_p["rbgs3d_fused"] == 0 and counts_p["rbgs3d_color"]
+                  == CONFIG4_COLOUR_LAUNCHES, f"{tag}: per-colour launches")
+            colour3d[tag] = ps3
+            del res3p
+        elif tag[0] == "C":
+            check(calls == SCALE3D_FUSED_LAUNCHES, f"{tag}: {calls} calls")
 
     # 11. 3D variants D at 65^3, pad (8, 8, 128), each against its CPU-twin
     # run: GS, inner_cg=4, Jacobi omega 0.8, bf16 defect correction, SOR
@@ -1809,8 +1926,8 @@ def main() -> int:
     print(f"[D SOR] omega=1.2 (plain smoother): {res_sor.iterations} "
           f"iterations to {float(res_sor.history[-1]):.3e}; launches "
           f"{dict(cs.LAUNCHES)}")
-    check(res_sor.converged and cs.LAUNCHES["rbgs3d_color"] == 0,
-          "3D omega=1.2 solve")
+    check(res_sor.converged and cs.LAUNCHES["rbgs3d_fused"] == 0
+          and cs.LAUNCHES["rbgs3d_color"] == 0, "3D omega=1.2 solve")
 
     # 12. options: f64 with the kernels on runs the plain ops (the JAX
     # wrappers send f64 to XLA) and takes the JAX package's iterations; the
@@ -2274,6 +2391,11 @@ def main() -> int:
         k: ladder[k] for k in ("rbgs_resfilter", "rbgs_resfilter_tile48")}
     del u, bb
     torch.cuda.empty_cache()
+    # the 3D kernels at 257^3 and 513^3; the fused smoother also with L2
+    # flushed, against the per-colour oracle (4 rbgs3d_color launches and
+    # the clone), and its ladder (device time per call by sweeps, fused and
+    # per colour); then the 17^3 bottom's 100 sweeps, one resident launch
+    # against 200 oracle launches
     for shape, logical in TIME_SHAPES_3D:
         u, bb, h = kernel_inputs_3d(torch, shape, logical, seed=99)
         npts = shape[0] * shape[1] * shape[2]
@@ -2282,23 +2404,94 @@ def main() -> int:
             t = (median_ms(torch, kern, runs=10),
                  median_ms(torch, twin, runs=10))
             per = STENCIL_COST[kname]
+            extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
+            if kname == "rbgs3d_fused":
+                paths = {
+                    "rbgs3d_fused": lambda s: c3.red_black_gauss_seidel_3d(
+                        u, bb, 1.0, h, sweeps=s, logical_shape=logical),
+                    "per-colour": lambda s: c3._rbgs3d_per_colour(
+                        u, bb, 1.0, h, s, logical)}
+
+                def oracle():
+                    return paths["per-colour"](2)
+
+                extra["flushed_ms"] = flushed_ms(torch, kern)
+                extra["per_colour_device_ms"] = device_ms(torch, oracle, npts)
+                extra["per_colour_flushed_ms"] = flushed_ms(torch, oracle)
+                extra["ladder_ms"] = {
+                    path: {s: device_ms(torch, lambda s=s, f=f: f(s), npts)
+                           for s in LADDER_3D} for path, f in paths.items()}
+                note = (f"; L2 flushed before each call "
+                        f"{extra['flushed_ms'] * 1e3:.1f} us; per-colour "
+                        f"oracle (device) "
+                        f"{extra['per_colour_device_ms'] * 1e3:.1f} us, L2 "
+                        f"flushed {extra['per_colour_flushed_ms'] * 1e3:.1f}"
+                        " us")
+                for path, row in extra["ladder_ms"].items():
+                    print(f"[ladder] {path} at {'x'.join(map(str, shape))}, "
+                          f"device us per call by sweeps: "
+                          f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }"
+                          f"  ({card})")
             add_time(kname, label, record(
                 "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
-                per[1] * npts, device_ms=device_ms(torch, kern, npts)))
+                per[1] * npts, **extra), note)
         del u, bb
         torch.cuda.empty_cache()
+    bshape = CONFIG4_BOTTOM
+    u, bb, h = kernel_inputs_3d(torch, bshape, None, seed=96)
+    npts = bshape[0] * bshape[1] * bshape[2]
+
+    def fused_bottom():
+        return c3.red_black_gauss_seidel_3d(u, bb, 1.0, h,
+                                            sweeps=BOTTOM_SWEEPS)
+
+    def colour_bottom():
+        return c3._rbgs3d_per_colour(u, bb, 1.0, h, BOTTOM_SWEEPS)
+
+    t_k, t_c = median_ms(torch, fused_bottom), median_ms(torch, colour_bottom,
+                                                          runs=10)
+    t_p = median_ms(torch, lambda: c3.red_black_gauss_seidel_3d_plain(
+        u, bb, 1.0, h, BOTTOM_SWEEPS), runs=5)
+    d_k = graph_ms(torch, fused_bottom, reps=10, runs=5)
+    d_c = graph_ms(torch, colour_bottom, reps=2, runs=5)
+    per = STENCIL_COST["rbgs3d_fused"]  # per point for 2 sweeps
+    add_time("rbgs3d_fused", f"sweeps {BOTTOM_SWEEPS} (resident)", record(
+        f"{'x'.join(map(str, bshape))} (the bottom)", t_k, t_p,
+        per[0] * npts, per[1] * npts * BOTTOM_SWEEPS // 2, device_ms=d_k,
+        per_colour_ms=t_c, per_colour_device_ms=d_c),
+        f"; {2 * BOTTOM_SWEEPS} rbgs3d_color launches {t_c * 1e3:.1f} us "
+        f"(device {d_c * 1e3:.1f} us)")
+    del u, bb
+    torch.cuda.empty_cache()
     # the sharded smoother's kernel on one 8192-row slab with its 8-row
     # halos (README.md's 8192^2 on one rank): 4 sweeps and the path's 2,
     # against its twin, against 2 x sweeps rbgs_color launches on the same
     # slab (the per-colour oracle, its clone of u included) and against the
     # fused smoother's one launch there (the same sweeps without the row
-    # offset: the tile the next redesign of this kernel would take)
+    # offset, on the same tile); the ladder, sweeps 1-4 from graph replays,
+    # against the 48 x 48 tile it replaced and the fused smoother
     ne, m = EXT_TIME_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(98)
     ue, be = (torch.randn(EXT_TIME_SHAPE, generator=gen, device="cuda")
               for _ in range(2))
     lg = SHARD_KW["shape"]
     h_e = 10.0 / (lg[0] - 1)
+    ext_paths = {
+        "rbgs_fused_ext": lambda s: cs.rbgs_fused_extended(
+            ue, be, -8, lg, 10.0, h_e, s),
+        "rbgs_fused_ext_tile48": lambda s: cs._fused_ext_launch(
+            ue, be, -8, lg[0], lg[1], 10.0, h_e, s, "rbgs_fused_ext_tile48"),
+        "rbgs_fused": lambda s: cs.red_black_gauss_seidel(
+            ue, be, 10.0, h_e, sweeps=s)}
+    check(all(torch.equal(ext_paths["rbgs_fused_ext"](s),
+                          ext_paths["rbgs_fused_ext_tile48"](s))
+              for s in (1, 2, 3, 4)), "rbgs_fused_ext != the 48 x 48 tile")
+    ext_ladder = {k: {s: device_ms(torch, lambda s=s, f=f: f(s), ne * m)
+                      for s in (1, 2, 3, 4)} for k, f in ext_paths.items()}
+    for k, row in ext_ladder.items():
+        print(f"[ladder] {k} at {ne}x{m} (row0 -8 for the slab kernels), "
+              f"device us per call by sweeps: "
+              f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }  ({card})")
     per = STENCIL_COST["rbgs_fused_ext"]  # per point for 4 sweeps
     for sw in (4, 2):
         t_k = median_ms(torch, lambda sw=sw: cs.rbgs_fused_extended(
@@ -2307,17 +2500,22 @@ def main() -> int:
             ue, be, -8, lg, 10.0, h_e, sw), runs=10)
         t_c = median_ms(torch, lambda sw=sw: cs._rbgs_per_colour(
             ue, be, 10.0, h_e, sw))
-        t_f = device_ms(torch, lambda sw=sw: cs.red_black_gauss_seidel(
-            ue, be, 10.0, h_e, sweeps=sw), ne * m)
+        t_f = ext_ladder["rbgs_fused"][sw]
+        t_l2 = flushed_ms(torch, lambda sw=sw: cs.rbgs_fused_extended(
+            ue, be, -8, lg, 10.0, h_e, sw))
         add_time("rbgs_fused_ext", f"sweeps {sw}", record(
             f"{ne}x{m} ({sw} sweeps, row0 -8)", t_k, t_p, per[0] * ne * m,
             per[1] * ne * m * sw // 4, colour_launches_ms=t_c,
-            rbgs_fused_device_ms=t_f,
-            device_ms=device_ms(torch, lambda sw=sw: cs.rbgs_fused_extended(
-                ue, be, -8, lg, 10.0, h_e, sw), ne * m)),
-            f"; {2 * sw} rbgs_color launches {t_c * 1e3:.1f} us; the fused "
-            f"smoother on the slab {t_f * 1e3:.1f} us (device)")
-    del ue, be
+            rbgs_fused_device_ms=t_f, flushed_ms=t_l2,
+            device_ms=ext_ladder["rbgs_fused_ext"][sw],
+            tile48_device_ms=ext_ladder["rbgs_fused_ext_tile48"][sw],
+            **({"ladder_ms": ext_ladder} if sw == 4 else {})),
+            f"; L2 flushed {t_l2 * 1e3:.1f} us; {2 * sw} rbgs_color launches "
+            f"{t_c * 1e3:.1f} us; the 48 x 48 tile "
+            f"{ext_ladder['rbgs_fused_ext_tile48'][sw] * 1e3:.1f} us "
+            f"(device); the fused smoother on the slab {t_f * 1e3:.1f} us "
+            "(device)")
+    del ue, be, ext_paths
     torch.cuda.empty_cache()
     # bench.py's measure_ell_spmm: 4 vectors on banded_csr(2**20), against
     # 4 SpMV launches and one cuSPARSE CSR product
@@ -2428,9 +2626,48 @@ def main() -> int:
                   f"{statistics.median(w) * 1e3:.2f} ms over 3 "
                   f"({[round(x * 1e3, 2) for x in w]} ms, alternating), "
                   f"{iters} iterations  ({card})")
+    # config 4 (A) and 513^3 (C): fused (F) against the per-colour path (P),
+    # F P P F F P, median of 3 each, after one warm run of each
+    colour3d["C 513^3"] = per_colour3d(GMGSolver(**SCALE3D_KW,
+                                                 device="cuda"))
+    for tag, ps3 in colour3d.items():
+        s3, b3, res3 = paths3d[tag]
+        fns = {"fused": lambda s3=s3, b3=b3: s3.solve_refined(b3),
+               "per-colour": lambda ps3=ps3, b3=b3: ps3.solve_refined(b3)}
+        walls = {k: [] for k in fns}
+        for k in fns:
+            fns[k]()
+        for k in ("fused", "per-colour", "per-colour", "fused", "fused",
+                  "per-colour"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[k]()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+            check(out.iterations == res3.iterations, f"timed {tag} {k}")
+        for k, w in walls.items():
+            print(f"[time] solve_refined 3D {tag} {k}: median wall "
+                  f"{statistics.median(w) * 1e3:.2f} ms over 3 "
+                  f"({[round(x * 1e3, 2) for x in w]} ms, alternating), "
+                  f"{res3.iterations} iterations  ({card})")
+        if tag[0] == "A":
+            for k, fn in fns.items():
+                try:
+                    wall, busy, nev, top = profile_run(torch, fn)
+                except Exception as exc:  # the trace is a measurement aid
+                    print(f"[profile] config 4 {k}: not measured ({exc!r})")
+                    continue
+                print(f"[profile] config 4 solve_refined {k}: {nev} device "
+                      f"ops, device busy {busy * 1e3:.2f} ms = "
+                      f"{busy / max(wall, 1e-12):.1%} of the profiled wall "
+                      f"{wall * 1e3:.2f} ms  ({card})")
+                for kname, (us, cnt) in top[:6]:
+                    print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  "
+                          f"{kname[:90]}")
+    del colour3d
     walls_3d = [(f"solve_refined 3D {tag}",
                  lambda s3=s3, b3=b3: s3.solve_refined(b3), res3.iterations)
-                for tag, (s3, b3, res3) in paths3d.items()]
+                for tag, (s3, b3, res3) in paths3d.items() if tag[0] == "B"]
     for tag, fn, iters in [
             ("solve_refined 8193^2 inner_cg=4",
              lambda: big.solve_refined(big_b, inner_cg=4),
@@ -2485,6 +2722,7 @@ def main() -> int:
          "max_abs_err": max_err[k], **timing(k),
          **({"also_replaces": ALSO_REPLACES[k]} if k in ALSO_REPLACES
             else {}),
+         **({"via": VIA[k]} if k in VIA else {}),
          **({"launches_executed": ran[k]} if k in PROBES else {})}
         for k in every]}))
     print(json.dumps({"ok": True, "device": {

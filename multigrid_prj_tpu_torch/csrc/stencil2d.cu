@@ -44,9 +44,9 @@
 // tiling: each streams its operands from HBM once per launch and is bound by
 // memory bandwidth (bytes per point are noted at each kernel).  Jacobi still
 // runs one launch per sweep (the TPU fuses up to 8).  The temporally fused
-// kernels keep a halo tile in shared memory: the red-black smoother and the
-// down-leg on the colour-split tile described above rbgs_fused_kernel, the
-// apply chain and the sharded smoother on the older 48 x 48 tile.
+// kernels keep a halo tile in shared memory: the red-black smoother, the
+// down-leg and the sharded smoother on the colour-split tile described above
+// rbgs_fused_kernel, the apply chain on the older 48 x 48 tile.
 
 #include <cuda_runtime.h>
 
@@ -508,31 +508,20 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
-// `sweeps` (<= 4) red-black sweeps on a shard's rows extended by kHalo
-// halo rows above and below (replaces _rbgs_fused_offset_kernel, through
-// _fused_rbgs_passes, for parallel/sharded_gmg.rbgs_local_pallas).  The
-// extended slab (ne, m) starts at global row row0 (row0 < 0 on the first
-// shard), so the colour and the Dirichlet pinning are taken in global
-// coordinates: parity (row0 + i + j) & 1 (`&`, not `%`: C's `%` truncates
-// towards zero for the negative rows), boundary row <= 0 | row >= nl - 1 |
-// col <= 0 | col >= ml - 1 (`<=` and `>=`: the halo rows outside the domain
-// hold the zeros of the edge exchange and stay pinned to be, which is_boundary
-// would not do at the low edge).  Each colour pass is rbgs_color_kernel's,
-// in place in shared memory (a colour reads only the other colour; its own
-// boundary points are pinned in its own pass, so after each full sweep the
-// tile equals the TPU's out-of-place passes, which pin both colours each
-// pass).  2 * 4 passes <= kHalo keeps the core exact; the stale ring that
-// starts at the slab's own first and last rows (cells outside the slab load
-// as 0) reaches at most 8 rows in, so only rows kHalo .. ne - kHalo - 1 are
-// written, as out rows 0 .. ne - 2 kHalo - 1.
-//
-// 12 B per extended point: read ue and be, write the core.  Bound like
-// rbgs_resfilter_kernel by instruction issue in shared memory, not bytes.
+// The earlier sharded smoother on the 48 x 48 tile, kept only so that
+// chip_smoke.py's ladder can time it beside its redesign
+// (rbgs_fused_ext_kernel below, which replaces it on every path): `sweeps`
+// (<= 4) red-black sweeps on a shard's rows extended by kHalo halo rows
+// above and below, each pass over all 2304 cells with per-cell div/mod, an
+// 8-cell halo whatever the sweep count, scalar synchronous loads.  The
+// colour and the pinning are global, as below; equal to the new kernel bit
+// for bit.
 __global__ void __launch_bounds__(kFusedThreads)
-    rbgs_fused_ext_kernel(const float* __restrict__ ue,
-                          const float* __restrict__ be,
-                          float* __restrict__ out, int ne, int m, int row0,
-                          int nl, int ml, float inv_c, int sweeps) {
+    rbgs_fused_ext_tile48_kernel(const float* __restrict__ ue,
+                                 const float* __restrict__ be,
+                                 float* __restrict__ out, int ne, int m,
+                                 int row0, int nl, int ml, float inv_c,
+                                 int sweeps) {
   __shared__ float su[kExt2];
   __shared__ float sb[kExt2];
   // tile cell (kHalo, kHalo) is core cell (blockIdx.y * kTile, blockIdx.x *
@@ -578,9 +567,10 @@ __global__ void __launch_bounds__(kFusedThreads)
 // ---------------------------------------------------------------------------
 // The colour-split red-black tile: rbgs_fused_kernel<SWEEPS> (the smoother,
 // up to 4 sweeps per launch: _rbgs_fused_kernel's contract, replacing 2 x
-// SWEEPS rbgs_color launches and the clone of u) and
+// SWEEPS rbgs_color launches and the clone of u),
 // rbgs_resfilter_kernel<SWEEPS> (the down-leg, up to 3 sweeps, the residual
-// and the restriction).
+// and the restriction) and rbgs_fused_ext_kernel<SWEEPS> (the sharded
+// smoother: the smoother on an extended slab at a global row offset).
 //
 // Bound: memory.  A 2-sweep smoother call must move 12 B per point (read u
 // and b, write the result); the composition it replaces moved 4 x 12 B plus
@@ -753,11 +743,13 @@ __device__ __forceinline__ void rb_color_pass(float* su, const float* sb,
   }
 }
 
-// Write the tile's core (local rows H .., columns HC ..) to y.
+// Write the tile's core (local rows H .., columns HC ..) to y: array row i
+// < n goes to row i - skip of y (skip: rows of the array before y's first).
 template <class T>
 __device__ __forceinline__ void rb_store_core(float* __restrict__ y,
                                               const float* su, int i0, int j0,
-                                              int n, int m, bool vec) {
+                                              int n, int m, bool vec,
+                                              int skip = 0) {
   if (vec) {
     constexpr int Q = T::CW / 4;  // float4 per core row
     for (int t = threadIdx.x; t < T::CH * Q; t += kRbThreads) {
@@ -768,7 +760,7 @@ __device__ __forceinline__ void rb_store_core(float* __restrict__ y,
       const int q = r * kRbPairs + lc / 2;
       const float2 e = *reinterpret_cast<const float2*>(su + q);
       const float2 o = *reinterpret_cast<const float2*>(su + T::PLANE + q);
-      *reinterpret_cast<float4*>(y + (long long)i * m + j) =
+      *reinterpret_cast<float4*>(y + (long long)(i - skip) * m + j) =
           make_float4(e.x, o.x, e.y, o.y);
     }
     return;
@@ -778,7 +770,7 @@ __device__ __forceinline__ void rb_store_core(float* __restrict__ y,
     const int lc = T::HC + t % T::CW;
     const int i = i0 + r, j = j0 + lc;
     if (i < n && j < m) {
-      y[(long long)i * m + j] =
+      y[(long long)(i - skip) * m + j] =
           su[(lc & 1) * T::PLANE + r * kRbPairs + (lc >> 1)];
     }
   }
@@ -811,6 +803,55 @@ __global__ void __launch_bounds__(kRbThreads)
     __syncthreads();
   }
   rb_store_core<T>(out, su, i0, j0, n, m, vec != 0);
+}
+
+// `SWEEPS` red-black sweeps on a shard's rows extended by kHalo halo rows
+// above and below (replaces _rbgs_fused_offset_kernel, through
+// _fused_rbgs_passes, for parallel/sharded_gmg.rbgs_local_pallas):
+// rbgs_fused_kernel<SWEEPS> on the slab with a runtime global row offset.
+// The extended slab (ne, m) starts at global row row0 (row0 < 0 on the first
+// shard), so the colour and the Dirichlet pinning are taken in global
+// coordinates: the active plane of a tile row from its global row (`&`, not
+// `%`: row0 is -8 on the first shard), boundary row <= 0 | row >= nl - 1 |
+// col <= 0 | col >= ml - 1 (`<=` and `>=`: the halo rows outside the domain
+// hold the zeros of the edge exchange and stay pinned to be).  The tiles'
+// cores cover the output rows, slab rows kHalo .. ne - kHalo - 1, written as
+// out rows 0 .. ne - 2 kHalo - 1; a tile's row halo of 2 x SWEEPS <= kHalo
+// starts at slab row kHalo - 2 x SWEEPS >= 0, so no tile reads above the
+// slab.  Rows past the slab's end load as 0; the stale ring that starts
+// there, and at the slab's first row, reaches at most 2 x SWEEPS <= kHalo
+// rows in, as in the TPU block, whose edge rows see themselves as
+// neighbours: neither reaches an output row.
+//
+// 12 B per extended point: read ue and be, write the core (the 48 x 48
+// tile it replaces re-read 2.25x its core whatever the sweep count).
+template <int SWEEPS>
+__global__ void __launch_bounds__(kRbThreads)
+    rbgs_fused_ext_kernel(const float* __restrict__ ue,
+                          const float* __restrict__ be,
+                          float* __restrict__ out, int ne, int m, int row0,
+                          int nl, int ml, float inv_c, int vec) {
+  using T = RbTile<2 * SWEEPS>;
+  extern __shared__ __align__(16) float rb_smem[];
+  float* su = rb_smem;
+  float* sb = rb_smem + 2 * T::PLANE;
+  const int i0 = kHalo + blockIdx.y * T::CH - T::H;  // slab row of tile row 0
+  const int j0 = blockIdx.x * T::CW - T::HC;
+  rb_load<T>(su, ue, i0, j0, ne, m);
+  rb_load<T>(sb, be, i0, j0, ne, m);
+  const int j = j0 + 2 * static_cast<int>(threadIdx.x & (kRbPairs - 1));
+  const bool bcol0 = j <= 0 || j >= ml - 1;
+  const bool bcol1 = j + 1 <= 0 || j + 1 >= ml - 1;
+  const int g0 = row0 + i0;  // global row of tile row 0
+  const int rlo = 1 - g0, rhi = nl - 2 - g0;  // the interior rows
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int k = 1; k <= 2 * SWEEPS; ++k) {
+    rb_color_pass<T>(su, sb, k, g0, bcol0, bcol1, rlo, rhi, inv_c);
+    __syncthreads();
+  }
+  rb_store_core<T>(out, su, i0, j0, ne - kHalo, m, vec != 0, kHalo);
 }
 
 // residual_kernel on rows k .. EH-1-k of both planes, over b in place (each
@@ -990,6 +1031,19 @@ int rbgs_fused_launch(const float* u, const float* b, float* out, int n,
 }
 
 template <int S>
+int rbgs_fused_ext_launch(const float* ue, const float* be, float* out,
+                          int ne, int m, int row0, int nl, int ml,
+                          float inv_c, const int* geom, int vec,
+                          cudaStream_t stream) {
+  using T = RbTile<2 * S>;
+  static bool smem_set = false;
+  if (!rb_geometry_ok<T>(geom)) return (int)cudaErrorInvalidValue;
+  // the tiles cover the ne - 2 kHalo output rows
+  return rb_launch<T>(rbgs_fused_ext_kernel<S>, smem_set, ne - 2 * kHalo, m,
+                      stream, ue, be, out, ne, m, row0, nl, ml, inv_c, vec);
+}
+
+template <int S>
 int rbgs_resfilter_launch(const float* u, const float* b, float* u2,
                           float* rc, int n, int m, int nl, int ml, float inv_c,
                           float c, const int* geom, int vec,
@@ -1132,16 +1186,33 @@ int mg_apply_chain(const float* u, float* y, int n, int m, int nl, int ml,
   return (int)cudaGetLastError();
 }
 
+// `sweeps` (1 .. 4) red-black sweeps on an extended slab of ne > 2 kHalo
+// rows on the colour-split tile; geom as for mg_rbgs_fused.
 int mg_rbgs_fused_ext(const float* ue, const float* be, float* out, int ne,
                       int m, int row0, int nl, int ml, float inv_c, int sweeps,
-                      void* stream) {
-  if (sweeps < 0 || 2 * sweeps > kHalo || ne < 2 * kHalo) {
+                      const int* geom, void* stream) {
+  static const decltype(&rbgs_fused_ext_launch<1>) kLaunch[] = {
+      rbgs_fused_ext_launch<1>, rbgs_fused_ext_launch<2>,
+      rbgs_fused_ext_launch<3>, rbgs_fused_ext_launch<4>};
+  if (sweeps < 1 || sweeps > 4 || ne <= 2 * kHalo) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return kLaunch[sweeps - 1](ue, be, out, ne, m, row0, nl, ml, inv_c, geom,
+                             rb_vec(m, out), (cudaStream_t)stream);
+}
+
+// The earlier extended-slab smoother on the 48 x 48 tile (the ladder's
+// reference only).
+int mg_rbgs_fused_ext_tile48(const float* ue, const float* be, float* out,
+                             int ne, int m, int row0, int nl, int ml,
+                             float inv_c, int sweeps, void* stream) {
+  if (sweeps < 0 || 2 * sweeps > kHalo || ne <= 2 * kHalo) {
     return (int)cudaErrorInvalidValue;
   }
   const int r = ne - 2 * kHalo;
-  if (r == 0) return (int)cudaSuccess;
   const dim3 grid((m + kTile - 1) / kTile, (r + kTile - 1) / kTile);
-  rbgs_fused_ext_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
+  rbgs_fused_ext_tile48_kernel<<<grid, kFusedThreads, 0,
+                                 (cudaStream_t)stream>>>(
       ue, be, out, ne, m, row0, nl, ml, inv_c, sweeps);
   return (int)cudaGetLastError();
 }

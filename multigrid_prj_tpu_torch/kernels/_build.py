@@ -35,6 +35,7 @@ NVCC_FLAGS = [
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ip = ctypes.POINTER(ctypes.c_int)  # the tile geometry of the fused RB-GS
+# kernels
 _SIGNATURES = {
     "mg_rbgs_color": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_rbgs_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _ip, _vp],
@@ -47,6 +48,10 @@ _SIGNATURES = {
     "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
+    "mg_rbgs3d_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i,
+                        _ip, _vp],
+    "mg_rbgs3d_resident": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f,
+                           _i, _i, _vp],
     "mg_jacobi3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _f, _f,
                     _vp],
     "mg_ell_spmv": [_vp, _vp, _vp, _vp, _i, _i, _vp],
@@ -59,7 +64,10 @@ _SIGNATURES = {
                                  _i, _vp],
     "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
-    "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _ip,
+                          _vp],
+    "mg_rbgs_fused_ext_tile48": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i,
+                                 _vp],
     "mg_probe_copy": [_vp, _vp, _i, _i, _i, _vp],
     "mg_probe_neighbour": [_vp, _vp, _i, _i, _i, _i, _vp],
     "mg_probe_carry": [_vp, _vp, _i, _i, _i, _vp],

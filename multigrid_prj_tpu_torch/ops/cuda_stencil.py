@@ -39,10 +39,10 @@ the device of its tensors: a CPU tensor runs the plain torch twin
 (``*_plain``, the kernel's operation order, which matches the JAX Pallas
 function in interpret mode); a CUDA tensor launches the kernel or raises
 ``NotImplementedError``.  There is no fallback.  All kernels are
-memory-bound.  The red-black smoother and the down-leg fuse their passes on
-the colour-split shared-memory tile whose geometry :func:`rbgs_tile`
-gives; the apply chain and the sharded solver's extended-slab smoother on
-the older 48 x 48 tile; the rest make one pass per launch (Jacobi one
+memory-bound.  The red-black smoother, the down-leg and the sharded
+solver's extended-slab smoother fuse their passes on the colour-split
+shared-memory tile whose geometry :func:`rbgs_tile` gives; the apply chain
+on the older 48 x 48 tile; the rest make one pass per launch (Jacobi one
 launch per sweep).  ``LAUNCHES`` counts each kernel launch.
 """
 
@@ -61,11 +61,12 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
-            "apply3d": 0, "residual3d": 0, "rbgs3d_color": 0, "jacobi3d": 0,
+            "apply3d": 0, "residual3d": 0, "rbgs3d_fused": 0,
+            "rbgs3d_color": 0, "jacobi3d": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "rbgs_resfilter_tile48": 0,
             "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
-            "rbgs_fused_ext": 0,
+            "rbgs_fused_ext": 0, "rbgs_fused_ext_tile48": 0,
             "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,
             "probe_halo": 0, "probe_full": 0, "probe_carry": 0,
             "probe_stream": 0, "probe_staticwin": 0, "probe_noshuffle": 0}
@@ -681,19 +682,33 @@ def rbgs_fused_extended(ue, be, row0, logical_shape, alpha: float, h: float,
     Dirichlet pinning are global.  Returns the updated core rows
     ``ue[8:-8]``, equal to ``2 * sweeps`` colour passes on the global grid.
     A CPU tensor runs :func:`rbgs_fused_extended_plain`; a CUDA float32 one
-    launches ``rbgs_fused_ext_kernel`` (one launch per call)."""
+    launches ``rbgs_fused_ext_kernel<sweeps>`` on the colour-split tile of
+    :func:`rbgs_tile` (one launch per call; no sweeps, or no core row, is a
+    copy of the core and no launch)."""
     nl, ml = _extended_args(ue, be, logical_shape, sweeps)
     if ue.device.type == "cpu":
         return rbgs_fused_extended_plain(ue, be, row0, logical_shape, alpha,
                                          h, sweeps)
+    if sweeps < 1 or ue.shape[0] == 2 * _EXT_HALO:
+        _check_cuda("rbgs_fused_extended", ue, be)
+        return ue[_EXT_HALO:ue.shape[0] - _EXT_HALO].clone()
+    return _fused_ext_launch(ue, be, row0, nl, ml, alpha, h, sweeps,
+                             "rbgs_fused_ext")
+
+
+def _fused_ext_launch(ue, be, row0, nl, ml, alpha, h, sweeps, kernel):
+    """One launch of the extended-slab ``kernel``: ``rbgs_fused_ext`` (the
+    colour-split tile) or ``rbgs_fused_ext_tile48`` (the 48 x 48 tile it
+    replaced, which only ``chip_smoke.py``'s ladder calls)."""
     _check_cuda("rbgs_fused_extended", ue, be)
     ne, m = ue.shape
     c = alpha / (h * h)
     out = torch.empty((ne - 2 * _EXT_HALO, m), dtype=ue.dtype,
                       device=ue.device)
-    _raise_on(_lib().mg_rbgs_fused_ext(_ptr(ue), _ptr(be), _ptr(out), ne, m,
-                                       int(row0), nl, ml, 1.0 / c,
-                                       int(sweeps), _stream()),
-              "rbgs_fused_ext")
-    LAUNCHES["rbgs_fused_ext"] += 1
+    args = [_ptr(ue), _ptr(be), _ptr(out), ne, m, int(row0), nl, ml, 1.0 / c,
+            int(sweeps)]
+    if kernel == "rbgs_fused_ext":
+        args.append(_geometry(2 * int(sweeps)))
+    _raise_on(getattr(_lib(), f"mg_{kernel}")(*args, _stream()), kernel)
+    LAUNCHES[kernel] += 1
     return out

@@ -8,8 +8,8 @@ function                       replaces                  bytes per point
 =============================  ========================  ===============
 ``poisson_apply_3d``           ``_apply3d_kernel``       8
 ``poisson_residual_3d``        ``_residual3d_kernel``    12
-``red_black_gauss_seidel_3d``  ``_rbgs3d_color_kernel``  12 per colour
-                                                         pass
+``red_black_gauss_seidel_3d``  ``_rbgs3d_color_kernel``  12 per group of
+                                                         <= 4 sweeps
 ``jacobi_3d``                  ``_jacobi3d_kernel``      12 per sweep
 =============================  ========================  ===============
 
@@ -20,10 +20,14 @@ Zs`` left to right, ``b / c`` as a true division); a CUDA tensor launches
 the kernel or raises.  There is no fallback.  The JAX wrappers take the
 kernels only for aligned f32 shapes; the kernels here take every 3D f32
 shape, so on the card they also run the exact-layout levels, where JAX runs
-XLA ops.  SOR (``omega != 1``) runs the XLA-order plain smoother and
-launches nothing, as the JAX wrapper does.  Each launch adds one to its
-``cuda_stencil.LAUNCHES`` entry.  ``ops/cuda_stencil.py`` sends 3D tensors
-here.
+XLA ops.  The smoother (``rbgs3d_fused``) takes one of two launch shapes
+by the array's size alone: a z-marching tile (:func:`rbgs3d_tile`), one
+launch per group of <= 4 sweeps, or, for arrays of at most
+``RESIDENT_MAX_POINTS`` points (the 17^3 bottom of a V-cycle), every sweep
+in one launch with the array resident in shared memory.  SOR (``omega !=
+1``) runs the XLA-order plain smoother and launches nothing, as the JAX
+wrapper does.  Each launch adds one to its ``cuda_stencil.LAUNCHES`` entry.
+``ops/cuda_stencil.py`` sends 3D tensors here.
 """
 
 from __future__ import annotations
@@ -33,7 +37,9 @@ import torch
 from multigrid_prj_tpu_torch.ops import smoothers as _sm
 from multigrid_prj_tpu_torch.ops.cuda_stencil import (
     LAUNCHES,
+    _groups,
     _lib,
+    _pingpong,
     _ptr,
     _raise_on,
     _stream,
@@ -43,6 +49,52 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 # (1.0 / 6.0) rounded once to f32, as the Pallas bodies' weakly typed
 # constant; the kernels get it as a float argument
 _INV6 = 1.0 / 6.0
+# the z-marching tile (csrc/stencil3d.cu Zm<P>): rows up to 4 passes and
+# above, 32 columns (16 column pairs: one lane each); consecutive passes run
+# _RB3_LAG planes apart, and planes are loaded _RB3_AHEAD steps ahead
+_RB3_TILE_ROWS = (32, 32)
+_RB3_TILE_COLS = 32
+_RB3_LAG = 2
+_RB3_AHEAD = 3
+# arrays of at most this many points smooth with u and b resident in one
+# block's shared memory (csrc/stencil3d.cu kResidentMaxPoints), every sweep
+# in one launch; the C entry point refuses another cap or a larger array
+RESIDENT_MAX_POINTS = 16384
+
+
+def rbgs3d_tile(passes: int):
+    """Geometry of the z-marching tile of ``csrc/stencil3d.cu``
+    (``Zm<P>``) for ``passes`` dependent colour passes (2 per sweep):
+    ``(row halo, column halo, tile rows, tile columns, u ring planes, b
+    ring planes)``.  The x-y halo is one ring per pass on each side.  The
+    passes of a step run ``_RB3_LAG`` planes apart in z, over a span of
+    ``_RB3_LAG * (passes - 1)`` planes, so the u ring holds the span + 3
+    planes they read (the lowest also being stored) and the
+    ``_RB3_AHEAD`` planes in flight; the b ring each pass's plane, the
+    plane that landed and those in flight.  The C entry point refuses a
+    geometry other than the one compiled."""
+    if not 0 < passes <= 8 or passes % 2:
+        raise ValueError(f"the z-marching tile takes 2, 4, 6 or 8 passes, "
+                         f"got {passes}")
+    rows = _RB3_TILE_ROWS[passes > 4]
+    span = _RB3_LAG * (passes - 1)
+    return (passes, passes, rows, _RB3_TILE_COLS, span + 3 + _RB3_AHEAD,
+            span + 2 + _RB3_AHEAD)
+
+
+def _geometry3d(passes):
+    import ctypes
+
+    return (ctypes.c_int * 6)(*rbgs3d_tile(passes))
+
+
+def rbgs3d_route(shape) -> str:
+    """The smoother's launch shape for an array of ``shape``: ``"resident"``
+    (the whole array in one block's shared memory, every sweep in one
+    launch) up to ``RESIDENT_MAX_POINTS`` points, else ``"zmarch"`` (the
+    z-marching tile, one launch per group of <= 4 sweeps)."""
+    npts = int(shape[0]) * int(shape[1]) * int(shape[2])
+    return "resident" if npts <= RESIDENT_MAX_POINTS else "zmarch"
 
 
 def _logical3d(shape, logical_shape):
@@ -165,9 +217,13 @@ def red_black_gauss_seidel_3d_plain(u, b, alpha, h, sweeps: int = 1,
 
 def red_black_gauss_seidel_3d(u, b, alpha, h, sweeps: int = 1,
                               omega: float = 1.0, logical_shape=None):
-    """``sweeps`` RB-GS sweeps (3D parity ``z + y + x``), one launch per
-    colour half-sweep.  The kernel is ``omega == 1`` only: SOR runs the
-    XLA-order plain smoother on every device and is no launch."""
+    """``sweeps`` RB-GS sweeps (3D parity ``z + y + x``), out of place
+    (``u`` is only read, never cloned; ``sweeps == 0`` returns a copy), on
+    the launch shape :func:`rbgs3d_route` picks: every sweep in one launch
+    with the array resident in shared memory, or one z-marching launch per
+    group of at most 4 sweeps, the groups ping-ponging two scratch tensors.
+    The kernels are ``omega == 1`` only: SOR runs the XLA-order plain
+    smoother on every device and is no launch."""
     if omega != 1.0:
         return _sm.red_black_gauss_seidel(u, b, alpha, h, sweeps=sweeps,
                                           omega=omega,
@@ -176,6 +232,36 @@ def red_black_gauss_seidel_3d(u, b, alpha, h, sweeps: int = 1,
         return red_black_gauss_seidel_3d_plain(u, b, alpha, h, sweeps,
                                                logical_shape)
     _check_cuda3d("red_black_gauss_seidel_3d", u, b)
+    dims = _dims(u, logical_shape)
+    c = alpha / (h * h)
+    if rbgs3d_route(u.shape) == "resident":
+        fn = _lib().mg_rbgs3d_resident
+
+        def launch(x, y, s):
+            _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *dims, c, _INV6, s,
+                         RESIDENT_MAX_POINTS, _stream()), "rbgs3d_fused")
+            LAUNCHES["rbgs3d_fused"] += 1
+
+        return _pingpong(u, [sweeps] if sweeps > 0 else [], launch)
+    fn = _lib().mg_rbgs3d_fused
+
+    def launch(x, y, s):
+        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *dims, c, _INV6, s,
+                     _geometry3d(2 * s), _stream()), "rbgs3d_fused")
+        LAUNCHES["rbgs3d_fused"] += 1
+
+    return _pingpong(u, _groups(sweeps), launch)
+
+
+def _rbgs3d_per_colour(u, b, alpha, h, sweeps: int = 1, logical_shape=None):
+    """The per-colour oracle of the fused 3D smoother on CUDA float32
+    tensors: ``2 * sweeps`` in-place launches of ``rbgs3d_color_kernel`` on
+    a clone of ``u`` (the path before the fused kernel).  On no solver
+    path: the card's checks hold ``rbgs3d_fused`` to it, and
+    ``chip_smoke.py`` times it as the path the fused kernel replaced."""
+    _check_cuda3d("_rbgs3d_per_colour", u, b)
+    if u.device.type != "cuda":
+        raise ValueError("_rbgs3d_per_colour launches CUDA kernels only")
     dims = _dims(u, logical_shape)
     c = alpha / (h * h)
     fn = _lib().mg_rbgs3d_color

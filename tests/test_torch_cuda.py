@@ -235,7 +235,7 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "apply3d": 1, "residual3d": 1, "rbgs3d_color": 6, "jacobi3d": 3}
+        "apply3d": 1, "residual3d": 1, "rbgs3d_fused": 1, "jacobi3d": 3}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -249,6 +249,127 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
                  lambda: cs.ff_poisson_residual(u, u, u, u, b, ALPHA, h)):
         with pytest.raises(NotImplementedError, match="2D"):
             call()
+
+
+# the fused 3D smoother's shapes: config 4's levels (the 17^3 bottom on the
+# resident route), padded levels, a non-cubic shape, one whose x-y extents
+# are no multiple of the tile core, and 257^3
+FUSED3D_SHAPES = [((17, 17, 17), None), ((18, 18, 32), (17, 17, 17)),
+                  ((33, 33, 33), None), ((36, 36, 64), (33, 33, 33)),
+                  ((65, 65, 65), None), ((20, 24, 136), (17, 21, 129)),
+                  ((19, 53, 101), None), ((257, 257, 257), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", FUSED3D_SHAPES)
+def test_cuda_rbgs3d_fused_equals_twin_and_per_colour_oracle(cuda_device,
+                                                             shape, logical):
+    """The fused 3D smoother at sweeps 0-9 (z-marching: one launch per
+    group of <= 4; resident: one launch), bit-equal to its twin and to the
+    per-colour oracle's 2 x sweeps ``rbgs3d_color`` launches; ``u`` is
+    never written.  The 17^3 bottom also at its 100 sweeps."""
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    u0 = u.clone()
+    resident = c3.rbgs3d_route(shape) == "resident"
+    counts = list(range(10)) + ([100] if resident else [])
+    for sweeps in counts:
+        cs.reset_launch_counts()
+        got = c3.red_black_gauss_seidel_3d(u, b, ALPHA, h, sweeps=sweeps,
+                                           logical_shape=logical)
+        torch.cuda.synchronize()
+        n = min(sweeps, 1) if resident else -(-sweeps // 4)
+        assert cs.LAUNCHES["rbgs3d_fused"] == n, sweeps
+        assert sum(cs.LAUNCHES.values()) == n, sweeps
+        assert got.data_ptr() != u.data_ptr()
+        want = c3.red_black_gauss_seidel_3d_plain(u, b, ALPHA, h, sweeps,
+                                                  logical)
+        assert torch.equal(got, want), sweeps
+        oracle = c3._rbgs3d_per_colour(u, b, ALPHA, h, sweeps, logical)
+        assert cs.LAUNCHES["rbgs3d_color"] == 2 * sweeps
+        assert torch.equal(got, oracle), sweeps
+        assert torch.equal(u, u0), sweeps
+        del got, want, oracle
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_rbgs3d_fused_refusals(cuda_device):
+    """What the fused 3D kernels do not take is refused by the C entry
+    points before any launch: a z-marching group of more than 4 sweeps or
+    none, a tile geometry other than the compiled one, a resident array
+    above the cap, a cap other than the compiled one."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    u, b, _, h = _cuda_inputs((36, 36, 64), (33, 33, 33), cuda_device)
+    out = torch.empty_like(u)
+    dims = (36, 36, 64, 33, 33, 33, 400.0, 1.0 / 6.0)
+    good = c3._geometry3d(4)
+    assert lib.mg_rbgs3d_fused(p(u), p(b), p(out), *dims, 2, good,
+                               stream) == 0
+    bad_rows = (ctypes.c_int * 6)(*(c3.rbgs3d_tile(4)[:2] + (16,)
+                                    + c3.rbgs3d_tile(4)[3:]))
+    bad_ring = (ctypes.c_int * 6)(*(c3.rbgs3d_tile(4)[:4] + (6, 6)))
+    for sweeps, geom in ((5, c3._geometry3d(8)), (0, good), (1, good),
+                         (2, bad_rows), (2, bad_ring)):
+        assert lib.mg_rbgs3d_fused(p(u), p(b), p(out), *dims, sweeps, geom,
+                                   stream) != 0, sweeps
+    cap = c3.RESIDENT_MAX_POINTS
+    small = torch.zeros((17, 17, 17), device=cuda_device)
+    sdims = (17, 17, 17, 17, 17, 17, 256.0, 1.0 / 6.0)
+    assert lib.mg_rbgs3d_resident(p(small), p(small), p(out), *sdims, 100,
+                                  cap, stream) == 0
+    assert lib.mg_rbgs3d_resident(p(small), p(small), p(out), *sdims, 1,
+                                  cap + 1, stream) != 0
+    assert lib.mg_rbgs3d_resident(p(small), p(small), p(out), *sdims, 0,
+                                  cap, stream) != 0
+    assert lib.mg_rbgs3d_resident(p(u), p(b), p(out), *dims, 1, cap,
+                                  stream) != 0  # 82944 points
+    cs.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        c3.red_black_gauss_seidel_3d(u.double(), b.double(), ALPHA, h)
+    with pytest.raises(ValueError):
+        c3._rbgs3d_per_colour(u.cpu(), b.cpu(), ALPHA, h)
+    assert sum(cs.LAUNCHES.values()) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_3d_solve_launch_counts_fused_and_per_colour(cuda_device):
+    """33^3 with 2 levels: the 17^3 bottom (4913 points, above the dense
+    inverse's 4608) takes the resident route, so an iteration launches 3
+    ``rbgs3d_fused`` (pre- and post-smoothing, the bottom's 100 sweeps)
+    against 208 ``rbgs3d_color`` on the per-colour path (the smoother
+    swapped for the oracle), with the same history and solution bit for
+    bit."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+
+    assert set(cs.LAUNCHES) >= {"rbgs3d_fused", "rbgs3d_color",
+                                "rbgs_fused_ext", "rbgs_fused_ext_tile48"}
+    kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=2,
+              cycle="v", nu=2, tol=1e-6, maxit=40)
+    runs = {}
+    for path in ("fused", "per-colour"):
+        s = GMGSolver(device="cuda", **kw)
+        assert s._coarse_inv is None
+        if path == "per-colour":
+            s.smoother = (lambda u, b, alpha, h, sweeps=1, logical_shape=None:
+                          c3._rbgs3d_per_colour(u, b, alpha, h, sweeps,
+                                                logical_shape))
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+    (fused, cf), (colour, cc) = runs["fused"], runs["per-colour"]
+    assert fused.converged and fused.iterations == colour.iterations
+    assert cf["rbgs3d_fused"] == 3 * fused.iterations
+    assert cf["rbgs3d_color"] == 0 and cc["rbgs3d_fused"] == 0
+    assert cc["rbgs3d_color"] == 208 * colour.iterations
+    np.testing.assert_array_equal(fused.history, colour.history)
+    assert torch.equal(fused.u, colour.u)
 
 
 @pytest.mark.cuda
@@ -297,8 +418,8 @@ def _rhs_3d(level, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("extra,inner_cg,need", [
-    ({}, 0, ("rbgs3d_color", "residual3d")),
-    (dict(pad_align=(8, 8, 128)), 2, ("rbgs3d_color", "residual3d",
+    ({}, 0, ("rbgs3d_fused", "residual3d")),
+    (dict(pad_align=(8, 8, 128)), 2, ("rbgs3d_fused", "residual3d",
                                       "apply3d")),
     (dict(smoother="jacobi", omega=0.8), 0, ("jacobi3d", "residual3d"))])
 def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
@@ -323,7 +444,8 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_fused", "rbgs_color",
                                               "residual", "ff_residual",
                                               "apply", "jacobi",
-                                              "restrict_fw", "prolong_add"))
+                                              "restrict_fw", "prolong_add",
+                                              "rbgs3d_color"))
     want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
         b.cpu(), inner_cg=inner_cg)
     assert got.converged and got.iterations == want.iterations
@@ -349,7 +471,7 @@ def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
     else:
         kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
                   pad_align=(8, 8, 128), tol=2e-3)
-        res, smooth = "residual3d", "rbgs3d_color"
+        res, smooth = "residual3d", "rbgs3d_fused"
     kw.update(cycle="v", nu=2, maxit=40)
     gpu = GMGSolver(device="cuda", smoother_dtype=torch.bfloat16, **kw)
     b = (assemble_rhs(gpu.levels[0], 10.0, test=1, device="cuda")
@@ -364,7 +486,7 @@ def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
     sor = GMGSolver(device="cuda", omega=1.2, **kw).solve(b)
     torch.cuda.synchronize()
     assert sor.converged and cs.LAUNCHES[smooth] == 0
-    assert cs.LAUNCHES["rbgs_color"] == 0
+    assert cs.LAUNCHES["rbgs_color"] == cs.LAUNCHES["rbgs3d_color"] == 0
 
 
 def _ell_matrices():
@@ -639,7 +761,8 @@ def test_cuda_f64_with_kernels_launches_nothing(cuda_device):
 # the sharded solver's extended-slab smoother: (rows R, columns m) of the
 # slab, global logical shape, and the slab's first global row
 EXT_CASES = [(64, 330, (8192, 330), -8), (64, 330, (8000, 300), 7990),
-             (2048, 256, (8192, 256), 4088), (8, 128, (8192, 128), 8184)]
+             (2048, 256, (8192, 256), 4088), (8, 128, (8192, 128), 8184),
+             (64, 330, (8192, 330), -7), (200, 384, (8000, 379), 57)]
 
 
 @pytest.mark.cuda
@@ -661,6 +784,50 @@ def test_cuda_fused_ext_equals_twin(cuda_device, rows, m, logical, row0):
         assert torch.equal(got, want), sweeps
     with pytest.raises(ValueError, match="at most 4"):
         cs.rbgs_fused_extended(ue, be, row0, logical, ALPHA, h, 5)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_ext_equals_tile48_and_refuses(cuda_device):
+    """The colour-split extended-slab kernel equals the 48 x 48 tile it
+    replaced (the ladder's reference) bit for bit at sweeps 1-4; no sweeps
+    is a copy of the core and no launch; the C entry point refuses a
+    geometry other than the compiled one, more than 4 sweeps, and a slab
+    with no core row."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    rng = np.random.default_rng(3)
+    ue, be = (torch.from_numpy(rng.standard_normal((80, 330)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    h = 10.0 / 8191
+    for sweeps in (1, 2, 3, 4):
+        cs.reset_launch_counts()
+        got = cs.rbgs_fused_extended(ue, be, 57, (8192, 330), ALPHA, h,
+                                     sweeps)
+        old = cs._fused_ext_launch(ue, be, 57, 8192, 330, ALPHA, h, sweeps,
+                                   "rbgs_fused_ext_tile48")
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["rbgs_fused_ext"] == 1
+        assert cs.LAUNCHES["rbgs_fused_ext_tile48"] == 1
+        assert torch.equal(got, old), sweeps
+    cs.reset_launch_counts()
+    assert torch.equal(cs.rbgs_fused_extended(ue, be, 57, (8192, 330), ALPHA,
+                                              h, 0), ue[8:-8])
+    assert sum(cs.LAUNCHES.values()) == 0
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    out = torch.empty((64, 330), device=cuda_device)
+    args = (80, 330, 57, 8192, 330, 0.1)
+    assert lib.mg_rbgs_fused_ext(p(ue), p(be), p(out), *args, 2,
+                                 cs._geometry(4), stream) == 0
+    for sweeps, geom in ((5, cs._geometry(8)), (0, cs._geometry(4)),
+                         (1, cs._geometry(4)),
+                         (2, (ctypes.c_int * 4)(4, 4, 96, 128))):
+        assert lib.mg_rbgs_fused_ext(p(ue), p(be), p(out), *args, sweeps,
+                                     geom, stream) != 0, sweeps
+    assert lib.mg_rbgs_fused_ext(p(ue), p(be), p(out), 16, *args[1:], 2,
+                                 cs._geometry(4), stream) != 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -97,6 +97,26 @@ def test_twins_match_pallas_3d(logical, omega):
         np.testing.assert_array_equal(got[name][bnd], b[bnd])
 
 
+@pytest.mark.parametrize("logical", [None, LOGICAL])
+@pytest.mark.parametrize("sweeps", [2, 5])
+def test_rbgs_sweep_counts_match_pallas_3d(logical, sweeps):
+    """The smoother's twin at 2 sweeps (one z-marching launch on the card)
+    and 5 (two: 4 + 1) against the Pallas kernel in interpret mode, within
+    the smoothers' 2 ulp of the largest value; boundary and dead zone
+    pinned to b exactly."""
+    u, b, h = _inputs(ALIGNED, logical, seed=4)
+    with pltpu.force_tpu_interpret_mode():
+        want = p3.red_black_gauss_seidel_3d(
+            jnp.asarray(u), jnp.asarray(b), ALPHA, h, sweeps=sweeps,
+            logical_shape=logical)
+    got = c3.red_black_gauss_seidel_3d(
+        torch.from_numpy(u), torch.from_numpy(b), ALPHA, h, sweeps=sweeps,
+        logical_shape=logical).numpy()
+    _close(got, want, BOUNDS["rbgs"])
+    bnd = boundary_mask(ALIGNED, logical).numpy()
+    np.testing.assert_array_equal(got[bnd], b[bnd])
+
+
 @pytest.mark.parametrize("shape,logical", UNALIGNED)
 @pytest.mark.parametrize("omega", [1.0, 0.8])
 def test_twins_match_xla_3d(shape, logical, omega):

@@ -55,25 +55,34 @@ paths' shapes.  Imports nothing of JAX.  The paths:
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
   1. device   2. build (with the tile kernels' registers, spills and shared
-  memory)   3. 2D kernel vs twin (with the down-leg, apply chain and colour
-  sweep; the fused smoother at sweeps 0-9 and the down-leg at 0-3 also
-  against the per-colour oracle and the 48 x 48 tile)   4. 3D kernel vs
-  twin (the fused smoother at sweeps 0-9, and 100 on the resident route,
-  also against the per-colour oracle; the route of each shape)   5. main
+  memory, the apply chain's and the residual march's too)   3. 2D kernel
+  vs twin (with the down-leg, apply chain and colour sweep; the fused
+  smoother at sweeps 0-9 and the down-leg at 0-3 also against the
+  per-colour oracle and the 48 x 48 tile; the apply chain at 0-11 applies
+  also against single applies and its 48 x 48 tile; its geometry refusal)
+  4. 3D kernel vs twin (the fused smoother at sweeps 0-9, and 100 on the
+  resident route, also against the per-colour oracle; the residual march
+  also against the one-thread-per-point kernel, at a shape whose nz is no
+  multiple of its chunk; the route of each shape; the march's geometry
+  refusal)   5. main
   path (+ CPU-twin run, + the per-colour path)   5b. main
   path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2 (plain,
   inner_cg=4, fuse_downleg, the per-colour path)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
-  runs)   8. plain ops   9. CLI   10. 3D paths A, B, C   11. 3D variants D
+  runs)   8. plain ops   9. CLI   10. 3D paths A, B, C (A also with the
+  point residual swapped in, bit-equal)   11. 3D variants D
   (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
-  paths: apply chain, colour sweep   13. AMG set-up   14. AMG kernels vs
+  paths: apply chain (also on its 48 x 48 tile), colour sweep   13. AMG
+  set-up   14. AMG kernels vs
   twins (with the SpMM)   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU twins,
   FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin (and colour sweeps of the global grid)
   16d. sharded 8192^2, one rank (NCCL)   16e. sharded 2048^2, 4 ranks on one
   card (gloo)   16f. design probes: the stencil and SpMV probe kernels vs
   their twins   17. times (with the per-pass ladder of the smoother and
-  the down-leg at 8448^2, of the 3D smoother at 257^3 and 513^3 and of the
-  sharded smoother at 8208 x 8192, each against the kernels it replaced;
-  L2-flushed times of the fused kernels and the float-float residual; the
+  the down-leg at 8448^2, of the 3D smoother at 257^3 and 513^3, of the
+  sharded smoother at 8208 x 8192 and of the apply chain at 8192^2, each
+  against the kernels it replaced; the residual march against the point
+  kernel at 257^3 and 513^3; L2-flushed times of the fused kernels, the
+  residuals and the float-float residual; the
   17^3 bottom's 100 sweeps; the solves on three paths and config 4 and
   513^3 fused against per colour; profiled runs of the 1025^2 and config 4
   solves and of each AMG solve; the two probe harnesses' mains as the
@@ -156,6 +165,11 @@ F64_ITERATIONS = 9
 BENCH_N = 8192
 CHAIN_FUSE = 8
 CHAIN_PASSES = 4
+# the apply chain is held to its twin, to single applies and to the 48 x 48
+# tile at every apply count here (11: launches of 8 + 3); its ladder at
+# 8192^2 from graph replays
+CHAIN_APPLIES = tuple(range(12))
+LADDER_CHAIN = (1, 2, 4, 8)
 # bench.py's measure_ell_spmm: banded_csr(2**20), 4 vectors
 SPMM_N = 1 << 20
 SPMM_NVEC = 4
@@ -180,7 +194,11 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     "restrict_fw": (f"{_PS}:541", _SRC2),
     "prolong_add": (f"{_PS}:631", _SRC2),
     "apply3d": (f"{_PS3}:107", _SRC3),
+    # the residual's z-chunked march; residual3d_point, the one-thread-per-
+    # point kernel it replaced, is on no solver path: its launches are those
+    # of config 4's solve with it swapped in, run beside the path
     "residual3d": (f"{_PS3}:117", _SRC3),
+    "residual3d_point": (f"{_PS3}:117", _SRC3),
     # the 3D smoother: the z-marching tile, or the whole array resident in
     # shared memory (the 17^3 bottom); rbgs3d_color is its per-colour
     # oracle, on no solver path: its launches are those of the per-colour
@@ -189,8 +207,8 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     "rbgs3d_color": (f"{_PS3}:128", _SRC3),
     "jacobi3d": (f"{_PS3}:141", _SRC3),
 }
-KERNELS_3D = ("apply3d", "residual3d", "rbgs3d_fused", "rbgs3d_color",
-              "jacobi3d")
+KERNELS_3D = ("apply3d", "residual3d", "residual3d_point", "rbgs3d_fused",
+              "rbgs3d_color", "jacobi3d")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -199,6 +217,9 @@ KERNELS.update({
     "ff_residual_ell": (f"{_PSPMV}:695", _SRCS),
     "rbgs_resfilter": (f"{_PS}:497", _SRC2),
     "apply_chain": (f"{_PS}:871", _SRC2),
+    # the 48 x 48 tile the row-walking chain replaced, on no solver path:
+    # its launches are those of the bench chain path run on it beside
+    "apply_chain_tile48": (f"{_PS}:871", _SRC2),
     "rbgs_color_sweep": (f"{_PS}:321", _SRC2),
     "ell_spmm": (f"{_PSPMV}:274", _SRCS),
 })
@@ -228,7 +249,12 @@ PROBE_FLOPS = {"copy": 1, "rolls": 3, "shifts": 3, "halo": 3, "full": 6,
 PROBE_N = 8192
 PROBE_CHAIN = 29
 ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412",
+                 "apply_chain_tile48": f"{_PS}:412",
                  "rbgs_fused": f"{_PS}:392"}
+# the kernels kept only as references of their redesigns: on no path
+ON_NO_PATH = {"apply_chain_tile48": "apply_chain",
+              "residual3d_point": "residual3d", "rbgs_color": "rbgs_fused",
+              "rbgs3d_color": "rbgs3d_fused"}
 # the JAX wrapper that reaches the kernel body in "replaces"
 VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
@@ -240,8 +266,10 @@ STENCIL_COST = {
     "ff_residual": (24, 60),
     "apply": (8, 6), "jacobi": (12, 18), "restrict_fw": (5, 5),
     "prolong_add": (9, 3), "rbgs_resfilter": (13, 24),
-    "apply_chain": (8, 48), "rbgs_color_sweep": (12, 3),
-    "apply3d": (8, 8), "residual3d": (12, 9), "rbgs3d_fused": (12, 18),
+    "apply_chain": (8, 48), "apply_chain_tile48": (8, 48),
+    "rbgs_color_sweep": (12, 3),
+    "apply3d": (8, 8), "residual3d": (12, 9), "residual3d_point": (12, 9),
+    "rbgs3d_fused": (12, 18),
     "rbgs3d_color": (12, 18),
     "jacobi3d": (12, 24), "rbgs_fused_ext": (12, 24)}
 
@@ -296,6 +324,12 @@ BF16_TOL = 2e-3
 # one whose x-y extents are no multiple of the z-marching tile's core
 NONCUBIC_3D = ((20, 24, 136), (17, 21, 129))
 RAGGED_3D = ((19, 53, 101), None)
+# the residual's march: x-y extents no multiple of its 64 x 8 tile, nz (71)
+# no multiple of its z-chunk (2 planes here)
+CHUNK_3D = ((71, 45, 77), None)
+# residual launches per solve: one per smoothed level and iteration
+CONFIG4_RESIDUAL_LAUNCHES = 11 * 4
+SCALE3D_RESIDUAL_LAUNCHES = 12 * 5
 TIME_SHAPES_3D = [((257, 257, 257), None), ((513, 513, 513), None)]
 CONFIG4_BOTTOM = (17, 17, 17)
 # the fused 3D smoother is held to its twin and to the per-colour oracle at
@@ -401,7 +435,9 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     """name -> [(label, kernel call, twin call)] on the same 3D inputs.
     The fused smoother runs every sweep count against the per-colour oracle
     and against the twin (the resident route also the bottom's 100); the
-    last case, 2 sweeps (V(2,2)) against the twin, is the one timed."""
+    residual's march against the one-thread-per-point kernel and the twin;
+    the last case of each, against the twin (the smoother's at 2 sweeps,
+    V(2,2)), is the one timed."""
     def fused(s):
         return c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=s,
                                             logical_shape=logical)
@@ -423,9 +459,18 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
                for s in counts if s != 2]
             + [("sweeps 2", lambda: fused(2), lambda: twin(2))]),
         "rbgs3d_color": [("sweeps 2", lambda: oracle(2), lambda: twin(2))],
-        "residual3d": [(
+        "residual3d": [
+            ("vs residual3d_point",
+             lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
+             lambda: c3._residual3d_launch(u, b, alpha, h, logical,
+                                           "residual3d_point")),
+            ("",
+             lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
+             lambda: c3.poisson_residual_3d_plain(u, b, alpha, h, logical))],
+        "residual3d_point": [(
             "",
-            lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
+            lambda: c3._residual3d_launch(u, b, alpha, h, logical,
+                                          "residual3d_point"),
             lambda: c3.poisson_residual_3d_plain(u, b, alpha, h, logical))],
         "apply3d": [(
             "",
@@ -507,12 +552,8 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
         lambda col=col: cs.rbgs_color_sweep_plain(u, b, alpha, h, col,
                                                   logical))
         for col in (0, 1)]
-    # alpha = h^2 (c = 1) keeps 11 applies of a unit-size field finite
-    calls["apply_chain"] = [(
-        f"{s} applies, alpha = h^2",
-        lambda s=s: cs.poisson_apply_chain(u, h * h, h, s, logical),
-        lambda s=s: cs.poisson_apply_chain_plain(u, h * h, h, s, logical))
-        for s in (1, 3, 11, 8)]
+    calls["apply_chain"], calls["apply_chain_tile48"] = chain_calls(
+        cs, u, h, logical)
     n, m = u.shape
     if n % 2 == 0 and m % 2 == 0:  # the transfers live on padded levels
         lg = logical or (n, m)
@@ -528,6 +569,40 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
     if n % 2 == 0 and m % 2 == 0 and logical is not None:
         calls["rbgs_resfilter"] = downleg_calls(cs, u, b, h, logical, alpha)
     return calls
+
+
+def chain_calls(cs, u, h, logical):
+    """The apply chain at every count of ``CHAIN_APPLIES`` against its twin,
+    against as many single apply launches and against the 48 x 48 tile it
+    replaced, alpha = h^2 (c = 1 keeps 11 applies of a unit-size field
+    finite); the last case, 8 applies against the twin, is the one timed.
+    Then the 48 x 48 tile's own case, 8 applies against the twin."""
+    def chain(s):
+        return cs.poisson_apply_chain(u, h * h, h, s, logical)
+
+    def twin(s):
+        return cs.poisson_apply_chain_plain(u, h * h, h, s, logical)
+
+    def tile48(s):
+        return cs._apply_chain_launches(u, h * h, h, s, logical,
+                                        "apply_chain_tile48")
+
+    def singles(s):
+        x = u.clone()
+        for _ in range(s):
+            x = cs.poisson_apply(x, h * h, h, logical)
+        return x
+
+    return ([(f"{s} applies{tag}", lambda s=s: chain(s),
+              lambda s=s, ref=ref: ref(s))
+             for s in CHAIN_APPLIES
+             for tag, ref in ((" vs the 48 x 48 tile", tile48),
+                              (" vs single applies", singles), ("", twin))
+             if (s, tag) != (CHAIN_FUSE, "")]
+            + [(f"{CHAIN_FUSE} applies", lambda: chain(CHAIN_FUSE),
+                lambda: twin(CHAIN_FUSE))],
+            [(f"{CHAIN_FUSE} applies", lambda: tile48(CHAIN_FUSE),
+              lambda: twin(CHAIN_FUSE))])
 
 
 def flat(x):
@@ -581,10 +656,13 @@ def downleg_calls(cs, u, b, h, logical, alpha):
 def tile_kernel_report(cs, c3, log):
     """Registers, spills and shared memory of the colour-split tile kernels
     (``rbgs_fused_kernel<S>``, ``rbgs_resfilter_kernel<S>``,
-    ``rbgs_fused_ext_kernel<S>``) and of the z-marching 3D tile
-    (``rbgs3d_zmarch_kernel<S>``) from nvcc's ``-Xptxas -v`` log; their
-    shared memory is dynamic, so it comes from the tile geometry the
-    wrapper passes (``cs.rbgs_tile``, ``c3.rbgs3d_tile``)."""
+    ``rbgs_fused_ext_kernel<S>``), of the z-marching 3D tile
+    (``rbgs3d_zmarch_kernel<S>``), of the apply chain's row-walking tile
+    (``apply_chain_kernel<A>``) and of the residual's z-chunked march
+    (``residual3d_march_kernel``) from nvcc's ``-Xptxas -v`` log; the tile
+    kernels' shared memory is dynamic, so it comes from the tile geometry
+    the wrapper passes (``cs.rbgs_tile``, ``c3.rbgs3d_tile``,
+    ``cs.apply_tile``); the march's is static, from the log."""
     import re
 
     props, cur = {}, None
@@ -601,6 +679,9 @@ def tile_kernel_report(cs, c3, log):
         used = re.search(r"Used (\d+) registers", ln)
         if used and cur:
             props.setdefault(cur, {})["regs"] = used.group(1)
+        smem = re.search(r"(\d+) bytes smem", ln)
+        if smem and cur:
+            props.setdefault(cur, {})["smem"] = smem.group(1)
     out = []
     for kind, extra in (("rbgs_fused_kernel", 0), ("rbgs_resfilter_kernel",
                                                    2),
@@ -625,6 +706,22 @@ def tile_kernel_report(cs, c3, log):
             out.append(f"{kind}<{sweeps}>: {pr.get('regs', '?')} registers, "
                        f"spill stores {st} B, spill loads {ld} B, dynamic "
                        f"shared memory {smem} B ({what})")
+    for mangled, pr in sorted(props.items()):
+        hit = re.search(r"apply_chain_kernelILi(\d)EE", mangled)
+        st, ld = pr.get("spills", ("?", "?"))
+        if hit:
+            applies = int(hit.group(1))
+            _, hc, rows, cols = cs.apply_tile(applies)
+            out.append(f"apply_chain_kernel<{applies}>: "
+                       f"{pr.get('regs', '?')} registers, spill stores {st} "
+                       f"B, spill loads {ld} B, dynamic shared memory "
+                       f"{2 * 4 * rows * cols} B (two {rows} x {cols} "
+                       f"buffers, halo {applies} rows, {hc} columns)")
+        elif "residual3d_march_kernel" in mangled:
+            out.append(f"residual3d_march_kernel: {pr.get('regs', '?')} "
+                       f"registers, spill stores {st} B, spill loads {ld} B, "
+                       f"static shared memory {pr.get('smem', '?')} B (a "
+                       "ring of plane copies and b)")
     return out
 
 
@@ -1508,7 +1605,26 @@ def main() -> int:
     check(n_fused == 0 and torch.equal(got, want) and counts == {
         "rbgs_fused": 1, "residual": 1, "restrict_fw": 1},
           f"down-leg with sweeps {sweeps}")
-    del u, b, got, want
+    # the apply chain's C entry point refuses a geometry other than the
+    # compiled one, before any launch
+    import ctypes
+
+    lib, y = _build.library(), torch.empty_like(u)
+    n, m = shape
+    chain_args = (cs._ptr(u), cs._ptr(y), n, m, *logical, 1.0)
+    good = lib.mg_apply_chain(*chain_args, CHAIN_FUSE, cs._geometry(
+        CHAIN_FUSE, cs.apply_tile), cs._stream())
+    bad = {f"{a} applies, geometry {g}": lib.mg_apply_chain(
+        *chain_args, a, (ctypes.c_int * 4)(*g), cs._stream())
+        for a, g in ((8, (8, 8, 96, 128)), (8, (7, 8, 64, 128)),
+                     (8, (8, 4, 64, 128)), (3, cs.apply_tile(8)),
+                     (9, (9, 12, 64, 128)))}
+    torch.cuda.synchronize()
+    print(f"[kernels] apply_chain's entry point: the compiled geometry "
+          f"{cs.apply_tile(CHAIN_FUSE)} launches (error {good}); refused "
+          f"with errors {bad}")
+    check(good == 0 and all(bad.values()), "apply_chain geometry refusal")
+    del u, b, got, want, y
     torch.cuda.empty_cache()
 
     # 4. 3D kernel vs twin: every level of paths A-D (C's finest is 513^3)
@@ -1516,7 +1632,8 @@ def main() -> int:
     phases.next("3D kernel vs twin")
     shapes_3d = level_shapes_3d(build_hierarchy, CONFIG4_KW, PADDED4_KW,
                                 SCALE3D_KW, VARIANT3D_KW) + [NONCUBIC_3D,
-                                                             RAGGED_3D]
+                                                             RAGGED_3D,
+                                                             CHUNK_3D]
     for i, (shape, logical) in enumerate(shapes_3d):
         u, b, h = kernel_inputs_3d(torch, shape, logical, seed=100 + i)
         route = c3.rbgs3d_route(shape)
@@ -1534,8 +1651,30 @@ def main() -> int:
               f"{', '.join(KERNELS_3D)} equal to their twins (torch.equal); "
               f"rbgs3d_fused on the {route} route, sweeps "
               f"{'0-9 and 100' if route == 'resident' else '0-9'} also "
-              "equal to the per-colour oracle")
+              "equal to the per-colour oracle; residual3d (march "
+              f"{c3.residual3d_tile(shape)}) also to residual3d_point")
         del u, b
+    # the residual's C entry point refuses a geometry other than the
+    # compiled tile and the chunk rule's
+    shape, logical = CHUNK_3D
+    u, b, h = kernel_inputs_3d(torch, shape, logical, seed=99)
+    r3 = torch.empty_like(u)
+    geo = c3.residual3d_tile(shape)
+    r3_args = (cs._ptr(u), cs._ptr(b), cs._ptr(r3), *shape, *shape, 1.0)
+    lib = _build.library()
+    good = lib.mg_residual3d(*r3_args, (ctypes.c_int * 4)(*geo),
+                             cs._stream())
+    bad = {str(g): lib.mg_residual3d(*r3_args, (ctypes.c_int * 4)(*g),
+                                     cs._stream())
+           for g in ((geo[0], geo[1], geo[2] + 1, geo[3]),
+                     (16, geo[1], geo[2], geo[3]),
+                     (geo[0], 16, geo[2], geo[3]),
+                     (geo[0], geo[1], geo[2], geo[3] + 1))}
+    torch.cuda.synchronize()
+    print(f"[kernels3d] residual3d's entry point at {shape}: the geometry "
+          f"{geo} launches (error {good}); refused with errors {bad}")
+    check(good == 0 and all(bad.values()), "residual3d geometry refusal")
+    del u, b, r3
     torch.cuda.empty_cache()
 
     launches = dict.fromkeys(cs.LAUNCHES, 0)
@@ -1811,7 +1950,7 @@ def main() -> int:
     # 10. 3D paths A (config 4 verbatim), B (padded), C (513^3)
     phases.next("3D paths A, B, C")
     need3d = ("rbgs3d_fused", "residual3d")
-    paths3d, colour3d = {}, {}
+    paths3d, colour3d, point3d = {}, {}, {}
 
     def per_colour3d(s):
         """``s`` with its smoother swapped for the 3D per-colour oracle (2 x
@@ -1822,6 +1961,16 @@ def main() -> int:
                                          logical_shape)
 
         s.smoother = _sm
+        return s
+
+    def point_residual3d(s):
+        """``s`` with its residual swapped for the one-thread-per-point
+        kernel the march replaced (``residual3d_point``)."""
+        def _res(u, b, alpha, h, logical_shape=None):
+            return c3._residual3d_launch(u, b, alpha, h, logical_shape,
+                                         "residual3d_point")
+
+        s._residual_fn = _res
         return s
 
     def smoother3d_calls(s, res):
@@ -1872,8 +2021,32 @@ def main() -> int:
               f"{sum(counts.values()) / res3.iterations:.1f} kernel launches "
               "per iteration (wrapper counts)")
         paths3d[tag] = (s3, b3, res3)
-        if tag[0] == "A":  # and on the per-colour path
+        n_res = {"A": CONFIG4_RESIDUAL_LAUNCHES,
+                 "C": SCALE3D_RESIDUAL_LAUNCHES}.get(tag[0])
+        print(f"[{tag}] residual3d launches {counts['residual3d']} "
+              f"(expected {n_res}: one per smoothed level and iteration), "
+              f"residual3d_point {counts['residual3d_point']}")
+        check(n_res is None or (counts["residual3d"] == n_res
+                                and counts["residual3d_point"] == 0),
+              f"{tag}: residual launches")
+        if tag[0] == "A":  # and with the point residual, and per colour
             check(calls == CONFIG4_FUSED_LAUNCHES, f"{tag}: {calls} calls")
+            rs3 = point_residual3d(GMGSolver(**kw, **extra, device="cuda"))
+            res3r, counts_r = run_path(rs3, b3)
+            print(f"[{tag}] with residual3d_point swapped in: "
+                  f"{res3r.iterations} iterations, residual3d_point "
+                  f"{counts_r['residual3d_point']} launches, residual3d "
+                  f"{counts_r['residual3d']}; history and solution equal: "
+                  f"{np.array_equal(res3r.history, res3.history)}, "
+                  f"{torch.equal(res3r.u, res3.u)}")
+            check(res3r.iterations == res3.iterations
+                  and np.array_equal(res3r.history, res3.history)
+                  and torch.equal(res3r.u, res3.u)
+                  and counts_r["residual3d_point"] == n_res
+                  and counts_r["residual3d"] == 0,
+                  f"{tag}: the march differs from the point residual")
+            point3d[tag] = rs3
+            del res3r
             ps3 = per_colour3d(GMGSolver(**kw, **extra, device="cuda"))
             res3p, counts_p = run_path(ps3, b3)
             print(f"[{tag}] per-colour path: {res3p.iterations} iterations, "
@@ -1994,17 +2167,31 @@ def main() -> int:
     check(c_c["apply_chain"] == CHAIN_PASSES == sum(c_c.values())
           and torch.equal(x_c, twin_c) and bool(torch.isfinite(x_c).all()),
           "bench chain path")
-    del x_c, twin_c
-    for s in (1, 3, 8, 11):
-        got = cs.poisson_apply_chain(u_b, h_b * h_b, h_b, s)
-        want = cs.poisson_apply_chain_plain(u_b, h_b * h_b, h_b, s)
+
+    def chain_path_tile48():
+        x = u_b
+        for _ in range(CHAIN_PASSES):
+            x = cs._apply_chain_launches(x, h_b * h_b, h_b, CHAIN_FUSE, None,
+                                         "apply_chain_tile48")
+        return x
+
+    x_t, c_t = run_counted(chain_path_tile48)
+    print(f"[bench chain] the same on the 48 x 48 tile: launches "
+          f"{({k: v for k, v in c_t.items() if v})}; equal: "
+          f"{torch.equal(x_t, x_c)}")
+    check(c_t["apply_chain_tile48"] == CHAIN_PASSES == sum(c_t.values())
+          and torch.equal(x_t, x_c), "bench chain path on the 48 x 48 tile")
+    del x_c, twin_c, x_t
+    for label, kern, ref in chain_calls(cs, u_b, h_b, None)[0]:
+        got, want = kern(), ref()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         max_err["apply_chain"] = max(max_err["apply_chain"], err)
         check(torch.equal(got, want),
-              f"apply_chain ({s} applies) != twin at {BENCH_N}^2 ({err})")
-    print(f"[kernels] apply_chain at {BENCH_N}^2, 1 / 3 / 8 / 11 applies: "
-          "equal to its twin (torch.equal)")
+              f"apply_chain ({label}) != reference at {BENCH_N}^2 ({err})")
+    print(f"[kernels] apply_chain at {BENCH_N}^2, applies "
+          f"{CHAIN_APPLIES[0]}-{CHAIN_APPLIES[-1]}: equal to its twin, to "
+          "single applies and to the 48 x 48 tile (torch.equal)")
     lev0 = solver.levels[0]
     b_pad = pad_to(b, lev0.padded_shape)
 
@@ -2299,9 +2486,9 @@ def main() -> int:
     u_b = bench_u(torch, n_b)
     a_b = h_b * h_b
 
-    def singles():
+    def singles(s=CHAIN_FUSE):
         x = u_b
-        for _ in range(CHAIN_FUSE):
+        for _ in range(s):
             x = cs.poisson_apply(x, a_b, h_b)
         return x
 
@@ -2319,10 +2506,35 @@ def main() -> int:
                  single_applies_ms=t_s,
                  nnz_per_s=nnz * CHAIN_FUSE / (t_k * 1e-3),
                  single_nnz_per_s=nnz * CHAIN_FUSE / (t_s * 1e-3))
+    # the ladder: device time per call by applies, the row-walking tile
+    # against the 48 x 48 tile it replaced and as many single applies
+    chain_paths = {
+        "apply_chain": lambda s: cs.poisson_apply_chain(u_b, a_b, h_b, s),
+        "apply_chain_tile48": lambda s: cs._apply_chain_launches(
+            u_b, a_b, h_b, s, None, "apply_chain_tile48"),
+        "single applies": singles}
+    chain_ladder = {k: {s: device_ms(torch, lambda s=s, f=f: f(s), n_b * n_b)
+                        for s in LADDER_CHAIN} for k, f in chain_paths.items()}
+    for k, row in chain_ladder.items():
+        print(f"[ladder] {k} at {n_b}x{n_b}, device us per call by applies: "
+              f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }  ({card})")
+    rec["ladder_ms"] = chain_ladder
+    rec["tile48_device_ms"] = chain_ladder["apply_chain_tile48"][CHAIN_FUSE]
+    rec["single_applies_device_ms"] = \
+        chain_ladder["single applies"][CHAIN_FUSE]
     add_time("apply_chain", f"{CHAIN_FUSE} applies", rec,
-             f"; {CHAIN_FUSE} single applies {t_s * 1e3:.1f} us; "
+             f"; {CHAIN_FUSE} single applies {t_s * 1e3:.1f} us (device "
+             f"{rec['single_applies_device_ms'] * 1e3:.1f} us); the 48 x 48 "
+             f"tile (device) {rec['tile48_device_ms'] * 1e3:.1f} us; "
              f"{rec['nnz_per_s']:.4g} nnz/s fused, "
              f"{rec['single_nnz_per_s']:.4g} single")
+    t_o = median_ms(torch, lambda: chain_paths["apply_chain_tile48"](
+        CHAIN_FUSE))
+    add_time("apply_chain_tile48", f"{CHAIN_FUSE} applies", record(
+        f"{n_b}x{n_b} (bench.py's chain, c = 1)", t_o, t_p,
+        per[0] * n_b * n_b, per[1] * n_b * n_b,
+        device_ms=rec["tile48_device_ms"],
+        nnz_per_s=nnz * CHAIN_FUSE / (t_o * 1e-3)))
     del u_b
     for shape, logical in TIME_SHAPES:
         u, bb, u_lo, h = kernel_inputs(torch, shape, logical, seed=99)
@@ -2405,6 +2617,17 @@ def main() -> int:
                  median_ms(torch, twin, runs=10))
             per = STENCIL_COST[kname]
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
+            if kname in ("residual3d", "residual3d_point"):
+                extra["flushed_ms"] = flushed_ms(torch, kern)
+                note = (f"; L2 flushed before each call "
+                        f"{extra['flushed_ms'] * 1e3:.1f} us")
+            if kname == "residual3d":  # and the kernel it replaced
+                point = cases[0][2]
+                extra["point_device_ms"] = device_ms(torch, point, npts)
+                extra["point_flushed_ms"] = flushed_ms(torch, point)
+                note += (f"; residual3d_point (device) "
+                         f"{extra['point_device_ms'] * 1e3:.1f} us, L2 "
+                         f"flushed {extra['point_flushed_ms'] * 1e3:.1f} us")
             if kname == "rbgs3d_fused":
                 paths = {
                     "rbgs3d_fused": lambda s: c3.red_black_gauss_seidel_3d(
@@ -2626,18 +2849,25 @@ def main() -> int:
                   f"{statistics.median(w) * 1e3:.2f} ms over 3 "
                   f"({[round(x * 1e3, 2) for x in w]} ms, alternating), "
                   f"{iters} iterations  ({card})")
-    # config 4 (A) and 513^3 (C): fused (F) against the per-colour path (P),
-    # F P P F F P, median of 3 each, after one warm run of each
+    # config 4 (A) and 513^3 (C): fused (F) against the per-colour path (P)
+    # and against the point residual swapped in (R), F P R R P F F R P,
+    # median of 3 each, after one warm run of each
     colour3d["C 513^3"] = per_colour3d(GMGSolver(**SCALE3D_KW,
                                                  device="cuda"))
+    point3d["C 513^3"] = point_residual3d(GMGSolver(**SCALE3D_KW,
+                                                    device="cuda"))
     for tag, ps3 in colour3d.items():
         s3, b3, res3 = paths3d[tag]
+        rs3 = point3d[tag]
         fns = {"fused": lambda s3=s3, b3=b3: s3.solve_refined(b3),
-               "per-colour": lambda ps3=ps3, b3=b3: ps3.solve_refined(b3)}
+               "per-colour": lambda ps3=ps3, b3=b3: ps3.solve_refined(b3),
+               "point residual": lambda rs3=rs3, b3=b3: rs3.solve_refined(
+                   b3)}
         walls = {k: [] for k in fns}
         for k in fns:
             fns[k]()
-        for k in ("fused", "per-colour", "per-colour", "fused", "fused",
+        for k in ("fused", "per-colour", "point residual", "point residual",
+                  "per-colour", "fused", "fused", "point residual",
                   "per-colour"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2652,6 +2882,8 @@ def main() -> int:
                   f"{res3.iterations} iterations  ({card})")
         if tag[0] == "A":
             for k, fn in fns.items():
+                if k == "point residual":
+                    continue
                 try:
                     wall, busy, nev, top = profile_run(torch, fn)
                 except Exception as exc:  # the trace is a measurement aid
@@ -2664,7 +2896,7 @@ def main() -> int:
                 for kname, (us, cnt) in top[:6]:
                     print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  "
                           f"{kname[:90]}")
-    del colour3d
+    del colour3d, point3d
     walls_3d = [(f"solve_refined 3D {tag}",
                  lambda s3=s3, b3=b3: s3.solve_refined(b3), res3.iterations)
                 for tag, (s3, b3, res3) in paths3d.items() if tag[0] == "B"]
@@ -2723,6 +2955,8 @@ def main() -> int:
          **({"also_replaces": ALSO_REPLACES[k]} if k in ALSO_REPLACES
             else {}),
          **({"via": VIA[k]} if k in VIA else {}),
+         **({"path": f"none: the reference of {ON_NO_PATH[k]}"}
+            if k in ON_NO_PATH else {}),
          **({"launches_executed": ran[k]} if k in PROBES else {})}
         for k in every]}))
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@
 //                       the wrapper's decimation fw_decimate_padded)
 //   apply_chain      <- poisson_apply_chain (_apply_fused_kernel /
 //                       _apply_fused2d_kernel, shared body
-//                       _fused_apply_passes)
+//                       _fused_apply_passes): up to 8 applies per launch
+//   apply_chain_tile48 <- the same on the earlier 48 x 48 tile (no path)
 //   rbgs_color_sweep <- rbgs_color_sweep (_rbgs_color_kernel)
 //   rbgs_fused_ext   <- rbgs_fused_extended (_rbgs_fused_offset_kernel,
 //                       shared body _fused_rbgs_passes)
@@ -46,7 +47,8 @@
 // runs one launch per sweep (the TPU fuses up to 8).  The temporally fused
 // kernels keep a halo tile in shared memory: the red-black smoother, the
 // down-leg and the sharded smoother on the colour-split tile described above
-// rbgs_fused_kernel, the apply chain on the older 48 x 48 tile.
+// rbgs_fused_kernel, the apply chain on the row-walking tile described above
+// apply_chain_kernel.
 
 #include <cuda_runtime.h>
 
@@ -464,15 +466,16 @@ __global__ void __launch_bounds__(kFusedThreads)
   }
 }
 
-// y = A^applies u (applies <= kHalo = 8) in one pass, replacing
-// _apply_fused_kernel / _apply_fused2d_kernel: apply_kernel's expression
-// per apply, the Dirichlet identity rows replayed on every apply, the
-// applies ping-ponging two shared buffers; only the core is written.
-// 8 B per point per call of up to 8 applies (8 B per point per apply as
-// separate launches).
+// The earlier apply chain on the 48 x 48 tile, kept only so that
+// chip_smoke.py can hold its redesign (apply_chain_kernel<A> below, which
+// replaces it on every path) to it and time the two in one run: y =
+// A^applies u (applies <= kHalo = 8), every apply over all 2304 cells with
+// per-cell div/mod and five shared reads, an 8-cell halo whatever the apply
+// count, scalar synchronous loads.  Equal to the new kernel bit for bit.
 __global__ void __launch_bounds__(kFusedThreads)
-    apply_chain_kernel(const float* __restrict__ u, float* __restrict__ y,
-                       int n, int m, int nl, int ml, float c, int applies) {
+    apply_chain_tile48_kernel(const float* __restrict__ u,
+                              float* __restrict__ y, int n, int m, int nl,
+                              int ml, float c, int applies) {
   __shared__ float sx[2][kExt2];
   const int i0 = blockIdx.y * kTile - kHalo;
   const int j0 = blockIdx.x * kTile - kHalo;
@@ -1060,6 +1063,208 @@ int rb_vec(int m, const void* out) {
   return m % 4 == 0 && reinterpret_cast<std::uintptr_t>(out) % 16 == 0;
 }
 
+// ---------------------------------------------------------------------------
+// The apply chain, apply_chain_kernel<A>: y = A^A u in one launch (A <= 8,
+// _apply_fused_kernel's contract; longer chains in groups that ping-pong two
+// scratch arrays), replacing _apply_fused_kernel / _apply_fused2d_kernel
+// (shared body _fused_apply_passes).  Each apply is apply_kernel's
+// expression in its op order, c * ((((4u - N) - S) - E) - W), with the
+// Dirichlet boundary and dead-zone cells (and the cells outside the array,
+// loaded as 0) replayed as identity, so the core is bit-equal to A
+// apply_kernel launches and to the twin.
+//
+// Bound: memory, 8 B per point per call (read u, write y; separate launches
+// move 8 B per point per apply).  What held the 48 x 48 tile at 12.8x its
+// bound, and what this tile does instead:
+// * Halo sized to the work: A rows and A rounded up to 4 columns (the ring
+//   argument above: one ring per apply), so that tile origins and core
+//   columns stay 16-byte aligned.  A is a template argument: the geometry
+//   and the pass loops are compile-time constants.
+// * Large rectangular tiles of kApRows x 128: at 8 applies a 64-row tile
+//   loads 1.52x its core (48 x 112), against 2.25x on the 48 x 48 tile.
+// * Loads: 16-byte cp.async with zero fill where every row is 16-byte
+//   aligned (m % 4 == 0: a column quad then lies wholly inside or outside
+//   the array), else 4-byte copies; nothing is staged in registers, so one
+//   block's loads overlap another block's passes.
+// * A warp owns a strip of whole tile rows, a lane a column quad: the lane
+//   walks its rows carrying the quad's N and C rows in registers and reads
+//   only S from shared memory (one float4); E and W beyond its quad come
+//   from the neighbouring lanes' C by shuffle (at the tile's edge columns
+//   the shuffle returns the lane's own value: that ring is stale after the
+//   first apply anyway).  No div/mod per cell.
+// * Applies out of place: an apply reads every neighbour's old value, so
+//   the passes ping-pong two shared buffers (2 x 32 KB for a 64-row tile,
+//   three blocks per SM).  Pass k computes rows k .. EH-1-k only, the rows
+//   that can still be exact (all lanes compute all columns: a lane's quad
+//   costs the same whether or not its columns are still exact).  The last
+//   pass covers exactly the core rows and stores the core's quads straight
+//   to y (float4 where aligned), so A applies take A - 1 barriers.
+//
+// The geometry is mirrored by ops/cuda_stencil.apply_tile, which passes it
+// to the C entry point; a mismatch is refused there.
+constexpr int kApRows = 64;                // tile rows
+constexpr int kApCols = 128;               // tile columns: a warp's 32 quads
+constexpr int kApQuads = kApCols / 4;      // column quads per row
+constexpr int kApThreads = 256;
+constexpr int kApWarps = kApThreads / 32;  // a strip of rows each
+
+template <int A>  // applies: dependent passes the halo must cover
+struct ApTile {
+  static constexpr int H = A;                 // row halo
+  static constexpr int HC = (A + 3) & ~3;     // column halo
+  static constexpr int EH = kApRows;          // tile rows
+  static constexpr int CH = EH - 2 * H;       // core rows
+  static constexpr int CW = kApCols - 2 * HC; // core columns (multiple of 4)
+  static constexpr int BUF = EH * kApCols;    // words per buffer
+  static constexpr int SMEM = 2 * BUF * (int)sizeof(float);
+  // rows a warp walks in pass 1, the longest
+  static constexpr int RMAX = (EH - 2 + kApWarps - 1) / kApWarps;
+  static_assert(CH > 0 && CW > 0 && CW % 4 == 0, "tile");
+  static_assert(SMEM <= 227 * 1024, "shared memory");
+};
+static_assert(kApThreads == kRbThreads, "rb_launch's block size");
+
+// Issue one 16-byte copy of global src to shared dst; in == false fills the
+// 16 bytes with zero (src must still be a valid, aligned address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool in) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+
+// Copy the (EH, kApCols) tile of x whose cell (0, 0) is array point (i0, j0)
+// into s, row-major; cells outside the array get 0.  Warp w copies rows w,
+// w + 8, ...: a quad per lane (vec: j0 and m multiples of 4, x 16-byte
+// aligned), else four columns 32 apart per lane.
+template <class T>
+__device__ __forceinline__ void ap_load(float* s, const float* __restrict__ x,
+                                        int i0, int j0, int n, int m,
+                                        bool vec) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (vec) {
+    const int j = j0 + 4 * lane;
+    const bool jin = j >= 0 && j < m;
+#pragma unroll 4
+    for (int r = warp; r < T::EH; r += kApWarps) {
+      const int i = i0 + r;
+      const bool in = jin && i >= 0 && i < n;
+      cp_async16(s + r * kApCols + 4 * lane,
+                 in ? x + (long long)i * m + j : x, in);
+    }
+    return;
+  }
+#pragma unroll 2
+  for (int r = warp; r < T::EH; r += kApWarps) {
+    const int i = i0 + r;
+    const bool iin = i >= 0 && i < n;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = lane + 32 * q;
+      const int j = j0 + col;
+      const bool in = iin && j >= 0 && j < m;
+      cp_async4(s + r * kApCols + col, in ? x + (long long)i * m + j : x, in);
+    }
+  }
+}
+
+// apply_kernel's update of one cell: c * ((((4x - N) - S) - E) - W) inside,
+// x itself on the boundary.
+__device__ __forceinline__ float ap_cell(float x, float nv, float sv,
+                                         float ev, float wv, float c,
+                                         bool inside) {
+  float t = __fmul_rn(4.0f, x);
+  t = __fsub_rn(t, nv);  // north
+  t = __fsub_rn(t, sv);  // south
+  t = __fsub_rn(t, ev);  // east
+  t = __fsub_rn(t, wv);  // west
+  return inside ? __fmul_rn(c, t) : x;
+}
+
+// `A` applies u -> y on one tile (see above).
+template <int A>
+__global__ void __launch_bounds__(kApThreads)
+    apply_chain_kernel(const float* __restrict__ u, float* __restrict__ y,
+                       int n, int m, int nl, int ml, float c, int vec) {
+  using T = ApTile<A>;
+  extern __shared__ __align__(16) float ap_smem[];
+  const int i0 = blockIdx.y * T::CH - T::H;
+  const int j0 = blockIdx.x * T::CW - T::HC;
+  ap_load<T>(ap_smem, u, i0, j0, n, m, vec != 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jq = j0 + 4 * lane;  // the lane's first column
+  unsigned icol = 0;             // bit q: column jq + q is interior
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    icol |= static_cast<unsigned>(jq + q > 0 && jq + q < ml - 1) << q;
+  }
+  // the lane's quad lies in the core columns (HC is a multiple of 4)
+  const bool qcore = 4 * lane >= T::HC && 4 * lane < kApCols - T::HC;
+  const int rlo = 1 - i0, rhi = nl - 2 - i0;  // the interior rows
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int k = 1; k <= A; ++k) {
+    const float4* x =
+        reinterpret_cast<const float4*>(ap_smem + ((k - 1) & 1) * T::BUF) +
+        lane;
+    float4* z = reinterpret_cast<float4*>(ap_smem + (k & 1) * T::BUF) + lane;
+    // warp w walks the w-th eighth of rows k .. EH-1-k
+    const int len = (T::EH - 2 * k + kApWarps - 1) / kApWarps;
+    const int rs = k + warp * len;
+    const int re = min(rs + len, T::EH - k);
+    if (rs < re) {  // warp-uniform: every lane shuffles
+      float4 nq = x[(rs - 1) * kApQuads];
+      float4 cq = x[rs * kApQuads];
+#pragma unroll
+      for (int t = 0; t < T::RMAX; ++t) {
+        const int r = rs + t;
+        if (r >= re) break;
+        const float4 sq = x[(r + 1) * kApQuads];
+        const float w = __shfl_up_sync(0xffffffffu, cq.w, 1);
+        const float e = __shfl_down_sync(0xffffffffu, cq.x, 1);
+        const bool irow = r >= rlo && r <= rhi;
+        float4 o;
+        o.x = ap_cell(cq.x, nq.x, sq.x, cq.y, w, c, irow && (icol & 1u));
+        o.y = ap_cell(cq.y, nq.y, sq.y, cq.z, cq.x, c, irow && (icol & 2u));
+        o.z = ap_cell(cq.z, nq.z, sq.z, cq.w, cq.y, c, irow && (icol & 4u));
+        o.w = ap_cell(cq.w, nq.w, sq.w, e, cq.z, c, irow && (icol & 8u));
+        if (k < A) {
+          z[r * kApQuads] = o;
+        } else if (qcore && i0 + r < n) {  // the last pass: rows = the core
+          float* dst = y + (long long)(i0 + r) * m + jq;
+          if (vec) {
+            if (jq < m) *reinterpret_cast<float4*>(dst) = o;
+          } else {
+            if (jq < m) dst[0] = o.x;
+            if (jq + 1 < m) dst[1] = o.y;
+            if (jq + 2 < m) dst[2] = o.z;
+            if (jq + 3 < m) dst[3] = o.w;
+          }
+        }
+        nq = cq;
+        cq = sq;
+      }
+    }
+    if (k < A) __syncthreads();
+  }
+}
+
+template <int A>
+int apply_chain_launch(const float* u, float* y, int n, int m, int nl, int ml,
+                       float c, const int* geom, cudaStream_t stream) {
+  using T = ApTile<A>;
+  static bool smem_set = false;
+  if (geom[0] != T::H || geom[1] != T::HC || geom[2] != T::EH ||
+      geom[3] != kApCols) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = rb_vec(m, u) && rb_vec(m, y);
+  return rb_launch<T>(apply_chain_kernel<A>, smem_set, n, m, stream, u, y, n,
+                      m, nl, ml, c, vec);
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -1177,12 +1382,29 @@ int mg_rbgs_resfilter_tile48(const float* u, const float* b, float* u2,
   return (int)cudaGetLastError();
 }
 
+// `applies` (1 .. 8) applies u -> y on the row-walking tile; geom = (row
+// halo, column halo, tile rows, tile columns) as the caller computed it,
+// refused unless it is the compiled one.
 int mg_apply_chain(const float* u, float* y, int n, int m, int nl, int ml,
-                   float c, int applies, void* stream) {
+                   float c, int applies, const int* geom, void* stream) {
+  static const decltype(&apply_chain_launch<1>) kLaunch[] = {
+      apply_chain_launch<1>, apply_chain_launch<2>, apply_chain_launch<3>,
+      apply_chain_launch<4>, apply_chain_launch<5>, apply_chain_launch<6>,
+      apply_chain_launch<7>, apply_chain_launch<8>};
+  if (applies < 1 || applies > 8) return (int)cudaErrorInvalidValue;
+  return kLaunch[applies - 1](u, y, n, m, nl, ml, c, geom,
+                              (cudaStream_t)stream);
+}
+
+// The earlier apply chain on the 48 x 48 tile (chip_smoke.py's reference
+// only).
+int mg_apply_chain_tile48(const float* u, float* y, int n, int m, int nl,
+                          int ml, float c, int applies, void* stream) {
   if (applies < 1 || applies > kHalo) return (int)cudaErrorInvalidValue;
   const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  apply_chain_kernel<<<grid, kFusedThreads, 0, (cudaStream_t)stream>>>(
-      u, y, n, m, nl, ml, c, applies);
+  apply_chain_tile48_kernel<<<grid, kFusedThreads, 0,
+                              (cudaStream_t)stream>>>(u, y, n, m, nl, ml, c,
+                                                      applies);
   return (int)cudaGetLastError();
 }
 

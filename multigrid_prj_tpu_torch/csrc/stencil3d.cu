@@ -4,7 +4,9 @@
 // Ports of the Pallas TPU kernels in
 // multigrid_prj_tpu/ops/pallas_stencil_3d.py:
 //   apply3d      <- poisson_apply_3d (_apply3d_kernel)
-//   residual3d   <- poisson_residual_3d (_residual3d_kernel)
+//   residual3d   <- poisson_residual_3d (_residual3d_kernel): a z-chunked
+//                   march (below); residual3d_point, one thread per point,
+//                   is the first port, on no path
 //   rbgs3d_fused <- red_black_gauss_seidel_3d (_rbgs3d_color_kernel, one
 //                   pass per colour there): the smoother, up to 4 sweeps
 //                   per launch on a z-marching tile, or every sweep of a
@@ -32,12 +34,13 @@
 // the torch twins in ops/cuda_stencil_3d.py, so each kernel is bit-equal to
 // its twin.
 //
-// apply3d, residual3d, rbgs3d_color and jacobi3d are simple first versions:
-// one thread per point, neighbours read through L1/L2 (no shared-memory
-// tiling), one launch per colour half-sweep or Jacobi sweep.  Each streams
-// its operands from HBM once per launch and is bound by memory bandwidth
-// (bytes per point are noted at each kernel).  The smoother's two launch
-// shapes are described above rbgs3d_zmarch_kernel.
+// apply3d, residual3d_point, rbgs3d_color and jacobi3d are simple first
+// versions: one thread per point, neighbours read through L1/L2 (no
+// shared-memory tiling), one launch per colour half-sweep or Jacobi sweep.
+// Each streams its operands from HBM once per launch and is bound by memory
+// bandwidth (bytes per point are noted at each kernel).  The smoother's two
+// launch shapes are described above rbgs3d_zmarch_kernel, the residual's
+// march above residual3d_march_kernel.
 
 #include <cuda_runtime.h>
 
@@ -92,13 +95,16 @@ __global__ void apply3d_kernel(const float* __restrict__ u,
   y[pt.p] = __fmul_rn(c, __fsub_rn(__fmul_rn(6.0f, uc), nb));
 }
 
-// r = b - (boundary ? u : c*(6u - nb))  (_residual3d_kernel :117).
-// 12 B/point: read u and b, write r.
-__global__ void residual3d_kernel(const float* __restrict__ u,
-                                  const float* __restrict__ b,
-                                  float* __restrict__ r, int nz, int ny,
-                                  int nx, int nzl, int nyl, int nxl,
-                                  float c) {
+// r = b - (boundary ? u : c*(6u - nb)), one thread per point: the first
+// port of _residual3d_kernel (:117), kept only so that chip_smoke.py can
+// hold the z-chunked march (residual3d_march_kernel below, which replaces it
+// on every path) to it and time the two in one run.  12 B/point: read u and
+// b, write r; each plane of u is fetched three times through L2.
+__global__ void residual3d_point_kernel(const float* __restrict__ u,
+                                        const float* __restrict__ b,
+                                        float* __restrict__ r, int nz,
+                                        int ny, int nx, int nzl, int nyl,
+                                        int nxl, float c) {
   Point pt;
   if (!this_point(nz, ny, nx, &pt)) return;
   const float uc = u[pt.p];
@@ -416,6 +422,146 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The residual, residual3d_march_kernel: r = b - (boundary ? u : c * (6u -
+// ((((N + S) + E) + W) + Zn) + Zs)), residual3d_point_kernel's ops in its
+// order, so bit-equal to it and to the twin, on a z-chunked march.
+//
+// Bound: memory, 12 B per point (read u and b, write r).  The one-thread-
+// per-point kernel fetches each plane of u three times through L2 (as z - 1,
+// z and z + 1 of its neighbours) and, at the exact-layout levels (nx = 513,
+// 257, ...), leaves the last x-block of every row nearly empty.  Here:
+// * One block per kR3X x kR3Y x-y tile and z-chunk of `zc` planes; a thread
+//   per (y, x) column walks the chunk's planes, keeping u at z - 1 and z in
+//   registers, so each plane of u is copied once per chunk (a chunk re-reads
+//   the planes just outside it: 2 / zc of the array).
+// * N, S, E and W come from a shared copy of plane z with a one-cell ring,
+//   Zs from the copy of plane z + 1; b lands beside each plane.  Copies are
+//   4-byte cp.async with zero fill (any alignment: the rows of nx = 513 are
+//   not 16-byte aligned), kR3Ahead planes ahead of the one computed, in a
+//   ring of kR3Ahead + 2 slots: one barrier per plane.
+// * r is stored once per point, two warps per tile row: coalesced.
+// * The chunk keeps every SM busy: zc = ceil(nz * tiles / kR3TargetBlocks),
+//   clamped to 1 .. kR3MaxChunk, so every level that has the planes
+//   launches about kR3TargetBlocks blocks or more (513^3: zc 32, 9945
+//   blocks; 257^3: 32, 1485; 129^3: 13, 510; 65^3: 3, 396; 33^3: 1, 165).
+// * Tiles of 64 x 8 and 4 planes in flight: on the H100, 64-column tiles
+//   (two warps a row, longer runs of each row) beat 32 and 128 columns at
+//   513^3, and 2 to 8 planes in flight differ by a few per cent
+//   (benchmarks/residual3d_march_probe.py).
+// * Planes 0 and >= nzl - 1, rows and columns at the array's edge are
+//   boundary points, which read no neighbour, so no copy leaves the array
+//   and the zeros of the ring are never read.
+// The march needs only u's 7-point neighbourhood: apply3d and jacobi3d
+// could take the same body.
+//
+// The geometry is mirrored by ops/cuda_stencil_3d.residual3d_tile; the C
+// entry point refuses another.
+constexpr int kR3X = 64;                    // tile columns: two warps a row
+constexpr int kR3Y = 8;                     // tile rows
+constexpr int kR3Threads = kR3X * kR3Y;     // a thread per (y, x) column
+constexpr int kR3PX = kR3X + 2;             // plane copy, one-cell ring
+constexpr int kR3Plane = kR3PX * (kR3Y + 2);  // words per plane copy
+constexpr int kR3Ahead = 4;                 // planes in flight
+constexpr int kR3Slots = kR3Ahead + 2;      // ring slots
+constexpr int kR3MaxChunk = 32;             // planes per chunk at most
+constexpr int kR3TargetBlocks = 528;        // 4 per SM of an H100's 132
+// copies of a plane copy per thread
+constexpr int kR3Copies = (kR3Plane + kR3Threads - 1) / kR3Threads;
+static_assert(kR3Slots * (kR3Plane + kR3Threads) * 4 <= 48 * 1024, "smem");
+
+// The chunk length for an (nz, ny, nx) array (the rule above).
+int residual3d_chunk(int nz, int ny, int nx) {
+  const long long tiles =
+      (long long)((nx + kR3X - 1) / kR3X) * ((ny + kR3Y - 1) / kR3Y);
+  const long long zc = (nz * tiles + kR3TargetBlocks - 1) / kR3TargetBlocks;
+  return (int)(zc < 1 ? 1 : zc > kR3MaxChunk ? kR3MaxChunk : zc);
+}
+
+__global__ void __launch_bounds__(kR3Threads)
+    residual3d_march_kernel(const float* __restrict__ u,
+                            const float* __restrict__ b,
+                            float* __restrict__ r, int nz, int ny, int nx,
+                            int nzl, int nyl, int nxl, float c, int zc) {
+  __shared__ __align__(16) float su[kR3Slots][kR3Plane];
+  __shared__ __align__(16) float sb[kR3Slots][kR3Threads];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kR3X, y0 = blockIdx.y * kR3Y;
+  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
+  const long long plane = (long long)ny * nx;
+  // the copies: word q of a plane copy is local (q / kR3PX, q % kR3PX), the
+  // array's (y0 - 1 + row, x0 - 1 + col); offsets in plane 0 (clamped
+  // inside the array: a cell outside copies 0 bytes)
+  int cw[kR3Copies];
+  unsigned cb[kR3Copies];
+  long long co[kR3Copies];
+#pragma unroll
+  for (int k = 0; k < kR3Copies; ++k) {
+    const int q = tid + k * kR3Threads;
+    const int y = y0 - 1 + q / kR3PX, x = x0 - 1 + q % kR3PX;
+    const bool in = q < kR3Plane && y >= 0 && y < ny && x >= 0 && x < nx;
+    cw[k] = q < kR3Plane ? q : -1;
+    cb[k] = in ? 4u : 0u;
+    co[k] = in ? (long long)y * nx + x : 0;
+  }
+  // the thread's point (y, x) and its word in a plane copy
+  const int ty = tid / kR3X, tx = tid % kR3X;
+  const int y = y0 + ty, x = x0 + tx;
+  const bool own = y < ny && x < nx;
+  const long long go = own ? (long long)y * nx + x : 0;
+  const int cq = (ty + 1) * kR3PX + tx + 1;
+  const bool yx_in = y > 0 && y < nyl - 1 && x > 0 && x < nxl - 1;
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(su));
+  const unsigned bbase = static_cast<unsigned>(__cvta_generic_to_shared(sb));
+
+  // one commit group per plane p of z0 .. z1 (z1: for the last Zs), empty
+  // past them: the group of plane p is committed before step p - kR3Ahead
+  auto issue = [&](int p, int slot) {
+    if (p <= z1 && p < nz) {
+      const long long off = (long long)p * plane;
+#pragma unroll
+      for (int k = 0; k < kR3Copies; ++k) {
+        if (cw[k] >= 0) {
+          cp_async4(sbase + 4u * (slot * kR3Plane + cw[k]), u + off + co[k],
+                    cb[k]);
+        }
+      }
+      cp_async4(bbase + 4u * (slot * kR3Threads + tid), b + off + go,
+                own ? 4u : 0u);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int p = 0; p <= kR3Ahead; ++p) issue(z0 + p, p);
+  // u at z - 1 and z of the thread's column
+  float zn = (z0 > 0 && own) ? u[(long long)(z0 - 1) * plane + go] : 0.0f;
+  float uc = 0.0f;
+  int s = 0;  // the slot of plane z
+  for (int z = z0; z < z1; ++z) {
+    cp_async_wait<kR3Ahead - 1>();  // planes z and z + 1 have landed
+    __syncthreads();  // visible to all; step z - 1 is done with its slot
+    const int s1 = s + 1 == kR3Slots ? 0 : s + 1;
+    const int sl = s == 0 ? kR3Slots - 1 : s - 1;  // plane z - 1's slot
+    issue(z + kR3Ahead + 1, sl);
+    const float* p = su[s];
+    if (z == z0) uc = p[cq];
+    const float zs = z + 1 < nz ? su[s1][cq] : 0.0f;
+    float a = uc;
+    if (yx_in && z > 0 && z < nzl - 1) {
+      float nb = __fadd_rn(p[cq - kR3PX], p[cq + kR3PX]);  // N + S
+      nb = __fadd_rn(nb, p[cq + 1]);                       // east
+      nb = __fadd_rn(nb, p[cq - 1]);                       // west
+      nb = __fadd_rn(nb, zn);                              // z - 1
+      nb = __fadd_rn(nb, zs);                              // z + 1
+      a = __fmul_rn(c, __fsub_rn(__fmul_rn(6.0f, uc), nb));
+    }
+    if (own) r[(long long)z * plane + go] = __fsub_rn(sb[s][tid], a);
+    zn = uc;
+    uc = zs;
+    s = s1;
+  }
+}
+
 constexpr int kResidentMaxPoints = 16384;  // u and b / c: 128 KB
 constexpr int kResThreads = 1024;
 // sites (z, y, column pair) per thread: nz * ny * ceil(nx / 2) is at most
@@ -531,11 +677,31 @@ int mg_apply3d(const float* u, float* y, int nz, int ny, int nx, int nzl,
   return (int)cudaGetLastError();
 }
 
+// The residual on the z-chunked march; geom = (tile columns, tile rows,
+// planes per chunk, planes in flight) as the caller computed them, refused
+// unless they are the compiled ones and the chunk rule's for this shape.
 int mg_residual3d(const float* u, const float* b, float* r, int nz, int ny,
-                  int nx, int nzl, int nyl, int nxl, float c, void* stream) {
-  residual3d_kernel<<<grid3d_for(nz, ny, nx), dim3(kBlockX, kBlockY), 0,
-                      (cudaStream_t)stream>>>(u, b, r, nz, ny, nx, nzl, nyl,
-                                              nxl, c);
+                  int nx, int nzl, int nyl, int nxl, float c, const int* geom,
+                  void* stream) {
+  const int zc = residual3d_chunk(nz, ny, nx);
+  if (geom[0] != kR3X || geom[1] != kR3Y || geom[2] != zc ||
+      geom[3] != kR3Ahead) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((nx + kR3X - 1) / kR3X, (ny + kR3Y - 1) / kR3Y,
+                  (nz + zc - 1) / zc);
+  residual3d_march_kernel<<<grid, kR3Threads, 0, (cudaStream_t)stream>>>(
+      u, b, r, nz, ny, nx, nzl, nyl, nxl, c, zc);
+  return (int)cudaGetLastError();
+}
+
+// The one-thread-per-point residual (chip_smoke.py's reference only).
+int mg_residual3d_point(const float* u, const float* b, float* r, int nz,
+                        int ny, int nx, int nzl, int nyl, int nxl, float c,
+                        void* stream) {
+  residual3d_point_kernel<<<grid3d_for(nz, ny, nx), dim3(kBlockX, kBlockY), 0,
+                            (cudaStream_t)stream>>>(u, b, r, nz, ny, nx, nzl,
+                                                    nyl, nxl, c);
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,7 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ip = ctypes.POINTER(ctypes.c_int)  # the tile geometry of the fused RB-GS
+_ip = ctypes.POINTER(ctypes.c_int)  # the tile geometry of the tiled
 # kernels
 _SIGNATURES = {
     "mg_rbgs_color": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
@@ -46,7 +46,8 @@ _SIGNATURES = {
     "mg_restrict_fw": [_vp, _vp, _i, _i, _i, _i, _vp],
     "mg_prolong_add": [_vp, _vp, _vp, _i, _i, _vp],
     "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
-    "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
+    "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
+    "mg_residual3d_point": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
     "mg_rbgs3d_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i,
                         _ip, _vp],
@@ -62,7 +63,8 @@ _SIGNATURES = {
                           _ip, _vp],
     "mg_rbgs_resfilter_tile48": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f,
                                  _i, _vp],
-    "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
+    "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _ip, _vp],
+    "mg_apply_chain_tile48": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _ip,
                           _vp],

@@ -42,8 +42,9 @@ function in interpret mode); a CUDA tensor launches the kernel or raises
 memory-bound.  The red-black smoother, the down-leg and the sharded
 solver's extended-slab smoother fuse their passes on the colour-split
 shared-memory tile whose geometry :func:`rbgs_tile` gives; the apply chain
-on the older 48 x 48 tile; the rest make one pass per launch (Jacobi one
-launch per sweep).  ``LAUNCHES`` counts each kernel launch.
+its applies on the row-walking tile of :func:`apply_tile`; the rest make
+one pass per launch (Jacobi one launch per sweep).  ``LAUNCHES`` counts
+each kernel launch.
 """
 
 from __future__ import annotations
@@ -61,11 +62,13 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_residual": 0, "apply": 0,
             "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
-            "apply3d": 0, "residual3d": 0, "rbgs3d_fused": 0,
+            "apply3d": 0, "residual3d": 0, "residual3d_point": 0,
+            "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "rbgs_resfilter_tile48": 0,
-            "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
+            "apply_chain": 0, "apply_chain_tile48": 0,
+            "rbgs_color_sweep": 0, "ell_spmm": 0,
             "rbgs_fused_ext": 0, "rbgs_fused_ext_tile48": 0,
             "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,
             "probe_halo": 0, "probe_full": 0, "probe_carry": 0,
@@ -75,10 +78,12 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
 # apply loses one ring of its tile
 _MAX_FUSED_SWEEPS = 4  # the smoother's tile: a halo of 2 * sweeps <= 8
 _MAX_DOWNLEG_SWEEPS = 3  # the down-leg's: 2 * sweeps + 2 <= 8
-_MAX_FUSED_APPLIES = 8  # the 48 x 48 tile's 8-cell halo
+_MAX_FUSED_APPLIES = 8  # the apply chain's: TPU's _MAX_FUSED_APPLIES
 _EXT_HALO = 8  # halo rows on each side of rbgs_fused_extended's slab
 _RB_TILE_ROWS = 64  # the colour-split tile: 64 rows of 64 column pairs,
 _RB_TILE_COLS = 128  # one pair per lane
+_AP_TILE_ROWS = 64  # the apply chain's row-walking tile: rows of 32 column
+_AP_TILE_COLS = 128  # quads, one quad per lane
 
 
 def rbgs_tile(passes: int):
@@ -95,10 +100,24 @@ def rbgs_tile(passes: int):
     return passes, -(-passes // 4) * 4, _RB_TILE_ROWS, _RB_TILE_COLS
 
 
-def _geometry(passes):
+def apply_tile(applies: int):
+    """Geometry of the apply chain's row-walking tile of
+    ``csrc/stencil2d.cu`` (``ApTile<A>``) for ``applies`` applies per
+    launch: ``(row halo, column halo, tile rows, tile columns)``.  The halo
+    is one ring per apply, the column halo rounded up to 4 cells (so core
+    columns stay 16-byte aligned); tiles are 128 columns by 64 rows, cores
+    ``64 - 2 * applies`` by ``128 - 2 * column halo``.  The C entry point
+    refuses a geometry other than the one compiled."""
+    if not 0 < applies <= _MAX_FUSED_APPLIES:
+        raise ValueError(f"the apply chain's tile takes 1 .. "
+                         f"{_MAX_FUSED_APPLIES} applies, got {applies}")
+    return applies, -(-applies // 4) * 4, _AP_TILE_ROWS, _AP_TILE_COLS
+
+
+def _geometry(passes, tile=None):
     import ctypes
 
-    return (ctypes.c_int * 4)(*rbgs_tile(passes))
+    return (ctypes.c_int * 4)(*(tile or rbgs_tile)(passes))
 
 
 def _groups(sweeps, max_fused=_MAX_FUSED_SWEEPS):
@@ -544,11 +563,12 @@ def poisson_apply_chain_plain(u, alpha, h, applies, logical_shape=None):
 
 
 def poisson_apply_chain(u, alpha, h, applies: int, logical_shape=None):
-    """``A^applies u``, up to 8 applies per launch (longer chains in groups
-    of at most 8, ping-ponging two tensors), equal to ``applies`` calls of
-    :func:`poisson_apply`.  A 3D tensor chains the 3D apply kernel, as the
-    JAX wrapper does.  The Pallas version's ``dst`` has no counterpart (see
-    :func:`poisson_apply`)."""
+    """``A^applies u``, up to 8 applies per launch of
+    ``apply_chain_kernel<A>`` on the tile of :func:`apply_tile` (longer
+    chains in groups of at most 8, ping-ponging two tensors), equal to
+    ``applies`` calls of :func:`poisson_apply`.  A 3D tensor chains the 3D
+    apply kernel, as the JAX wrapper does.  The Pallas version's ``dst`` has
+    no counterpart (see :func:`poisson_apply`)."""
     if u.ndim == 3:
         x = u
         for _ in range(applies):
@@ -556,16 +576,27 @@ def poisson_apply_chain(u, alpha, h, applies: int, logical_shape=None):
         return x if applies else u.clone()
     if u.device.type == "cpu":
         return poisson_apply_chain_plain(u, alpha, h, applies, logical_shape)
+    return _apply_chain_launches(u, alpha, h, applies, logical_shape,
+                                 "apply_chain")
+
+
+def _apply_chain_launches(u, alpha, h, applies, logical_shape, kernel):
+    """The chain's launches of ``kernel``: ``apply_chain`` (the row-walking
+    tile) or ``apply_chain_tile48`` (the 48 x 48 tile it replaced, which
+    only ``chip_smoke.py`` calls, to hold the new kernel to it and time the
+    two)."""
     _check_cuda("poisson_apply_chain", u)
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
     c = alpha / (h * h)
-    fn = _lib().mg_apply_chain
+    fn = getattr(_lib(), f"mg_{kernel}")
 
     def launch(x, y, s):
-        _raise_on(fn(_ptr(x), _ptr(y), n, m, nl, ml, c, s, _stream()),
-                  "apply_chain")
-        LAUNCHES["apply_chain"] += 1
+        geom = ([_geometry(s, apply_tile)] if kernel == "apply_chain"
+                else [])
+        _raise_on(fn(_ptr(x), _ptr(y), n, m, nl, ml, c, s, *geom,
+                     _stream()), kernel)
+        LAUNCHES[kernel] += 1
 
     return _pingpong(u, _groups(applies, _MAX_FUSED_APPLIES), launch)
 

@@ -7,7 +7,8 @@ Counterpart of ``multigrid_prj_tpu/ops/pallas_stencil_3d.py`` (sources in
 function                       replaces                  bytes per point
 =============================  ========================  ===============
 ``poisson_apply_3d``           ``_apply3d_kernel``       8
-``poisson_residual_3d``        ``_residual3d_kernel``    12
+``poisson_residual_3d``        ``_residual3d_kernel``    12 (a z-chunked
+                                                         march)
 ``red_black_gauss_seidel_3d``  ``_rbgs3d_color_kernel``  12 per group of
                                                          <= 4 sweeps
 ``jacobi_3d``                  ``_jacobi3d_kernel``      12 per sweep
@@ -60,6 +61,14 @@ _RB3_AHEAD = 3
 # block's shared memory (csrc/stencil3d.cu kResidentMaxPoints), every sweep
 # in one launch; the C entry point refuses another cap or a larger array
 RESIDENT_MAX_POINTS = 16384
+# the residual's z-chunked march (csrc/stencil3d.cu kR3*): x-y tiles of 64
+# columns by 8 rows, a thread per (y, x) column walking a chunk of at most
+# 32 planes, 4 planes in flight; the chunk is chosen so that every level
+# launches about 528 blocks (4 per SM of an H100) where it has the planes
+_R3_TILE = (64, 8)
+_R3_AHEAD = 4
+_R3_MAX_CHUNK = 32
+_R3_TARGET_BLOCKS = 528
 
 
 def rbgs3d_tile(passes: int):
@@ -80,6 +89,21 @@ def rbgs3d_tile(passes: int):
     span = _RB3_LAG * (passes - 1)
     return (passes, passes, rows, _RB3_TILE_COLS, span + 3 + _RB3_AHEAD,
             span + 2 + _RB3_AHEAD)
+
+
+def residual3d_tile(shape):
+    """Geometry of the residual's z-chunked march of ``csrc/stencil3d.cu``
+    (``residual3d_march_kernel``) for an ``(nz, ny, nx)`` array: ``(tile
+    columns, tile rows, planes per chunk, planes in flight)``.  A block
+    walks one x-y tile through one chunk of planes; the chunk is
+    ``ceil(nz * tiles / 528)`` clamped to 1 .. 32, so that small levels
+    still launch several blocks per SM.  The C entry point refuses any
+    other geometry."""
+    nz, ny, nx = (int(s) for s in shape)
+    tx, ty = _R3_TILE
+    tiles = -(-nx // tx) * -(-ny // ty)
+    zc = min(max(-(-nz * tiles // _R3_TARGET_BLOCKS), 1), _R3_MAX_CHUNK)
+    return tx, ty, zc, _R3_AHEAD
 
 
 def _geometry3d(passes):
@@ -124,6 +148,9 @@ def _check_cuda3d(name, *tensors):
                              f"{t.dtype}, {tuple(t.shape)})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+    # the one-thread-per-point kernels launch a block row per plane; the
+    # residual's march (a block per chunk) would take 32x more, but one
+    # limit for every 3D kernel keeps a solve from failing half-way
     if t0.shape[0] > 65535:
         raise ValueError(f"{name}: nz = {t0.shape[0]} exceeds the launch "
                          "grid's z limit (65535)")
@@ -180,15 +207,28 @@ def poisson_residual_3d_plain(u, b, alpha, h, logical_shape=None):
 
 
 def poisson_residual_3d(u, b, alpha, h, logical_shape=None):
-    """Fused 7-point ``r = b - A u``."""
+    """Fused 7-point ``r = b - A u``: one launch of the z-chunked march
+    (:func:`residual3d_tile`)."""
     if u.device.type == "cpu":
         return poisson_residual_3d_plain(u, b, alpha, h, logical_shape)
+    return _residual3d_launch(u, b, alpha, h, logical_shape, "residual3d")
+
+
+def _residual3d_launch(u, b, alpha, h, logical_shape, kernel):
+    """One launch of ``kernel``: ``residual3d`` (the z-chunked march) or
+    ``residual3d_point`` (the one-thread-per-point kernel it replaced, which
+    only ``chip_smoke.py`` calls, to hold the march to it and time the
+    two)."""
+    import ctypes
+
     _check_cuda3d("poisson_residual_3d", u, b)
     r = torch.empty_like(u)
-    _raise_on(_lib().mg_residual3d(_ptr(u), _ptr(b), _ptr(r),
-                                   *_dims(u, logical_shape), alpha / (h * h),
-                                   _stream()), "residual3d")
-    LAUNCHES["residual3d"] += 1
+    geom = ([(ctypes.c_int * 4)(*residual3d_tile(u.shape))]
+            if kernel == "residual3d" else [])
+    _raise_on(getattr(_lib(), f"mg_{kernel}")(
+        _ptr(u), _ptr(b), _ptr(r), *_dims(u, logical_shape), alpha / (h * h),
+        *geom, _stream()), kernel)
+    LAUNCHES[kernel] += 1
     return r
 
 

@@ -110,9 +110,14 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     cs.prolong_add_padded_fast(rc, u)
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
+    # the chain: a launch per group of <= 8 applies; its 48 x 48 reference
+    # counts under its own key
+    cs.poisson_apply_chain(u, h * h, h, 11)
+    cs._apply_chain_launches(u, h * h, h, 3, None, "apply_chain_tile48")
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
         "rbgs_fused": 1, "residual": 1, "apply": 1, "jacobi": 3,
-        "restrict_fw": 1, "prolong_add": 1}
+        "restrict_fw": 1, "prolong_add": 1, "apply_chain": 2,
+        "apply_chain_tile48": 1}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -234,8 +239,11 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
     cs.jacobi(u, b, ALPHA, h, omega=0.8, sweeps=3)
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
+    # the residual's one-thread-per-point reference counts under its own key
+    c3._residual3d_launch(u, b, ALPHA, h, None, "residual3d_point")
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "apply3d": 1, "residual3d": 1, "rbgs3d_fused": 1, "jacobi3d": 3}
+        "apply3d": 1, "residual3d": 1, "rbgs3d_fused": 1, "jacobi3d": 3,
+        "residual3d_point": 1}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -347,7 +355,8 @@ def test_cuda_3d_solve_launch_counts_fused_and_per_colour(cuda_device):
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     assert set(cs.LAUNCHES) >= {"rbgs3d_fused", "rbgs3d_color",
-                                "rbgs_fused_ext", "rbgs_fused_ext_tile48"}
+                                "rbgs_fused_ext", "rbgs_fused_ext_tile48",
+                                "apply_chain_tile48", "residual3d_point"}
     kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=2,
               cycle="v", nu=2, tol=1e-6, maxit=40)
     runs = {}
@@ -675,6 +684,157 @@ def test_cuda_apply_chain_and_color_sweep_equal_twins(cuda_device, shape,
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cs.rbgs_color_sweep(u.double(), b.double(), ALPHA, h, 0)
     torch.cuda.synchronize()
+
+
+# the apply chain's shapes: the 1025^2 path's finest level, an exact odd
+# layout (m % 4 != 0: 4-byte copies and scalar stores), a ragged logical
+# shape in a non-square buffer, bench.py's 8192^2 and one smaller than a tile
+CHAIN_SHAPES = [((1280, 1280), (1025, 1025)), ((385, 385), None),
+                ((256, 384), (201, 329)), ((8192, 8192), None),
+                ((40, 40), (33, 33))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", CHAIN_SHAPES)
+def test_cuda_apply_chain_equals_tile48_and_singles(cuda_device, shape,
+                                                    logical):
+    """The row-walking apply chain at 0-11 applies (11: launches of 8 + 3)
+    bit-equal to its twin, to ``applies`` single apply launches and to the
+    48 x 48 tile it replaced; one launch per group; ``u`` is never
+    written."""
+    u, _, _, h = _cuda_inputs(shape, logical, cuda_device)
+    u0 = u.clone()
+    for applies in range(12):
+        cs.reset_launch_counts()
+        got = cs.poisson_apply_chain(u, h * h, h, applies, logical)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["apply_chain"] == -(-applies // 8), applies
+        assert sum(cs.LAUNCHES.values()) == -(-applies // 8), applies
+        assert got.data_ptr() != u.data_ptr()
+        assert torch.equal(got, cs.poisson_apply_chain_plain(
+            u, h * h, h, applies, logical)), applies
+        x = u
+        for _ in range(applies):
+            x = cs.poisson_apply(x, h * h, h, logical)
+        assert torch.equal(got, x), applies
+        old = cs._apply_chain_launches(u, h * h, h, applies, logical,
+                                       "apply_chain_tile48")
+        assert cs.LAUNCHES["apply_chain_tile48"] == -(-applies // 8)
+        assert torch.equal(got, old), applies
+        assert torch.equal(u, u0) and bool(torch.isfinite(got).all())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_apply_chain_refusals(cuda_device):
+    """The C entry point refuses, before any launch, a tile geometry other
+    than the compiled one and an apply count outside 1 .. 8."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    u, _, _, h = _cuda_inputs((160, 160), (129, 129), cuda_device)
+    y = torch.empty_like(u)
+    args = (160, 160, 129, 129, 1.0)
+
+    def geom(*g):
+        return (ctypes.c_int * 4)(*g)
+
+    assert lib.mg_apply_chain(p(u), p(y), *args, 8,
+                              cs._geometry(8, cs.apply_tile), stream) == 0
+    for applies, g in ((8, geom(8, 8, 96, 128)), (8, geom(8, 8, 64, 64)),
+                       (8, geom(7, 8, 64, 128)),
+                       (3, cs._geometry(8, cs.apply_tile)),
+                       (0, cs._geometry(1, cs.apply_tile)),
+                       (9, geom(9, 12, 64, 128))):
+        assert lib.mg_apply_chain(p(u), p(y), *args, applies, g,
+                                  stream) != 0, (applies, list(g))
+    assert lib.mg_apply_chain_tile48(p(u), p(y), *args, 9, stream) != 0
+    with pytest.raises(ValueError, match="1 .. 8 applies"):
+        cs.apply_tile(9)
+    torch.cuda.synchronize()
+
+
+# the residual's shapes: exact and padded levels of the 3D paths, a
+# non-cubic one, one whose x-y extents are no multiple of the tile, and one
+# whose chunk (2) does not divide nz
+RESIDUAL3D_SHAPES = [((257, 257, 257), None), ((65, 65, 65), None),
+                     ((33, 33, 33), None), ((17, 17, 17), None),
+                     ((72, 72, 128), (65, 65, 65)),
+                     ((20, 24, 136), (17, 21, 129)), ((19, 53, 101), None),
+                     ((71, 45, 77), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", RESIDUAL3D_SHAPES)
+def test_cuda_residual3d_equals_twin_and_point_kernel(cuda_device, shape,
+                                                      logical):
+    """The z-chunked residual march bit-equal to its twin and to the
+    one-thread-per-point kernel it replaced, one launch each."""
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    cs.reset_launch_counts()
+    got = c3.poisson_residual_3d(u, b, ALPHA, h, logical)
+    old = c3._residual3d_launch(u, b, ALPHA, h, logical, "residual3d_point")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "residual3d": 1, "residual3d_point": 1}
+    assert torch.equal(got, c3.poisson_residual_3d_plain(u, b, ALPHA, h,
+                                                         logical))
+    assert torch.equal(got, old)
+
+
+@pytest.mark.cuda
+def test_cuda_residual3d_refusals(cuda_device):
+    """The C entry point refuses a tile, a depth of planes in flight or a
+    chunk other than the compiled ones and the chunk rule's."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    u, b, _, h = _cuda_inputs((65, 65, 65), None, cuda_device)
+    r = torch.empty_like(u)
+    dims = (65, 65, 65, 65, 65, 65, 4096.0)
+    tx, ty, zc, ahead = c3.residual3d_tile(u.shape)
+    assert lib.mg_residual3d(p(u), p(b), p(r), *dims, (ctypes.c_int * 4)(
+        tx, ty, zc, ahead), stream) == 0
+    for g in ((tx, ty, zc + 1, ahead), (tx, ty, 32, ahead),
+              (16, ty, zc, ahead), (tx, 16, zc, ahead),
+              (tx, ty, zc, ahead + 1)):
+        assert lib.mg_residual3d(p(u), p(b), p(r), *dims, (ctypes.c_int * 4)(
+            *g), stream) != 0, g
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_3d_solve_equals_residual_point_path(cuda_device):
+    """33^3 with 3 levels, the solver's residual swapped for the
+    one-thread-per-point kernel: the same history and solution bit for bit,
+    one residual launch per smoothed level and iteration on either path."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+
+    kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
+              cycle="v", nu=2, tol=1e-6, maxit=40)
+    runs = {}
+    for path in ("march", "point"):
+        s = GMGSolver(device="cuda", **kw)
+        if path == "point":
+            s._residual_fn = (lambda u, b, alpha, h, logical_shape=None:
+                              c3._residual3d_launch(u, b, alpha, h,
+                                                    logical_shape,
+                                                    "residual3d_point"))
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+    (march, cm), (point, cp) = runs["march"], runs["point"]
+    assert march.converged and march.iterations == point.iterations
+    assert cm["residual3d"] == 2 * march.iterations == cp["residual3d_point"]
+    assert cm["residual3d_point"] == 0 and cp["residual3d"] == 0
+    np.testing.assert_array_equal(march.history, point.history)
+    assert torch.equal(march.u, point.u)
 
 
 @pytest.mark.cuda

@@ -15,7 +15,10 @@ paths' shapes.  Imports nothing of JAX.  The paths:
 * at scale: the same at 8193^2, 8 levels, to 1e-7, plain and with
   ``inner_cg=4`` (``benchmarks/scale_bench.py``'s solve), and on the
   per-colour path;
-* 1025^2 with ``inner_cg=4``, and with the Jacobi smoother (omega 0.8);
+* 1025^2 with ``inner_cg=4``, and with the Jacobi smoother (omega 0.8;
+  one fused launch per smoother call), the latter also with the per-sweep
+  kernel swapped in, equal to it bit for bit; the 8193^2 solve also with
+  the one-thread-per-point prolong-add swapped in, equal bit for bit;
 * the options that run plain ops on CUDA (``use_pallas=False``, SOR);
 * the CLI with ``-smt 0``, ``-smt 1`` and ``-smt 2``;
 * 3D (BASELINE config 4 and around it, ``bench.py``'s ``measure_vcycle3d``
@@ -59,7 +62,10 @@ non-zero):
   vs twin (with the down-leg, apply chain and colour sweep; the fused
   smoother at sweeps 0-9 and the down-leg at 0-3 also against the
   per-colour oracle and the 48 x 48 tile; the apply chain at 0-11 applies
-  also against single applies and its 48 x 48 tile; its geometry refusal)
+  also against single applies and its 48 x 48 tile; the fused Jacobi at
+  sweeps 0-11, omega 0.8 and 1, also against the per-sweep kernel; the
+  prolong-add stream also against the one-thread-per-point kernel; the
+  geometry refusals of the chain, the Jacobi tile and the stream)
   4. 3D kernel vs twin (the fused smoother at sweeps 0-9, and 100 on the
   resident route, also against the per-colour oracle; the residual march
   also against the one-thread-per-point kernel, at a shape whose nz is no
@@ -79,11 +85,14 @@ non-zero):
   card (gloo)   16f. design probes: the stencil and SpMV probe kernels vs
   their twins   17. times (with the per-pass ladder of the smoother and
   the down-leg at 8448^2, of the 3D smoother at 257^3 and 513^3, of the
-  sharded smoother at 8208 x 8192 and of the apply chain at 8192^2, each
-  against the kernels it replaced; the residual march against the point
+  sharded smoother at 8208 x 8192, of the apply chain and of the Jacobi
+  tile at 8192^2, each against the kernels it replaced; the Jacobi tile and
+  the prolong-add stream at 8192^2 and 8448^2 against their oracles, also
+  L2 flushed; the residual march against the point
   kernel at 257^3 and 513^3; L2-flushed times of the fused kernels, the
   residuals and the float-float residual; the
-  17^3 bottom's 100 sweeps; the solves on three paths and config 4 and
+  17^3 bottom's 100 sweeps; the solves on three paths, the 1025^2 Jacobi
+  and the 8193^2 solves against their oracles swapped in, config 4 and
   513^3 fused against per colour; profiled runs of the 1025^2 and config 4
   solves and of each AMG solve; the two probe harnesses' mains as the
   probes' path)
@@ -127,6 +136,9 @@ SCALE_ITERATIONS = {0: 9, 4: 4}
 # iterations with Jacobi omega 0.8 and 4 with inner_cg=4
 JACOBI_KW = dict(SOLVER_KW, smoother="jacobi", omega=0.8)
 JACOBI_ITERATIONS = 15
+# one fused Jacobi launch per smoother call: 15 iterations x 5 smoothed
+# levels x 2 calls (the per-sweep kernel: one per sweep, twice that)
+JACOBI_LAUNCHES = 15 * 5 * 2
 INNER_CG_ITERATIONS = 4
 # (physical, logical) shapes of the 1025^2 / pad 256 path, one exact-layout
 # shape, and the levels of the 8193^2 / pad 256 path
@@ -170,6 +182,12 @@ CHAIN_PASSES = 4
 # 8192^2 from graph replays
 CHAIN_APPLIES = tuple(range(12))
 LADDER_CHAIN = (1, 2, 4, 8)
+# the fused Jacobi is held to its twin and to the per-sweep kernel at every
+# sweep count here (9-11: launches of 8 + 1 .. 3), omega 0.8 and 1; its
+# ladder (omega 0.8) and the prolong-add stream at 8192^2 from graph replays
+JACOBI_SWEEPS = tuple(range(12))
+LADDER_JACOBI = (1, 2, 4, 8)
+JACOBI_OMEGA = 0.8
 # bench.py's measure_ell_spmm: banded_csr(2**20), 4 vectors
 SPMM_N = 1 << 20
 SPMM_NVEC = 4
@@ -191,8 +209,15 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     "ff_residual": (f"{_PS}:792", _SRC2),
     "apply": (f"{_PS}:287", _SRC2),
     "jacobi": (f"{_PS}:962", _SRC2),
+    # the per-sweep oracle of the fused Jacobi, on no solver path: its
+    # launches are those of the 1025^2 Jacobi solve with it swapped in
+    "jacobi_sweep": (f"{_PS}:962", _SRC2),
     "restrict_fw": (f"{_PS}:541", _SRC2),
     "prolong_add": (f"{_PS}:631", _SRC2),
+    # the one-thread-per-point oracle of the prolong-add stream, on no
+    # solver path: its launches are those of the 8193^2 solve with it
+    # swapped in
+    "prolong_add_point": (f"{_PS}:631", _SRC2),
     "apply3d": (f"{_PS3}:107", _SRC3),
     # the residual's z-chunked march; residual3d_point, the one-thread-per-
     # point kernel it replaced, is on no solver path: its launches are those
@@ -250,13 +275,17 @@ PROBE_N = 8192
 PROBE_CHAIN = 29
 ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412",
                  "apply_chain_tile48": f"{_PS}:412",
-                 "rbgs_fused": f"{_PS}:392"}
+                 "rbgs_fused": f"{_PS}:392", "jacobi": f"{_PS}:402",
+                 "jacobi_sweep": f"{_PS}:402"}
 # the kernels kept only as references of their redesigns: on no path
 ON_NO_PATH = {"apply_chain_tile48": "apply_chain",
               "residual3d_point": "residual3d", "rbgs_color": "rbgs_fused",
-              "rbgs3d_color": "rbgs3d_fused"}
+              "rbgs3d_color": "rbgs3d_fused", "jacobi_sweep": "jacobi",
+              "prolong_add_point": "prolong_add"}
 # the JAX wrapper that reaches the kernel body in "replaces"
-VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220"}
+VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220",
+       "jacobi": f"{_PS}:1304", "jacobi_sweep": f"{_PS}:1304",
+       "prolong_add": f"{_PS}:677", "prolong_add_point": f"{_PS}:677"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
 # input read once and every output written once (the transfers per fine
 # point); the timed calls are 2 sweeps of the smoothers (Jacobi and 3D
@@ -264,8 +293,9 @@ VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220"}
 STENCIL_COST = {
     "rbgs_fused": (12, 12), "rbgs_color": (12, 12), "residual": (12, 7),
     "ff_residual": (24, 60),
-    "apply": (8, 6), "jacobi": (12, 18), "restrict_fw": (5, 5),
-    "prolong_add": (9, 3), "rbgs_resfilter": (13, 24),
+    "apply": (8, 6), "jacobi": (12, 18), "jacobi_sweep": (12, 18),
+    "restrict_fw": (5, 5), "prolong_add": (9, 3),
+    "prolong_add_point": (9, 3), "rbgs_resfilter": (13, 24),
     "apply_chain": (8, 48), "apply_chain_tile48": (8, 48),
     "rbgs_color_sweep": (12, 3),
     "apply3d": (8, 8), "residual3d": (12, 9), "residual3d_point": (12, 9),
@@ -515,6 +545,16 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
     def oracle(s):
         return cs._rbgs_per_colour(u, b, alpha, h, s, logical)
 
+    def jac(s, w):
+        return cs.jacobi(u, b, alpha, h, omega=w, sweeps=s,
+                         logical_shape=logical)
+
+    def jac_twin(s, w):
+        return cs.jacobi_plain(u, b, alpha, h, w, s, logical)
+
+    def jac_sweeps(s, w):
+        return cs._jacobi_per_sweep(u, b, alpha, h, w, s, logical)
+
     calls = {
         # every sweep count against the per-colour oracle, then the twin;
         # the last case, 2 sweeps (V(2,2)) against the twin, is the one
@@ -539,12 +579,23 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
             "",
             lambda: cs.poisson_apply(u, alpha, h, logical),
             lambda: cs.poisson_apply_plain(u, alpha, h, logical))],
-        "jacobi": [(
-            f"sweeps 2, omega {w}",
-            lambda w=w: cs.jacobi(u, b, alpha, h, omega=w, sweeps=2,
-                                  logical_shape=logical),
-            lambda w=w: cs.jacobi_plain(u, b, alpha, h, w, 2, logical))
-            for w in (1.0, 0.8)],
+        # every sweep count, omega 1 and 0.8, against the per-sweep
+        # kernel, then the twin; the last case, 2 sweeps with omega 0.8
+        # (the Jacobi path's), is the one timed
+        "jacobi": (
+            [(f"sweeps {s}, omega {w} vs the per-sweep kernel",
+              lambda s=s, w=w: jac(s, w), lambda s=s, w=w: jac_sweeps(s, w))
+             for s in JACOBI_SWEEPS for w in (1.0, JACOBI_OMEGA)]
+            + [(f"sweeps {s}, omega {w}", lambda s=s, w=w: jac(s, w),
+                lambda s=s, w=w: jac_twin(s, w))
+               for s in JACOBI_SWEEPS for w in (1.0, JACOBI_OMEGA)
+               if (s, w) != (2, JACOBI_OMEGA)]
+            + [(f"sweeps 2, omega {JACOBI_OMEGA}",
+                lambda: jac(2, JACOBI_OMEGA),
+                lambda: jac_twin(2, JACOBI_OMEGA))]),
+        "jacobi_sweep": [(f"sweeps 2, omega {JACOBI_OMEGA}",
+                          lambda: jac_sweeps(2, JACOBI_OMEGA),
+                          lambda: jac_twin(2, JACOBI_OMEGA))],
     }
     calls["rbgs_color_sweep"] = [(
         f"color {col}",
@@ -562,9 +613,16 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
             "",
             lambda: cs.restrict_fw_padded_fast(u, lg),
             lambda: cs.restrict_fw_padded_fast_plain(u, lg))]
-        calls["prolong_add"] = [(
+        calls["prolong_add"] = [
+            (f"from {tuple(e.shape)} vs the point kernel",
+             lambda: cs.prolong_add_padded_fast(e, u),
+             lambda: cs._prolong_add_point(e, u)),
+            (f"from {tuple(e.shape)}",
+             lambda: cs.prolong_add_padded_fast(e, u),
+             lambda: cs.prolong_add_padded_fast_plain(e, u))]
+        calls["prolong_add_point"] = [(
             f"from {tuple(e.shape)}",
-            lambda: cs.prolong_add_padded_fast(e, u),
+            lambda: cs._prolong_add_point(e, u),
             lambda: cs.prolong_add_padded_fast_plain(e, u))]
     if n % 2 == 0 and m % 2 == 0 and logical is not None:
         calls["rbgs_resfilter"] = downleg_calls(cs, u, b, h, logical, alpha)
@@ -657,12 +715,14 @@ def tile_kernel_report(cs, c3, log):
     """Registers, spills and shared memory of the colour-split tile kernels
     (``rbgs_fused_kernel<S>``, ``rbgs_resfilter_kernel<S>``,
     ``rbgs_fused_ext_kernel<S>``), of the z-marching 3D tile
-    (``rbgs3d_zmarch_kernel<S>``), of the apply chain's row-walking tile
-    (``apply_chain_kernel<A>``) and of the residual's z-chunked march
-    (``residual3d_march_kernel``) from nvcc's ``-Xptxas -v`` log; the tile
-    kernels' shared memory is dynamic, so it comes from the tile geometry
-    the wrapper passes (``cs.rbgs_tile``, ``c3.rbgs3d_tile``,
-    ``cs.apply_tile``); the march's is static, from the log."""
+    (``rbgs3d_zmarch_kernel<S>``), of the row-walking tiles of the apply
+    chain and the Jacobi smoother (``apply_chain_kernel<A>``,
+    ``jacobi_fused_kernel<S>``), of the prolong-add stream and of the
+    residual's z-chunked march (``residual3d_march_kernel``) from nvcc's
+    ``-Xptxas -v`` log; the tile kernels' shared memory is dynamic, so it
+    comes from the tile geometry the wrapper passes (``cs.rbgs_tile``,
+    ``c3.rbgs3d_tile``, ``cs.apply_tile``, ``cs.jacobi_tile``); the
+    march's is static, from the log."""
     import re
 
     props, cur = {}, None
@@ -717,6 +777,22 @@ def tile_kernel_report(cs, c3, log):
                        f"B, spill loads {ld} B, dynamic shared memory "
                        f"{2 * 4 * rows * cols} B (two {rows} x {cols} "
                        f"buffers, halo {applies} rows, {hc} columns)")
+        hit = re.search(r"jacobi_fused_kernelILi(\d)EE", mangled)
+        if hit:
+            sweeps = int(hit.group(1))
+            _, hc, rows, cols = cs.jacobi_tile(sweeps)
+            out.append(f"jacobi_fused_kernel<{sweeps}>: "
+                       f"{pr.get('regs', '?')} registers, spill stores {st} "
+                       f"B, spill loads {ld} B, dynamic shared memory "
+                       f"{2 * 4 * rows * cols} B (two {rows} x {cols} "
+                       f"buffers, halo {sweeps} rows, {hc} columns; b * (1/c)"
+                       " in registers)")
+        elif "prolong_add_stream_kernel" in mangled:
+            strip, quads = cs.prolong_tile()
+            out.append(f"prolong_add_stream_kernel: {pr.get('regs', '?')} "
+                       f"registers, spill stores {st} B, spill loads {ld} B, "
+                       f"no shared memory (strips of {strip} coarse rows, "
+                       f"{quads} quads per block)")
         elif "residual3d_march_kernel" in mangled:
             out.append(f"residual3d_march_kernel: {pr.get('regs', '?')} "
                        f"registers, spill stores {st} B, spill loads {ld} B, "
@@ -1624,7 +1700,32 @@ def main() -> int:
           f"{cs.apply_tile(CHAIN_FUSE)} launches (error {good}); refused "
           f"with errors {bad}")
     check(good == 0 and all(bad.values()), "apply_chain geometry refusal")
-    del u, b, got, want, y
+    # so do the Jacobi tile's and the prolong-add stream's
+    jac_args = (cs._ptr(u), cs._ptr(b), cs._ptr(y), n, m, *logical, 0.1)
+    good = lib.mg_jacobi_fused(*jac_args, 2, 1, 0.2, 0.8, cs._geometry(
+        2, cs.jacobi_tile), cs._stream())
+    bad = {f"{s} sweeps, geometry {g}": lib.mg_jacobi_fused(
+        *jac_args, s, 1, 0.2, 0.8, (ctypes.c_int * 4)(*g), cs._stream())
+        for s, g in ((2, (2, 4, 96, 128)), (2, (1, 4, 64, 128)),
+                     (2, (2, 8, 64, 128)), (3, cs.jacobi_tile(2)),
+                     (9, (9, 12, 64, 128)))}
+    e = b[: n // 2, : m // 2].contiguous()
+    strip, quads = cs.prolong_tile()
+    good_p = lib.mg_prolong_add(cs._ptr(e), cs._ptr(u), cs._ptr(y), n // 2,
+                                m // 2, (ctypes.c_int * 2)(strip, quads),
+                                cs._stream())
+    bad.update({f"prolong-add geometry {g}": lib.mg_prolong_add(
+        cs._ptr(e), cs._ptr(u), cs._ptr(y), n // 2, m // 2,
+        (ctypes.c_int * 2)(*g), cs._stream())
+        for g in ((strip + 1, quads), (strip, 2 * quads))})
+    torch.cuda.synchronize()
+    print(f"[kernels] jacobi_fused's entry point: the compiled geometry "
+          f"{cs.jacobi_tile(2)} launches (error {good}); prolong_add's "
+          f"{(strip, quads)} launches (error {good_p}); refused with errors "
+          f"{bad}")
+    check(good == good_p == 0 and all(bad.values()),
+          "jacobi_fused / prolong_add geometry refusal")
+    del u, b, got, want, y, e
     torch.cuda.empty_cache()
 
     # 4. 3D kernel vs twin: every level of paths A-D (C's finest is 513^3)
@@ -1879,6 +1980,24 @@ def main() -> int:
     res8p, counts = run_path(big_p, big_b)
     check_per_colour("8193", res8p, counts, *big_res[0])
     del res8p
+    # with the one-thread-per-point prolong-add swapped in for the stream:
+    # bit-equal, one point launch in place of each stream launch
+    big_pt = GMGSolver(**SCALE_KW, device="cuda")
+    big_pt._prolong_add_fn = cs._prolong_add_point
+    res8t, counts = run_path(big_pt, big_b)
+    res8, counts8 = big_res[0]
+    print(f"[8193] with prolong_add_point swapped in: {res8t.iterations} "
+          f"iterations, prolong_add_point {counts['prolong_add_point']} "
+          f"launches (stream path: prolong_add {counts8['prolong_add']}); "
+          f"history and solution equal: "
+          f"{np.array_equal(res8t.history, res8.history)}, "
+          f"{torch.equal(res8t.u, res8.u)}")
+    check(np.array_equal(res8t.history, res8.history)
+          and torch.equal(res8t.u, res8.u)
+          and counts["prolong_add"] == 0
+          and counts["prolong_add_point"] == counts8["prolong_add"] > 0,
+          "8193: the prolong-add stream differs from the point kernel")
+    del res8t, res8
 
     # 7. 1025^2 inner_cg=4 and Jacobi omega 0.8, each against its CPU twins
     phases.next("1025^2 inner_cg / Jacobi")
@@ -1892,7 +2011,38 @@ def main() -> int:
     check_solve("1025 jacobi", res_jac, SHAPE, 1e-8, JACOBI_ITERATIONS, counts,
                 ("jacobi", "residual", "ff_residual", "restrict_fw",
                  "prolong_add"))
+    check(res_jac.iterations == JACOBI_ITERATIONS
+          and counts["jacobi"] == JACOBI_LAUNCHES
+          and counts["jacobi_sweep"] == 0,
+          f"1025 jacobi: {res_jac.iterations} iterations, "
+          f"{counts['jacobi']} jacobi launches (expected "
+          f"{JACOBI_ITERATIONS}, {JACOBI_LAUNCHES})")
     check_twins("1025 jacobi", res_jac, JACOBI_KW, b)
+
+    def per_sweep(s):
+        """``s`` with its Jacobi smoother swapped for the per-sweep kernel
+        (one ``jacobi_sweep`` launch per sweep, the path before the fused
+        tile)."""
+        def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
+            return cs._jacobi_per_sweep(u, b, alpha, h, JACOBI_KW["omega"],
+                                        sweeps, logical_shape)
+
+        s.smoother = _sm
+        return s
+
+    jac_o = per_sweep(GMGSolver(**JACOBI_KW, device="cuda"))
+    res_jo, counts_o = run_path(jac_o, b)
+    print(f"[1025 jacobi] {counts['jacobi']} fused jacobi launches (expected "
+          f"{JACOBI_LAUNCHES}); with the per-sweep kernel swapped in: "
+          f"{res_jo.iterations} iterations, jacobi_sweep "
+          f"{counts_o['jacobi_sweep']} launches; history and solution equal: "
+          f"{np.array_equal(res_jo.history, res_jac.history)}, "
+          f"{torch.equal(res_jo.u, res_jac.u)}")
+    check(np.array_equal(res_jo.history, res_jac.history)
+          and torch.equal(res_jo.u, res_jac.u) and counts_o["jacobi"] == 0
+          and counts_o["jacobi_sweep"] == 2 * JACOBI_LAUNCHES,
+          "1025 jacobi: the fused tile differs from the per-sweep kernel")
+    del res_jo
 
     # 8. the options whose JAX meaning is "no kernel" run plain ops on CUDA
     phases.next("plain ops on CUDA")
@@ -2561,8 +2711,22 @@ def main() -> int:
                         f"the clone) {extra['per_colour_ms'] * 1e3:.1f} us "
                         f"(device {extra['per_colour_device_ms'] * 1e3:.1f}"
                         " us)")
-            if npts > 4_000_000 and kname in ("rbgs_fused", "ff_residual",
-                                              "rbgs_resfilter"):
+            oracle = {"jacobi": "per-sweep kernel",
+                      "prolong_add": "point kernel"}.get(kname)
+            if oracle:  # and the kernel it replaced
+                old = next(c[2] for c in cases if c[0] == label + " vs the "
+                           + oracle)
+                extra["oracle_ms"] = median_ms(torch, old)
+                extra["oracle_device_ms"] = device_ms(torch, old, npts)
+                note = (f"; the {oracle} {extra['oracle_ms'] * 1e3:.1f} us "
+                        f"(device {extra['oracle_device_ms'] * 1e3:.1f} us)")
+                if npts > 4_000_000:
+                    extra["oracle_flushed_ms"] = flushed_ms(torch, old)
+                    note += (f", L2 flushed "
+                             f"{extra['oracle_flushed_ms'] * 1e3:.1f} us")
+            if npts > 4_000_000 and kname in (
+                    "rbgs_fused", "ff_residual", "rbgs_resfilter", "jacobi",
+                    "jacobi_sweep", "prolong_add", "prolong_add_point"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
                 note += (f"; L2 flushed before each call "
                          f"{extra['flushed_ms'] * 1e3:.1f} us")
@@ -2602,6 +2766,47 @@ def main() -> int:
     times["rbgs_resfilter"][-1]["ladder_ms"] = {
         k: ladder[k] for k in ("rbgs_resfilter", "rbgs_resfilter_tile48")}
     del u, bb
+    torch.cuda.empty_cache()
+    # the Jacobi tile and the prolong-add stream at 8192^2 (exact layout)
+    # against their oracles and twins, also L2 flushed; the Jacobi ladder,
+    # device time per call by sweeps (omega 0.8), fused and per sweep
+    n8 = BENCH_N
+    u, bb, _, h = kernel_inputs(torch, (n8, n8), None, seed=95)
+    e = bb[: n8 // 2, : n8 // 2].contiguous()
+    npts = n8 * n8
+    jac_paths = {
+        "jacobi": lambda s: cs.jacobi(u, bb, 10.0, h, omega=JACOBI_OMEGA,
+                                      sweeps=s),
+        "jacobi_sweep": lambda s: cs._jacobi_per_sweep(u, bb, 10.0, h,
+                                                       JACOBI_OMEGA, s)}
+    jac_ladder = {k: {s: device_ms(torch, lambda s=s, f=f: f(s), npts)
+                      for s in LADDER_JACOBI} for k, f in jac_paths.items()}
+    for k, row in jac_ladder.items():
+        print(f"[ladder] {k} at {n8}x{n8}, device us per call by sweeps "
+              f"(omega {JACOBI_OMEGA}): "
+              f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }  ({card})")
+    per = STENCIL_COST["jacobi"]
+    t_p = median_ms(torch, lambda: cs.jacobi_plain(u, bb, 10.0, h,
+                                                   JACOBI_OMEGA, 2), runs=10)
+    for k, f in jac_paths.items():
+        t_l2 = flushed_ms(torch, lambda f=f: f(2))
+        add_time(k, f"sweeps 2, omega {JACOBI_OMEGA}", record(
+            f"{n8}x{n8}", median_ms(torch, lambda f=f: f(2)), t_p,
+            per[0] * npts, per[1] * npts, device_ms=jac_ladder[k][2],
+            flushed_ms=t_l2, ladder_ms=jac_ladder[k]),
+            f"; L2 flushed {t_l2 * 1e3:.1f} us")
+    per = STENCIL_COST["prolong_add"]
+    t_p = median_ms(torch, lambda: cs.prolong_add_padded_fast_plain(e, u),
+                    runs=10)
+    for k, f in (("prolong_add", cs.prolong_add_padded_fast),
+                 ("prolong_add_point", cs._prolong_add_point)):
+        t_l2 = flushed_ms(torch, lambda f=f: f(e, u))
+        add_time(k, f"from {tuple(e.shape)}", record(
+            f"{n8}x{n8}", median_ms(torch, lambda f=f: f(e, u)), t_p,
+            per[0] * npts, per[1] * npts,
+            device_ms=device_ms(torch, lambda f=f: f(e, u), npts),
+            flushed_ms=t_l2), f"; L2 flushed {t_l2 * 1e3:.1f} us")
+    del u, bb, e, jac_paths
     torch.cuda.empty_cache()
     # the 3D kernels at 257^3 and 513^3; the fused smoother also with L2
     # flushed, against the per-colour oracle (4 rbgs3d_color launches and
@@ -2903,14 +3108,42 @@ def main() -> int:
     for tag, fn, iters in [
             ("solve_refined 8193^2 inner_cg=4",
              lambda: big.solve_refined(big_b, inner_cg=4),
-             big_res[4][0].iterations),
-            ("solve_refined 1025^2 jacobi", lambda: jac.solve_refined(b),
-             res_jac.iterations)] + walls_3d:
+             big_res[4][0].iterations)] + walls_3d:
         med, walls, out = median_wall(torch, fn)
         check(out.iterations == iters, f"timed {tag} differs")
         print(f"[time] {tag}: median wall {med * 1e3:.2f} ms over 3 "
               f"({[round(w * 1e3, 2) for w in walls]} ms), {iters} "
               f"iterations  ({card})")
+    # the 1025^2 Jacobi solve against the per-sweep kernel swapped in, the
+    # 8193^2 solve against the point prolong-add swapped in: kernel (K) and
+    # oracle (O) in the order K O O K K O, median of 3 each, after one warm
+    # run of each; every history equal to the kernel's bit for bit
+    for tag, names, solvers, bvec, iters in [
+            ("1025^2 jacobi", ("fused", "per-sweep"), (jac, jac_o), b,
+             res_jac.iterations),
+            ("8193^2", ("stream prolong-add", "point prolong-add"),
+             (big, big_pt), big_b, big_res[0][0].iterations)]:
+        fns = {k: (lambda s=s, bvec=bvec: s.solve_refined(bvec))
+               for k, s in zip(names, solvers)}
+        want = fns[names[0]]().history
+        check(np.array_equal(fns[names[1]]().history, want),
+              f"timed {tag}: the oracle's history differs")
+        walls = {k: [] for k in names}
+        for i in (0, 1, 1, 0, 0, 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[names[i]]()
+            torch.cuda.synchronize()
+            walls[names[i]].append(time.perf_counter() - t0)
+            check(out.iterations == iters
+                  and np.array_equal(out.history, want),
+                  f"timed {tag} {names[i]} differs")
+        for k, w in walls.items():
+            print(f"[time] solve_refined {tag} {k}: median wall "
+                  f"{statistics.median(w) * 1e3:.2f} ms over 3 "
+                  f"({[round(x * 1e3, 2) for x in w]} ms, alternating), "
+                  f"{iters} iterations, histories equal bit for bit  "
+                  f"({card})")
     print(f"[time] 1025^2 solve: {main_launches} kernel launches, "
           f"{fused_launches} with fuse_downleg, {colour_launches} on the "
           "per-colour path (wrapper counts)")

@@ -12,11 +12,17 @@
 //   residual    <- poisson_residual (_residual_kernel)
 //   ff_residual <- ff_poisson_residual (_ff_residual_kernel)
 //   apply       <- poisson_apply (_apply_kernel / _apply_carry_kernel)
-//   jacobi      <- jacobi (_jacobi_fused_kernel / _jacobi_fused2d_kernel,
-//                  shared body _fused_jacobi_passes)
+//   jacobi_fused <- jacobi (_jacobi_fused_kernel / _jacobi_fused2d_kernel,
+//                  shared body _fused_jacobi_passes): up to 8 sweeps per
+//                  launch, as the TPU's contract
+//   jacobi      <- the same, one sweep per launch: the per-sweep oracle that
+//                  the fused tile is held to (no solver path)
 //   restrict_fw <- restrict_fw_padded_fast (_fw_filter2d_kernel plus the
 //                  wrapper's decimation and edge fix-up)
-//   prolong_add <- prolong_add_padded_fast (_prolong_add_kernel)
+//   prolong_add_stream <- prolong_add_padded_fast (_prolong_add_kernel): a
+//                  lane per coarse column quad walking a strip of rows
+//   prolong_add <- the same, one thread per fine point: the oracle of the
+//                  stream (no solver path)
 //   rbgs_resfilter   <- rbgs_residual_restrict (_rbgs_resfilter_kernel plus
 //                       the wrapper's decimation fw_decimate_padded)
 //   apply_chain      <- poisson_apply_chain (_apply_fused_kernel /
@@ -43,12 +49,13 @@
 //
 // The single-pass kernels are simple first versions with no shared-memory
 // tiling: each streams its operands from HBM once per launch and is bound by
-// memory bandwidth (bytes per point are noted at each kernel).  Jacobi still
-// runs one launch per sweep (the TPU fuses up to 8).  The temporally fused
-// kernels keep a halo tile in shared memory: the red-black smoother, the
-// down-leg and the sharded smoother on the colour-split tile described above
-// rbgs_fused_kernel, the apply chain on the row-walking tile described above
-// apply_chain_kernel.
+// memory bandwidth (bytes per point are noted at each kernel); the
+// prolong-add streams float4 rows (prolong_add_stream_kernel).  The
+// temporally fused kernels keep a halo tile in shared memory: the red-black
+// smoother, the down-leg and the sharded smoother on the colour-split tile
+// described above rbgs_fused_kernel, the apply chain and the Jacobi smoother
+// on the row-walking tile described above apply_chain_kernel and
+// jacobi_fused_kernel.
 
 #include <cuda_runtime.h>
 
@@ -186,6 +193,8 @@ __global__ void apply_kernel(const float* __restrict__ u,
 //   boundary: b;  interior: jac = (b*inv_c + N + S + E + W) * 0.25 (left to
 //   right), then, if damped, (1-omega)*x + omega*jac
 // with (1-omega) and omega rounded to f32 on the host (_fused_jacobi_passes).
+// The per-sweep oracle of jacobi_fused_kernel<S> (ops/cuda_stencil.
+// _jacobi_per_sweep), on no solver path.
 // 12 B/point: read x and b, write y.
 __global__ void jacobi_kernel(const float* __restrict__ x,
                               const float* __restrict__ b,
@@ -268,8 +277,9 @@ __device__ __forceinline__ float prolong_rows(const float* __restrict__ e,
 
 // out = u + prolong_padded(e), coarse (pc_r, pc_c) -> fine (2 pc_r, 2 pc_c):
 // rows first, then columns (R(pc_c) = 0), as ops/transfer.prolong_padded.
-// One thread per fine point.  About 9 B per fine point: read u, write out,
-// read e (a quarter of the points).
+// One thread per fine point: the oracle of prolong_add_stream_kernel below
+// (ops/cuda_stencil._prolong_add_point), on no solver path.  About 9 B per
+// fine point: read u, write out, read e (a quarter of the points).
 __global__ void prolong_add_kernel(const float* __restrict__ e,
                                    const float* __restrict__ u,
                                    float* __restrict__ out, int pc_r,
@@ -1265,6 +1275,284 @@ int apply_chain_launch(const float* u, float* y, int n, int m, int nl, int ml,
                       m, nl, ml, c, vec);
 }
 
+// ---------------------------------------------------------------------------
+// The Jacobi smoother, jacobi_fused_kernel<S>: S damped-Jacobi sweeps in one
+// launch (S <= 8, _jacobi_fused_kernel's contract, _MAX_FUSED_JACOBI; longer
+// runs in groups that ping-pong two scratch arrays), replacing
+// _jacobi_fused_kernel / _jacobi_fused2d_kernel (shared body
+// _fused_jacobi_passes) and S launches of jacobi_kernel.  Each sweep is
+// jacobi_kernel's expression in its op order, with the Dirichlet boundary
+// and dead-zone cells (and the cells outside the array, loaded as 0) set to
+// b, so the core is bit-equal to S jacobi_kernel launches and to the twin.
+//
+// Bound: memory, 12 B per point per call (read u and b, write y; separate
+// launches move 12 B per point per sweep).  The design is the apply chain's
+// row-walking tile (above): a sweep, like an apply, reads every neighbour's
+// old value, so it cannot run in place and its stale ring grows one cell per
+// sweep; the halo is S rows and S rounded up to 4 columns, the tile 64 x
+// 128, two shared buffers ping-pong, pass k covers rows k .. 63 - k, a lane
+// carries its quad's N and C rows in registers, E / W come by shuffle, and
+// the last pass stores the core from registers.  What is new is b:
+// * b is read from HBM once, by 16-byte cp.async, into the buffer that pass
+//   1 writes: a lane reads its quad of b on a row just before it writes that
+//   quad's result there, and no other lane reads it.
+// * b * (1/c) is formed once per cell, in pass 1, and kept in registers for
+//   the later passes: a warp owns a fixed strip of kJacStrip rows in every
+//   pass (a float4 per row and lane), so the tile stays at two 32 KB buffers
+//   and three blocks per SM.  (A third shared buffer of b * (1/c), 96 KB and
+//   two blocks per SM, measured 14-17 % slower from 4 sweeps on; PERF.md.)
+// * A boundary cell takes b in pass 1 and keeps its value after that (it
+//   already holds b: pass k's rows were all computed in pass 1).
+//
+// The tile is ApTile<S>, mirrored by ops/cuda_stencil.jacobi_tile (which
+// returns apply_tile's geometry) and passed to the C entry point; a mismatch
+// is refused there.
+constexpr int kJacStrip = kApRows / kApWarps;  // rows a warp owns
+
+// jacobi_kernel's update of one cell from bc = b * (1/c): (bc + N + S + E +
+// W) * 0.25, then (1 - omega) * x + omega * jac if damped; bv (b) on the
+// boundary.
+__device__ __forceinline__ float jac_cell(float x, float nv, float sv,
+                                          float ev, float wv, float bc,
+                                          float bv, bool inside, bool damped,
+                                          float omw, float om) {
+  float s = __fadd_rn(bc, nv);  // north
+  s = __fadd_rn(s, sv);         // south
+  s = __fadd_rn(s, ev);         // east
+  s = __fadd_rn(s, wv);         // west
+  float jac = __fmul_rn(s, 0.25f);
+  if (damped) jac = __fadd_rn(__fmul_rn(omw, x), __fmul_rn(om, jac));
+  return inside ? jac : bv;
+}
+
+// `S` sweeps u -> y on one tile (see above).
+template <int S>
+__global__ void __launch_bounds__(kApThreads)
+    jacobi_fused_kernel(const float* __restrict__ u,
+                        const float* __restrict__ b, float* __restrict__ y,
+                        int n, int m, int nl, int ml, float inv_c, int damped,
+                        float omw, float om, int vec) {
+  using T = ApTile<S>;
+  extern __shared__ __align__(16) float jac_smem[];
+  const int i0 = blockIdx.y * T::CH - T::H;
+  const int j0 = blockIdx.x * T::CW - T::HC;
+  ap_load<T>(jac_smem, u, i0, j0, n, m, vec != 0);
+  ap_load<T>(jac_smem + T::BUF, b, i0, j0, n, m, vec != 0);  // pass 1's z
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int jq = j0 + 4 * lane;  // the lane's first column
+  unsigned icol = 0;             // bit q: column jq + q is interior
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    icol |= static_cast<unsigned>(jq + q > 0 && jq + q < ml - 1) << q;
+  }
+  // the lane's quad lies in the core columns (HC is a multiple of 4)
+  const bool qcore = 4 * lane >= T::HC && 4 * lane < kApCols - T::HC;
+  const int rlo = 1 - i0, rhi = nl - 2 - i0;  // the interior rows
+  const int r0 = warp * kJacStrip;            // the warp's rows
+  const bool dmp = damped != 0;
+  float4 bcr[kJacStrip];  // b * (1/c) of the lane's quad on the warp's rows
+  cp_async_wait_all();
+  __syncthreads();
+#pragma unroll
+  for (int k = 1; k <= S; ++k) {
+    const float4* x =
+        reinterpret_cast<const float4*>(jac_smem + ((k - 1) & 1) * T::BUF) +
+        lane;
+    float4* z = reinterpret_cast<float4*>(jac_smem + (k & 1) * T::BUF) + lane;
+    // the warp's rows among rows k .. EH-1-k (warp-uniform: every lane
+    // shuffles)
+    const int rs = max(r0, k), re = min(r0 + kJacStrip, T::EH - k);
+    if (rs < re) {
+      float4 nq = x[(rs - 1) * kApQuads];
+      float4 cq = x[rs * kApQuads];
+#pragma unroll
+      for (int t = 0; t < kJacStrip; ++t) {
+        const int r = r0 + t;
+        if (r < rs) continue;
+        if (r >= re) break;
+        const float4 sq = x[(r + 1) * kApQuads];
+        float4 bv, bc;  // the boundary value and b * (1/c)
+        if (k == 1) {
+          bv = z[r * kApQuads];  // b, until this lane overwrites it below
+          bc = make_float4(__fmul_rn(bv.x, inv_c), __fmul_rn(bv.y, inv_c),
+                           __fmul_rn(bv.z, inv_c), __fmul_rn(bv.w, inv_c));
+          bcr[t] = bc;
+        } else {
+          bv = cq;  // b since pass 1
+          bc = bcr[t];
+        }
+        const float w = __shfl_up_sync(0xffffffffu, cq.w, 1);
+        const float e = __shfl_down_sync(0xffffffffu, cq.x, 1);
+        const bool irow = r >= rlo && r <= rhi;
+        float4 o;
+        o.x = jac_cell(cq.x, nq.x, sq.x, cq.y, w, bc.x, bv.x,
+                       irow && (icol & 1u), dmp, omw, om);
+        o.y = jac_cell(cq.y, nq.y, sq.y, cq.z, cq.x, bc.y, bv.y,
+                       irow && (icol & 2u), dmp, omw, om);
+        o.z = jac_cell(cq.z, nq.z, sq.z, cq.w, cq.y, bc.z, bv.z,
+                       irow && (icol & 4u), dmp, omw, om);
+        o.w = jac_cell(cq.w, nq.w, sq.w, e, cq.z, bc.w, bv.w,
+                       irow && (icol & 8u), dmp, omw, om);
+        if (k < S) {
+          z[r * kApQuads] = o;
+        } else if (qcore && i0 + r < n) {  // the last pass: rows = the core
+          float* dst = y + (long long)(i0 + r) * m + jq;
+          if (vec) {
+            if (jq < m) *reinterpret_cast<float4*>(dst) = o;
+          } else {
+            if (jq < m) dst[0] = o.x;
+            if (jq + 1 < m) dst[1] = o.y;
+            if (jq + 2 < m) dst[2] = o.z;
+            if (jq + 3 < m) dst[3] = o.w;
+          }
+        }
+        nq = cq;
+        cq = sq;
+      }
+    }
+    if (k < S) __syncthreads();
+  }
+}
+
+template <int S>
+int jacobi_fused_launch(const float* u, const float* b, float* y, int n,
+                        int m, int nl, int ml, float inv_c, int damped,
+                        float omw, float om, const int* geom,
+                        cudaStream_t stream) {
+  using T = ApTile<S>;
+  static bool smem_set = false;
+  if (geom[0] != T::H || geom[1] != T::HC || geom[2] != T::EH ||
+      geom[3] != kApCols) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = rb_vec(m, u) && rb_vec(m, b) && rb_vec(m, y);
+  return rb_launch<T>(jacobi_fused_kernel<S>, smem_set, n, m, stream, u, b,
+                      y, n, m, nl, ml, inv_c, damped, omw, om, vec);
+}
+
+// ---------------------------------------------------------------------------
+// The prolong-add, prolong_add_stream_kernel: out = u + prolong_padded(e)
+// (replaces _prolong_add_kernel), prolong_add_kernel's values in its op
+// order (rows first: e[k] on even fine rows, 0.5 (e[k] + e[k+1]) on odd ones,
+// 0 past the last coarse row; then columns: the row value at q on even fine
+// columns, 0.5 (R(q) + R(q+1)) on odd ones, R(pc_c) = 0; then u + that), so
+// bit-equal to it and to the twin.
+//
+// Bound: memory, 9 B per fine point (read u, write out, read e once).  What
+// held the one-thread-per-point kernel at 2.1x its bound: 4-byte accesses,
+// one to four re-reads of e per fine point through L1, and even and odd
+// lanes taking different branches.  Here:
+// * A lane owns a coarse column quad q .. q+3, so fine columns 2q .. 2q+7:
+//   per fine row it reads u and writes out as two float4 (a warp's row is
+//   1 KB contiguous), and e as one float4.  Its row values at q+4 come from
+//   the next lane by shuffle; the warp's last lane reads its own.
+// * A warp walks a strip of kPaStrip coarse rows (2 kPaStrip fine rows),
+//   carrying e's row k + 1 in registers as the next step's row k, so a
+//   strip loads each e value once; the row two strips share is loaded by
+//   both, and the strips of a block run side by side, so the second load
+//   finds it in L2.  No shared memory, no barrier: the warps of a block
+//   (kPaQuads lanes across, kPaThreads / kPaQuads strips down) are
+//   independent.  (On the H100, benchmarks/prolong_tile_rows.py timed
+//   strips of 2 rows fastest, then 4, 8 and 16: shorter strips put more
+//   warps' loads in flight.)
+// * Where pc_c % 4 != 0 or a pointer is not 16-byte aligned (vec == 0), the
+//   same walk loads and stores one float at a time, masked at the last
+//   column.
+//
+// The geometry (strip height, quads per block) is mirrored by
+// ops/cuda_stencil.prolong_tile, which passes it to the C entry point; a
+// mismatch is refused there.
+constexpr int kPaStrip = 2;     // coarse rows a warp walks
+constexpr int kPaQuads = 32;    // coarse column quads per block: a warp
+constexpr int kPaThreads = 256;
+constexpr int kPaWarps = kPaThreads / kPaQuads;  // strips per block
+static_assert(kPaQuads % 32 == 0, "a strip is walked by whole warps");
+
+__device__ __forceinline__ float half_sum(float a, float b) {
+  return __fmul_rn(0.5f, __fadd_rn(a, b));
+}
+
+// e[k, q .. q+3], 0 past the last column.
+__device__ __forceinline__ float4 pa_load_quad(const float* __restrict__ e,
+                                               int k, int q, int pc_c,
+                                               bool vec) {
+  const float* src = e + (long long)k * pc_c + q;
+  if (vec) {
+    return q < pc_c ? *reinterpret_cast<const float4*>(src)
+                    : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  return make_float4(q < pc_c ? src[0] : 0.0f, q + 1 < pc_c ? src[1] : 0.0f,
+                     q + 2 < pc_c ? src[2] : 0.0f,
+                     q + 3 < pc_c ? src[3] : 0.0f);
+}
+
+// Fine row i at columns 2q .. 2q+7 from the row values rv (coarse columns q
+// .. q+3) and r4 (q + 4): out = u + (rv.x, (rv.x + rv.y) / 2, rv.y, ...).
+__device__ __forceinline__ void pa_row(const float* __restrict__ u,
+                                       float* __restrict__ out, int i, int q,
+                                       int m, bool vec, float4 rv, float r4) {
+  const float f[8] = {rv.x, half_sum(rv.x, rv.y), rv.y, half_sum(rv.y, rv.z),
+                      rv.z, half_sum(rv.z, rv.w), rv.w, half_sum(rv.w, r4)};
+  const int j = 2 * q;
+  if (j >= m) return;
+  const long long p = (long long)i * m + j;
+  if (vec) {
+    const float4 a = *reinterpret_cast<const float4*>(u + p);
+    const float4 c = *reinterpret_cast<const float4*>(u + p + 4);
+    *reinterpret_cast<float4*>(out + p) =
+        make_float4(__fadd_rn(a.x, f[0]), __fadd_rn(a.y, f[1]),
+                    __fadd_rn(a.z, f[2]), __fadd_rn(a.w, f[3]));
+    *reinterpret_cast<float4*>(out + p + 4) =
+        make_float4(__fadd_rn(c.x, f[4]), __fadd_rn(c.y, f[5]),
+                    __fadd_rn(c.z, f[6]), __fadd_rn(c.w, f[7]));
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    if (j + c < m) out[p + c] = __fadd_rn(u[p + c], f[c]);
+  }
+}
+
+__global__ void __launch_bounds__(kPaThreads)
+    prolong_add_stream_kernel(const float* __restrict__ e,
+                              const float* __restrict__ u,
+                              float* __restrict__ out, int pc_r, int pc_c,
+                              int vec) {
+  const int lane = threadIdx.x % kPaQuads;
+  const int k0 = (blockIdx.y * kPaWarps + threadIdx.x / kPaQuads) * kPaStrip;
+  if (k0 >= pc_r) return;  // warp-uniform
+  const int q = 4 * (blockIdx.x * kPaQuads + lane);  // the lane's first
+  const bool last = (threadIdx.x & 31) == 31;        // coarse column
+  const bool v = vec != 0;
+  const int m = 2 * pc_c;
+  // row k of e at the lane's quad, and at q + 4 on the warp's last lane
+  float4 cur = pa_load_quad(e, k0, q, pc_c, v);
+  float cur4 = last && q + 4 < pc_c ? e[(long long)k0 * pc_c + q + 4] : 0.0f;
+#pragma unroll
+  for (int t = 0; t < kPaStrip; ++t) {
+    const int k = k0 + t;
+    if (k >= pc_r) break;  // warp-uniform
+    float4 nxt = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // 0 past the last row
+    float nxt4 = 0.0f;
+    if (k + 1 < pc_r) {
+      nxt = pa_load_quad(e, k + 1, q, pc_c, v);
+      if (last && q + 4 < pc_c) nxt4 = e[(long long)(k + 1) * pc_c + q + 4];
+    }
+    // fine row 2k: the row values are e's row k
+    float r4 = __shfl_down_sync(0xffffffffu, cur.x, 1);
+    pa_row(u, out, 2 * k, q, m, v, cur, last ? cur4 : r4);
+    // fine row 2k + 1: 0.5 (e[k] + e[k+1])
+    const float4 mid = make_float4(half_sum(cur.x, nxt.x),
+                                   half_sum(cur.y, nxt.y),
+                                   half_sum(cur.z, nxt.z),
+                                   half_sum(cur.w, nxt.w));
+    r4 = __shfl_down_sync(0xffffffffu, mid.x, 1);
+    pa_row(u, out, 2 * k + 1, q, m, v, mid, last ? half_sum(cur4, nxt4) : r4);
+    cur = nxt;
+    cur4 = nxt4;
+  }
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -1325,10 +1613,46 @@ int mg_restrict_fw(const float* r, float* out, int n, int m, int nc_r,
   return (int)cudaGetLastError();
 }
 
-int mg_prolong_add(const float* e, const float* u, float* out, int pc_r,
-                   int pc_c, void* stream) {
+// `sweeps` (1 .. 8) damped-Jacobi sweeps u -> y on the row-walking tile;
+// geom = (row halo, column halo, tile rows, tile columns) as the caller
+// computed it, refused unless it is the compiled one.
+int mg_jacobi_fused(const float* u, const float* b, float* y, int n, int m,
+                    int nl, int ml, float inv_c, int sweeps, int damped,
+                    float one_minus_omega, float omega, const int* geom,
+                    void* stream) {
+  static const decltype(&jacobi_fused_launch<1>) kLaunch[] = {
+      jacobi_fused_launch<1>, jacobi_fused_launch<2>, jacobi_fused_launch<3>,
+      jacobi_fused_launch<4>, jacobi_fused_launch<5>, jacobi_fused_launch<6>,
+      jacobi_fused_launch<7>, jacobi_fused_launch<8>};
+  if (sweeps < 1 || sweeps > 8) return (int)cudaErrorInvalidValue;
+  return kLaunch[sweeps - 1](u, b, y, n, m, nl, ml, inv_c, damped,
+                             one_minus_omega, omega, geom,
+                             (cudaStream_t)stream);
+}
+
+// The one-thread-per-point prolong-add (the stream's oracle only).
+int mg_prolong_add_point(const float* e, const float* u, float* out, int pc_r,
+                         int pc_c, void* stream) {
   prolong_add_kernel<<<grid_for(2 * pc_r, 2 * pc_c), dim3(kBlockX, kBlockY), 0,
                        (cudaStream_t)stream>>>(e, u, out, pc_r, pc_c);
+  return (int)cudaGetLastError();
+}
+
+// out = u + prolong_padded(e) on the row-strip stream; geom = (strip rows,
+// quads per block) as the caller computed it, refused unless it is the
+// compiled one.
+int mg_prolong_add(const float* e, const float* u, float* out, int pc_r,
+                   int pc_c, const int* geom, void* stream) {
+  if (geom[0] != kPaStrip || geom[1] != kPaQuads || pc_r < 1 || pc_c < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vec = pc_c % 4 == 0 && rb_vec(4, e) && rb_vec(4, u) &&
+                  rb_vec(4, out);
+  const int quads = (pc_c + 3) / 4;
+  const dim3 grid((quads + kPaQuads - 1) / kPaQuads,
+                  (pc_r + kPaWarps * kPaStrip - 1) / (kPaWarps * kPaStrip));
+  prolong_add_stream_kernel<<<grid, kPaThreads, 0, (cudaStream_t)stream>>>(
+      e, u, out, pc_r, pc_c, vec);
   return (int)cudaGetLastError();
 }
 

@@ -43,8 +43,11 @@ _SIGNATURES = {
     "mg_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_apply": [_vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_jacobi": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _f, _f, _vp],
+    "mg_jacobi_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _i, _f, _f,
+                        _ip, _vp],
     "mg_restrict_fw": [_vp, _vp, _i, _i, _i, _i, _vp],
-    "mg_prolong_add": [_vp, _vp, _vp, _i, _i, _vp],
+    "mg_prolong_add": [_vp, _vp, _vp, _i, _i, _ip, _vp],
+    "mg_prolong_add_point": [_vp, _vp, _vp, _i, _i, _vp],
     "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
     "mg_residual3d_point": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],

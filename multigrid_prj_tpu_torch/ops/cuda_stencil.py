@@ -15,8 +15,8 @@ function                      replaces (pallas_stencil.py)   bytes per point
 ``ff_poisson_residual``       ``_ff_residual_kernel``        24
 ``poisson_apply``             ``_apply_kernel`` /            8
                               ``_apply_carry_kernel``
-``jacobi``                    ``_jacobi_fused_kernel`` /     12 per sweep
-                              ``_jacobi_fused2d_kernel``
+``jacobi``                    ``_jacobi_fused_kernel`` /     12 per group of
+                              ``_jacobi_fused2d_kernel``     <= 8 sweeps
 ``restrict_fw_padded_fast``   ``_fw_filter2d_kernel`` + its  ~5 per fine
                               wrapper's edge fix-up          point
 ``prolong_add_padded_fast``   ``_prolong_add_kernel``        ~9 per fine
@@ -42,9 +42,10 @@ function in interpret mode); a CUDA tensor launches the kernel or raises
 memory-bound.  The red-black smoother, the down-leg and the sharded
 solver's extended-slab smoother fuse their passes on the colour-split
 shared-memory tile whose geometry :func:`rbgs_tile` gives; the apply chain
-its applies on the row-walking tile of :func:`apply_tile`; the rest make
-one pass per launch (Jacobi one launch per sweep).  ``LAUNCHES`` counts
-each kernel launch.
+its applies on the row-walking tile of :func:`apply_tile`, the Jacobi
+smoother its sweeps on the same tile (:func:`jacobi_tile`); the
+prolong-add streams row strips (:func:`prolong_tile`); the rest make one
+pass per launch.  ``LAUNCHES`` counts each kernel launch.
 """
 
 from __future__ import annotations
@@ -61,7 +62,8 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 # count here too)
 LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_residual": 0, "apply": 0,
-            "jacobi": 0, "restrict_fw": 0, "prolong_add": 0,
+            "jacobi": 0, "jacobi_sweep": 0, "restrict_fw": 0,
+            "prolong_add": 0, "prolong_add_point": 0,
             "apply3d": 0, "residual3d": 0, "residual3d_point": 0,
             "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0,
@@ -79,11 +81,14 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
 _MAX_FUSED_SWEEPS = 4  # the smoother's tile: a halo of 2 * sweeps <= 8
 _MAX_DOWNLEG_SWEEPS = 3  # the down-leg's: 2 * sweeps + 2 <= 8
 _MAX_FUSED_APPLIES = 8  # the apply chain's: TPU's _MAX_FUSED_APPLIES
+_MAX_FUSED_JACOBI = 8  # the Jacobi tile's: TPU's _MAX_FUSED_JACOBI
 _EXT_HALO = 8  # halo rows on each side of rbgs_fused_extended's slab
 _RB_TILE_ROWS = 64  # the colour-split tile: 64 rows of 64 column pairs,
 _RB_TILE_COLS = 128  # one pair per lane
 _AP_TILE_ROWS = 64  # the apply chain's row-walking tile: rows of 32 column
 _AP_TILE_COLS = 128  # quads, one quad per lane
+_PA_STRIP = 2  # the prolong-add stream: coarse rows a warp walks,
+_PA_QUADS = 32  # coarse column quads per block (one warp across)
 
 
 def rbgs_tile(passes: int):
@@ -112,6 +117,26 @@ def apply_tile(applies: int):
         raise ValueError(f"the apply chain's tile takes 1 .. "
                          f"{_MAX_FUSED_APPLIES} applies, got {applies}")
     return applies, -(-applies // 4) * 4, _AP_TILE_ROWS, _AP_TILE_COLS
+
+
+def jacobi_tile(sweeps: int):
+    """Geometry of the Jacobi smoother's tile of ``csrc/stencil2d.cu`` for
+    ``sweeps`` sweeps per launch: the apply chain's row-walking tile
+    (``ApTile<S>``, :func:`apply_tile`), one ring of halo per sweep.  The C
+    entry point refuses a geometry other than the one compiled."""
+    if not 0 < sweeps <= _MAX_FUSED_JACOBI:
+        raise ValueError(f"the Jacobi tile takes 1 .. {_MAX_FUSED_JACOBI} "
+                         f"sweeps, got {sweeps}")
+    return apply_tile(sweeps)
+
+
+def prolong_tile():
+    """Geometry of the prolong-add stream of ``csrc/stencil2d.cu``
+    (``prolong_add_stream_kernel``): ``(strip rows, quads per block)``.  A
+    lane owns a coarse column quad (fine columns 2q .. 2q+7) and a warp
+    walks a strip of that many coarse rows; a block is that many quads
+    across and 8 strips down.  The C entry point refuses another."""
+    return _PA_STRIP, _PA_QUADS
 
 
 def _geometry(passes, tile=None):
@@ -417,8 +442,10 @@ def jacobi_plain(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
 
 def jacobi(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
            logical_shape=None):
-    """``sweeps`` damped-Jacobi sweeps: one out-of-place launch per sweep,
-    ping-ponging two scratch buffers (``u`` is only read)."""
+    """``sweeps`` damped-Jacobi sweeps: one launch of
+    ``jacobi_fused_kernel<S>`` per group of at most 8 sweeps on the tile of
+    :func:`jacobi_tile`, out of place, the groups ping-ponging two scratch
+    tensors (``u`` is only read; ``sweeps == 0`` returns a copy)."""
     if u.ndim == 3:
         return _cs3d().jacobi_3d(u, b, alpha, h, omega=omega, sweeps=sweeps,
                                  logical_shape=logical_shape)
@@ -428,13 +455,37 @@ def jacobi(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
     c = alpha / (h * h)
+    fn = _lib().mg_jacobi_fused
+
+    def launch(x, y, s):
+        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), n, m, nl, ml, 1.0 / c, s,
+                     int(omega != 1.0), 1.0 - omega, omega,
+                     _geometry(s, jacobi_tile), _stream()), "jacobi")
+        LAUNCHES["jacobi"] += 1
+
+    return _pingpong(u, _groups(sweeps, _MAX_FUSED_JACOBI), launch)
+
+
+def _jacobi_per_sweep(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
+                      logical_shape=None):
+    """The per-sweep oracle of the fused Jacobi smoother on CUDA float32
+    tensors: one out-of-place launch of ``jacobi_kernel`` per sweep,
+    ping-ponging two scratch tensors.  On no solver path: the card's checks
+    hold the fused kernel to it, and ``chip_smoke.py`` times it as the path
+    it replaces."""
+    _check_cuda("_jacobi_per_sweep", u, b)
+    if u.device.type != "cuda":
+        raise ValueError("_jacobi_per_sweep launches CUDA kernels only")
+    n, m = u.shape
+    nl, ml = _logical(u.shape, logical_shape)
+    c = alpha / (h * h)
     fn = _lib().mg_jacobi
 
     def launch(x, y, _s):
         _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), n, m, nl, ml, 1.0 / c,
                      int(omega != 1.0), 1.0 - omega, omega, _stream()),
-                  "jacobi")
-        LAUNCHES["jacobi"] += 1
+                  "jacobi_sweep")
+        LAUNCHES["jacobi_sweep"] += 1
 
     return _pingpong(u, [1] * sweeps, launch)
 
@@ -474,19 +525,44 @@ def prolong_add_padded_fast_plain(e, u):
 
 
 def prolong_add_padded_fast(e, u):
-    """``u + prolong_padded(e)`` for coarse ``e`` of half ``u``'s shape."""
+    """``u + prolong_padded(e)`` for coarse ``e`` of half ``u``'s shape: one
+    launch of ``prolong_add_stream_kernel`` (the geometry of
+    :func:`prolong_tile`)."""
     if u.device.type == "cpu":
         return prolong_add_padded_fast_plain(e, u)
+    import ctypes
+
+    out = _prolong_add_out(e, u)
+    _raise_on(_lib().mg_prolong_add(
+        _ptr(e), _ptr(u), _ptr(out), e.shape[0], e.shape[1],
+        (ctypes.c_int * 2)(*prolong_tile()), _stream()), "prolong_add")
+    LAUNCHES["prolong_add"] += 1
+    return out
+
+
+def _prolong_add_point(e, u):
+    """The oracle of the prolong-add stream on CUDA float32 tensors: one
+    launch of the one-thread-per-point ``prolong_add_kernel``.  On no solver
+    path: the card's checks hold the stream to it, and ``chip_smoke.py``
+    times it as the kernel the stream replaces."""
+    if u.device.type != "cuda":
+        raise ValueError("_prolong_add_point launches CUDA kernels only")
+    out = _prolong_add_out(e, u)
+    _raise_on(_lib().mg_prolong_add_point(
+        _ptr(e), _ptr(u), _ptr(out), e.shape[0], e.shape[1], _stream()),
+        "prolong_add_point")
+    LAUNCHES["prolong_add_point"] += 1
+    return out
+
+
+def _prolong_add_out(e, u):
+    """Check a prolong-add's operands; the output to fill."""
     _check_cuda("prolong_add_padded_fast", u, e, same_shape=False)
     n, m = u.shape
     if (2 * e.shape[0], 2 * e.shape[1]) != (n, m):
         raise ValueError(f"prolong_add_padded_fast: u {(n, m)} is not twice "
                          f"e {tuple(e.shape)}")
-    out = torch.empty_like(u)
-    _raise_on(_lib().mg_prolong_add(_ptr(e), _ptr(u), _ptr(out), e.shape[0],
-                                    e.shape[1], _stream()), "prolong_add")
-    LAUNCHES["prolong_add"] += 1
-    return out
+    return torch.empty_like(u)
 
 
 # ---------------------------------------------------------------------------

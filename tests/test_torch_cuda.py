@@ -114,10 +114,14 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     # counts under its own key
     cs.poisson_apply_chain(u, h * h, h, 11)
     cs._apply_chain_launches(u, h * h, h, 3, None, "apply_chain_tile48")
+    # Jacobi: one fused launch per group of <= 8 sweeps; the oracles count
+    # under their own keys
+    cs._jacobi_per_sweep(u, b, ALPHA, h, 0.8, 3)
+    cs._prolong_add_point(rc, u)
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "rbgs_fused": 1, "residual": 1, "apply": 1, "jacobi": 3,
+        "rbgs_fused": 1, "residual": 1, "apply": 1, "jacobi": 1,
         "restrict_fw": 1, "prolong_add": 1, "apply_chain": 2,
-        "apply_chain_tile48": 1}
+        "apply_chain_tile48": 1, "jacobi_sweep": 3, "prolong_add_point": 1}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -754,6 +758,128 @@ def test_cuda_apply_chain_refusals(cuda_device):
     with pytest.raises(ValueError, match="1 .. 8 applies"):
         cs.apply_tile(9)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", CUDA_SHAPES + [SCALE_SHAPE])
+def test_cuda_jacobi_fused_equals_twin_and_per_sweep(cuda_device, shape,
+                                                     logical):
+    """The fused Jacobi tile at 0-11 sweeps (9-11: launches of 8 + 1 .. 3),
+    omega 0.8 and 1, equals its twin and the per-sweep kernel bit for bit,
+    one launch per group of <= 8 sweeps."""
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    for sweeps in range(12):
+        for omega in (0.8, 1.0):
+            cs.reset_launch_counts()
+            got = cs.jacobi(u, b, ALPHA, h, omega=omega, sweeps=sweeps,
+                            logical_shape=logical)
+            assert cs.LAUNCHES["jacobi"] == -(-sweeps // 8)
+            assert torch.equal(got, cs.jacobi_plain(u, b, ALPHA, h, omega,
+                                                    sweeps, logical))
+            assert torch.equal(got, cs._jacobi_per_sweep(
+                u, b, ALPHA, h, omega, sweeps, logical))
+    torch.cuda.synchronize()
+
+
+# coarse shapes of the prolong-add: every level below the finest of the
+# 1025^2 and 8193^2 / pad 256 hierarchies, and pc_c % 4 != 0 with pc_r odd
+PROLONG_SHAPES = [(640, 640), (320, 320), (160, 160), (80, 80), (40, 40),
+                  (20, 20), (4224, 4224), (2112, 2112), (1056, 1056),
+                  (528, 528), (264, 264), (132, 132), (66, 66), (33, 33),
+                  (65, 190)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pc", PROLONG_SHAPES)
+def test_cuda_prolong_add_equals_twin_and_point(cuda_device, pc):
+    rng = np.random.default_rng(2)
+    e, u = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(cuda_device) for s in (pc, (2 * pc[0], 2 * pc[1])))
+    cs.reset_launch_counts()
+    got = cs.prolong_add_padded_fast(e, u)
+    assert cs.LAUNCHES["prolong_add"] == 1
+    assert torch.equal(got, cs.prolong_add_padded_fast_plain(e, u))
+    assert torch.equal(got, cs._prolong_add_point(e, u))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_and_prolong_refusals(cuda_device):
+    """The C entry points refuse, before any launch, a tile geometry other
+    than the compiled one and a sweep count outside 1 .. 8."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    u, b, _, h = _cuda_inputs((160, 160), (129, 129), cuda_device)
+    y = torch.empty_like(u)
+    args = (160, 160, 129, 129, 1.0)
+
+    def geom(*g):
+        return (ctypes.c_int * len(g))(*g)
+
+    def jac(sweeps, g):
+        return lib.mg_jacobi_fused(p(u), p(b), p(y), *args, sweeps, 1, 0.2,
+                                   0.8, g, stream)
+
+    assert jac(3, cs._geometry(3, cs.jacobi_tile)) == 0
+    for sweeps, g in ((3, geom(3, 4, 96, 128)), (3, geom(2, 4, 64, 128)),
+                      (3, geom(3, 8, 64, 128)), (3, geom(3, 4, 64, 64)),
+                      (2, cs._geometry(3, cs.jacobi_tile)),
+                      (0, cs._geometry(1, cs.jacobi_tile)),
+                      (9, geom(9, 12, 64, 128))):
+        assert jac(sweeps, g) != 0, (sweeps, list(g))
+    e = u[:80, :80].contiguous()
+    strip, quads = cs.prolong_tile()
+    assert lib.mg_prolong_add(p(e), p(u), p(y), 80, 80,
+                              geom(strip, quads), stream) == 0
+    for g in ((strip + 1, quads), (strip, 2 * quads), (strip, quads - 1)):
+        assert lib.mg_prolong_add(p(e), p(u), p(y), 80, 80, geom(*g),
+                                  stream) != 0, g
+    with pytest.raises(ValueError, match="1 .. 8 sweeps"):
+        cs.jacobi_tile(9)
+    with pytest.raises(ValueError, match="CUDA kernels only"):
+        cs._prolong_add_point(e.cpu(), u.cpu())
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_solve_fused_and_per_sweep(cuda_device):
+    """The 129^2 Jacobi omega 0.8 solve launches one fused smoother per
+    smoother call (2 sweeps, so half the per-sweep launches), and equals the
+    same solve with the per-sweep kernel swapped in bit for bit; so does the
+    GS solve with the point prolong-add swapped in."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+
+    kw = dict(shape=(129, 129), length=10.0, alpha=10.0, num_levels=4,
+              cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60,
+              pad_align=128)
+    jac = GMGSolver(**kw, smoother="jacobi", omega=0.8, device="cuda")
+    b = assemble_rhs(jac.levels[0], 10.0, test=1, device="cuda")
+    cs.reset_launch_counts()
+    res = jac.solve_refined(b)
+    n_fused = cs.LAUNCHES["jacobi"]
+    ref_s = GMGSolver(**kw, smoother="jacobi", omega=0.8, device="cuda")
+
+    def per_sweep(u, b, alpha, h, sweeps=1, logical_shape=None):
+        return cs._jacobi_per_sweep(u, b, alpha, h, 0.8, sweeps,
+                                    logical_shape)
+
+    ref_s.smoother = per_sweep
+    cs.reset_launch_counts()
+    ref = ref_s.solve_refined(b)
+    assert res.converged and n_fused > 0 and cs.LAUNCHES["jacobi"] == 0
+    assert cs.LAUNCHES["jacobi_sweep"] == 2 * n_fused
+    assert np.array_equal(res.history, ref.history)
+    assert torch.equal(res.u, ref.u)
+    gs = GMGSolver(**kw, device="cuda")
+    pt = GMGSolver(**kw, device="cuda")
+    pt._prolong_add_fn = cs._prolong_add_point
+    res, ref = gs.solve_refined(b), pt.solve_refined(b)
+    assert np.array_equal(res.history, ref.history)
+    assert torch.equal(res.u, ref.u)
 
 
 # the residual's shapes: exact and padded levels of the 3D paths, a

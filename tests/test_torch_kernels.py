@@ -113,14 +113,15 @@ def test_apply_twin_matches_pallas(n, logical):
 
 
 @pytest.mark.parametrize("n,logical", CASES)
-@pytest.mark.parametrize("sweeps", [2, 8, 11])
+@pytest.mark.parametrize("sweeps", [0, 1, 2, 8, 11])
 @pytest.mark.parametrize("omega", [0.8, 1.0])
 def test_jacobi_twin_matches_pallas(n, logical, sweeps, omega):
     """Same op order as the fused Pallas kernel, but XLA's CPU backend
     contracts ``b * (1/c) + N`` and ``(1-omega) x + omega jac`` into FMAs in
     interpret mode: a point can differ by a rounding that the sweeps carry.
-    Bound: 2 ulp of the field's largest value (measured 0.5).  11 sweeps
-    cross the Pallas 8-sweep fusion boundary."""
+    Bound: 2 ulp of the field's largest value (measured 0.5).  0 sweeps is
+    a copy of u on both sides; 11 sweeps cross the 8-sweep fusion boundary
+    of both packages (8 + 3)."""
     u, b, _, h = _inputs(n, logical)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(ps.jacobi(jnp.asarray(u), jnp.asarray(b), ALPHA, h,
@@ -129,6 +130,9 @@ def test_jacobi_twin_matches_pallas(n, logical, sweeps, omega):
     got = cs.jacobi(*_t(u, b), ALPHA, h, omega=omega, sweeps=sweeps,
                     logical_shape=logical).numpy()
     assert np.abs(got - want).max() <= 2 * np.spacing(np.abs(want).max())
+    if not sweeps:
+        np.testing.assert_array_equal(got, u)
+        return
     bnd = boundary_mask((n, n), logical).numpy()
     np.testing.assert_array_equal(got[bnd], b[bnd])
 

@@ -28,7 +28,12 @@ paths' shapes.  Imports nothing of JAX.  The paths:
   solve on the per-colour path, equal to it bit for bit; B. the same with
   ``pad_align=(8, 8, 128)``; C. 513^3, 6 levels, to 1e-8; D. 65^3 with
   ``pad_align=(8, 8, 128)`` (GS, ``inner_cg=4``, Jacobi omega 0.8, and the
-  bf16 defect-correction ``.solve``), each against its CPU-twin run;
+  bf16 defect-correction ``.solve``), each against its CPU-twin run; and
+  config 4 at its full 257^3 with the Jacobi smoother (omega 0.8: one
+  launch of the z-chunked march per smoother call, the 17^3 bottom's 100
+  sweeps in one resident launch) and with ``inner_cg=4`` (the apply on
+  the residual's march), each also with the kernel it replaced swapped in
+  (the per-sweep Jacobi, the point apply), equal to it bit for bit;
 * ``smoother_dtype`` (bf16 defect correction) in 2D;
 * AMG (BASELINE config 3's FD system, ``benchmarks/amg_bench.py``): the
   1024^2 FD hierarchy (12 levels max, 2000-row bottom, Chebyshev, RCM,
@@ -70,12 +75,17 @@ non-zero):
   resident route, also against the per-colour oracle; the residual march
   also against the one-thread-per-point kernel, at a shape whose nz is no
   multiple of its chunk; the route of each shape; the march's geometry
-  refusal)   5. main
+  refusal; the fused Jacobi at sweeps 0-9 and 100, omega 0.8 and 1, also
+  against the per-sweep oracle, on the route of each shape; the apply's
+  march also against the point apply; the Jacobi march's, the resident
+  Jacobi's and the apply's refusals)   5. main
   path (+ CPU-twin run, + the per-colour path)   5b. main
   path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2 (plain,
   inner_cg=4, fuse_downleg, the per-colour path)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
   runs)   8. plain ops   9. CLI   10. 3D paths A, B, C (A also with the
-  point residual swapped in, bit-equal)   11. 3D variants D
+  point residual swapped in, bit-equal)   10b. config 4 with Jacobi
+  (+ the per-sweep kernel swapped in) and with inner_cg=4 (+ the point
+  apply), each bit-equal   11. 3D variants D
   (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
   paths: apply chain (also on its 48 x 48 tile), colour sweep   13. AMG
   set-up   14. AMG kernels vs
@@ -89,10 +99,15 @@ non-zero):
   tile at 8192^2, each against the kernels it replaced; the Jacobi tile and
   the prolong-add stream at 8192^2 and 8448^2 against their oracles, also
   L2 flushed; the residual march against the point
-  kernel at 257^3 and 513^3; L2-flushed times of the fused kernels, the
+  kernel, the 3D Jacobi march against the per-sweep kernel and the
+  apply's march against the point apply at 257^3 and 513^3, each L2
+  flushed too, with the 3D Jacobi's ladder (1 / 2 / 4 / 9 sweeps at 257^3)
+  and the 17^3 bottom's 100 Jacobi sweeps; L2-flushed times of the fused
+  kernels, the
   residuals and the float-float residual; the
   17^3 bottom's 100 sweeps; the solves on three paths, the 1025^2 Jacobi
-  and the 8193^2 solves against their oracles swapped in, config 4 and
+  and the 8193^2 solves and config 4's Jacobi and inner_cg=4 solves
+  against their oracles swapped in, config 4 and
   513^3 fused against per colour; profiled runs of the 1025^2 and config 4
   solves and of each AMG solve; the two probe harnesses' mains as the
   probes' path)
@@ -218,7 +233,11 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     # solver path: its launches are those of the 8193^2 solve with it
     # swapped in
     "prolong_add_point": (f"{_PS}:631", _SRC2),
+    # the apply on the residual's march; apply3d_point, the one-thread-per-
+    # point kernel it replaced, is on no solver path: its launches are those
+    # of config 4's inner_cg=4 solve with it swapped in, run beside the path
     "apply3d": (f"{_PS3}:107", _SRC3),
+    "apply3d_point": (f"{_PS3}:107", _SRC3),
     # the residual's z-chunked march; residual3d_point, the one-thread-per-
     # point kernel it replaced, is on no solver path: its launches are those
     # of config 4's solve with it swapped in, run beside the path
@@ -230,10 +249,15 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     # path run beside it
     "rbgs3d_fused": (f"{_PS3}:128", _SRC3),
     "rbgs3d_color": (f"{_PS3}:128", _SRC3),
+    # the 3D Jacobi: the z-chunked multi-sweep march, or the whole array
+    # resident in shared memory (the 17^3 bottom); jacobi3d_sweep is its
+    # per-sweep oracle, on no solver path: its launches are those of config
+    # 4's Jacobi solve with it swapped in, run beside the path
     "jacobi3d": (f"{_PS3}:141", _SRC3),
+    "jacobi3d_sweep": (f"{_PS3}:141", _SRC3),
 }
-KERNELS_3D = ("apply3d", "residual3d", "residual3d_point", "rbgs3d_fused",
-              "rbgs3d_color", "jacobi3d")
+KERNELS_3D = ("apply3d", "apply3d_point", "residual3d", "residual3d_point",
+              "rbgs3d_fused", "rbgs3d_color", "jacobi3d", "jacobi3d_sweep")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -281,9 +305,12 @@ ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412",
 ON_NO_PATH = {"apply_chain_tile48": "apply_chain",
               "residual3d_point": "residual3d", "rbgs_color": "rbgs_fused",
               "rbgs3d_color": "rbgs3d_fused", "jacobi_sweep": "jacobi",
-              "prolong_add_point": "prolong_add"}
+              "prolong_add_point": "prolong_add",
+              "jacobi3d_sweep": "jacobi3d", "apply3d_point": "apply3d"}
 # the JAX wrapper that reaches the kernel body in "replaces"
 VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220",
+       "jacobi3d": f"{_PS3}:237", "jacobi3d_sweep": f"{_PS3}:237",
+       "apply3d": f"{_PS3}:205", "apply3d_point": f"{_PS3}:205",
        "jacobi": f"{_PS}:1304", "jacobi_sweep": f"{_PS}:1304",
        "prolong_add": f"{_PS}:677", "prolong_add_point": f"{_PS}:677"}
 # (bytes, flops) per point of each stencil kernel's timed call, f32: every
@@ -298,10 +325,12 @@ STENCIL_COST = {
     "prolong_add_point": (9, 3), "rbgs_resfilter": (13, 24),
     "apply_chain": (8, 48), "apply_chain_tile48": (8, 48),
     "rbgs_color_sweep": (12, 3),
-    "apply3d": (8, 8), "residual3d": (12, 9), "residual3d_point": (12, 9),
+    "apply3d": (8, 8), "apply3d_point": (8, 8), "residual3d": (12, 9),
+    "residual3d_point": (12, 9),
     "rbgs3d_fused": (12, 18),
     "rbgs3d_color": (12, 18),
-    "jacobi3d": (12, 24), "rbgs_fused_ext": (12, 24)}
+    "jacobi3d": (12, 24), "jacobi3d_sweep": (12, 24),
+    "rbgs_fused_ext": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
 # it (poisson_fd_csr(1024): 1,048,576 rows, 5,238,784 nnz; b from
@@ -344,6 +373,22 @@ SCALE3D_ITERATIONS = 12  # the CPU twins and every earlier card run
 CONFIG4_FUSED_LAUNCHES = 11 * (4 * 2 + 1)
 SCALE3D_FUSED_LAUNCHES = 12 * (5 * 2 + 1)
 CONFIG4_COLOUR_LAUNCHES = 11 * (4 * 2 * 4 + 2 * 100)
+# config 4 with the Jacobi smoother (omega 0.8) and with inner_cg=4: the
+# JAX package on the CPU (XLA ops at these unaligned shapes) takes 23 and 4
+# iterations to 1e-8 on this RHS.  Jacobi launches: 23 iterations x (4
+# smoothed levels x 2 calls on the march + the 17^3 bottom's 100 sweeps in
+# one resident launch); with the per-sweep oracle swapped in, 23 x (4 x 2 x
+# 2 + 100) jacobi3d_sweep launches
+JACOBI3D_KW = dict(CONFIG4_KW, smoother="jacobi", omega=0.8)
+JACOBI3D_ITERATIONS = 23
+JACOBI3D_LAUNCHES = 23 * (4 * 2 + 1)
+JACOBI3D_SWEEP_LAUNCHES = 23 * (4 * 2 * 2 + 100)
+INNER_CG3D_ITERATIONS = 4
+# the fused 3D Jacobi is held to its twin and to the per-sweep oracle at
+# every sweep count here (5-9: launches of 4 + 1 .. 4 + 4 + 1) and at the
+# bottom's 100, omega 0.8 and 1; its ladder at 257^3
+JACOBI3D_SWEEPS = tuple(range(10)) + (100,)
+LADDER_JACOBI3D = (1, 2, 4, 9)
 # D: 65^3 in (72, 72, 128) buffers, 4 levels, 9^3 bottom (dense inverse);
 # the bf16 .solve's tolerance sits above its f32 residual floor (the JAX
 # package on the CPU floors at 8.4e-4 there and passes 2e-3 at iteration 6)
@@ -465,9 +510,11 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     """name -> [(label, kernel call, twin call)] on the same 3D inputs.
     The fused smoother runs every sweep count against the per-colour oracle
     and against the twin (the resident route also the bottom's 100); the
-    residual's march against the one-thread-per-point kernel and the twin;
-    the last case of each, against the twin (the smoother's at 2 sweeps,
-    V(2,2)), is the one timed."""
+    fused Jacobi every count of ``JACOBI3D_SWEEPS``, omega 0.8 and 1,
+    against the per-sweep oracle and the twin; the residual's and the
+    apply's march against the one-thread-per-point kernels and the twins;
+    the last case of each, against the twin (the smoothers' at 2 sweeps,
+    V(2,2), the Jacobi's at omega 0.8), is the one timed."""
     def fused(s):
         return c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=s,
                                             logical_shape=logical)
@@ -477,6 +524,16 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
 
     def oracle(s):
         return c3._rbgs3d_per_colour(u, b, alpha, h, s, logical)
+
+    def jacobi(s, w):
+        return c3.jacobi_3d(u, b, alpha, h, omega=w, sweeps=s,
+                            logical_shape=logical)
+
+    def jac_twin(s, w):
+        return c3.jacobi_3d_plain(u, b, alpha, h, w, s, logical)
+
+    def per_sweep(s, w):
+        return c3._jacobi3d_per_sweep(u, b, alpha, h, w, s, logical)
 
     counts = list(FUSED3D_SWEEPS)
     if c3.rbgs3d_route(u.shape) == "resident":
@@ -502,16 +559,31 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
             lambda: c3._residual3d_launch(u, b, alpha, h, logical,
                                           "residual3d_point"),
             lambda: c3.poisson_residual_3d_plain(u, b, alpha, h, logical))],
-        "apply3d": [(
+        "apply3d": [
+            ("vs apply3d_point",
+             lambda: c3.poisson_apply_3d(u, alpha, h, logical),
+             lambda: c3._apply3d_launch(u, alpha, h, logical,
+                                        "apply3d_point")),
+            ("",
+             lambda: c3.poisson_apply_3d(u, alpha, h, logical),
+             lambda: c3.poisson_apply_3d_plain(u, alpha, h, logical))],
+        "apply3d_point": [(
             "",
-            lambda: c3.poisson_apply_3d(u, alpha, h, logical),
+            lambda: c3._apply3d_launch(u, alpha, h, logical,
+                                       "apply3d_point"),
             lambda: c3.poisson_apply_3d_plain(u, alpha, h, logical))],
-        "jacobi3d": [(
-            f"sweeps 2, omega {w}",
-            lambda w=w: c3.jacobi_3d(u, b, alpha, h, omega=w, sweeps=2,
-                                     logical_shape=logical),
-            lambda w=w: c3.jacobi_3d_plain(u, b, alpha, h, w, 2, logical))
-            for w in (1.0, 0.8)],
+        "jacobi3d": (
+            [(f"sweeps {s}, omega {w} vs the per-sweep oracle",
+              lambda s=s, w=w: jacobi(s, w), lambda s=s, w=w: per_sweep(s, w))
+             for s in JACOBI3D_SWEEPS for w in (1.0, 0.8)]
+            + [(f"sweeps {s}, omega {w}", lambda s=s, w=w: jacobi(s, w),
+                lambda s=s, w=w: jac_twin(s, w))
+               for s in JACOBI3D_SWEEPS for w in (1.0, 0.8)
+               if (s, w) != (2, 0.8)]
+            + [("sweeps 2, omega 0.8", lambda: jacobi(2, 0.8),
+                lambda: jac_twin(2, 0.8))]),
+        "jacobi3d_sweep": [("sweeps 2, omega 0.8", lambda: per_sweep(2, 0.8),
+                            lambda: jac_twin(2, 0.8))],
     }
 
 
@@ -717,12 +789,14 @@ def tile_kernel_report(cs, c3, log):
     ``rbgs_fused_ext_kernel<S>``), of the z-marching 3D tile
     (``rbgs3d_zmarch_kernel<S>``), of the row-walking tiles of the apply
     chain and the Jacobi smoother (``apply_chain_kernel<A>``,
-    ``jacobi_fused_kernel<S>``), of the prolong-add stream and of the
-    residual's z-chunked march (``residual3d_march_kernel``) from nvcc's
+    ``jacobi_fused_kernel<S>``), of the prolong-add stream, of the
+    residual's and apply's z-chunked march (``stencil3d_march_kernel``) and
+    of the 3D Jacobi's (``jacobi3d_march_kernel<S>``) from nvcc's
     ``-Xptxas -v`` log; the tile kernels' shared memory is dynamic, so it
     comes from the tile geometry the wrapper passes (``cs.rbgs_tile``,
-    ``c3.rbgs3d_tile``, ``cs.apply_tile``, ``cs.jacobi_tile``); the
-    march's is static, from the log."""
+    ``c3.rbgs3d_tile``, ``cs.apply_tile``, ``cs.jacobi_tile``,
+    ``c3.jacobi3d_tile``); the residual march's is static, from the
+    log."""
     import re
 
     props, cur = {}, None
@@ -793,11 +867,25 @@ def tile_kernel_report(cs, c3, log):
                        f"registers, spill stores {st} B, spill loads {ld} B, "
                        f"no shared memory (strips of {strip} coarse rows, "
                        f"{quads} quads per block)")
-        elif "residual3d_march_kernel" in mangled:
-            out.append(f"residual3d_march_kernel: {pr.get('regs', '?')} "
+        elif "stencil3d_march_kernel" in mangled:
+            what = ("residual3d: a ring of plane copies and b"
+                    if "ILb1EE" in mangled else "apply3d: a ring of plane "
+                    "copies")
+            out.append(f"stencil3d_march_kernel: {pr.get('regs', '?')} "
                        f"registers, spill stores {st} B, spill loads {ld} B, "
-                       f"static shared memory {pr.get('smem', '?')} B (a "
-                       "ring of plane copies and b)")
+                       f"static shared memory {pr.get('smem', '?')} B "
+                       f"({what})")
+        hit = re.search(r"jacobi3d_march_kernelILi(\d)EE", mangled)
+        if hit:
+            sweeps = int(hit.group(1))
+            tx, ty, halo, _, ahead = c3.jacobi3d_tile((1, 1, 1), sweeps)
+            planes = (ahead + 2) + (ahead + 1) + 2 * (sweeps - 1)
+            out.append(f"jacobi3d_march_kernel<{sweeps}>: "
+                       f"{pr.get('regs', '?')} registers, spill stores {st} "
+                       f"B, spill loads {ld} B, dynamic shared memory "
+                       f"{4 * planes * tx * ty} B ({planes} planes of a "
+                       f"{tx} x {ty} tile: u and b rings, two per "
+                       f"intermediate sweep; halo {halo})")
     return out
 
 
@@ -1752,8 +1840,12 @@ def main() -> int:
               f"{', '.join(KERNELS_3D)} equal to their twins (torch.equal); "
               f"rbgs3d_fused on the {route} route, sweeps "
               f"{'0-9 and 100' if route == 'resident' else '0-9'} also "
-              "equal to the per-colour oracle; residual3d (march "
-              f"{c3.residual3d_tile(shape)}) also to residual3d_point")
+              "equal to the per-colour oracle; jacobi3d on the "
+              f"{c3.jacobi3d_route(shape)} route (2-sweep march "
+              f"{c3.jacobi3d_tile(shape, 2)}), sweeps 0-9 and 100, omega 1 "
+              "and 0.8, also equal to the per-sweep oracle; residual3d and "
+              f"apply3d (march {c3.residual3d_tile(shape)}) also to "
+              "residual3d_point and apply3d_point")
         del u, b
     # the residual's C entry point refuses a geometry other than the
     # compiled tile and the chunk rule's
@@ -1775,7 +1867,45 @@ def main() -> int:
     print(f"[kernels3d] residual3d's entry point at {shape}: the geometry "
           f"{geo} launches (error {good}); refused with errors {bad}")
     check(good == 0 and all(bad.values()), "residual3d geometry refusal")
-    del u, b, r3
+    # so do the apply's (the same geometry) and the Jacobi march's (the
+    # compiled tile, the sweeps' halo and the chunk rule's), and the
+    # resident Jacobi a cap other than the compiled one
+    good = lib.mg_apply3d(cs._ptr(u), cs._ptr(r3), *shape, *shape, 1.0,
+                          (ctypes.c_int * 4)(*geo), cs._stream())
+    bad = {str(g): lib.mg_apply3d(cs._ptr(u), cs._ptr(r3), *shape, *shape,
+                                  1.0, (ctypes.c_int * 4)(*g), cs._stream())
+           for g in ((geo[0], geo[1], geo[2] + 1, geo[3]),
+                     (16, geo[1], geo[2], geo[3]))}
+    jgeo = c3.jacobi3d_tile(shape, 2)
+    j3_args = (cs._ptr(u), cs._ptr(b), cs._ptr(r3), *shape, *shape, 1.0,
+               1.0 / 6.0, 1, 0.2, 0.8)
+    jgood = lib.mg_jacobi3d(*j3_args, 2, (ctypes.c_int * 5)(*jgeo),
+                            cs._stream())
+    jbad = {f"{sw} sweeps, {g}": lib.mg_jacobi3d(
+        *j3_args, sw, (ctypes.c_int * 5)(*g), cs._stream())
+        for sw, g in ((2, (jgeo[0], jgeo[1], jgeo[2], jgeo[3] + 1, jgeo[4])),
+                      (2, (32, jgeo[1], jgeo[2], jgeo[3], jgeo[4])),
+                      (2, (jgeo[0], 16, jgeo[2], jgeo[3], jgeo[4])),
+                      (3, jgeo), (5, (jgeo[0], jgeo[1], 5, *jgeo[3:])))}
+    small = torch.zeros(CONFIG4_BOTTOM, device="cuda")
+    rgood = lib.mg_jacobi3d_resident(
+        cs._ptr(small), cs._ptr(small), cs._ptr(r3), *CONFIG4_BOTTOM,
+        *CONFIG4_BOTTOM, 1.0, 1.0 / 6.0, 1, 0.2, 0.8, 100,
+        c3.RESIDENT_MAX_POINTS, cs._stream())
+    rbad = lib.mg_jacobi3d_resident(
+        cs._ptr(small), cs._ptr(small), cs._ptr(r3), *CONFIG4_BOTTOM,
+        *CONFIG4_BOTTOM, 1.0, 1.0 / 6.0, 1, 0.2, 0.8, 100,
+        c3.RESIDENT_MAX_POINTS + 1, cs._stream())
+    torch.cuda.synchronize()
+    print(f"[kernels3d] apply3d's entry point at {shape}: {geo} launches "
+          f"(error {good}); refused with errors {bad}. jacobi3d's: "
+          f"{jgeo} launches (error {jgood}); refused with errors {jbad}; "
+          f"the resident Jacobi: cap {c3.RESIDENT_MAX_POINTS} launches "
+          f"(error {rgood}), another refused (error {rbad})")
+    check(good == 0 and all(bad.values()), "apply3d geometry refusal")
+    check(jgood == 0 and all(jbad.values()) and rgood == 0 and rbad != 0,
+          "jacobi3d geometry refusal")
+    del u, b, r3, small
     torch.cuda.empty_cache()
 
     launches = dict.fromkeys(cs.LAUNCHES, 0)
@@ -2216,6 +2346,91 @@ def main() -> int:
             del res3p
         elif tag[0] == "C":
             check(calls == SCALE3D_FUSED_LAUNCHES, f"{tag}: {calls} calls")
+
+    # 10b. config 4 at its full 257^3 with the Jacobi smoother (omega 0.8;
+    # the march, and the 17^3 bottom's 100 sweeps on the resident route) and
+    # with inner_cg=4 (the apply on the march), each also with the kernel
+    # it replaced swapped in: the same history and solution bit for bit
+    phases.next("3D paths A jacobi, A inner_cg=4")
+    b_c4 = paths3d["A 257^3"][1]
+    shape4 = CONFIG4_KW["shape"]
+    jac3 = GMGSolver(**JACOBI3D_KW, device="cuda")
+    res_j3, counts = run_path(jac3, b_c4)
+    check_solve("A jacobi", res_j3, shape4, 1e-8, JACOBI3D_ITERATIONS, counts,
+                ("jacobi3d", "residual3d"))
+    bottom = jac3.levels[-1].physical
+    print(f"[A jacobi] jacobi3d launches {counts['jacobi3d']} (expected "
+          f"{JACOBI3D_LAUNCHES}: one per smoother call, the bottom's "
+          f"{bottom} on the {c3.jacobi3d_route(bottom)} route; the levels "
+          f"above on the march, 2-sweep geometry at 257^3 "
+          f"{c3.jacobi3d_tile(shape4, 2)}), jacobi3d_sweep "
+          f"{counts['jacobi3d_sweep']}")
+    check(res_j3.iterations == JACOBI3D_ITERATIONS
+          and jac3._coarse_inv is None
+          and c3.jacobi3d_route(bottom) == "resident"
+          and counts["jacobi3d"] == JACOBI3D_LAUNCHES
+          and counts["jacobi3d_sweep"] == 0,
+          f"A jacobi: {res_j3.iterations} iterations (expected "
+          f"{JACOBI3D_ITERATIONS}), {counts['jacobi3d']} jacobi3d launches")
+
+    def per_sweep3d(s):
+        """``s`` with its Jacobi smoother swapped for the per-sweep kernel
+        (one ``jacobi3d_sweep`` launch per sweep, the path before the
+        march)."""
+        def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
+            return c3._jacobi3d_per_sweep(u, b, alpha, h,
+                                          JACOBI3D_KW["omega"], sweeps,
+                                          logical_shape)
+
+        s.smoother = _sm
+        return s
+
+    jac3_o = per_sweep3d(GMGSolver(**JACOBI3D_KW, device="cuda"))
+    res_j3o, counts_o = run_path(jac3_o, b_c4)
+    print(f"[A jacobi] with the per-sweep kernel swapped in: "
+          f"{res_j3o.iterations} iterations, jacobi3d_sweep "
+          f"{counts_o['jacobi3d_sweep']} launches (expected "
+          f"{JACOBI3D_SWEEP_LAUNCHES}), jacobi3d {counts_o['jacobi3d']}; "
+          f"history and solution equal: "
+          f"{np.array_equal(res_j3o.history, res_j3.history)}, "
+          f"{torch.equal(res_j3o.u, res_j3.u)}")
+    check(np.array_equal(res_j3o.history, res_j3.history)
+          and torch.equal(res_j3o.u, res_j3.u) and counts_o["jacobi3d"] == 0
+          and counts_o["jacobi3d_sweep"] == JACOBI3D_SWEEP_LAUNCHES,
+          "A jacobi: the march differs from the per-sweep kernel")
+    del res_j3o
+
+    def point_apply3d(s):
+        """``s`` with its operator apply swapped for the one-thread-per-
+        point kernel the march replaced (``apply3d_point``)."""
+        def _apply(u, alpha, h, logical_shape=None):
+            return c3._apply3d_launch(u, alpha, h, logical_shape,
+                                      "apply3d_point")
+
+        s._apply_fn = _apply
+        return s
+
+    cg3 = GMGSolver(**CONFIG4_KW, device="cuda")
+    res_c3, counts = run_path(cg3, b_c4, inner_cg=4)
+    check_solve("A inner_cg=4", res_c3, shape4, 1e-8, INNER_CG3D_ITERATIONS,
+                counts, need3d + ("apply3d",))
+    check(res_c3.iterations == INNER_CG3D_ITERATIONS
+          and counts["apply3d_point"] == 0,
+          f"A inner_cg=4: {res_c3.iterations} iterations (expected "
+          f"{INNER_CG3D_ITERATIONS})")
+    cg3_o = point_apply3d(GMGSolver(**CONFIG4_KW, device="cuda"))
+    res_c3o, counts_o = run_path(cg3_o, b_c4, inner_cg=4)
+    print(f"[A inner_cg=4] apply3d launches {counts['apply3d']}; with "
+          f"apply3d_point swapped in: {res_c3o.iterations} iterations, "
+          f"apply3d_point {counts_o['apply3d_point']} launches, apply3d "
+          f"{counts_o['apply3d']}; history and solution equal: "
+          f"{np.array_equal(res_c3o.history, res_c3.history)}, "
+          f"{torch.equal(res_c3o.u, res_c3.u)}")
+    check(np.array_equal(res_c3o.history, res_c3.history)
+          and torch.equal(res_c3o.u, res_c3.u) and counts_o["apply3d"] == 0
+          and counts_o["apply3d_point"] == counts["apply3d"] > 0,
+          "A inner_cg=4: the march differs from the point apply")
+    del res_c3o
 
     # 11. 3D variants D at 65^3, pad (8, 8, 128), each against its CPU-twin
     # run: GS, inner_cg=4, Jacobi omega 0.8, bf16 defect correction, SOR
@@ -2822,17 +3037,40 @@ def main() -> int:
                  median_ms(torch, twin, runs=10))
             per = STENCIL_COST[kname]
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
-            if kname in ("residual3d", "residual3d_point"):
+            if kname in ("residual3d", "residual3d_point", "apply3d",
+                         "apply3d_point", "jacobi3d", "jacobi3d_sweep"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
                 note = (f"; L2 flushed before each call "
                         f"{extra['flushed_ms'] * 1e3:.1f} us")
-            if kname == "residual3d":  # and the kernel it replaced
-                point = cases[0][2]
+            replaced = {"residual3d": "residual3d_point",
+                        "apply3d": "apply3d_point",
+                        "jacobi3d": "jacobi3d_sweep"}.get(kname)
+            if replaced:  # and the kernel it replaced, on the same call
+                point = next(c[2] for c in cases if "vs " in c[0]
+                             and (kname != "jacobi3d"
+                                  or c[0].startswith(label)))
                 extra["point_device_ms"] = device_ms(torch, point, npts)
                 extra["point_flushed_ms"] = flushed_ms(torch, point)
-                note += (f"; residual3d_point (device) "
+                note += (f"; {replaced} (device) "
                          f"{extra['point_device_ms'] * 1e3:.1f} us, L2 "
                          f"flushed {extra['point_flushed_ms'] * 1e3:.1f} us")
+            if kname == "jacobi3d" and shape == TIME_SHAPES_3D[0][0]:
+                j3_paths = {
+                    "jacobi3d": lambda s: c3.jacobi_3d(
+                        u, bb, 1.0, h, omega=JACOBI_OMEGA, sweeps=s,
+                        logical_shape=logical),
+                    "jacobi3d_sweep": lambda s: c3._jacobi3d_per_sweep(
+                        u, bb, 1.0, h, JACOBI_OMEGA, s, logical)}
+                extra["ladder_ms"] = {
+                    path: {s: device_ms(torch, lambda s=s, f=f: f(s), npts)
+                           for s in LADDER_JACOBI3D}
+                    for path, f in j3_paths.items()}
+                for path, row in extra["ladder_ms"].items():
+                    print(f"[ladder] {path} at {'x'.join(map(str, shape))}, "
+                          f"device us per call by sweeps (omega "
+                          f"{JACOBI_OMEGA}): "
+                          f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }"
+                          f"  ({card})")
             if kname == "rbgs3d_fused":
                 paths = {
                     "rbgs3d_fused": lambda s: c3.red_black_gauss_seidel_3d(
@@ -2889,6 +3127,29 @@ def main() -> int:
         per_colour_ms=t_c, per_colour_device_ms=d_c),
         f"; {2 * BOTTOM_SWEEPS} rbgs3d_color launches {t_c * 1e3:.1f} us "
         f"(device {d_c * 1e3:.1f} us)")
+
+    def jacobi_bottom():
+        return c3.jacobi_3d(u, bb, 1.0, h, omega=JACOBI_OMEGA,
+                            sweeps=BOTTOM_SWEEPS)
+
+    def sweep_bottom():
+        return c3._jacobi3d_per_sweep(u, bb, 1.0, h, JACOBI_OMEGA,
+                                      BOTTOM_SWEEPS)
+
+    t_k, t_o = median_ms(torch, jacobi_bottom), median_ms(torch, sweep_bottom,
+                                                           runs=10)
+    t_p = median_ms(torch, lambda: c3.jacobi_3d_plain(
+        u, bb, 1.0, h, JACOBI_OMEGA, BOTTOM_SWEEPS), runs=5)
+    d_k = graph_ms(torch, jacobi_bottom, reps=10, runs=5)
+    d_o = graph_ms(torch, sweep_bottom, reps=2, runs=5)
+    per = STENCIL_COST["jacobi3d"]  # per point for 2 sweeps
+    add_time("jacobi3d", f"sweeps {BOTTOM_SWEEPS}, omega {JACOBI_OMEGA} "
+             "(resident)", record(
+                 f"{'x'.join(map(str, bshape))} (the bottom)", t_k, t_p,
+                 per[0] * npts, per[1] * npts * BOTTOM_SWEEPS // 2,
+                 device_ms=d_k, point_ms=t_o, point_device_ms=d_o),
+             f"; {BOTTOM_SWEEPS} jacobi3d_sweep launches {t_o * 1e3:.1f} us "
+             f"(device {d_o * 1e3:.1f} us)")
     del u, bb
     torch.cuda.empty_cache()
     # the sharded smoother's kernel on one 8192-row slab with its 8-row
@@ -3114,16 +3375,22 @@ def main() -> int:
         print(f"[time] {tag}: median wall {med * 1e3:.2f} ms over 3 "
               f"({[round(w * 1e3, 2) for w in walls]} ms), {iters} "
               f"iterations  ({card})")
-    # the 1025^2 Jacobi solve against the per-sweep kernel swapped in, the
-    # 8193^2 solve against the point prolong-add swapped in: kernel (K) and
-    # oracle (O) in the order K O O K K O, median of 3 each, after one warm
-    # run of each; every history equal to the kernel's bit for bit
-    for tag, names, solvers, bvec, iters in [
+    # the 1025^2 and config 4 Jacobi solves against the per-sweep kernel
+    # swapped in, the 8193^2 solve against the point prolong-add swapped in,
+    # config 4's inner_cg=4 against the point apply: kernel (K) and oracle
+    # (O) in the order K O O K K O, median of 3 each, after one warm run of
+    # each; every history equal to the kernel's bit for bit
+    for tag, names, solvers, bvec, iters, skw in [
             ("1025^2 jacobi", ("fused", "per-sweep"), (jac, jac_o), b,
-             res_jac.iterations),
+             res_jac.iterations, {}),
             ("8193^2", ("stream prolong-add", "point prolong-add"),
-             (big, big_pt), big_b, big_res[0][0].iterations)]:
-        fns = {k: (lambda s=s, bvec=bvec: s.solve_refined(bvec))
+             (big, big_pt), big_b, big_res[0][0].iterations, {}),
+            ("257^3 jacobi (config 4)", ("march", "per-sweep"),
+             (jac3, jac3_o), b_c4, res_j3.iterations, {}),
+            ("257^3 inner_cg=4 (config 4)", ("apply march", "point apply"),
+             (cg3, cg3_o), b_c4, res_c3.iterations, dict(inner_cg=4))]:
+        fns = {k: (lambda s=s, bvec=bvec, skw=skw: s.solve_refined(bvec,
+                                                                   **skw))
                for k, s in zip(names, solvers)}
         want = fns[names[0]]().history
         check(np.array_equal(fns[names[1]]().history, want),

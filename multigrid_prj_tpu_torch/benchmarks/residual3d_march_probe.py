@@ -1,5 +1,5 @@
 """Depth and tile-height probe of the 3D residual's z-chunked march of
-``csrc/stencil3d.cu`` (``residual3d_march_kernel``).
+``csrc/stencil3d.cu`` (``stencil3d_march_kernel<true>``).
 
 The kernel is compiled with ``kR3Ahead`` = 4 planes in flight and tiles of
 ``kR3Y`` = 8 rows by ``kR3X`` = 64 columns.  For each variant

@@ -3,7 +3,9 @@
 //
 // Ports of the Pallas TPU kernels in
 // multigrid_prj_tpu/ops/pallas_stencil_3d.py:
-//   apply3d      <- poisson_apply_3d (_apply3d_kernel)
+//   apply3d      <- poisson_apply_3d (_apply3d_kernel): the residual's
+//                   z-chunked march without b (below); apply3d_point, one
+//                   thread per point, is the first port, on no path
 //   residual3d   <- poisson_residual_3d (_residual3d_kernel): a z-chunked
 //                   march (below); residual3d_point, one thread per point,
 //                   is the first port, on no path
@@ -13,17 +15,20 @@
 //                   small array in one launch (below)
 //   rbgs3d_color <- the same, one colour per launch: the per-colour oracle
 //                   that rbgs3d_fused is held to (no solver path)
-//   jacobi3d     <- jacobi_3d (_jacobi3d_kernel)
+//   jacobi3d     <- jacobi_3d (_jacobi3d_kernel, one pass per sweep there):
+//                   up to 4 sweeps per launch on a z-chunked march, or every
+//                   sweep of a small array in one launch (below)
+//   jacobi3d_sweep <- the same, one sweep per launch: the per-sweep oracle
+//                   that jacobi3d is held to (no solver path)
 //
-// Layout: a contiguous f32 array of shape (nz, ny, nx), one thread per point
-// on a 3D grid of blocks (x fastest), with 64-bit offsets (nz*ny*nx passes
-// 2^31 at about 1291^3).  (nzl, nyl, nxl) are the logical extents: a point
-// is boundary if any index is 0 or at/beyond its logical extent - 1, which
-// pins the padded dead zone.  Boundary points never read neighbours and
-// every array-edge point is a boundary point, so no read leaves the array.
-// Any 3D shape is accepted: the TPU kernels needed nx % 128 == 0 and
-// ny % 8 == 0 (flattened (nz*ny, nx) row blocks that divide ny), Hopper
-// needs no alignment.
+// Layout: a contiguous f32 array of shape (nz, ny, nx), with 64-bit
+// offsets (nz*ny*nx passes 2^31 at about 1291^3).  (nzl, nyl, nxl) are the
+// logical extents: a point is boundary if any index is 0 or at/beyond its
+// logical extent - 1, which pins the padded dead zone.  Boundary points
+// never read neighbours and every array-edge point is a boundary point, so
+// no read leaves the array.  Any 3D shape is accepted: the TPU kernels
+// needed nx % 128 == 0 and ny % 8 == 0 (flattened (nz*ny, nx) row blocks
+// that divide ny), Hopper needs no alignment.
 //
 // Arithmetic: every operation is an explicit round-to-nearest intrinsic
 // (__fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn), which nvcc never
@@ -34,13 +39,15 @@
 // the torch twins in ops/cuda_stencil_3d.py, so each kernel is bit-equal to
 // its twin.
 //
-// apply3d, residual3d_point, rbgs3d_color and jacobi3d are simple first
-// versions: one thread per point, neighbours read through L1/L2 (no
+// apply3d_point, residual3d_point, rbgs3d_color and jacobi3d_sweep are the
+// simple first versions, kept as oracles: one thread per point on a 3D grid
+// of 32 x 8 blocks (x fastest), neighbours read through L1/L2 (no
 // shared-memory tiling), one launch per colour half-sweep or Jacobi sweep.
 // Each streams its operands from HBM once per launch and is bound by memory
-// bandwidth (bytes per point are noted at each kernel).  The smoother's two
-// launch shapes are described above rbgs3d_zmarch_kernel, the residual's
-// march above residual3d_march_kernel.
+// bandwidth (bytes per point are noted at each kernel).  The smoothers'
+// launch shapes are described above rbgs3d_zmarch_kernel and
+// jacobi3d_march_kernel, the residual's and the apply's march above
+// stencil3d_march_kernel.
 
 #include <cuda_runtime.h>
 
@@ -79,9 +86,11 @@ __device__ __forceinline__ bool this_point(int nz, int ny, int nx, Point* pt) {
   return true;
 }
 
-// y = boundary ? u : c*(6u - nb)  (_apply3d_kernel :107).
+// y = boundary ? u : c*(6u - nb), one thread per point: the first port of
+// _apply3d_kernel (:107), kept only as the oracle of the march
+// (stencil3d_march_kernel<false> below, which replaces it on every path).
 // 8 B/point: read u, write y (neighbour reads hit L1/L2).
-__global__ void apply3d_kernel(const float* __restrict__ u,
+__global__ void apply3d_point_kernel(const float* __restrict__ u,
                                float* __restrict__ y, int nz, int ny, int nx,
                                int nzl, int nyl, int nxl, float c) {
   Point pt;
@@ -97,8 +106,8 @@ __global__ void apply3d_kernel(const float* __restrict__ u,
 
 // r = b - (boundary ? u : c*(6u - nb)), one thread per point: the first
 // port of _residual3d_kernel (:117), kept only so that chip_smoke.py can
-// hold the z-chunked march (residual3d_march_kernel below, which replaces it
-// on every path) to it and time the two in one run.  12 B/point: read u and
+// hold the z-chunked march (stencil3d_march_kernel<true> below, which
+// replaces it on every path) to it and time the two in one run.  12 B/point: read u and
 // b, write r; each plane of u is fetched three times through L2.
 __global__ void residual3d_point_kernel(const float* __restrict__ u,
                                         const float* __restrict__ b,
@@ -150,7 +159,9 @@ __global__ void rbgs3d_color_kernel(float* __restrict__ u,
 // One damped-Jacobi sweep, out of place (x -> y)  (_jacobi3d_kernel :141):
 //   boundary: b;  interior: jac = (b / c + nb) * inv6, then, if damped,
 //   (1-omega)*x + omega*jac, with (1-omega) and omega rounded to f32 on the
-//   host.  12 B/point: read x and b, write y.
+//   host.  12 B/point: read x and b, write y.  The per-sweep oracle of the
+//   fused smoother below (ops/cuda_stencil_3d._jacobi3d_per_sweep), on no
+//   solver path.
 __global__ void jacobi3d_kernel(const float* __restrict__ x,
                                 const float* __restrict__ b,
                                 float* __restrict__ y, int nz, int ny, int nx,
@@ -423,11 +434,14 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// The residual, residual3d_march_kernel: r = b - (boundary ? u : c * (6u -
-// ((((N + S) + E) + W) + Zn) + Zs)), residual3d_point_kernel's ops in its
-// order, so bit-equal to it and to the twin, on a z-chunked march.
+// The residual and the apply, stencil3d_march_kernel<kResidual>: r = b -
+// (boundary ? u : c * (6u - ((((N + S) + E) + W) + Zn) + Zs)) with
+// kResidual, y = (boundary ? u : c * (...)) without (no b is copied),
+// residual3d_point_kernel's and apply3d_point_kernel's ops in their order,
+// so bit-equal to them and to the twins, on a z-chunked march.
 //
-// Bound: memory, 12 B per point (read u and b, write r).  The one-thread-
+// Bound: memory, 12 B per point for the residual (read u and b, write r),
+// 8 B for the apply (read u, write y).  The one-thread-
 // per-point kernel fetches each plane of u three times through L2 (as z - 1,
 // z and z + 1 of its neighbours) and, at the exact-layout levels (nx = 513,
 // 257, ...), leaves the last x-block of every row nearly empty.  Here:
@@ -452,11 +466,10 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
 // * Planes 0 and >= nzl - 1, rows and columns at the array's edge are
 //   boundary points, which read no neighbour, so no copy leaves the array
 //   and the zeros of the ring are never read.
-// The march needs only u's 7-point neighbourhood: apply3d and jacobi3d
-// could take the same body.
+// The apply takes the same geometry and chunk rule as the residual.
 //
 // The geometry is mirrored by ops/cuda_stencil_3d.residual3d_tile; the C
-// entry point refuses another.
+// entry points refuse another.
 constexpr int kR3X = 64;                    // tile columns: two warps a row
 constexpr int kR3Y = 8;                     // tile rows
 constexpr int kR3Threads = kR3X * kR3Y;     // a thread per (y, x) column
@@ -478,13 +491,14 @@ int residual3d_chunk(int nz, int ny, int nx) {
   return (int)(zc < 1 ? 1 : zc > kR3MaxChunk ? kR3MaxChunk : zc);
 }
 
+template <bool kResidual>
 __global__ void __launch_bounds__(kR3Threads)
-    residual3d_march_kernel(const float* __restrict__ u,
-                            const float* __restrict__ b,
-                            float* __restrict__ r, int nz, int ny, int nx,
-                            int nzl, int nyl, int nxl, float c, int zc) {
+    stencil3d_march_kernel(const float* __restrict__ u,
+                           const float* __restrict__ b,
+                           float* __restrict__ r, int nz, int ny, int nx,
+                           int nzl, int nyl, int nxl, float c, int zc) {
   __shared__ __align__(16) float su[kR3Slots][kR3Plane];
-  __shared__ __align__(16) float sb[kR3Slots][kR3Threads];
+  __shared__ __align__(16) float sb[kResidual ? kR3Slots : 1][kR3Threads];
   const int tid = threadIdx.x;
   const int x0 = blockIdx.x * kR3X, y0 = blockIdx.y * kR3Y;
   const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
@@ -526,8 +540,10 @@ __global__ void __launch_bounds__(kR3Threads)
                     cb[k]);
         }
       }
-      cp_async4(bbase + 4u * (slot * kR3Threads + tid), b + off + go,
-                own ? 4u : 0u);
+      if constexpr (kResidual) {
+        cp_async4(bbase + 4u * (slot * kR3Threads + tid), b + off + go,
+                  own ? 4u : 0u);
+      }
     }
     cp_async_commit();
   };
@@ -555,7 +571,11 @@ __global__ void __launch_bounds__(kR3Threads)
       nb = __fadd_rn(nb, zs);                              // z + 1
       a = __fmul_rn(c, __fsub_rn(__fmul_rn(6.0f, uc), nb));
     }
-    if (own) r[(long long)z * plane + go] = __fsub_rn(sb[s][tid], a);
+    if constexpr (kResidual) {
+      if (own) r[(long long)z * plane + go] = __fsub_rn(sb[s][tid], a);
+    } else {
+      if (own) r[(long long)z * plane + go] = a;
+    }
     zn = uc;
     uc = zs;
     s = s1;
@@ -634,6 +654,325 @@ __global__ void __launch_bounds__(kResThreads)
   for (int i = threadIdx.x; i < n; i += kResThreads) out[i] = su[i];
 }
 
+// ---------------------------------------------------------------------------
+// The Jacobi smoother, jacobi3d: `sweeps` damped-Jacobi sweeps u -> out, out
+// of place (u is only read, never cloned).  Every op is jacobi3d_kernel's in
+// the same order (boundary and dead-zone points pinned to b, interior jac =
+// (b / c + ((((N + S) + E) + W) + Zn) + Zs) * inv6, then, if damped, (1 -
+// omega) * x + omega * jac), so the result is bit-equal to `sweeps`
+// per-sweep launches and to the twin.  Two launch shapes, chosen by the
+// wrapper from the array's size (ops/cuda_stencil_3d.jacobi3d_route):
+//
+// The z-chunked multi-sweep march, jacobi3d_march_kernel<S>, S = 1 .. 4
+// sweeps per launch (longer runs in groups that ping-pong two scratch
+// arrays).  Bound: memory.  A 2-sweep call must move 12 B per point (read u
+// and b, write the result); the per-sweep launches it replaces moved 24 B,
+// fetched each plane about three times through L1/L2, and divided b / c at
+// every point in every sweep.
+// * One block per kJ3W x kJ3H x-y tile (a halo of S cells on each side: one
+//   ring per sweep, core (kJ3W - 2S) x (kJ3H - 2S)) and chunk of zc output
+//   planes, which reads S planes beyond each end of the chunk (recomputed by
+//   both neighbouring chunks).  zc follows the residual's rule, clamped to
+//   kJ3MinChunk .. kJ3MaxChunk, so that 257^3 launches about 4 blocks per SM.
+// * Stage 0 is u; stage k (sweep k) runs one plane behind stage k - 1 in the
+//   same step: at step t it computes plane t - k on the cells at least k
+//   from the tile's edge, from stage k - 1's planes t - k - 1 .. t - k + 1.
+// * A thread owns the same kJ3Cells cells (y, x) of every plane and stage
+//   (a lane per column, rows ty + kJ3R j), so a cell's Zn, centre and Zs
+//   of stage k - 1 are the thread's own values: three registers per stage,
+//   shifted a plane per step.  N, S, E and W come from shared memory: the
+//   u plane from the ring of copies, an intermediate stage's plane from its
+//   two-plane ring (plane parity), which stage k + 1 reads a step after
+//   stage k wrote it: one barrier per step.  The last stage writes the core
+//   straight to `out`.
+// * b / c is divided once per cell when its plane lands (b kept at boundary
+//   cells) and carried in registers through the S stages.
+// * Loads: 4-byte cp.async with zero fill (the exact-layout levels' rows,
+//   nx = 257, 129, ..., are not 16-byte aligned), kJ3Ahead planes ahead, the
+//   copy of cell (y, x) by its owner.  Cells outside the array arrive as 0
+//   and count as boundary cells (they fail the same tests as the edge), so
+//   they are pinned to their zero b.
+// * Tiles of 64 x 24, 3 planes in flight, registers capped for 2 blocks per
+//   SM: on the H100, at 2 sweeps 64 x 24 beat 64 x 16, 32 x 32 and 128 x 16
+//   at 257^3 and 513^3 and 64 x 32 at 257^3 (64 x 32 was ~3 % faster at
+//   513^3, but spills at 4 sweeps); 2 and 4 planes in flight differ by ~1 %;
+//   the cap took 4 sweeps from 380 to 318 us at 257^3 (89 -> 64 registers)
+//   and left 1 and 2 sweeps within 2 % (benchmarks/jacobi3d_tile_probe.py).
+//
+// The grid-resident kernel, jacobi3d_resident_kernel: an array of at most
+// kResidentMaxPoints points (the 17^3 bottom of a 3D V-cycle has 4913)
+// lives in one block's shared memory, two ping-pong copies of u and b / c,
+// for all sweeps, with a barrier between sweeps: coarse_sweeps = 100 is one
+// launch instead of 100.  Bound there: the sweeps' latency, not bytes.
+//
+// The geometry is mirrored by ops/cuda_stencil_3d.jacobi3d_tile and the cap
+// by RESIDENT_MAX_POINTS; the C entry points refuse anything else.
+constexpr int kJ3W = 64;                  // tile columns: a lane per column
+constexpr int kJ3H = 24;                  // tile rows
+constexpr int kJ3Threads = 512;
+constexpr int kJ3R = kJ3Threads / kJ3W;   // thread rows
+constexpr int kJ3Cells = kJ3H / kJ3R;     // cells per thread
+constexpr int kJ3Plane = kJ3W * kJ3H;     // words per plane
+constexpr int kJ3Ahead = 3;               // planes in flight
+constexpr int kJ3RingU = kJ3Ahead + 2;    // u: planes t - 1, t, in flight
+constexpr int kJ3RingB = kJ3Ahead + 1;    // b: plane t, in flight
+constexpr int kJ3MinChunk = 4;            // planes per chunk at least
+constexpr int kJ3MaxChunk = 32;           // and at most
+constexpr int kJ3TargetBlocks = 528;      // 4 per SM of an H100's 132
+constexpr int kJ3MaxSweeps = 4;           // sweeps per launch
+constexpr int kJ3MinBlocks = 2;           // blocks per SM the registers allow
+static_assert(kJ3H % kJ3R == 0 && kJ3W % 32 == 0, "tile");
+
+template <int S>
+struct J3 {
+  static constexpr int CW = kJ3W - 2 * S;  // core columns
+  static constexpr int CH = kJ3H - 2 * S;  // core rows
+  // the u and b rings, two planes for each intermediate stage
+  static constexpr int SMEM =
+      (kJ3RingU + kJ3RingB + 2 * (S - 1)) * kJ3Plane * (int)sizeof(float);
+  static_assert(CW > 0 && CH > 0 && SMEM <= 227 * 1024, "tile");
+};
+
+// The chunk length for S sweeps on an (nz, ny, nx) array (the rule above).
+int jacobi3d_chunk(int nz, int ny, int nx, int s) {
+  const int cw = kJ3W - 2 * s, ch = kJ3H - 2 * s;
+  const long long tiles =
+      (long long)((nx + cw - 1) / cw) * ((ny + ch - 1) / ch);
+  const long long zc = (nz * tiles + kJ3TargetBlocks - 1) / kJ3TargetBlocks;
+  return (int)(zc < kJ3MinChunk ? kJ3MinChunk
+               : zc > kJ3MaxChunk ? kJ3MaxChunk : zc);
+}
+
+// S damped-Jacobi sweeps u -> out on the z-chunked march (see above).
+template <int S>
+__global__ void __launch_bounds__(kJ3Threads, kJ3MinBlocks)
+    jacobi3d_march_kernel(const float* __restrict__ u,
+                          const float* __restrict__ b,
+                          float* __restrict__ out, int nz, int ny, int nx,
+                          int nzl, int nyl, int nxl, float c, float inv6,
+                          int damped, float w1, float w, int zc) {
+  using T = J3<S>;
+  extern __shared__ __align__(16) float j3_smem[];  // u ring, b ring, stages
+  float* const sbc = j3_smem + kJ3RingU * kJ3Plane;
+  float* const sst = sbc + kJ3RingB * kJ3Plane;
+  const unsigned ubase =
+      static_cast<unsigned>(__cvta_generic_to_shared(j3_smem));
+  const unsigned bbase = static_cast<unsigned>(__cvta_generic_to_shared(sbc));
+  const int tid = threadIdx.x, tx = tid % kJ3W, ty = tid / kJ3W;
+  // tile cell (0, 0) is (y0, x0); the chunk's output planes z0 .. z1 - 1,
+  // its input planes p0 .. pe
+  const int x0 = blockIdx.x * T::CW - S, y0 = blockIdx.y * T::CH - S;
+  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
+  const int p0 = max(z0 - S, 0), pe = min(z1 - 1 + S, nz - 1);
+  const long long plane = (long long)ny * nx;
+  const int x = x0 + tx;
+  // the thread's cells: word in a plane, offset in plane 0 of the array
+  // (0 outside it), bytes to copy, distance from the tile's edge, and
+  // whether (y, x) is an interior column
+  int lw[kJ3Cells], go[kJ3Cells], dist[kJ3Cells];
+  unsigned cb[kJ3Cells];
+  unsigned yxin = 0;  // bit j: cell j's (y, x) is interior
+#pragma unroll
+  for (int j = 0; j < kJ3Cells; ++j) {
+    const int rr = ty + kJ3R * j, y = y0 + rr;
+    const bool in = x >= 0 && x < nx && y >= 0 && y < ny;
+    lw[j] = rr * kJ3W + tx;
+    go[j] = in ? y * nx + x : 0;
+    cb[j] = in ? 4u : 0u;
+    dist[j] = min(min(tx, kJ3W - 1 - tx), min(rr, kJ3H - 1 - rr));
+    yxin |= static_cast<unsigned>(y > 0 && y < nyl - 1 && x > 0 &&
+                                  x < nxl - 1) << j;
+  }
+  // one commit group per input plane, empty past pe: the group of plane p
+  // is committed kJ3Ahead steps before step p
+  auto issue = [&](int p, int slot_u, int slot_b) {
+    if (p <= pe) {
+      const long long off = (long long)p * plane;
+#pragma unroll
+      for (int j = 0; j < kJ3Cells; ++j) {
+        cp_async4(ubase + 4u * (slot_u * kJ3Plane + lw[j]), u + off + go[j],
+                  cb[j]);
+        cp_async4(bbase + 4u * (slot_b * kJ3Plane + lw[j]), b + off + go[j],
+                  cb[j]);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kJ3Ahead; ++i) issue(p0 + i, i, i);
+  // win[k][j]: stage k's values at cell j on its planes (latest - 2,
+  // latest - 1, latest); bq[k][j]: b / c (b at boundary cells) of plane
+  // t - k, read by stage k in step t
+  float win[S][kJ3Cells][3];
+  float bq[S + 1][kJ3Cells];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+#pragma unroll
+    for (int j = 0; j < kJ3Cells; ++j) {
+      win[k][j][0] = win[k][j][1] = win[k][j][2] = 0.0f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k <= S; ++k) {
+#pragma unroll
+    for (int j = 0; j < kJ3Cells; ++j) bq[k][j] = 0.0f;
+  }
+  int su = 0, sb = 0;  // ring slots of plane t
+  for (int t = p0; t <= z1 - 1 + S; ++t) {
+    cp_async_wait<kJ3Ahead - 1>();  // plane t has landed
+    __syncthreads();  // visible; step t - 1 is done with what it read
+    // plane t + kJ3Ahead into the slots of planes t - 2 (u) and t - 1 (b)
+    issue(t + kJ3Ahead, zm_slot<kJ3RingU>(su, kJ3Ahead),
+          zm_slot<kJ3RingB>(sb, kJ3Ahead));
+    // stage 0: the thread's cells of plane t, and their b / c
+    const bool tin = t <= pe, tz = t > 0 && t < nzl - 1;
+#pragma unroll
+    for (int j = 0; j < kJ3Cells; ++j) {
+      float uv = 0.0f, bv = 0.0f;
+      if (tin) {
+        uv = j3_smem[su * kJ3Plane + lw[j]];
+        bv = sbc[sb * kJ3Plane + lw[j]];
+        if (tz && ((yxin >> j) & 1u)) bv = __fdiv_rn(bv, c);
+      }
+      win[0][j][0] = win[0][j][1];
+      win[0][j][1] = win[0][j][2];
+      win[0][j][2] = uv;
+      bq[0][j] = bv;
+    }
+    // stages 1 .. S on planes t - 1 .. t - S
+#pragma unroll
+    for (int k = 1; k <= S; ++k) {
+      const int z = t - k;
+      const bool run = z >= max(z0 - S + k, 0) &&
+                       z <= min(z1 - 1 + S - k, nz - 1);
+      const bool zin = z > 0 && z < nzl - 1;
+      // stage k - 1's plane z: N, S, E and W
+      const float* src =
+          k == 1 ? j3_smem + zm_slot<kJ3RingU>(su, -1) * kJ3Plane
+                 : sst + (2 * (k - 2) + (z & 1)) * kJ3Plane;
+#pragma unroll
+      for (int j = 0; j < kJ3Cells; ++j) {
+        const bool act = run && dist[j] >= k;
+        float v = 0.0f;
+        if (act) {
+          v = bq[k][j];  // b / c inside, b on the boundary
+          if (zin && ((yxin >> j) & 1u)) {
+            const int q = lw[j];
+            float nb = __fadd_rn(src[q - kJ3W], src[q + kJ3W]);  // N + S
+            nb = __fadd_rn(nb, src[q + 1]);                      // east
+            nb = __fadd_rn(nb, src[q - 1]);                      // west
+            nb = __fadd_rn(nb, win[k - 1][j][0]);                // z - 1
+            nb = __fadd_rn(nb, win[k - 1][j][2]);                // z + 1
+            v = __fmul_rn(__fadd_rn(v, nb), inv6);
+            if (damped) {
+              v = __fadd_rn(__fmul_rn(w1, win[k - 1][j][1]),
+                            __fmul_rn(w, v));
+            }
+          }
+        }
+        if (k < S) {
+          win[k][j][0] = win[k][j][1];
+          win[k][j][1] = win[k][j][2];
+          win[k][j][2] = v;
+          if (act) sst[(2 * (k - 1) + (z & 1)) * kJ3Plane + lw[j]] = v;
+        } else if (act && cb[j]) {
+          out[(long long)z * plane + go[j]] = v;
+        }
+      }
+    }
+    // b / c of plane t - k + 1 is read by stage k in the next step
+#pragma unroll
+    for (int k = S; k >= 1; --k) {
+#pragma unroll
+      for (int j = 0; j < kJ3Cells; ++j) bq[k][j] = bq[k - 1][j];
+    }
+    su = zm_slot<kJ3RingU>(su, 1);
+    sb = zm_slot<kJ3RingB>(sb, 1);
+  }
+}
+
+// `sweeps` damped-Jacobi sweeps u -> out with the whole array in shared
+// memory (see above): two copies of u ping-ponged and b / c (b at the
+// boundary), 3 x 64 KB at the cap.  Thread tid keeps the points tid + k *
+// kResThreads; bit k of `inner` says whether point k is interior.
+constexpr int kJ3ResSites =
+    (kResidentMaxPoints + kResThreads - 1) / kResThreads;
+
+__global__ void __launch_bounds__(kResThreads)
+    jacobi3d_resident_kernel(const float* __restrict__ u,
+                             const float* __restrict__ b,
+                             float* __restrict__ out, int nz, int ny, int nx,
+                             int nzl, int nyl, int nxl, float c, float inv6,
+                             int damped, float w1, float w, int sweeps) {
+  extern __shared__ __align__(16) float jr_smem[];
+  const int n = nz * ny * nx, plane = ny * nx;
+  float* const s0 = jr_smem;
+  float* const s1 = jr_smem + n;
+  float* const sbc = jr_smem + 2 * n;
+  unsigned inner = 0;
+#pragma unroll
+  for (int k = 0; k < kJ3ResSites; ++k) {
+    const int i = threadIdx.x + k * kResThreads;
+    if (i >= n) continue;
+    const int x = i % nx, y = (i / nx) % ny, z = i / plane;
+    const bool in = z > 0 && y > 0 && x > 0 && z < nzl - 1 && y < nyl - 1 &&
+                    x < nxl - 1;
+    s0[i] = u[i];
+    sbc[i] = in ? __fdiv_rn(b[i], c) : b[i];
+    inner |= static_cast<unsigned>(in) << k;
+  }
+  __syncthreads();
+  for (int s = 0; s < sweeps; ++s) {
+    const float* src = (s & 1) ? s1 : s0;
+    float* dst = (s & 1) ? s0 : s1;
+#pragma unroll
+    for (int k = 0; k < kJ3ResSites; ++k) {
+      const int i = threadIdx.x + k * kResThreads;
+      if (i >= n) continue;
+      float v = sbc[i];  // b / c inside, b on the boundary
+      if ((inner >> k) & 1u) {
+        float nb = __fadd_rn(src[i - nx], src[i + nx]);  // N + S
+        nb = __fadd_rn(nb, src[i + 1]);                  // east
+        nb = __fadd_rn(nb, src[i - 1]);                  // west
+        nb = __fadd_rn(nb, src[i - plane]);              // z - 1
+        nb = __fadd_rn(nb, src[i + plane]);              // z + 1
+        v = __fmul_rn(__fadd_rn(v, nb), inv6);
+        if (damped) v = __fadd_rn(__fmul_rn(w1, src[i]), __fmul_rn(w, v));
+      }
+      dst[i] = v;
+    }
+    __syncthreads();
+  }
+  const float* res = (sweeps & 1) ? s1 : s0;
+  for (int i = threadIdx.x; i < n; i += kResThreads) out[i] = res[i];
+}
+
+template <int S>
+int jacobi3d_march_launch(const float* u, const float* b, float* out, int nz,
+                          int ny, int nx, int nzl, int nyl, int nxl, float c,
+                          float inv6, int damped, float w1, float w,
+                          const int* geom, cudaStream_t stream) {
+  using T = J3<S>;
+  static bool smem_set = false;
+  const int zc = jacobi3d_chunk(nz, ny, nx, S);
+  if (geom[0] != kJ3W || geom[1] != kJ3H || geom[2] != S || geom[3] != zc ||
+      geom[4] != kJ3Ahead) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi3d_march_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((nx + T::CW - 1) / T::CW, (ny + T::CH - 1) / T::CH,
+                  (nz + zc - 1) / zc);
+  jacobi3d_march_kernel<S><<<grid, kJ3Threads, T::SMEM, stream>>>(
+      u, b, out, nz, ny, nx, nzl, nyl, nxl, c, inv6, damped, w1, w, zc);
+  return (int)cudaGetLastError();
+}
+
 template <int S>
 int rbgs3d_zmarch_launch(const float* u, const float* b, float* out, int nz,
                          int ny, int nx, int nzl, int nyl, int nxl, float c,
@@ -657,6 +996,22 @@ int rbgs3d_zmarch_launch(const float* u, const float* b, float* out, int nz,
   return (int)cudaGetLastError();
 }
 
+template <bool kResidual>
+int march3d_launch(const float* u, const float* b, float* r, int nz, int ny,
+                   int nx, int nzl, int nyl, int nxl, float c,
+                   const int* geom, cudaStream_t stream) {
+  const int zc = residual3d_chunk(nz, ny, nx);
+  if (geom[0] != kR3X || geom[1] != kR3Y || geom[2] != zc ||
+      geom[3] != kR3Ahead) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((nx + kR3X - 1) / kR3X, (ny + kR3Y - 1) / kR3Y,
+                  (nz + zc - 1) / zc);
+  stencil3d_march_kernel<kResidual><<<grid, kR3Threads, 0, stream>>>(
+      u, b, r, nz, ny, nx, nzl, nyl, nxl, c, zc);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -670,10 +1025,20 @@ dim3 grid3d_for(int nz, int ny, int nx) {
 // stream, does not synchronise, and returns cudaGetLastError().
 extern "C" {
 
+// The apply on the residual's z-chunked march; geom as mg_residual3d's,
+// refused unless it is the compiled tile and the chunk rule's.
 int mg_apply3d(const float* u, float* y, int nz, int ny, int nx, int nzl,
-               int nyl, int nxl, float c, void* stream) {
-  apply3d_kernel<<<grid3d_for(nz, ny, nx), dim3(kBlockX, kBlockY), 0,
-                   (cudaStream_t)stream>>>(u, y, nz, ny, nx, nzl, nyl, nxl, c);
+               int nyl, int nxl, float c, const int* geom, void* stream) {
+  return march3d_launch<false>(u, nullptr, y, nz, ny, nx, nzl, nyl, nxl, c,
+                               geom, (cudaStream_t)stream);
+}
+
+// The one-thread-per-point apply (the march's oracle only).
+int mg_apply3d_point(const float* u, float* y, int nz, int ny, int nx,
+                     int nzl, int nyl, int nxl, float c, void* stream) {
+  apply3d_point_kernel<<<grid3d_for(nz, ny, nx), dim3(kBlockX, kBlockY), 0,
+                         (cudaStream_t)stream>>>(u, y, nz, ny, nx, nzl, nyl,
+                                                 nxl, c);
   return (int)cudaGetLastError();
 }
 
@@ -683,16 +1048,8 @@ int mg_apply3d(const float* u, float* y, int nz, int ny, int nx, int nzl,
 int mg_residual3d(const float* u, const float* b, float* r, int nz, int ny,
                   int nx, int nzl, int nyl, int nxl, float c, const int* geom,
                   void* stream) {
-  const int zc = residual3d_chunk(nz, ny, nx);
-  if (geom[0] != kR3X || geom[1] != kR3Y || geom[2] != zc ||
-      geom[3] != kR3Ahead) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const dim3 grid((nx + kR3X - 1) / kR3X, (ny + kR3Y - 1) / kR3Y,
-                  (nz + zc - 1) / zc);
-  residual3d_march_kernel<<<grid, kR3Threads, 0, (cudaStream_t)stream>>>(
-      u, b, r, nz, ny, nx, nzl, nyl, nxl, c, zc);
-  return (int)cudaGetLastError();
+  return march3d_launch<true>(u, b, r, nz, ny, nx, nzl, nyl, nxl, c, geom,
+                              (cudaStream_t)stream);
 }
 
 // The one-thread-per-point residual (chip_smoke.py's reference only).
@@ -754,14 +1111,61 @@ int mg_rbgs3d_resident(const float* u, const float* b, float* out, int nz,
   return (int)cudaGetLastError();
 }
 
-int mg_jacobi3d(const float* x, const float* b, float* y, int nz, int ny,
-                int nx, int nzl, int nyl, int nxl, float c, float inv6,
-                int damped, float one_minus_omega, float omega,
-                void* stream) {
+// One damped-Jacobi sweep per launch (the fused smoother's oracle only).
+int mg_jacobi3d_sweep(const float* x, const float* b, float* y, int nz,
+                      int ny, int nx, int nzl, int nyl, int nxl, float c,
+                      float inv6, int damped, float one_minus_omega,
+                      float omega, void* stream) {
   jacobi3d_kernel<<<grid3d_for(nz, ny, nx), dim3(kBlockX, kBlockY), 0,
                     (cudaStream_t)stream>>>(x, b, y, nz, ny, nx, nzl, nyl,
                                             nxl, c, inv6, damped,
                                             one_minus_omega, omega);
+  return (int)cudaGetLastError();
+}
+
+// `sweeps` (1 .. 4) damped-Jacobi sweeps x -> y on the z-chunked march;
+// geom = (tile columns, tile rows, halo, planes per chunk, planes in
+// flight) as the caller computed them, refused unless they are the compiled
+// ones, the halo is `sweeps` and the chunk is the rule's for this shape.
+int mg_jacobi3d(const float* x, const float* b, float* y, int nz, int ny,
+                int nx, int nzl, int nyl, int nxl, float c, float inv6,
+                int damped, float one_minus_omega, float omega, int sweeps,
+                const int* geom, void* stream) {
+  static const decltype(&jacobi3d_march_launch<1>) kLaunch[] = {
+      jacobi3d_march_launch<1>, jacobi3d_march_launch<2>,
+      jacobi3d_march_launch<3>, jacobi3d_march_launch<4>};
+  static_assert(kJ3MaxSweeps == 4, "one launcher per sweep count");
+  if (sweeps < 1 || sweeps > kJ3MaxSweeps) return (int)cudaErrorInvalidValue;
+  return kLaunch[sweeps - 1](x, b, y, nz, ny, nx, nzl, nyl, nxl, c, inv6,
+                             damped, one_minus_omega, omega, geom,
+                             (cudaStream_t)stream);
+}
+
+// `sweeps` (>= 1) damped-Jacobi sweeps x -> y with the whole array in one
+// block's shared memory; refused above kResidentMaxPoints points, or when
+// the caller's cap (max_points) is not that constant.
+int mg_jacobi3d_resident(const float* x, const float* b, float* y, int nz,
+                         int ny, int nx, int nzl, int nyl, int nxl, float c,
+                         float inv6, int damped, float one_minus_omega,
+                         float omega, int sweeps, int max_points,
+                         void* stream) {
+  static bool smem_set = false;
+  const long long n = (long long)nz * ny * nx;
+  if (max_points != kResidentMaxPoints || n > kResidentMaxPoints ||
+      sweeps < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi3d_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        3 * kResidentMaxPoints * (int)sizeof(float));
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  jacobi3d_resident_kernel<<<1, kResThreads, 3 * (int)n * (int)sizeof(float),
+                             (cudaStream_t)stream>>>(
+      x, b, y, nz, ny, nx, nzl, nyl, nxl, c, inv6, damped, one_minus_omega,
+      omega, sweeps);
   return (int)cudaGetLastError();
 }
 

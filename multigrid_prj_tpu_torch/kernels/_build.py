@@ -48,7 +48,8 @@ _SIGNATURES = {
     "mg_restrict_fw": [_vp, _vp, _i, _i, _i, _i, _vp],
     "mg_prolong_add": [_vp, _vp, _vp, _i, _i, _ip, _vp],
     "mg_prolong_add_point": [_vp, _vp, _vp, _i, _i, _vp],
-    "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
+    "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
+    "mg_apply3d_point": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
     "mg_residual3d_point": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
@@ -57,7 +58,11 @@ _SIGNATURES = {
     "mg_rbgs3d_resident": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f,
                            _i, _i, _vp],
     "mg_jacobi3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _f, _f,
-                    _vp],
+                    _i, _ip, _vp],
+    "mg_jacobi3d_resident": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f,
+                             _i, _f, _f, _i, _i, _vp],
+    "mg_jacobi3d_sweep": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i,
+                          _f, _f, _vp],
     "mg_ell_spmv": [_vp, _vp, _vp, _vp, _i, _i, _vp],
     "mg_ell_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                            _vp],

@@ -64,9 +64,9 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_residual": 0, "apply": 0,
             "jacobi": 0, "jacobi_sweep": 0, "restrict_fw": 0,
             "prolong_add": 0, "prolong_add_point": 0,
-            "apply3d": 0, "residual3d": 0, "residual3d_point": 0,
-            "rbgs3d_fused": 0,
-            "rbgs3d_color": 0, "jacobi3d": 0,
+            "apply3d": 0, "apply3d_point": 0, "residual3d": 0,
+            "residual3d_point": 0, "rbgs3d_fused": 0,
+            "rbgs3d_color": 0, "jacobi3d": 0, "jacobi3d_sweep": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "rbgs_resfilter_tile48": 0,
             "apply_chain": 0, "apply_chain_tile48": 0,

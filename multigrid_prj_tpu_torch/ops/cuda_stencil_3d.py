@@ -6,12 +6,14 @@ Counterpart of ``multigrid_prj_tpu/ops/pallas_stencil_3d.py`` (sources in
 =============================  ========================  ===============
 function                       replaces                  bytes per point
 =============================  ========================  ===============
-``poisson_apply_3d``           ``_apply3d_kernel``       8
+``poisson_apply_3d``           ``_apply3d_kernel``       8 (the residual's
+                                                         march)
 ``poisson_residual_3d``        ``_residual3d_kernel``    12 (a z-chunked
                                                          march)
 ``red_black_gauss_seidel_3d``  ``_rbgs3d_color_kernel``  12 per group of
                                                          <= 4 sweeps
-``jacobi_3d``                  ``_jacobi3d_kernel``      12 per sweep
+``jacobi_3d``                  ``_jacobi3d_kernel``      12 per group of
+                                                         <= 4 sweeps
 =============================  ========================  ===============
 
 Arrays are ``(nz, ny, nx)``; ``logical_shape`` gives the live extents of a
@@ -21,13 +23,17 @@ Zs`` left to right, ``b / c`` as a true division); a CUDA tensor launches
 the kernel or raises.  There is no fallback.  The JAX wrappers take the
 kernels only for aligned f32 shapes; the kernels here take every 3D f32
 shape, so on the card they also run the exact-layout levels, where JAX runs
-XLA ops.  The smoother (``rbgs3d_fused``) takes one of two launch shapes
-by the array's size alone: a z-marching tile (:func:`rbgs3d_tile`), one
+XLA ops.  The smoothers (``rbgs3d_fused``, ``jacobi3d``) take one of two
+launch shapes by the array's size alone: a z-marching tile
+(:func:`rbgs3d_tile`) or a z-chunked march (:func:`jacobi3d_tile`), one
 launch per group of <= 4 sweeps, or, for arrays of at most
 ``RESIDENT_MAX_POINTS`` points (the 17^3 bottom of a V-cycle), every sweep
-in one launch with the array resident in shared memory.  SOR (``omega !=
-1``) runs the XLA-order plain smoother and launches nothing, as the JAX
-wrapper does.  Each launch adds one to its ``cuda_stencil.LAUNCHES`` entry.
+in one launch with the array resident in shared memory.  The residual and
+the apply run one z-chunked march (:func:`residual3d_tile`).  SOR
+(``omega != 1``) of the red-black smoother runs the XLA-order plain
+smoother and launches nothing, as the JAX wrapper does.  Each launch adds
+one to its ``cuda_stencil.LAUNCHES`` entry; the kernels the redesigns
+replaced stay on no path as oracles (``*_point``, ``_*_per_*``).
 ``ops/cuda_stencil.py`` sends 3D tensors here.
 """
 
@@ -61,14 +67,25 @@ _RB3_AHEAD = 3
 # block's shared memory (csrc/stencil3d.cu kResidentMaxPoints), every sweep
 # in one launch; the C entry point refuses another cap or a larger array
 RESIDENT_MAX_POINTS = 16384
-# the residual's z-chunked march (csrc/stencil3d.cu kR3*): x-y tiles of 64
-# columns by 8 rows, a thread per (y, x) column walking a chunk of at most
-# 32 planes, 4 planes in flight; the chunk is chosen so that every level
-# launches about 528 blocks (4 per SM of an H100) where it has the planes
+# the residual's and the apply's z-chunked march (csrc/stencil3d.cu kR3*):
+# x-y tiles of 64 columns by 8 rows, a thread per (y, x) column walking a
+# chunk of at most 32 planes, 4 planes in flight; the chunk is chosen so
+# that every level launches about 528 blocks (4 per SM of an H100) where it
+# has the planes
 _R3_TILE = (64, 8)
 _R3_AHEAD = 4
 _R3_MAX_CHUNK = 32
 _R3_TARGET_BLOCKS = 528
+# the Jacobi smoother's z-chunked march (csrc/stencil3d.cu kJ3*): x-y tiles
+# of 64 columns by 24 rows with a halo of one cell per sweep, a chunk of 4
+# .. 32 output planes (the residual's rule), 3 planes in flight, up to 4
+# sweeps per launch
+_J3_TILE = (64, 24)
+_J3_AHEAD = 3
+_J3_MIN_CHUNK = 4
+_J3_MAX_CHUNK = 32
+_J3_TARGET_BLOCKS = 528
+_MAX_FUSED_JACOBI3D = 4
 
 
 def rbgs3d_tile(passes: int):
@@ -93,7 +110,7 @@ def rbgs3d_tile(passes: int):
 
 def residual3d_tile(shape):
     """Geometry of the residual's z-chunked march of ``csrc/stencil3d.cu``
-    (``residual3d_march_kernel``) for an ``(nz, ny, nx)`` array: ``(tile
+    (``stencil3d_march_kernel``) for an ``(nz, ny, nx)`` array: ``(tile
     columns, tile rows, planes per chunk, planes in flight)``.  A block
     walks one x-y tile through one chunk of planes; the chunk is
     ``ceil(nz * tiles / 528)`` clamped to 1 .. 32, so that small levels
@@ -104,6 +121,36 @@ def residual3d_tile(shape):
     tiles = -(-nx // tx) * -(-ny // ty)
     zc = min(max(-(-nz * tiles // _R3_TARGET_BLOCKS), 1), _R3_MAX_CHUNK)
     return tx, ty, zc, _R3_AHEAD
+
+
+def jacobi3d_tile(shape, sweeps: int):
+    """Geometry of the Jacobi smoother's z-chunked march of
+    ``csrc/stencil3d.cu`` (``jacobi3d_march_kernel<S>``) for ``sweeps``
+    sweeps per launch on an ``(nz, ny, nx)`` array: ``(tile columns, tile
+    rows, halo, planes per chunk, planes in flight)``.  The tile carries a
+    halo of one cell per sweep, so its core is ``columns - 2 * sweeps`` by
+    ``rows - 2 * sweeps``; a block walks one tile through its chunk of
+    output planes and reads ``sweeps`` planes beyond each end.  The chunk is
+    ``ceil(nz * tiles / 528)`` clamped to 4 .. 32.  The C entry point
+    refuses any other geometry."""
+    if not 0 < sweeps <= _MAX_FUSED_JACOBI3D:
+        raise ValueError(f"the Jacobi march takes 1 .. {_MAX_FUSED_JACOBI3D} "
+                         f"sweeps, got {sweeps}")
+    nz, ny, nx = (int(s) for s in shape)
+    tx, ty = _J3_TILE
+    tiles = -(-nx // (tx - 2 * sweeps)) * -(-ny // (ty - 2 * sweeps))
+    zc = min(max(-(-nz * tiles // _J3_TARGET_BLOCKS), _J3_MIN_CHUNK),
+             _J3_MAX_CHUNK)
+    return tx, ty, sweeps, zc, _J3_AHEAD
+
+
+def jacobi3d_route(shape) -> str:
+    """The Jacobi smoother's launch shape for an array of ``shape``:
+    ``"resident"`` (the whole array in one block's shared memory, every
+    sweep in one launch) up to ``RESIDENT_MAX_POINTS`` points, else
+    ``"march"`` (the z-chunked march, one launch per group of <= 4
+    sweeps)."""
+    return "resident" if _fits_resident(shape) else "march"
 
 
 def _geometry3d(passes):
@@ -117,8 +164,12 @@ def rbgs3d_route(shape) -> str:
     (the whole array in one block's shared memory, every sweep in one
     launch) up to ``RESIDENT_MAX_POINTS`` points, else ``"zmarch"`` (the
     z-marching tile, one launch per group of <= 4 sweeps)."""
-    npts = int(shape[0]) * int(shape[1]) * int(shape[2])
-    return "resident" if npts <= RESIDENT_MAX_POINTS else "zmarch"
+    return "resident" if _fits_resident(shape) else "zmarch"
+
+
+def _fits_resident(shape) -> bool:
+    return int(shape[0]) * int(shape[1]) * int(shape[2]) \
+        <= RESIDENT_MAX_POINTS
 
 
 def _logical3d(shape, logical_shape):
@@ -190,14 +241,30 @@ def poisson_apply_3d_plain(u, alpha, h, logical_shape=None):
 
 
 def poisson_apply_3d(u, alpha, h, logical_shape=None):
-    """Fused 7-point ``y = A u`` (identity at Dirichlet rows)."""
+    """Fused 7-point ``y = A u`` (identity at Dirichlet rows): one launch of
+    the residual's z-chunked march without ``b`` (:func:`residual3d_tile`)."""
     if u.device.type == "cpu":
         return poisson_apply_3d_plain(u, alpha, h, logical_shape)
+    return _apply3d_launch(u, alpha, h, logical_shape, "apply3d")
+
+
+def _apply3d_launch(u, alpha, h, logical_shape, kernel):
+    """One launch of ``kernel``: ``apply3d`` (the z-chunked march) or
+    ``apply3d_point`` (the one-thread-per-point kernel it replaced, on no
+    path: the card's checks hold the march to it and ``chip_smoke.py``
+    times the two)."""
+    import ctypes
+
     _check_cuda3d("poisson_apply_3d", u)
+    if u.device.type != "cuda":
+        raise ValueError(f"{kernel} launches CUDA kernels only")
     y = torch.empty_like(u)
-    _raise_on(_lib().mg_apply3d(_ptr(u), _ptr(y), *_dims(u, logical_shape),
-                                alpha / (h * h), _stream()), "apply3d")
-    LAUNCHES["apply3d"] += 1
+    geom = ([(ctypes.c_int * 4)(*residual3d_tile(u.shape))]
+            if kernel == "apply3d" else [])
+    _raise_on(getattr(_lib(), f"mg_{kernel}")(
+        _ptr(u), _ptr(y), *_dims(u, logical_shape), alpha / (h * h), *geom,
+        _stream()), kernel)
+    LAUNCHES[kernel] += 1
     return y
 
 
@@ -335,23 +402,56 @@ def jacobi_3d_plain(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
 
 def jacobi_3d(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
               logical_shape=None):
-    """``sweeps`` damped-Jacobi sweeps: one out-of-place launch per sweep,
-    ping-ponging two scratch buffers (``u`` is only read)."""
+    """``sweeps`` damped-Jacobi sweeps, out of place (``u`` is only read;
+    ``sweeps == 0`` returns a copy), on the launch shape
+    :func:`jacobi3d_route` picks: every sweep in one launch with the array
+    resident in shared memory, or one launch of the z-chunked march per
+    group of at most 4 sweeps (:func:`jacobi3d_tile`), the groups
+    ping-ponging two scratch tensors."""
     if u.device.type == "cpu":
         return jacobi_3d_plain(u, b, alpha, h, omega, sweeps, logical_shape)
     _check_cuda3d("jacobi_3d", u, b)
-    if sweeps < 1:
-        return u.clone()
-    dims = _dims(u, logical_shape)
-    c = alpha / (h * h)
+    args = (*_dims(u, logical_shape), alpha / (h * h), _INV6,
+            int(omega != 1.0), 1.0 - omega, omega)
+    if jacobi3d_route(u.shape) == "resident":
+        fn = _lib().mg_jacobi3d_resident
+
+        def launch(x, y, s):
+            _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *args, s,
+                         RESIDENT_MAX_POINTS, _stream()), "jacobi3d")
+            LAUNCHES["jacobi3d"] += 1
+
+        return _pingpong(u, [sweeps] if sweeps > 0 else [], launch)
+    import ctypes
+
     fn = _lib().mg_jacobi3d
-    bufs = [torch.empty_like(u) for _ in range(min(sweeps, 2))]
-    x = u
-    for s in range(sweeps):
-        y = bufs[s % 2]
-        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *dims, c, _INV6,
-                     int(omega != 1.0), 1.0 - omega, omega, _stream()),
+
+    def launch(x, y, s):
+        geom = (ctypes.c_int * 5)(*jacobi3d_tile(u.shape, s))
+        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *args, s, geom, _stream()),
                   "jacobi3d")
         LAUNCHES["jacobi3d"] += 1
-        x = y
-    return x
+
+    return _pingpong(u, _groups(sweeps, _MAX_FUSED_JACOBI3D), launch)
+
+
+def _jacobi3d_per_sweep(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
+                        logical_shape=None):
+    """The per-sweep oracle of the fused 3D Jacobi smoother on CUDA float32
+    tensors: one out-of-place launch of ``jacobi3d_kernel`` per sweep,
+    ping-ponging two scratch tensors (the path before the march).  On no
+    solver path: the card's checks hold ``jacobi3d`` to it, and
+    ``chip_smoke.py`` times it as the path the march replaced."""
+    _check_cuda3d("_jacobi3d_per_sweep", u, b)
+    if u.device.type != "cuda":
+        raise ValueError("_jacobi3d_per_sweep launches CUDA kernels only")
+    args = (*_dims(u, logical_shape), alpha / (h * h), _INV6,
+            int(omega != 1.0), 1.0 - omega, omega)
+    fn = _lib().mg_jacobi3d_sweep
+
+    def launch(x, y, _s):
+        _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *args, _stream()),
+                  "jacobi3d_sweep")
+        LAUNCHES["jacobi3d_sweep"] += 1
+
+    return _pingpong(u, [1] * sweeps, launch)

@@ -243,11 +243,14 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
     cs.jacobi(u, b, ALPHA, h, omega=0.8, sweeps=3)
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
-    # the residual's one-thread-per-point reference counts under its own key
+    # the oracles of the redesigned kernels count under their own keys
     c3._residual3d_launch(u, b, ALPHA, h, None, "residual3d_point")
+    c3._apply3d_launch(u, ALPHA, h, None, "apply3d_point")
+    c3._jacobi3d_per_sweep(u, b, ALPHA, h, 0.8, 3)
+    # 3 Jacobi sweeps are one launch of the march, 3 of the per-sweep oracle
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "apply3d": 1, "residual3d": 1, "rbgs3d_fused": 1, "jacobi3d": 3,
-        "residual3d_point": 1}
+        "apply3d": 1, "residual3d": 1, "rbgs3d_fused": 1, "jacobi3d": 1,
+        "residual3d_point": 1, "apply3d_point": 1, "jacobi3d_sweep": 3}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -959,6 +962,172 @@ def test_cuda_3d_solve_equals_residual_point_path(cuda_device):
     assert march.converged and march.iterations == point.iterations
     assert cm["residual3d"] == 2 * march.iterations == cp["residual3d_point"]
     assert cm["residual3d_point"] == 0 and cp["residual3d"] == 0
+    np.testing.assert_array_equal(march.history, point.history)
+    assert torch.equal(march.u, point.u)
+
+
+# the 3D Jacobi march's and apply march's shapes: every level of config 4
+# and of 513^3, padded levels, a non-cubic shape, and shapes whose x-y
+# extents are no multiple of either tile or whose nz no multiple of the chunk
+JACOBI3D_SHAPES = CUDA_SHAPES_3D + [((19, 53, 101), None),
+                                   ((71, 45, 77), None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", JACOBI3D_SHAPES)
+def test_cuda_jacobi3d_equals_twin_and_per_sweep(cuda_device, shape,
+                                                 logical):
+    """The fused 3D Jacobi at sweeps 0-9 and 100, omega 1 and 0.8, on the
+    route its size picks (the march: one launch per group of <= 4 sweeps;
+    resident: one launch), bit-equal to its twin and to the per-sweep
+    oracle; ``u`` is never written."""
+    u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
+    u0 = u.clone()
+    resident = c3.jacobi3d_route(shape) == "resident"
+    for sweeps in list(range(10)) + [100]:
+        for omega in (1.0, 0.8):
+            cs.reset_launch_counts()
+            got = c3.jacobi_3d(u, b, ALPHA, h, omega=omega, sweeps=sweeps,
+                               logical_shape=logical)
+            torch.cuda.synchronize()
+            n = min(sweeps, 1) if resident else -(-sweeps // 4)
+            assert cs.LAUNCHES["jacobi3d"] == n, (sweeps, omega)
+            assert sum(cs.LAUNCHES.values()) == n, (sweeps, omega)
+            want = c3.jacobi_3d_plain(u, b, ALPHA, h, omega, sweeps,
+                                      logical)
+            assert torch.equal(got, want), (sweeps, omega)
+            oracle = c3._jacobi3d_per_sweep(u, b, ALPHA, h, omega, sweeps,
+                                            logical)
+            assert cs.LAUNCHES["jacobi3d_sweep"] == sweeps
+            assert torch.equal(got, oracle), (sweeps, omega)
+            assert torch.equal(u, u0), (sweeps, omega)
+            del got, want, oracle
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", JACOBI3D_SHAPES)
+def test_cuda_apply3d_equals_twin_and_point_kernel(cuda_device, shape,
+                                                   logical):
+    """The apply on the residual's march bit-equal to its twin and to the
+    one-thread-per-point kernel it replaced, one launch each."""
+    u, _, _, h = _cuda_inputs(shape, logical, cuda_device)
+    cs.reset_launch_counts()
+    got = c3.poisson_apply_3d(u, ALPHA, h, logical)
+    old = c3._apply3d_launch(u, ALPHA, h, logical, "apply3d_point")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "apply3d": 1, "apply3d_point": 1}
+    assert torch.equal(got, c3.poisson_apply_3d_plain(u, ALPHA, h, logical))
+    assert torch.equal(got, old)
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi3d_and_apply3d_refusals(cuda_device):
+    """The C entry points refuse, before any launch: a march geometry other
+    than the compiled tile, the sweeps' halo and the chunk rule's; a march
+    of more than 4 sweeps or none; a resident array above the cap, a cap
+    other than the compiled one, no sweeps; an apply geometry other than
+    the residual's."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    u, b, _, h = _cuda_inputs((65, 65, 65), None, cuda_device)
+    y = torch.empty_like(u)
+    args = (65, 65, 65, 65, 65, 65, 4096.0, 1.0 / 6.0, 1, 0.2, 0.8)
+
+    def geom(*g):
+        return (ctypes.c_int * len(g))(*g)
+
+    tx, ty, halo, zc, ahead = c3.jacobi3d_tile(u.shape, 2)
+    assert lib.mg_jacobi3d(p(u), p(b), p(y), *args, 2,
+                           geom(tx, ty, halo, zc, ahead), stream) == 0
+    for sweeps, g in ((2, (tx, ty, halo, zc + 1, ahead)),
+                      (2, (tx, ty, 3, zc, ahead)),
+                      (2, (32, ty, halo, zc, ahead)),
+                      (2, (tx, 16, halo, zc, ahead)),
+                      (2, (tx, ty, halo, zc, ahead + 1)),
+                      (3, (tx, ty, halo, zc, ahead)),
+                      (0, (tx, ty, 0, zc, ahead)),
+                      (5, (tx, ty, 5, zc, ahead))):
+        assert lib.mg_jacobi3d(p(u), p(b), p(y), *args, sweeps, geom(*g),
+                               stream) != 0, (sweeps, g)
+    with pytest.raises(ValueError, match="1 .. 4 sweeps"):
+        c3.jacobi3d_tile(u.shape, 5)
+    cap = c3.RESIDENT_MAX_POINTS
+    small = torch.zeros((17, 17, 17), device=cuda_device)
+    out = torch.empty_like(small)
+    sargs = (17, 17, 17, 17, 17, 17, 256.0, 1.0 / 6.0, 1, 0.2, 0.8)
+    assert lib.mg_jacobi3d_resident(p(small), p(small), p(out), *sargs, 100,
+                                    cap, stream) == 0
+    assert lib.mg_jacobi3d_resident(p(small), p(small), p(out), *sargs, 1,
+                                    cap + 1, stream) != 0
+    assert lib.mg_jacobi3d_resident(p(small), p(small), p(out), *sargs, 0,
+                                    cap, stream) != 0
+    assert lib.mg_jacobi3d_resident(p(u), p(b), p(y), *args, 1, cap,
+                                    stream) != 0  # 274625 points
+    g = c3.residual3d_tile(u.shape)
+    adims = (65, 65, 65, 65, 65, 65, 4096.0)
+    assert lib.mg_apply3d(p(u), p(y), *adims, geom(*g), stream) == 0
+    for bad in ((g[0], g[1], g[2] + 1, g[3]), (16, g[1], g[2], g[3]),
+                (g[0], 16, g[2], g[3]), (g[0], g[1], g[2], g[3] + 1)):
+        assert lib.mg_apply3d(p(u), p(y), *adims, geom(*bad), stream) != 0
+    with pytest.raises(ValueError, match="CUDA kernels only"):
+        c3._jacobi3d_per_sweep(u.cpu(), b.cpu(), ALPHA, h)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_3d_solves_equal_with_jacobi_and_apply_oracles(cuda_device):
+    """33^3 with 2 levels (the 17^3 bottom above the dense inverse's cap, so
+    the smoother's 100 sweeps on the resident route): the Jacobi omega 0.8
+    solve launches 3 ``jacobi3d`` per iteration and equals the same solve
+    with the per-sweep kernel swapped in (2 + 2 + 100 launches per
+    iteration) bit for bit; the inner_cg=2 solve equals the one with the
+    point apply swapped in."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+
+    kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=2,
+              cycle="v", nu=2, tol=1e-8, maxit=40)
+    jkw = dict(kw, smoother="jacobi", omega=0.8)
+    runs = {}
+    for path in ("march", "per-sweep"):
+        s = GMGSolver(device="cuda", **jkw)
+        assert s._coarse_inv is None
+        if path == "per-sweep":
+            s.smoother = (lambda u, b, alpha, h, sweeps=1, logical_shape=None:
+                          c3._jacobi3d_per_sweep(u, b, alpha, h, 0.8, sweeps,
+                                                 logical_shape))
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+    (fused, cf), (sweep, cw) = runs["march"], runs["per-sweep"]
+    assert fused.converged and fused.iterations == sweep.iterations
+    assert cf["jacobi3d"] == 3 * fused.iterations and cf["jacobi3d_sweep"] == 0
+    assert cw["jacobi3d_sweep"] == 104 * sweep.iterations
+    assert cw["jacobi3d"] == 0
+    np.testing.assert_array_equal(fused.history, sweep.history)
+    assert torch.equal(fused.u, sweep.u)
+    runs = {}
+    for path in ("march", "point"):
+        s = GMGSolver(device="cuda", **kw)
+        if path == "point":
+            s._apply_fn = (lambda u, alpha, h, logical_shape=None:
+                           c3._apply3d_launch(u, alpha, h, logical_shape,
+                                              "apply3d_point"))
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b, inner_cg=2)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+    (march, cm), (point, cp) = runs["march"], runs["point"]
+    assert march.converged and march.iterations == point.iterations
+    assert cm["apply3d"] > 0 and cm["apply3d_point"] == 0
+    assert cp["apply3d_point"] == cm["apply3d"] and cp["apply3d"] == 0
     np.testing.assert_array_equal(march.history, point.history)
     assert torch.equal(march.u, point.u)
 

@@ -1,6 +1,7 @@
-"""The z-chunked march of the 3D residual kernel of ``csrc/stencil3d.cu``
-(``residual3d_march_kernel``), emulated in plain torch on the CPU and held
-to the kernel's twin ``poisson_residual_3d_plain`` bit for bit.
+"""The z-chunked march of the 3D residual and apply kernels of
+``csrc/stencil3d.cu`` (``stencil3d_march_kernel<kResidual>``), emulated in
+plain torch on the CPU and held to the kernels' twins
+``poisson_residual_3d_plain`` and ``poisson_apply_3d_plain`` bit for bit.
 
 The emulation reads its geometry from ``ops/cuda_stencil_3d.
 residual3d_tile``, the values the CUDA wrapper hands the kernel: every
@@ -12,8 +13,9 @@ z - 1 carried from the step before, its u at z + 1 from the copy of the
 next plane (0 past the array).  Equal to the twin on odd, padded and
 non-cubic shapes, with chunks that divide nz and chunks that do not, it
 shows that the planes a chunk reads beyond its own are the ones it needs;
-with those two planes dropped it differs.  The card holds the kernel to the
-same twin and to the one-thread-per-point kernel it replaced in
+with those two planes dropped it differs.  The apply runs the same march
+without b (the same geometry and chunk rule).  The card holds each kernel
+to the same twin and to the one-thread-per-point kernel it replaced in
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
 
@@ -52,7 +54,7 @@ def emulate_march(u, b, alpha, h, logical=None, chunk=None,
                   drop_outer=False):
     """One launch of the march: every x-y tile at once, chunk after chunk
     (``chunk`` overrides the wrapper's; ``drop_outer`` reads 0 for the
-    planes just outside each chunk)."""
+    planes just outside each chunk); ``b`` None is the apply."""
     nz, ny, nx = u.shape
     nzl, nyl, nxl = logical or u.shape
     tx, ty, zc, _ahead = c3.residual3d_tile(u.shape)
@@ -89,7 +91,7 @@ def emulate_march(u, b, alpha, h, logical=None, chunk=None,
                   + p[:, :, 1:-1, 2:] + p[:, :, 1:-1, :-2] + zn + zs)
             inside = yx_in & (0 < z < nzl - 1)
             a = torch.where(inside, c * (6.0 * uc - nb), uc)
-            rt = tiles(b[z]) - a
+            rt = a if b is None else tiles(b[z]) - a
             r[z] = rt.permute(0, 2, 1, 3).reshape(nty * ty,
                                                   ntx * tx)[:ny, :nx]
             zn, uc = uc, zs
@@ -117,6 +119,26 @@ def test_dropping_the_outer_planes_fails(shape, logical, chunk):
     assert zc < shape[0]  # more than one chunk
     got = emulate_march(u, b, ALPHA, h, logical, chunk, drop_outer=True)
     want = c3.poisson_residual_3d_plain(u, b, ALPHA, h, logical)
+    assert not torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,logical,chunk", CASES)
+def test_apply_march_equals_twin(shape, logical, chunk):
+    """The apply on the same march (no b) equals its twin bit for bit."""
+    u, _, h = _inputs(shape, logical, seed=sum(shape) + 1)
+    got = emulate_march(u, None, ALPHA, h, logical, chunk)
+    want = c3.poisson_apply_3d_plain(u, ALPHA, h, logical)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,logical,chunk",
+                         [CASES[1], CASES[2], CASES[4]])
+def test_apply_dropping_the_outer_planes_fails(shape, logical, chunk):
+    """The apply with the planes just outside each chunk read as 0 differs
+    from its twin: the apply's tests have teeth too."""
+    u, _, h = _inputs(shape, logical, seed=8)
+    got = emulate_march(u, None, ALPHA, h, logical, chunk, drop_outer=True)
+    want = c3.poisson_apply_3d_plain(u, ALPHA, h, logical)
     assert not torch.equal(got, want)
 
 
@@ -157,14 +179,20 @@ def test_geometry_and_the_c_source_agree():
 
 
 def test_cpu_wrapper_runs_the_twin_and_launches_nothing():
-    """On the CPU the residual runs its twin: no kernel is counted."""
+    """On the CPU the residual and the apply run their twins: no kernel is
+    counted; the point kernels launch on CUDA tensors only."""
     shape, logical, _ = CASES[1]
     u, b, h = _inputs(shape, logical, seed=3)
     cs.reset_launch_counts()
     got = cs.poisson_residual(u, b, ALPHA, h, logical)
+    applied = cs.poisson_apply(u, ALPHA, h, logical)
     assert all(v == 0 for v in cs.LAUNCHES.values())
     assert torch.equal(got, c3.poisson_residual_3d_plain(u, b, ALPHA, h,
                                                          logical))
+    assert torch.equal(applied, c3.poisson_apply_3d_plain(u, ALPHA, h,
+                                                          logical))
+    with pytest.raises(ValueError, match="CUDA"):
+        c3._apply3d_launch(u, ALPHA, h, logical, "apply3d_point")
 
 
 def test_march_probe_needs_the_card(monkeypatch, capsys):

@@ -98,6 +98,28 @@ def test_twins_match_pallas_3d(logical, omega):
 
 
 @pytest.mark.parametrize("logical", [None, LOGICAL])
+@pytest.mark.parametrize("omega", [1.0, 0.8])
+@pytest.mark.parametrize("sweeps", [1, 2, 5])
+def test_jacobi_sweep_counts_match_pallas_3d(logical, omega, sweeps):
+    """The Jacobi twin at 1, 2 and 5 sweeps (the fused march's groups: one
+    launch of 1 or 2, and 4 + 1) against JAX's ``jacobi_3d``, one Pallas
+    pass per sweep in interpret mode, beside the 3 sweeps above: within the
+    smoothers' 2 ulp of the largest value; boundary and dead zone pinned to
+    b exactly."""
+    u, b, h = _inputs(ALIGNED, logical, seed=sweeps)
+    with pltpu.force_tpu_interpret_mode():
+        want = p3.jacobi_3d(jnp.asarray(u), jnp.asarray(b), ALPHA, h,
+                            omega=omega, sweeps=sweeps,
+                            logical_shape=logical)
+    got = c3.jacobi_3d(torch.from_numpy(u), torch.from_numpy(b), ALPHA, h,
+                       omega=omega, sweeps=sweeps,
+                       logical_shape=logical).numpy()
+    _close(got, want, BOUNDS["jacobi"])
+    bnd = boundary_mask(ALIGNED, logical).numpy()
+    np.testing.assert_array_equal(got[bnd], b[bnd])
+
+
+@pytest.mark.parametrize("logical", [None, LOGICAL])
 @pytest.mark.parametrize("sweeps", [2, 5])
 def test_rbgs_sweep_counts_match_pallas_3d(logical, sweeps):
     """The smoother's twin at 2 sweeps (one z-marching launch on the card)

@@ -56,6 +56,13 @@ paths' shapes.  Imports nothing of JAX.  The paths:
   ``measure_sharded_on_one``); 4 gloo ranks on the card at 2048^2 on the
   ("x",) and ("dcn", "x") layouts against one rank; 2 gloo ranks at 256^2
   against the same ranks on the CPU (the twin);
+* the sharded AMG path (``parallel/sharded_amg.py``): config 3's system
+  and hierarchy through ``ShardedAMGSolver`` on one NCCL rank (the 5
+  upper levels sharded, every local apply on the ELL SpMV kernel, the
+  280-row bottom an LU solve) to 1e-5 against ``AMGSolver.solve``, its
+  kernel on each sharded block and on the 4-rank blocks of level 0; 256^2
+  on the card against the CPU twin; 4 gloo ranks sharing the card on the
+  parent's hierarchy, bit-equal to the one rank;
 * the design probes of ``benchmarks/`` (``csrc/ablation.cu``): the port's
   ``stencil_ablation`` and ``spmv_ablation`` harnesses at their full size
   (8192^2 f32; ``banded_csr(2**20)``), each probe kernel against its twin.
@@ -93,7 +100,11 @@ non-zero):
   FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin (and colour sweeps of the global grid)
   16d. sharded 8192^2, one rank (NCCL)   16e. sharded 2048^2, 4 ranks on one
   card (gloo)   16f. design probes: the stencil and SpMV probe kernels vs
-  their twins   17. times (with the per-pass ladder of the smoother and
+  their twins   16g. sharded AMG: config 3 on one rank (NCCL; the SpMV
+  kernel at every sharded block shape vs its twin, pinned launch and
+  collective counts, walls beside AMGSolver.solve, a profiled solve),
+  256^2 card vs CPU twin, 4 gloo ranks on one card   17. times (with
+  the per-pass ladder of the smoother and
   the down-leg at 8448^2, of the 3D smoother at 257^3 and 513^3, of the
   sharded smoother at 8208 x 8192, of the apply chain and of the Jacobi
   tile at 8192^2, each against the kernels it replaced; the Jacobi tile and
@@ -458,6 +469,18 @@ EXT_TIME_SHAPE = (8208, 8192)  # one 8192-row slab with its halos
 GLOO_N, GLOO_LEVELS, GLOO_STEPS = 2048, 5, 3
 GLOO_SOLVE = dict(shape=(256, 256), num_levels=4, tol=1e-2, maxit=60)
 GLOO_DEADLINE_S = 600
+# the sharded AMG path (parallel/sharded_amg.py): config 3's system and
+# hierarchy (AMG_N, AMG_KW; the solver always takes RCM) to AMG_SOLVES' tol
+# on one NCCL rank, against AMGSolver.solve and, on SAMG_RANKS gloo ranks
+# sharing the card, bit for bit; the JAX ShardedAMGSolver on the CPU takes 5
+# iterations over 1 and over 4 devices (gather route, f32), and shards the
+# 5 upper levels over 4 (every halo of A, P and P^T > 0)
+SAMG_KW_SOLVE = dict(smoother="chebyshev", tol=1e-5, maxit=200)
+SAMG_KW = dict(num_levels=12, min_coarse=2000, **SAMG_KW_SOLVE)
+SAMG_ITERATIONS = 5
+SAMG_SHARDED = 5
+SAMG_RANKS = 4
+SAMG_TWIN_N = 256  # card vs CPU twin on one hierarchy
 
 
 def check(cond, msg):
@@ -1666,17 +1689,23 @@ def gloo_rank(rank, world, init_file, out_path, dev="cuda",
 
 
 def spawn_ranks(world, tmp, dev="cuda", solve_devs=("cuda", "cpu"),
-                n=GLOO_N, deadline_s=GLOO_DEADLINE_S):
-    """Run ``gloo_rank`` in ``world`` spawned processes and return rank 0's
-    results; a rank's exception fails the phase, and ranks still running
-    at the deadline are stopped and fail it."""
+                n=GLOO_N, deadline_s=GLOO_DEADLINE_S, target=None,
+                args=None):
+    """Run ``target`` (default ``gloo_rank`` with ``dev``, ``solve_devs``,
+    ``n``) in ``world`` spawned processes as ``target(rank, world,
+    init_file, out_path, *args)`` and return rank 0's results; a rank's
+    exception fails the phase, and ranks still running at the deadline are
+    stopped and fail it."""
     import pickle
 
     import torch.multiprocessing as mp
 
-    out_path = os.path.join(tmp, f"ranks{world}.pkl")
-    ctx = mp.spawn(gloo_rank, args=(world, os.path.join(tmp, f"init{world}"),
-                                    out_path, dev, solve_devs, n),
+    if target is None:
+        target, args = gloo_rank, (dev, solve_devs, n)
+    tag = f"{target.__name__}{world}"
+    out_path = os.path.join(tmp, f"{tag}.pkl")
+    ctx = mp.spawn(target, args=(world, os.path.join(tmp, f"init_{tag}"),
+                                 out_path, *args),
                    nprocs=world, join=False)
     t_end = time.perf_counter() + deadline_s
     try:
@@ -1690,6 +1719,356 @@ def spawn_ranks(world, tmp, dev="cuda", solve_devs=("cuda", "cpu"),
                 proc.join(10)
     with open(out_path, "rb") as f:
         return pickle.load(f)
+
+
+# -- the sharded AMG path (device-generic, so the phase can be rehearsed on
+# the CPU at small sizes; the script runs it on CUDA only) --------------------
+
+
+def samg_applies_per_cycle(solver):
+    """SpMV applies per cycle of a sharded AMG solve: per sharded level the
+    smoother's applies of A ((nu1 + nu2) x degree with Chebyshev), the
+    residual's, P^T's and P's; one more of A for the residual norm.  Each is
+    one kernel launch on the kernel route and one halo exchange where the
+    operator's halo is not 0."""
+    smooth = (solver.nu1 + solver.nu2) * (
+        solver.cheb_degree if solver.smoother_name == "chebyshev" else 1)
+    return solver.num_sharded * (smooth + 3) + 1
+
+
+def samg_state(solver):
+    """The host hierarchy of a sharded AMG solver as numpy, for
+    ``convert.sharded_amg_solver_from_numpy`` in the ranks."""
+    def csr(M):
+        return (M.indptr, M.indices, M.data, M.shape)
+
+    return dict(host_matrices=[csr(M) for M in solver.host_matrices],
+                host_P=[csr(P) for P in solver.host_P], perm=solver._perm,
+                lmax=solver.lmax, smoother=solver.smoother_name,
+                cheb_degree=solver.cheb_degree, nu1=solver.nu1,
+                nu2=solver.nu2, tol=solver.tol, maxit=solver.maxit,
+                num_sharded=solver.num_sharded)
+
+
+def samg_rank(rank, world, init_file, out_path, state_path, dev="cuda"):
+    """One of the gloo ranks sharing the card: the sharded AMG solver on the
+    parent's hierarchy (``state_path``, from ``samg_state``), one solve of
+    the default_rng(0) right-hand side counted; rank 0 pickles x and every
+    rank's counts to ``out_path``."""
+    import pickle
+
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from multigrid_prj_tpu_torch.convert import sharded_amg_solver_from_numpy
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.parallel import make_mesh
+
+    torch.set_num_threads(1)
+    if dev == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(world)
+        with open(state_path, "rb") as f:
+            state = pickle.load(f)
+        t0 = time.perf_counter()
+        s = sharded_amg_solver_from_numpy(state, mesh, device=dev,
+                                          dtype=torch.float32,
+                                          use_pallas=True)
+        setup_s = time.perf_counter() - t0
+        n = s.level_sizes[0]
+        b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            n).astype(np.float32)).to(dev)
+        cs.reset_launch_counts()
+        mesh.reset_counts()
+        res = s.solve(b)
+        sync(torch, dev)
+        mine = dict(counts=dict(mesh.counts), spmv=cs.LAUNCHES["spmv"],
+                    launches=sum(cs.LAUNCHES.values()), setup_s=setup_s,
+                    halos=[(lv.A.halo, lv.P.halo, lv.Pt.halo)
+                           for lv in s.sharded_levels])
+        ranks = [None] * world
+        dist.all_gather_object(ranks, mine)
+        if rank == 0:
+            with open(out_path, "wb") as f:
+                pickle.dump(dict(x=res.x.cpu().numpy(),
+                                 iterations=res.iterations,
+                                 rel=res.rel_residual,
+                                 num_sharded=s.num_sharded, ranks=ranks), f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_samg_blocks(torch, cv, tsa, solver, A0, ranks, dev, seed):
+    """Row 19 at the sharded path's shapes: the SpMV kernel on every
+    sharded block of ``solver`` (A, P, P^T of each level against its
+    extended input) and on each of the ``ranks``-rank blocks of level 0,
+    against its twin (``torch.equal``) on random inputs; returns the largest
+    |difference| and the level-0 blocks (one rank's, and the first interior
+    one of ``ranks``) as (label, ShardedELL, CudaShardedELL)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst, cases = 0.0, []
+    for l, lv in enumerate(solver.sharded_levels):
+        for name in ("A", "P", "Pt"):
+            cases.append((f"level {l} {name}", getattr(lv, name),
+                          getattr(lv, f"{name}_fast")))
+    n_pad = -(-A0.shape[0] // ranks) * ranks
+    full = tsa.build_sharded_ell(A0, n_pad, n_pad, ranks, torch.float32)
+    for i in range(ranks):
+        m = full.block(i, dev)
+        cases.append((f"level 0 A, block {i} of {ranks}", m,
+                      tsa.build_cuda_sharded(m)))
+    del full
+    for label, m, f in cases:
+        x_ext = torch.randn(m.in_rows + 2 * m.halo, generator=gen,
+                            device=dev)
+        got = cv.ell_local_spmv(f.colsT, f.valsT, x_ext)
+        want = cv.ell_spmv_plain(f.colsT, f.valsT, x_ext)
+        sync(torch, dev)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(got, want), f"ell_spmv != twin on the sharded "
+              f"{label} (max abs diff {err})")
+        print(f"[samg kernels] ell_spmv on the sharded {label}: "
+              f"({f.colsT.shape[0]}, {f.colsT.shape[1]}) against "
+              f"{x_ext.shape[0]} inputs (halo {m.halo}): equal to its twin "
+              "(torch.equal)")
+    lv0 = solver.sharded_levels[0]
+    return worst, [(f"level 0 A, {solver.p} rank", lv0.A, lv0.A_fast),
+                   cases[1 - ranks]]
+
+
+def samg_block_time(torch, cv, label, m, f, per_solve, seed):
+    """Row 19 at a sharded block: kernel and twin (CUDA events), the
+    kernel's device time from graph replays (warm L2: the 4-rank block's
+    12.6 MB stay resident) and one call with L2 flushed, one cuSPARSE CSR
+    product of the same block against the same x_ext, and the bound of the
+    bytes the call must move (the slots as stored, x_ext read once, y
+    written once) and of its operations (two per stored nonzero)."""
+    import numpy as np
+
+    from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    m_ext = m.in_rows + 2 * m.halo
+    x_ext = torch.randn(m_ext, generator=gen, device="cuda")
+    K, R = f.colsT.shape
+    vals = m.vals.cpu().numpy().astype(np.float64)
+    rows, slots = np.nonzero(vals)
+    lib = csr_library(torch, HostCSR.from_coo(
+        rows, m.cols_rel.cpu().numpy()[rows, slots], vals[rows, slots],
+        (R, m_ext)))
+    xcol = x_ext[:, None].contiguous()
+
+    def kern():
+        return cv.ell_local_spmv(f.colsT, f.valsT, x_ext)
+
+    t = (median_ms(torch, kern, runs=10),
+         median_ms(torch, lambda: cv.ell_spmv_plain(f.colsT, f.valsT, x_ext),
+                   runs=10))
+    return record(f"sharded {label}: ({K}, {R}) against {m_ext} inputs",
+                  t[0], t[1], 8 * K * R + 4 * (m_ext + R), 2 * rows.size,
+                  median_ms(torch, lambda: lib @ xcol, runs=10),
+                  device_ms=device_ms(torch, kern, R),
+                  flushed_ms=flushed_ms(torch, kern),
+                  launches_per_solve=per_solve)
+
+
+def run_sharded_amg(torch, phases, launches, max_err, amg_ref, card,
+                    dev="cuda", n=AMG_N, twin_n=SAMG_TWIN_N,
+                    ranks=SAMG_RANKS, expected=True):
+    """Phase 16g: the sharded AMG solver at n^2 FD on the one-rank mesh of
+    the current process group (kernel route; the main path, counted into
+    ``launches``), its kernel at the path's block shapes against the twin,
+    twin_n^2 on the card against the CPU twin, and ``ranks`` gloo ranks on
+    the same device against the one rank.  ``amg_ref`` is the unsharded
+    AMG context of ``run_amg`` (its solver, A, b and solve result).
+    ``expected`` holds the n = 1024 counts.  Returns the row-19 timing
+    records (CUDA only)."""
+    import pickle
+
+    import numpy as np
+
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.parallel import ShardedAMGSolver, make_mesh
+    from multigrid_prj_tpu_torch.parallel import sharded_amg as tsa
+    from multigrid_prj_tpu_torch.parallel.distributed import Mesh
+
+    on_cuda = torch.device(dev).type == "cuda"
+    mesh = make_mesh()
+    phases.next(f"sharded AMG {n}^2 FD, one rank ({mesh.backend})")
+    A = amg_ref["A"]
+    t0 = time.perf_counter()
+    s = ShardedAMGSolver(A, mesh, dtype=torch.float32, use_pallas=True,
+                         device=dev, **SAMG_KW)
+    sync(torch, dev)
+    setup_s = time.perf_counter() - t0
+    print(f"[samg] poisson_fd_csr({n}) on a mesh of {mesh.size} "
+          f"({mesh.backend}): set-up {setup_s:.2f} s; levels "
+          f"{s.level_sizes}; {s.num_sharded} sharded, kernel route "
+          f"{s._use_pallas}; the {s.level_sizes[-1]}-row bottom replicated "
+          "(LU)")
+    for l, lv in enumerate(s.sharded_levels):
+        print(f"[samg] level {l}: A ({lv.A_fast.colsT.shape[0]}, "
+              f"{lv.A.out_rows}) halo {lv.A.halo}, P K "
+              f"{lv.P_fast.colsT.shape[0]} halo {lv.P.halo}, Pt K "
+              f"{lv.Pt_fast.colsT.shape[0]} halo {lv.Pt.halo}")
+    check(s._use_pallas and all(
+        f is not None for lv in s.sharded_levels
+        for f in (lv.A_fast, lv.P_fast, lv.Pt_fast)),
+        "sharded AMG: a sharded level without the kernel route")
+    if expected:
+        check(s.level_sizes == AMG_LEVELS
+              and s.num_sharded == SAMG_SHARDED,
+              f"sharded AMG: levels {s.level_sizes}, {s.num_sharded} sharded")
+    err, blocks = check_samg_blocks(torch, cv, tsa, s, s.host_matrices[0],
+                                    ranks, dev, seed=19)
+    max_err["spmv"] = max(max_err["spmv"], err)
+
+    b = np.random.default_rng(0).standard_normal(A.shape[0]).astype(
+        np.float32)
+    b64 = b.astype(np.float64)
+    b_dev = torch.from_numpy(b).to(dev)
+    per = samg_applies_per_cycle(s)
+    cs.reset_launch_counts()
+    mesh.reset_counts()
+    res = s.solve(b_dev)
+    sync(torch, dev)
+    counts, coll = dict(cs.LAUNCHES), dict(mesh.counts)
+    for k, v in counts.items():
+        launches[k] += v
+    k = res.iterations
+    true_rel = true_rel_residual(A, b64, res.x)
+    ref_k = amg_ref["results"]["solve"][1].iterations
+    print(f"[samg {n}] solve(tol={s.tol}): {k} iterations (expected "
+          f"{SAMG_ITERATIONS}; AMGSolver.solve {ref_k}), rel. residual "
+          f"{res.rel_residual:.3e}, true f64 rel. residual of x "
+          f"{true_rel:.3e}; history {[float(h) for h in res.history]}")
+    print(f"[samg {n}] launches {({q: v for q, v in counts.items() if v})} "
+          f"({per} spmv per cycle); collectives {coll}")
+    want = dict(halo=0, all_reduce=k + 1, all_gather=k + 1)
+    check(tuple(res.x.shape) == (A.shape[0],)
+          and bool(torch.isfinite(res.x).all())
+          and true_rel <= 1.01 * s.tol and abs(k - ref_k) <= 1,
+          f"sharded AMG {n}^2: x, or {true_rel} > 1.01 tol, or {k} vs {ref_k}")
+    n_spmv = per * k if on_cuda else 0  # the CPU runs the twin
+    check(counts["spmv"] == n_spmv == sum(counts.values()) and coll == want,
+          f"sharded AMG {n}^2: launches {counts}, collectives {coll} (want "
+          f"{n_spmv} spmv, {want})")
+    if expected:
+        check(k == SAMG_ITERATIONS, f"sharded AMG: {k} iterations")
+    recs = []
+    if on_cuda:
+        recs = [samg_block_time(torch, cv, label, m, f, per * k, seed=23)
+                for label, m, f in blocks]
+        for rec in recs:
+            print(f"[time] spmv at the {rec['at']}: kernel "
+                  f"{rec['ms'] * 1e3:.1f} us (device "
+                  f"{rec['device_ms'] * 1e3:.1f} us; L2 flushed "
+                  f"{rec['flushed_ms'] * 1e3:.1f} us), twin "
+                  f"{rec['plain_ms'] * 1e3:.1f} us, library (cuSPARSE CSR) "
+                  f"{rec['library_ms'] * 1e3:.1f} us; bound "
+                  f"{rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']}); "
+                  f"{rec['launches_per_solve']} spmv launches per solve  "
+                  f"({card})")
+        amg, amg_b = amg_ref["amg"], amg_ref["b_dev"]
+        fns = {"sharded": lambda: s.solve(b_dev),
+               "unsharded": lambda: amg.solve(amg_b, tol=s.tol)}
+        walls = {q: [] for q in fns}
+        for q in fns:
+            fns[q]()
+        for q in ("sharded", "unsharded", "unsharded", "sharded", "sharded",
+                  "unsharded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fns[q]()
+            torch.cuda.synchronize()
+            walls[q].append(time.perf_counter() - t0)
+            check(out.iterations == (k if q == "sharded" else ref_k),
+                  f"timed {q} solve differs")
+        for q, w in walls.items():
+            print(f"[time] {n}^2 FD solve(tol={s.tol}), {q}: median wall "
+                  f"{statistics.median(w) * 1e3:.2f} ms over 3 "
+                  f"({[round(x * 1e3, 2) for x in w]} ms, alternating)  "
+                  f"({card})")
+        try:
+            wall, busy, nev, top = profile_run(torch, fns["sharded"])
+            print(f"[profile] sharded AMG {n}^2 solve: {nev} device ops "
+                  f"({nev / k:.0f} per iteration), device busy "
+                  f"{busy * 1e3:.2f} ms = {busy / max(wall, 1e-12):.1%} of "
+                  f"the profiled wall {wall * 1e3:.2f} ms  ({card})")
+            for kname, (us, cnt) in top[:6]:
+                print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  "
+                      f"{kname[:90]}")
+        except Exception as exc:  # the trace is a measurement aid only
+            print(f"[profile] sharded AMG solve: not measured ({exc!r})")
+
+    phases.next(f"sharded AMG {twin_n}^2, card vs CPU twin")
+    small = ShardedAMGSolver(poisson_fd_csr(twin_n), mesh,
+                             dtype=torch.float32, use_pallas=True,
+                             device=dev, **SAMG_KW)
+    twin = ShardedAMGSolver.from_hierarchy(
+        small.host_matrices, small.host_P, Mesh(("x",), (1,), (0,), 0),
+        perm=small._perm, lmax=small.lmax, dtype=torch.float32,
+        use_pallas=True, device="cpu", **SAMG_KW_SOLVE)
+    bs = np.random.default_rng(0).standard_normal(twin_n ** 2).astype(
+        np.float32)
+    cs.reset_launch_counts()
+    got = small.solve(torch.from_numpy(bs).to(dev))
+    sync(torch, dev)
+    n_spmv = cs.LAUNCHES["spmv"]
+    want = twin.solve(bs)
+    hd = abs(got.history - want.history)
+    xw = want.x.numpy()
+    xd = float(abs(got.x.cpu().numpy() - xw).max() / abs(xw).max())
+    print(f"[samg {twin_n}] card {got.iterations} iterations to "
+          f"{got.rel_residual:.3e} ({n_spmv} spmv launches), CPU twin "
+          f"{want.iterations} to {want.rel_residual:.3e}; max rel. history "
+          f"diff {float((hd / want.history).max()):.3e}, max |dx| / max |x| "
+          f"{xd:.3e} (bound {AMG_HISTORY_RTOL})")
+    check(got.iterations == want.iterations
+          and bool((hd <= 1e-12 + AMG_HISTORY_RTOL * want.history).all())
+          and xd <= AMG_HISTORY_RTOL
+          and n_spmv == (samg_applies_per_cycle(small) * got.iterations
+                         if on_cuda else 0),
+          f"sharded AMG {twin_n}^2: card vs CPU twin")
+    del small, twin
+
+    phases.next(f"sharded AMG {n}^2 FD, {ranks} gloo ranks on one device")
+    with tempfile.TemporaryDirectory() as tmp:
+        state_path = os.path.join(tmp, "samg_state.pkl")
+        with open(state_path, "wb") as f:
+            pickle.dump(samg_state(s), f, protocol=pickle.HIGHEST_PROTOCOL)
+        t0 = time.perf_counter()
+        four = spawn_ranks(ranks, tmp, target=samg_rank,
+                           args=(state_path, dev))
+        t_spawn = time.perf_counter() - t0
+    x1 = res.x.cpu().numpy()
+    want_r = dict(halo=2 * per * k if ranks > 1 else 0, all_reduce=k + 1,
+                  all_gather=k + 1)
+    for i, r in enumerate(four["ranks"]):
+        print(f"[samg gloo] rank {i}: set-up from the parent's hierarchy "
+              f"{r['setup_s']:.2f} s; halos (A, P, Pt) {r['halos']}; "
+              f"spmv launches {r['spmv']}; collectives {r['counts']}")
+    same = np.array_equal(four["x"], x1)
+    print(f"[samg gloo] {ranks} ranks: {four['iterations']} iterations, rel. "
+          f"residual {four['rel']:.3e}; x equal to one rank's bit for bit: "
+          f"{same}; spawn {t_spawn:.1f} s")
+    check(four["num_sharded"] == s.num_sharded
+          and four["iterations"] == k and same,
+          f"{ranks} gloo ranks: x or iterations differ from one rank")
+    check(all(r["counts"] == want_r and r["spmv"] == counts["spmv"]
+              == r["launches"] for r in four["ranks"]),
+          f"{ranks} gloo ranks: counts (want {want_r} and "
+          f"{counts['spmv']} spmv)")
+    del s
+    return recs
 
 
 def main() -> int:
@@ -2756,7 +3135,6 @@ def main() -> int:
           and bool((diff <= HISTORY_ATOL + HISTORY_RTOL
                     * cpu["history"]).all()),
           "2 gloo ranks at 256^2: card vs CPU twin")
-    dist.destroy_process_group()
 
     # 16f. the design probes of benchmarks/: every stencil probe at 8192^2
     # and each R of its harness, one apply and the harness's 29-apply chain,
@@ -2821,6 +3199,14 @@ def main() -> int:
               f"{spab.BLOCK_ROWS}: equal to "
               f"{'CudaELL.spmv and its twin' if tag == 'orig' else 'its twin'}"
               " (torch.equal)")
+    torch.cuda.empty_cache()
+
+    # 16g. the sharded AMG path: config 3 on one NCCL rank (16d's group),
+    # the SpMV kernel at the path's block shapes, 256^2 against the CPU
+    # twin, 4 gloo ranks sharing the card bit-equal to the one rank
+    samg_times = run_sharded_amg(torch, phases, launches, max_err, amg_ctx,
+                                 card)
+    dist.destroy_process_group()
     torch.cuda.empty_cache()
 
     missing = [k for k in KERNELS if launches[k] == 0]
@@ -3429,6 +3815,7 @@ def main() -> int:
         for kname, (us, cnt) in top[:6]:
             print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  {kname[:90]}")
     time_amg(torch, amg_ctx, card, times)
+    times["spmv"].extend(samg_times)  # row 19 at the sharded path's blocks
     phases.next(None)
     print(f"[time] chip_smoke total {time.perf_counter() - phases.t_start:.1f}"
           " s")

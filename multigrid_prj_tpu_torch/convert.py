@@ -29,7 +29,20 @@ the setup; and for a JAX ``ShardedGMGSolver`` ``jsh``::
                  maxit=jsh.maxit, use_pallas=jsh.use_pallas,
                  use_grouped=jsh.use_grouped)
 
-so that both sides run the same hierarchy and sweep schedule.
+so that both sides run the same hierarchy and sweep schedule; and for a JAX
+``ShardedAMGSolver`` ``jam``::
+
+    csr = lambda M: (M.indptr, M.indices, M.data, M.shape)
+    state = dict(host_matrices=[csr(M) for M in jam.host_matrices],
+                 host_P=[csr(P) for P in jam.host_P], perm=jam._perm,
+                 lmax=[lv.lmax for lv in jam.sharded_levels]
+                 + [t[2] for t in jam._tail],
+                 smoother=jam.smoother_name, cheb_degree=jam.cheb_degree,
+                 nu1=jam.nu1, nu2=jam.nu2, tol=jam.tol, maxit=jam.maxit,
+                 num_sharded=jam.num_sharded)
+
+so that both sides shard the same hierarchy (the port's own solvers give
+the same keys from their attributes).
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from multigrid_prj_tpu_torch.amg import AMGSolver
 from multigrid_prj_tpu_torch.gmg import GMGSolver
 from multigrid_prj_tpu_torch.grids import GridLevel
 from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+from multigrid_prj_tpu_torch.parallel.sharded_amg import ShardedAMGSolver
 from multigrid_prj_tpu_torch.parallel.sharded_gmg import ShardedGMGSolver
 
 _CONFIG_KEYS = ("length", "alpha", "tol", "maxit", "nu", "pre_sweeps",
@@ -84,6 +98,14 @@ def solver_state_from_numpy(state: dict, device="cuda", smoother: str = "gs",
     return solver
 
 
+def _csr(t) -> HostCSR:
+    indptr, indices, data, shape = t
+    return HostCSR(indptr=np.asarray(indptr, np.int64),
+                   indices=np.asarray(indices, np.int64),
+                   data=np.asarray(data, np.float64),
+                   shape=(int(shape[0]), int(shape[1])))
+
+
 def amg_solver_from_numpy(state: dict, device="cuda",
                           **solver_kw) -> AMGSolver:
     """A port ``AMGSolver`` on ``device`` (the card unless the caller names
@@ -94,18 +116,10 @@ def amg_solver_from_numpy(state: dict, device="cuda",
     the bottom level's inverse).  ``solver_kw`` are the solve options of
     ``AMGSolver.from_hierarchy`` (``smoother``, ``dtype``, ``use_pallas``,
     ``rhs``, ...), which the JAX solver does not keep in plain form."""
-
-    def csr(t):
-        indptr, indices, data, shape = t
-        return HostCSR(indptr=np.asarray(indptr, np.int64),
-                       indices=np.asarray(indices, np.int64),
-                       data=np.asarray(data, np.float64),
-                       shape=(int(shape[0]), int(shape[1])))
-
     inv = state.get("bottom_inv")
     return AMGSolver.from_hierarchy(
-        [csr(t) for t in state["host_matrices"]],
-        [csr(t) for t in state["host_P"]],
+        [_csr(t) for t in state["host_matrices"]],
+        [_csr(t) for t in state["host_P"]],
         perm=state.get("perm"), lmax=state.get("lmax"),
         bottom_inv=None if inv is None else np.asarray(inv, np.float64),
         device=device, **solver_kw)
@@ -141,4 +155,30 @@ def sharded_solver_from_numpy(state: dict, mesh,
         raise ValueError(f"{state['num_sharded']} sharded levels in the "
                          f"state, {solver.num_sharded} here")
     solver.levels = levels
+    return solver
+
+
+_SHARDED_AMG_KEYS = ("smoother", "cheb_degree", "nu1", "nu2", "tol", "maxit")
+
+
+def sharded_amg_solver_from_numpy(state: dict, mesh, device="cuda",
+                                  **solver_kw) -> ShardedAMGSolver:
+    """A port ``ShardedAMGSolver`` on ``mesh`` (``device``: the card unless
+    the caller names another) on the host hierarchy in ``state`` (keys:
+    ``host_matrices`` and ``host_P`` as ``(indptr, indices, data, shape)``
+    tuples in the internal (RCM) frame, ``perm``, ``lmax`` per level (0
+    where not estimated); optionally the solver's ``smoother``,
+    ``cheb_degree``, ``nu1``, ``nu2``, ``tol`` and ``maxit``, and
+    ``num_sharded``, which is checked).  ``solver_kw`` are the options the
+    JAX solver does not keep in plain form (``dtype``, ``use_pallas``,
+    ``min_rows_per_shard``).  Raises ``ValueError`` if the port shards
+    another number of levels."""
+    opts = {k: state[k] for k in _SHARDED_AMG_KEYS if k in state}
+    solver = ShardedAMGSolver.from_hierarchy(
+        [_csr(t) for t in state["host_matrices"]],
+        [_csr(t) for t in state["host_P"]], mesh, perm=state.get("perm"),
+        lmax=state.get("lmax"), device=device, **opts, **solver_kw)
+    if state.get("num_sharded", solver.num_sharded) != solver.num_sharded:
+        raise ValueError(f"{state['num_sharded']} sharded levels in the "
+                         f"state, {solver.num_sharded} here")
     return solver

@@ -1323,6 +1323,61 @@ def test_cuda_auto_means_on_cuda(cuda_device):
     assert s._use_pallas and s._perm is not None
 
 
+@pytest.mark.cuda
+def test_cuda_sharded_amg_one_rank_matches_cpu_twin(cuda_device):
+    """A one-rank ``ShardedAMGSolver`` (no process group: the one-rank
+    mesh) at FD 256^2 on the card, where ``"auto"`` takes the kernel route,
+    against the same hierarchy through the twins on the CPU: the same
+    iterations, x within 1e-2 of its scale and histories within 1e-2
+    relative (the norms and the bottom's LU round differently on the two
+    devices); one SpMV launch per apply: per sharded level 3 + 3 Chebyshev
+    applies of A, the residual's, P^T's and P's, and one more per cycle for
+    the residual norm."""
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.parallel import ShardedAMGSolver, make_mesh
+
+    kw = dict(num_levels=12, min_coarse=2000, tol=1e-5, maxit=200)
+    gpu = ShardedAMGSolver(poisson_fd_csr(256), make_mesh(),
+                           device=cuda_device, **kw)
+    assert gpu._use_pallas and gpu.num_sharded >= 2
+    assert all(f is not None for lv in gpu.sharded_levels
+               for f in (lv.A_fast, lv.P_fast, lv.Pt_fast))
+    cpu = ShardedAMGSolver.from_hierarchy(
+        gpu.host_matrices, gpu.host_P, make_mesh(), perm=gpu._perm,
+        lmax=gpu.lmax, use_pallas=True, device="cpu", tol=1e-5, maxit=200)
+    b = np.random.default_rng(0).standard_normal(256 * 256)
+    cs.reset_launch_counts()
+    got = gpu.solve(b)
+    torch.cuda.synchronize()
+    per = gpu.num_sharded * (2 * 3 + 3) + 1
+    assert cs.LAUNCHES["spmv"] == per * got.iterations == sum(
+        cs.LAUNCHES.values())
+    want = cpu.solve(b)
+    assert got.iterations == want.iterations and got.rel_residual <= 1e-5
+    assert got.x.is_cuda and got.x.shape == (256 * 256,)
+    xw = want.x.numpy()
+    assert np.abs(got.x.cpu().numpy() - xw).max() <= 1e-2 * np.abs(xw).max()
+    np.testing.assert_allclose(got.history, want.history, rtol=1e-2,
+                               atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_amg_f64_launches_nothing(cuda_device):
+    """float64 on the card with ``use_pallas=True``: the plain gather ops,
+    no launch (as the JAX solver keeps its Pallas route to float32)."""
+    from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
+    from multigrid_prj_tpu_torch.parallel import ShardedAMGSolver, make_mesh
+
+    s = ShardedAMGSolver(poisson_fd_csr(64), make_mesh(), num_levels=3,
+                         dtype=torch.float64, use_pallas=True, tol=1e-10,
+                         device=cuda_device)
+    assert not s._use_pallas and s.sharded_levels[0].A_fast is None
+    cs.reset_launch_counts()
+    res = s.solve(np.random.default_rng(1).standard_normal(64 * 64))
+    torch.cuda.synchronize()
+    assert res.rel_residual <= 1e-10 and sum(cs.LAUNCHES.values()) == 0
+
+
 # the design probes of benchmarks/ (csrc/ablation.cu): stencil probes at a
 # ragged-free and a ragged width, each R of the harness
 PROBE_SHAPES = [(256, 512), (512, 8200)]

@@ -474,16 +474,15 @@ def test_auto_flags_take_no_kernel_route_on_the_cpu():
                                  ".parallel"])
 def test_exports_match_the_jax_package(sub):
     """Every name of each JAX ``__all__`` imports from the port's
-    counterpart.  ``parallel.ShardedAMGSolver`` is the one name expected
-    missing: its port is ROADMAP.md queue A item 19b."""
+    counterpart and is in its ``__all__`` (``parallel.ShardedAMGSolver``
+    too, since ROADMAP.md queue A item 19b)."""
     import importlib
 
     jmod = importlib.import_module("multigrid_prj_tpu" + sub)
     tmod = importlib.import_module("multigrid_prj_tpu_torch" + sub)
-    expected_missing = {"ShardedAMGSolver"} if sub == ".parallel" else set()
     missing = {n for n in jmod.__all__ if not hasattr(tmod, n)}
-    assert missing == expected_missing
-    assert set(tmod.__all__) >= set(jmod.__all__) - expected_missing
+    assert not missing
+    assert set(tmod.__all__) >= set(jmod.__all__)
 
 
 def test_added_functions_match_jax():

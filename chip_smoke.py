@@ -65,7 +65,15 @@ paths' shapes.  Imports nothing of JAX.  The paths:
   parent's hierarchy, bit-equal to the one rank;
 * the design probes of ``benchmarks/`` (``csrc/ablation.cu``): the port's
   ``stencil_ablation`` and ``spmv_ablation`` harnesses at their full size
-  (8192^2 f32; ``banded_csr(2**20)``), each probe kernel against its twin.
+  (8192^2 f32; ``banded_csr(2**20)``), each probe kernel against its twin;
+* the last slice's modules (phase 16h): the web server (``web/server.py``)
+  answering four requests from the card (4097^2 sawtooth GS; 1025^2
+  V-cycle GS, Jacobi and BiCGSTAB, each against a direct solve bit for
+  bit), ``viz.record_cycle_stages`` at 1025^2 against ``step`` and
+  ``viz_main``'s ``--gif`` solve, checkpoint and resume at the main path's
+  configuration against an uninterrupted solve, the guards and
+  ``PhaseTimer`` / ``fence`` / ``trace``, and the ``amg_debug`` harness at
+  257^2 nodes with the reference's 5000 sweeps.
 
 Phases (each prints its lines and its seconds; the first failure exits
 non-zero):
@@ -103,7 +111,9 @@ non-zero):
   their twins   16g. sharded AMG: config 3 on one rank (NCCL; the SpMV
   kernel at every sharded block shape vs its twin, pinned launch and
   collective counts, walls beside AMGSolver.solve, a profiled solve),
-  256^2 card vs CPU twin, 4 gloo ranks on one card   17. times (with
+  256^2 card vs CPU twin, 4 gloo ranks on one card   16h. amg_debug,
+  utilities and front-ends (web requests, cycle stages, checkpoint and
+  resume, guards, metrics, amg_debug)   17. times (with
   the per-pass ladder of the smoother and
   the down-leg at 8448^2, of the 3D smoother at 257^3 and 513^3, of the
   sharded smoother at 8208 x 8192, of the apply chain and of the Jacobi
@@ -140,6 +150,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -2071,6 +2082,451 @@ def run_sharded_amg(torch, phases, launches, max_err, amg_ref, card,
     return recs
 
 
+# -- phase 16h: the amg_debug harness, the utilities and the front-ends ----
+# (device-generic, so the phase can be rehearsed on the CPU at small sizes;
+# the script runs it on CUDA at the sizes below)
+
+# the web server's requests (the form's coarsest N, levels, test, smoother,
+# cycle) and the kernels each must launch on the card: (a) 4097^2, the
+# largest grid the form accepts; (b)-(d) 1025^2.  In f32 the server solves
+# to 1e-6, below the f32 floor at these sizes, so (a)-(c) run their 1000
+# iterations and answer converged: false, as the JAX server on a TPU
+WEB_REQUESTS = (
+    ("a", dict(n=9, ml=10, test=1, smt=0, cycle="sawtooth"), ("rbgs_fused",)),
+    ("b", dict(n=33, ml=6, test=1, smt=0, cycle="v"),
+     ("rbgs_fused", "residual")),
+    ("c", dict(n=33, ml=6, test=1, smt=1, cycle="sawtooth"), ("jacobi",)),
+    ("d", dict(n=33, ml=6, test=1, smt=2, cycle="sawtooth"),
+     ("rbgs_fused",)),
+)
+FRONT_KW = dict(
+    stages=dict(shape=(1025, 1025), length=10.0, num_levels=6),
+    gif=dict(shape=(65, 65), length=10.0, num_levels=4),  # viz_main's
+    # the main path's configuration, maxit setting the count (tol 1e-11 is
+    # beyond f32): 3 iterations, then resumed for 5, against 8
+    ckpt=dict(shape=(1025, 1025), num_levels=6, cycle="v", smoother="gs",
+              pad_align=256),
+    mesh=257, mesh_small=33, sweeps=5000, timed_sweeps=500)
+CKPT_SPLIT = (3, 5)
+CKPT_KERNELS = ("rbgs_fused", "residual", "restrict_fw", "prolong_add")
+
+
+def write_msh(path, mesh):
+    """``mesh`` as a gmsh 4.1 ASCII file: one node block (tags from 1), one
+    block of boundary lines (type 1) and one of triangles (type 2).  The
+    writer of the port's tests (``tests/torch_msh.py``), copied: this
+    script imports no test."""
+    import numpy as np
+
+    n = mesh.n_nodes
+    tris = mesh.triangles + 1
+    edges = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [0, 2]]])
+    bnd = mesh.on_boundary
+    # an edge with both ends on the boundary and used by one triangle only
+    key, count = np.unique(np.sort(edges, axis=1), axis=0, return_counts=True)
+    lines = key[(count == 1) & bnd[key[:, 0] - 1] & bnd[key[:, 1] - 1]]
+    with open(path, "w") as fh:
+        fh.write("$MeshFormat\n4.1 0 8\n$EndMeshFormat\n")
+        fh.write(f"$Nodes\n1 {n} 1 {n}\n2 1 0 {n}\n")
+        fh.write("".join(f"{t}\n" for t in range(1, n + 1)))
+        fh.write("".join(f"{float(x)!r} {float(y)!r} 0\n"
+                         for x, y in mesh.nodes))
+        fh.write("$EndNodes\n")
+        m, nl = len(tris), len(lines)
+        fh.write(f"$Elements\n2 {nl + m} 1 {nl + m}\n1 1 1 {nl}\n")
+        fh.write("".join(f"{k + 1} {a} {b}\n" for k, (a, b) in enumerate(lines)))
+        fh.write(f"2 1 2 {m}\n")
+        # node order within a triangle as gmsh may give it (unsorted)
+        fh.write("".join(f"{nl + k + 1} {c} {a} {b}\n"
+                         for k, (a, b, c) in enumerate(tris)))
+        fh.write("$EndElements\n")
+
+
+def counts_of(torch, cs, fn):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after, NOT added to the path's counts (a rebuilt run compared with a
+    path's own run)."""
+    cs.reset_launch_counts()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, {k: v for k, v in cs.LAUNCHES.items() if v}
+
+
+def direct_web_solve(torch, form, device):
+    """The server's solve of ``form`` rebuilt without the server: the same
+    solver, RHS, tolerance and loop as ``web/server.run_solver``, nothing
+    written."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops.krylov import bicgstab
+    from multigrid_prj_tpu_torch.ops.stencil import poisson_apply
+
+    n, ml, a, w = form["n"], form["ml"], 10.0, 10.0
+    for _ in range(ml - 1):
+        n = n * 2 - 1
+    dtype = torch.float32 if device == "cuda" else torch.float64
+    tol = 1e-6 if device == "cuda" else 1e-11
+    solver = GMGSolver(shape=(n, n), length=w, alpha=a, num_levels=ml,
+                       smoother="jacobi" if form["smt"] == 1 else "gs",
+                       cycle=form["cycle"], tol=tol, device=device)
+    b = assemble_rhs(solver.levels[0], w, test=form["test"], dtype=dtype,
+                     device=device)
+    if form["smt"] == 2:
+        h0 = solver.levels[0].h
+        res = bicgstab(lambda x: poisson_apply(x, a, h0), b, tol=tol,
+                       maxit=200, history=True,
+                       M=lambda r: solver.step(torch.zeros_like(r), r))
+        return res.history.cpu().numpy(), res.iterations
+    out = solver.solve(b)
+    return out.history, out.iterations
+
+
+def run_frontends(torch, run_counted, card, dev="cuda", requests=WEB_REQUESTS,
+                  kw=FRONT_KW):
+    """Phase 16h: every module of the last slice driven on ``dev`` through
+    its entry points -- the web server answering requests, the
+    cycle-stage recorder of ``viz``, checkpoint and resume, the guards and
+    metrics, and the ``amg_debug`` harness."""
+    import contextlib
+    import glob
+    import http.client
+    import importlib.util
+    import io
+    import threading
+    import urllib.parse
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from multigrid_prj_tpu_torch.amg import (
+        AMGSolver,
+        build_prolongation,
+        coarsen_greedy,
+    )
+    from multigrid_prj_tpu_torch.cli import amg_debug
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.fem import (
+        assemble_p1,
+        parse_msh,
+        structured_unit_square_mesh,
+    )
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+    from multigrid_prj_tpu_torch.ops.sparse import rap, to_device
+    from multigrid_prj_tpu_torch.utils.checkpoint import (
+        resume_solve,
+        save_checkpoint,
+    )
+    from multigrid_prj_tpu_torch.utils.guards import (
+        count_nonfinite,
+        guard_solve_io,
+    )
+    from multigrid_prj_tpu_torch.utils.io import load_vector
+    from multigrid_prj_tpu_torch.utils.metrics import PhaseTimer, fence, trace
+    from multigrid_prj_tpu_torch.viz.plots import (
+        record_cycle_stages,
+        write_stage_files,
+    )
+    from multigrid_prj_tpu_torch.web import server
+
+    on_card = dev == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def nonzero(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_16h_")
+    # 1. the web server on the card: four requests and a bad one
+    server.Handler.workdir = tmp
+    server.Handler.device = dev
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), server.Handler)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    addr = srv.server_address
+
+    def call(method, path, form=None):
+        conn = http.client.HTTPConnection(*addr, timeout=900)
+        try:
+            body = None if form is None else urllib.parse.urlencode(form)
+            conn.request(method, path, body=body, headers={
+                "Content-Type": "application/x-www-form-urlencoded"})
+            r = conn.getresponse()
+            return r.status, r.read()
+        finally:
+            conn.close()
+
+    try:
+        status, page = call("GET", "/")
+        check(status == 200 and b'name="smt"' in page
+              and b'<option value="2">test 2' in page, "web form page")
+        print(f"[web] GET / on 127.0.0.1:{addr[1]}: the form "
+              f"({len(page)} bytes)")
+        for label, form, kernels in requests:
+            t0 = time.perf_counter()
+            (status, body), counts = run_counted(
+                lambda form=form: call("POST", "/run", form))
+            wall = time.perf_counter() - t0
+            ans = json.loads(body)
+            check(status == 200 and "error" not in ans,
+                  f"web request {label}: {ans.get('error')}")
+            hist = ans["history"]
+            n = form["n"]
+            for _ in range(form["ml"] - 1):
+                n = n * 2 - 1
+            check(len(hist) == ans["iterations"] + 1,
+                  f"web request {label}: {len(hist)} history entries for "
+                  f"{ans['iterations']} iterations")
+            status, text = call("GET", "/MGGS4.txt")
+            filed = np.fromstring(text.decode(), sep=" ")
+            check(status == 200 and filed[0] == len(hist)
+                  and filed[1:].tolist() == hist,
+                  f"web request {label}: MGGS4.txt is not the history")
+            status, text = call("GET", "/x.mtx")
+            x = np.fromstring(text.decode(), sep=" ")
+            check(status == 200 and x[0] == n * n and x.size == n * n + 1
+                  and bool(np.isfinite(x[1:]).all()),
+                  f"web request {label}: x.mtx holds {x.size - 1} values "
+                  f"for {n}^2 (finite: {bool(np.isfinite(x[1:]).all())})")
+            del x, text
+            launched = nonzero(counts)
+            if on_card:
+                check(all(launched.get(k, 0) > 0 for k in kernels),
+                      f"web request {label}: launches {launched}, wanted "
+                      f"{kernels}")
+            same = ""
+            if n == 1025 or not on_card:
+                (dh, di), rcounts = counts_of(
+                    torch, cs, lambda form=form: direct_web_solve(
+                        torch, form, dev))
+                check(di == ans["iterations"]
+                      and np.array_equal(np.asarray(dh, np.float64),
+                                         np.asarray(hist))
+                      and rcounts == launched,
+                      f"web request {label}: the direct solve differs "
+                      f"({di} iterations, launches {rcounts})")
+                same = ("; a direct solve in this process: history equal bit "
+                        "for bit, the same launches")
+            print(f"[web] request ({label}) {n}^2, {form['ml']} levels, smt "
+                  f"{form['smt']}, {form['cycle']}: {ans['iterations']} "
+                  f"iterations, converged {ans['converged']}, final "
+                  f"{ans['final_residual']:.4e}, solve_time "
+                  f"{ans['solve_time']:.3f} s, request wall {wall:.3f} s, "
+                  f"launches {launched}{same}  ({card})")
+        status, body = call("POST", "/run", {"n": 999999, "ml": 3})
+        err = json.loads(body).get("error", "")
+        check(status == 200 and "range" in err, f"web bad request: {body!r}")
+        print(f"[web] bad request n=999999: error {err!r}")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    check(not th.is_alive(), "web server thread still running")
+
+    # 2. record_cycle_stages at the main path's width, against step
+    solver = GMGSolver(device=dev, **kw["stages"])
+    b = assemble_rhs(solver.levels[0], 10.0, test=0, dtype=torch.float32,
+                     device=dev)
+    t0 = time.perf_counter()
+    frames, c_rec = run_counted(
+        lambda: record_cycle_stages(solver, b, iterations=2))
+    rec_wall = time.perf_counter() - t0
+
+    def two_steps():
+        us, u = [], torch.zeros_like(b)
+        for _ in range(2):
+            u = solver.step(u, b)
+            us.append(u.cpu().numpy())
+        return us
+
+    steps, c_step = counts_of(torch, cs, two_steps)
+    corrected = [f for lab, f in frames if lab.endswith("corrected")]
+    check(len(frames) == 1 + 2 * (2 + len(solver.levels))
+          and len(corrected) == 2
+          and all(np.array_equal(f, s) for f, s in zip(corrected, steps))
+          and c_rec.get("rbgs_fused", 0) == c_step.get("rbgs_fused", 0)
+          and (c_step.get("rbgs_fused", 0) > 0 or not on_card),
+          f"record_cycle_stages: corrected frames vs step, launches "
+          f"{nonzero(c_rec)} vs {c_step}")
+    print(f"[viz] record_cycle_stages at {kw['stages']['shape']}, "
+          f"{len(solver.levels)} levels, 2 iterations: {len(frames)} frames "
+          f"in {rec_wall:.3f} s, launches "
+          f"{nonzero(c_rec)}; the corrected frames equal step applied once "
+          f"and twice bit for bit, with {c_step} launches  ({card})")
+    del frames, steps, corrected
+    gsolver = GMGSolver(device=dev, **kw["gif"])
+    gb = assemble_rhs(gsolver.levels[0], 10.0, test=0, dtype=torch.float32,
+                      device=dev)
+    gframes, c_gif = run_counted(
+        lambda: record_cycle_stages(gsolver, gb, iterations=2))
+    gdir = write_stage_files(gframes, os.path.join(tmp, "stages"))
+    back = [load_vector(os.path.join(gdir, f"{k}.mtx"))
+            for k in range(len(gframes))]
+    check(all(np.array_equal(v, f.reshape(-1).astype(np.float64))
+              for v, (_, f) in zip(back, gframes)),
+          "write_stage_files: the files are not the frames")
+    drew = ""
+    if importlib.util.find_spec("matplotlib") is not None:
+        from multigrid_prj_tpu_torch.cli import viz_main
+
+        check(viz_main.main(["--gif", "--out", os.path.join(tmp, "gif"),
+                             "-device", dev]) == 0, "viz_main --gif")
+        drew = "; viz_main --gif drew cycle.gif and cycle3d.gif"
+    print(f"[viz] viz_main's --gif solve ({kw['gif']['shape']}, "
+          f"{kw['gif']['num_levels']} levels): {len(gframes)} stage files "
+          f"written and read back equal, launches {nonzero(c_gif)}{drew}"
+          f"{'' if drew else '; no matplotlib here, nothing drawn'}")
+
+    # 3. checkpoint and resume at the main path's configuration
+    first, rest = CKPT_SPLIT
+    ck = GMGSolver(maxit=first, device=dev, **kw["ckpt"])
+    bk = assemble_rhs(ck.levels[0], 10.0, test=1, dtype=torch.float32,
+                      device=dev)
+    part, c_part = run_counted(lambda: ck.solve(bk))
+    path = os.path.join(tmp, "ckpt.npz")
+    save_checkpoint(path, part.u, bk, part.history,
+                    config=dict(kw["ckpt"], maxit=first))
+    resumed, c_res = run_counted(lambda: resume_solve(
+        GMGSolver(maxit=rest, device=dev, **kw["ckpt"]), path))
+    whole, c_whole = counts_of(torch, cs, lambda: GMGSolver(
+        maxit=first + rest, device=dev, **kw["ckpt"]).solve(bk))
+    check(part.iterations == first and resumed.iterations == rest
+          and len(resumed.history) == first + rest + 1
+          and np.array_equal(resumed.history, whole.history)
+          and torch.equal(resumed.u, whole.u),
+          f"checkpoint: resumed history {resumed.history} vs "
+          f"{whole.history}, u equal {torch.equal(resumed.u, whole.u)}")
+    if on_card:
+        check(all(c_res.get(k, 0) > 0 for k in CKPT_KERNELS),
+              f"checkpoint resume launches {nonzero(c_res)}")
+    print(f"[ckpt] {kw['ckpt']} f32: {first} iterations, save_checkpoint, "
+          f"resume_solve for {rest}: the merged history ({len(resumed.history)}"
+          f" entries, last {resumed.history[-1]:.4e}) and u equal an "
+          f"uninterrupted {first + rest}-iteration solve bit for bit; "
+          f"launches: first part {nonzero(c_part)}, resumed "
+          f"{ {k: c_res.get(k, 0) for k in CKPT_KERNELS} }, uninterrupted "
+          f"{c_whole}")
+
+    # 4. guards and metrics on the card
+    bad = bk.clone()
+    bad[7, 9] = float("nan")
+    cnt = count_nonfinite(bad)
+    check(cnt.device.type == torch.device(dev).type and int(cnt) == 1,
+          f"count_nonfinite: {cnt}")
+    cs.reset_launch_counts()
+    msg = None
+    try:
+        guard_solve_io(ck.solve)(bad)
+    except ValueError as e:  # the refusal this check wants
+        msg = str(e)
+    check(msg is not None and "argument 0 of GMGSolver.solve" in msg
+          and not any(cs.LAUNCHES.values()),
+          f"guard_solve_io on a NaN rhs: {msg!r}, launches "
+          f"{nonzero(cs.LAUNCHES)}")
+    print(f"[guards] count_nonfinite -> {int(cnt)} on {cnt.device}; "
+          f"guard_solve_io(GMGSolver.solve) refused the NaN rhs with no "
+          f"launch: {msg!r}")
+    timer = PhaseTimer()
+    label = f"solve {kw['ckpt']['shape']}, {first} iterations"
+    with timer.phase(label):
+        out = ck.solve(bk)
+        fence(out.u)
+    report = timer.report()
+    check(report.startswith(f"{label}: ") and report.endswith(" seconds")
+          and timer.phases[label] > 0, f"PhaseTimer report {report!r}")
+    print(f"[metrics] PhaseTimer with fence: {report}  ({card})")
+    logdir = os.path.join(tmp, "trace")
+    with trace(logdir):
+        ck.solve(bk)
+        sync()
+    files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+    text = ""
+    for f in files:
+        with open(f) as fh:
+            text += fh.read()
+    if on_card:
+        check(len(files) == 1 and "rbgs_fused_kernel" in text,
+              f"trace: {files}, names rbgs_fused_kernel: "
+              f"{'rbgs_fused_kernel' in text}")
+    print(f"[metrics] trace({logdir!r}) around a 3-iteration solve: "
+          f"{[os.path.basename(f) for f in files]}, {len(text)} bytes, "
+          f"names rbgs_fused_kernel {text.count('rbgs_fused_kernel')} times")
+    del text
+
+    # 5. amg_debug at 257^2 nodes with the reference harness's settings
+    msh = os.path.join(tmp, "square.msh")
+    mesh = structured_unit_square_mesh(kw["mesh"])
+    write_msh(msh, mesh)
+    vtu = os.path.join(tmp, "debug_output.vtu")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multigrid_prj_tpu_torch.cli.amg_debug",
+         "-mesh", msh, "-levels", "2", "-sweeps", str(kw["sweeps"]),
+         "-device", dev, "-o", vtu],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    out_lines = proc.stdout.strip().splitlines()
+    for ln in out_lines:
+        print(f"[amg_debug]   {ln}")
+    check(proc.returncode == 0, f"amg_debug exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    r0 = float(next(ln for ln in out_lines if ln.startswith(
+        "coarse residual before")).split()[-1])
+    r1 = float(next(ln for ln in out_lines if ln.startswith(
+        "coarse residual after")).split(":")[1].split()[0])
+    with open(vtu) as fh:
+        head = fh.read(4096)
+    check(any("PASSED" in ln for ln in out_lines) and r1 < r0
+          and f'NumberOfPoints="{mesh.n_nodes}"' in head,
+          f"amg_debug: residual {r0} -> {r1}, VTU head {head[:300]!r}")
+    # the sweeps' time, in this process on the same coarse level
+    A, rhs = assemble_p1(parse_msh(msh))
+    labels = coarsen_greedy(A, 0.2, seed=0)
+    P = build_prolongation(A, labels, 0.2)
+    Ac, bc = rap(P, A), P.transpose().spmv(rhs)
+    cs_solver = AMGSolver(Ac, num_levels=1, smoother="mcgs",
+                          use_pallas=False, reorder="none", device=dev)
+    lvl = cs_solver.levels[0]
+    xb = to_device(bc, cs_solver.dtype, cs_solver.device)
+    x0 = torch.zeros_like(xb)
+    amg_debug.coarse_smooth(lvl, x0, xb, 10)  # warm-up
+    sync()
+    t1 = time.perf_counter()
+    amg_debug.coarse_smooth(lvl, x0, xb, kw["timed_sweeps"])
+    sync()
+    per_sweep = (time.perf_counter() - t1) / kw["timed_sweeps"]
+    print(f"[amg_debug] {kw['mesh']}^2 mesh ({mesh.n_nodes} nodes), -levels 2"
+          f" -sweeps {kw['sweeps']} -device {dev}: exit 0 in {wall:.2f} s, "
+          f"PASSED, coarse residual {r0:.4e} -> {r1:.4e}, VTU of "
+          f"{mesh.n_nodes} points; the coarse system {Ac.shape[0]} rows, "
+          f"{len(lvl.color_blocks)} colours: {per_sweep * 1e3:.4f} ms per "
+          f"sweep ({kw['timed_sweeps']} timed)  ({card})")
+    # at 33 x 33 the card's and the CPU's runs print the same set-up lines
+    small = os.path.join(tmp, "small.msh")
+    write_msh(small, structured_unit_square_mesh(kw["mesh_small"]))
+    printed = {}
+    for d in (dev, "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = amg_debug.main(["-mesh", small, "-levels", "3", "-sweeps",
+                                 "30", "-device", d, "-o",
+                                 os.path.join(tmp, f"small_{d}.vtu")])
+        check(rc == 0, f"amg_debug -device {d} at {kw['mesh_small']}^2")
+        printed[d] = [ln for ln in buf.getvalue().splitlines()
+                      if ln.startswith(("Mesh", "Assembled", "level ",
+                                        "  -> P"))]
+    check(printed[dev] == printed["cpu"] and len(printed["cpu"]) == 6,
+          f"amg_debug set-up lines, {dev} vs cpu: {printed}")
+    print(f"[amg_debug] {kw['mesh_small']}^2, -levels 3: the {dev} and cpu "
+          f"runs print the same {len(printed['cpu'])} set-up lines")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3207,6 +3663,13 @@ def main() -> int:
     samg_times = run_sharded_amg(torch, phases, launches, max_err, amg_ctx,
                                  card)
     dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 16h. the last slice's modules on the card: the web server answering
+    # four requests, record_cycle_stages against step, checkpoint and
+    # resume, the guards and metrics, and the amg_debug harness
+    phases.next("16h amg_debug, utilities and front-ends")
+    run_frontends(torch, run_counted, card)
     torch.cuda.empty_cache()
 
     missing = [k for k in KERNELS if launches[k] == 0]

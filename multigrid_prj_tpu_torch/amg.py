@@ -708,17 +708,29 @@ class AMGSolver:
                          P=P, Pt=Pt, rhs=lvl_rhs, lmax=lmax,
                          color_blocks=blocks, A_fast=self._fast(M),
                          P_fast=P_fast, Pt_fast=Pt_fast, A_dense=A_dense))
-        if inv_bottom is None:
-            # dense inverse of the coarsest operator for the direct bottom
-            # solve: one matvec per cycle (inverted once on the host in f64)
-            bottom = self.host_matrices[-1].to_dense()
-            try:
-                inv_bottom = np.linalg.inv(bottom)
-            except np.linalg.LinAlgError:
-                # a (numerically) singular bottom operator must not kill
-                # setup; the outer cycle corrects the inconsistent part
-                inv_bottom = np.linalg.pinv(bottom)
-        self._coarse_dense = to_device(inv_bottom, dtype, device)
+        self._inv_bottom = inv_bottom
+        self._coarse_dense_dev = None
+
+    @property
+    def _coarse_dense(self) -> torch.Tensor:
+        """Dense inverse of the coarsest operator for the direct bottom
+        solve: one matvec per cycle, inverted once on the host in f64 at
+        the first use (a solver that never cycles, as ``amg_debug``'s
+        one-level smoother, never pays the O(n^3) inversion)."""
+        if self._coarse_dense_dev is None:
+            inv = self._inv_bottom
+            if inv is None:
+                bottom = self.host_matrices[-1].to_dense()
+                try:
+                    inv = np.linalg.inv(bottom)
+                except np.linalg.LinAlgError:
+                    # a (numerically) singular bottom operator must not
+                    # kill setup; the outer cycle corrects the
+                    # inconsistent part
+                    inv = np.linalg.pinv(bottom)
+            self._coarse_dense_dev = to_device(inv, self.dtype, self.device)
+            self._inv_bottom = None
+        return self._coarse_dense_dev
 
     # -- diagnostics ---------------------------------------------------------
 

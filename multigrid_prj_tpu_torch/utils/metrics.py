@@ -1,16 +1,72 @@
-"""Per-solve metrics (port of ``SolveMetrics`` from
-``multigrid_prj_tpu/utils/metrics.py``; numpy only): the residual history
-with its derived convergence factors and throughput, exported as JSON or
-CSV.  The JAX module's ``fence``, ``PhaseTimer`` and ``trace`` wrap JAX's
-dispatch and profiler and are not part of the port.
+"""Structured metrics, timers and profiling hooks (port of
+``multigrid_prj_tpu/utils/metrics.py``).
+
+* :func:`fence` -- completion fence: one element of the first tensor of a
+  result fetched to the host;
+* :class:`PhaseTimer` -- named wall-clock phases (the reference's
+  init/solve split), fenced;
+* :class:`SolveMetrics` -- the residual history with its derived
+  convergence factors and throughput, exported as JSON or CSV;
+* :func:`trace` -- a ``torch.profiler`` trace of a block (CPU, plus the
+  card's kernels where there is a card), written as a Chrome trace file.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import time
+from typing import Any, Optional
 
 import numpy as np
+import torch
+
+
+def _first_tensor(x):
+    """The first tensor in ``x``, looking inside lists, tuples and dicts
+    (dicts in sorted key order, as ``jax.tree_util.tree_leaves``)."""
+    if isinstance(x, torch.Tensor):
+        return x
+    if isinstance(x, dict):
+        x = [x[k] for k in sorted(x)]
+    if isinstance(x, (list, tuple)):
+        for v in x:
+            t = _first_tensor(v)
+            if t is not None:
+                return t
+    return None
+
+
+def fence(x) -> None:
+    """Completion fence: fetch one element of the first tensor in ``x`` to
+    the host (CUDA work is asynchronous; this waits for the stream that
+    made it).  Does nothing when ``x`` holds no tensor."""
+    t = _first_tensor(x)
+    if t is None:
+        return
+    if t.numel():
+        t.reshape(-1)[:1].tolist()
+    elif t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+@dataclasses.dataclass
+class PhaseTimer:
+    """Named wall-clock phases (the reference's init/solve split)."""
+
+    phases: dict[str, float] = dataclasses.field(default_factory=dict)
+
+    @contextlib.contextmanager
+    def phase(self, name: str, result_to_fence: Any = None):
+        t0 = time.perf_counter()
+        yield
+        if result_to_fence is not None:
+            fence(result_to_fence)
+        self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
+
+    def report(self) -> str:
+        return "\n".join(f"{k}: {v:.6f} seconds" for k, v in self.phases.items())
 
 
 @dataclasses.dataclass
@@ -71,3 +127,22 @@ class SolveMetrics:
             for k, r in enumerate(h):
                 red = "" if k == 0 else f"{h[k] / h[k - 1]:.6e}"
                 fh.write(f"{k},{r:.17e},{red}\n")
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str] = None):
+    """``torch.profiler`` trace context (no-op when ``logdir`` is None).
+
+    Records CPU activity, and CUDA activity when there is a card; on exit
+    ``tensorboard_trace_handler`` writes ``*.pt.trace.json`` (a Chrome
+    trace, no tensorboard package needed) into ``logdir``."""
+    if logdir is None:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
+        yield

@@ -15,7 +15,7 @@ from multigrid_prj_tpu_torch.cli import amg_main as tcli
 from multigrid_prj_tpu_torch.models import fem as tfem
 from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
 from multigrid_prj_tpu_torch.utils import io as tio
-from test_torch_fem import _write_msh
+from torch_msh import write_msh
 from torch_native_parity import native_parity  # noqa: F401
 
 torch.set_num_threads(1)
@@ -70,7 +70,7 @@ def test_amg_cli_matrix_f64_matches_jax(system, monkeypatch, argv):
 
 def test_amg_cli_mesh_and_reference_pass_match_jax(tmp_path, monkeypatch):
     msh = tmp_path / "square.msh"
-    _write_msh(str(msh), tfem.structured_unit_square_mesh(17))
+    write_msh(str(msh), tfem.structured_unit_square_mesh(17))
     argv = ["-mesh", str(msh), "-levels", "4"]
     jd = _run(jcli.main, argv, tmp_path / "jax", monkeypatch)
     td = _run(tcli.main, argv + CPU, tmp_path / "torch", monkeypatch)

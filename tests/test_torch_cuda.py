@@ -1471,3 +1471,101 @@ def test_cuda_program_counts_captured_and_replayed_launches(cuda_device):
     assert cs.LAUNCHES["probe_full"] == 9
     assert torch.equal(out[-1], chain(u)) and torch.equal(out[0], out[-1])
     pg.reset_program_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("smt,cycle", [(0, "sawtooth"), (0, "v"), (1, "v"),
+                                       (2, "sawtooth")])
+def test_cuda_web_run_solver_equals_direct_solve(cuda_device, tmp_path, smt,
+                                                 cycle):
+    """The web server's solve on the card (129^2: the form's N = 9, 5
+    levels) against the same solve made directly: history and x equal bit
+    for bit, the same launches (f32, tol 1e-6)."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops.krylov import bicgstab
+    from multigrid_prj_tpu_torch.ops.stencil import poisson_apply
+    from multigrid_prj_tpu_torch.utils.io import load_vector
+    from multigrid_prj_tpu_torch.web.server import run_solver
+
+    form = {"n": "9", "ml": "5", "test": "1", "smt": str(smt),
+            "cycle": cycle}
+    cs.reset_launch_counts()
+    ans = run_solver(form, str(tmp_path), device="cuda")
+    served = {k: v for k, v in cs.LAUNCHES.items() if v}
+    s = GMGSolver(shape=(129, 129), num_levels=5, cycle=cycle, tol=1e-6,
+                  smoother="jacobi" if smt == 1 else "gs", device="cuda")
+    b = assemble_rhs(s.levels[0], 10.0, test=1, device="cuda")
+    cs.reset_launch_counts()
+    if smt == 2:
+        h0 = s.levels[0].h
+        res = bicgstab(lambda x: poisson_apply(x, 10.0, h0), b, tol=1e-6,
+                       maxit=200, history=True,
+                       M=lambda r: s.step(torch.zeros_like(r), r))
+        x, hist, iters = res.x, res.history.cpu().numpy(), res.iterations
+    else:
+        out = s.solve(b)
+        x, hist, iters = out.u, out.history, out.iterations
+    direct = {k: v for k, v in cs.LAUNCHES.items() if v}
+    assert ans["iterations"] == iters and len(ans["history"]) == iters + 1
+    assert ans["history"] == [float(v) for v in hist]
+    assert served == direct
+    assert served.get("jacobi" if smt == 1 else "rbgs_fused", 0) > 0
+    assert np.array_equal(load_vector(tmp_path / "x.mtx"),
+                          x.cpu().numpy().reshape(-1).astype(np.float64))
+
+
+@pytest.mark.cuda
+def test_cuda_record_cycle_stages_equal_step(cuda_device):
+    """The corrected frames of ``record_cycle_stages`` on the card (the RB-GS
+    kernel) equal ``step`` iterated, bit for bit, with the same smoother
+    launches."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.viz.plots import record_cycle_stages
+
+    s = GMGSolver(shape=(129, 129), num_levels=4, device="cuda")
+    b = assemble_rhs(s.levels[0], 10.0, test=0, device="cuda")
+    cs.reset_launch_counts()
+    frames = record_cycle_stages(s, b, iterations=3)
+    n_rec = cs.LAUNCHES["rbgs_fused"]
+    cs.reset_launch_counts()
+    u = torch.zeros_like(b)
+    corrected = [f for lab, f in frames if lab.endswith("corrected")]
+    assert len(corrected) == 3
+    for frame in corrected:
+        u = s.step(u, b)
+        assert np.array_equal(u.cpu().numpy(), frame)
+    assert n_rec == cs.LAUNCHES["rbgs_fused"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resume_equals_uninterrupted(cuda_device, tmp_path):
+    """Checkpoint after 3 iterations and resume for 5 on the card (the main
+    path's V-cycle at 257^2, pad 256): history and u equal an
+    uninterrupted 8-iteration solve bit for bit."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        resume_solve,
+        save_checkpoint,
+    )
+
+    kw = dict(shape=(257, 257), num_levels=4, cycle="v", pad_align=256,
+              device="cuda")
+    s = GMGSolver(maxit=3, **kw)
+    b = assemble_rhs(s.levels[0], 10.0, test=1, device="cuda")
+    part = s.solve(b)
+    path = str(tmp_path / "ck.npz")
+    save_checkpoint(path, part.u, b, part.history, config={"maxit": 3})
+    state = load_checkpoint(path)
+    assert state["u"].dtype == np.float32 and state["config"] == {"maxit": 3}
+    cs.reset_launch_counts()
+    got = resume_solve(GMGSolver(maxit=5, **kw), path)
+    assert all(cs.LAUNCHES[k] > 0 for k in ("rbgs_fused", "residual",
+                                            "restrict_fw", "prolong_add"))
+    want = GMGSolver(maxit=8, **kw).solve(b)
+    assert got.u.is_cuda and len(got.history) == 9
+    assert np.array_equal(got.history, want.history)
+    assert torch.equal(got.u, want.u)

@@ -10,6 +10,7 @@ import torch
 from multigrid_prj_tpu.models import fem as jfem
 from multigrid_prj_tpu_torch import native as tnative
 from multigrid_prj_tpu_torch.models import fem as tfem
+from torch_msh import write_msh
 from torch_native_parity import native_parity  # noqa: F401
 
 torch.set_num_threads(1)
@@ -22,38 +23,11 @@ def _same_csr(a, b):
         assert np.array_equal(getattr(a, f), getattr(b, f)), f
 
 
-def _write_msh(path, mesh):
-    """``mesh`` as a gmsh 4.1 ASCII file: one node block (tags from 1), one
-    block of boundary lines (type 1) and one of triangles (type 2)."""
-    n = mesh.n_nodes
-    tris = mesh.triangles + 1
-    edges = np.concatenate([tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [0, 2]]])
-    bnd = mesh.on_boundary
-    # an edge with both ends on the boundary and used by one triangle only
-    key, count = np.unique(np.sort(edges, axis=1), axis=0, return_counts=True)
-    lines = key[(count == 1) & bnd[key[:, 0] - 1] & bnd[key[:, 1] - 1]]
-    with open(path, "w") as fh:
-        fh.write("$MeshFormat\n4.1 0 8\n$EndMeshFormat\n")
-        fh.write(f"$Nodes\n1 {n} 1 {n}\n2 1 0 {n}\n")
-        fh.write("".join(f"{t}\n" for t in range(1, n + 1)))
-        fh.write("".join(f"{float(x)!r} {float(y)!r} 0\n"
-                         for x, y in mesh.nodes))
-        fh.write("$EndNodes\n")
-        m, nl = len(tris), len(lines)
-        fh.write(f"$Elements\n2 {nl + m} 1 {nl + m}\n1 1 1 {nl}\n")
-        fh.write("".join(f"{k + 1} {a} {b}\n" for k, (a, b) in enumerate(lines)))
-        fh.write(f"2 1 2 {m}\n")
-        # node order within a triangle as gmsh may give it (unsorted)
-        fh.write("".join(f"{nl + k + 1} {c} {a} {b}\n"
-                         for k, (a, b, c) in enumerate(tris)))
-        fh.write("$EndElements\n")
-
-
 @pytest.mark.parametrize("use_native", [True, False])
 def test_parse_msh_matches_jax(tmp_path, use_native):
     ref = tfem.structured_unit_square_mesh(7)
     path = str(tmp_path / "square.msh")
-    _write_msh(path, ref)
+    write_msh(path, ref)
     mt = tfem.parse_msh(path, use_native=use_native)
     mj = jfem.parse_msh(path, use_native=use_native)
     for f in ("nodes", "triangles", "on_boundary"):

@@ -401,8 +401,38 @@ def test_port_imports_without_jax():
             "multigrid_prj_tpu_torch.cli.amg_main, "
             "multigrid_prj_tpu_torch.benchmarks.program, "
             "multigrid_prj_tpu_torch.benchmarks.stencil_ablation, "
-            "multigrid_prj_tpu_torch.benchmarks.spmv_ablation; "
+            "multigrid_prj_tpu_torch.benchmarks.spmv_ablation, "
+            "multigrid_prj_tpu_torch.utils.guards, "
+            "multigrid_prj_tpu_torch.utils.checkpoint, "
+            "multigrid_prj_tpu_torch.cli.amg_debug, "
+            "multigrid_prj_tpu_torch.cli.viz_main, "
+            "multigrid_prj_tpu_torch.viz.plots, "
+            "multigrid_prj_tpu_torch.web.server; "
             "assert p.GMGSolver; print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_viz_plots_imports_and_records_without_matplotlib():
+    """The card's machine has no matplotlib: ``viz.plots`` imports without
+    it, and ``record_cycle_stages`` / ``write_stage_files`` run (the
+    drawing functions import it when called)."""
+    code = ("import sys, tempfile; sys.modules['matplotlib'] = None; "
+            "sys.modules['jax'] = None; "
+            "sys.modules['multigrid_prj_tpu'] = None; "
+            "import torch; "
+            "from multigrid_prj_tpu_torch.viz import plots; "
+            "from multigrid_prj_tpu_torch.gmg import GMGSolver; "
+            "from multigrid_prj_tpu_torch.models.poisson import assemble_rhs; "
+            "s = GMGSolver(shape=(17, 17), num_levels=2, device='cpu'); "
+            "b = assemble_rhs(s.levels[0], 10.0, test=0, device='cpu'); "
+            "f = plots.record_cycle_stages(s, b, iterations=1); "
+            "plots.write_stage_files(f, tempfile.mkdtemp()); "
+            "assert len(f) == 5 and 'matplotlib.pyplot' not in sys.modules; "
+            "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)

@@ -14,7 +14,11 @@
 The JAX package runs each solve as one ``lax.while_loop``; here the loops are
 Python loops that fetch one scalar per outer iteration (the residual norm
 that goes into ``history``).  History semantics are the same: entry 0 is the
-initial residual, and the loop stops at ``tol`` or ``maxit``.
+initial residual, and the loop stops at ``tol`` or ``maxit``.  Every such
+fetch goes through ``utils/metrics.fetch`` (counted in
+``COUNTERS["host_syncs"]``), and a solve's stages run inside the profiler
+spans named below (``SPAN_*``, :func:`level_spans`), which cost one check
+each when no profiler records.
 
 Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there,
 on the card unless the caller names another device.  With ``use_pallas``
@@ -31,7 +35,7 @@ plain ops on every device and launches nothing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -60,8 +64,45 @@ from multigrid_prj_tpu_torch.ops.transfer import (
     restrict_fw_padded,
 )
 from multigrid_prj_tpu_torch.utils.guards import check_finite
+from multigrid_prj_tpu_torch.utils.metrics import fetch, span
 
 Smoother = Callable[..., torch.Tensor]  # (u, b, alpha, h, sweeps, logical_shape)
+
+# Profiler spans (utils/metrics.span; ranges only while a torch profiler
+# records).  A solve is one root span; inside it the outer loop's stages,
+# and inside mg.outer.cycle the cycle's stages of level k (L0 the finest)
+# and the bottom solve.  The nesting alone tells the solves apart.
+SPAN_SOLVE_REFINED = "mg.solve_refined"
+SPAN_SOLVE = "mg.solve"
+SPAN_SPLIT = "mg.outer.split"  # padding, b / c pair, ||b||^2, zero pair
+SPAN_FF_RESIDUAL = "mg.outer.ff_residual"
+SPAN_FETCH = "mg.fetch"  # a norm and its fetch to the host
+SPAN_CYCLE = "mg.outer.cycle"
+SPAN_PAIR_UPDATE = "mg.outer.pair_update"
+SPAN_COMBINE = "mg.outer.combine"  # u_hi + u_lo, the crop
+SPAN_BOTTOM = "mg.bottom"
+STAGES = ("pre_smooth", "residual", "restrict", "prolong_add", "post_smooth")
+
+
+class LevelSpans(NamedTuple):
+    """The span names of one level's cycle stages."""
+    pre_smooth: str
+    residual: str
+    restrict: str  # with the zero coarse correction; the fused down-leg
+    prolong_add: str
+    post_smooth: str
+
+
+_LEVEL_SPANS: dict[int, LevelSpans] = {}
+
+
+def level_spans(k: int) -> LevelSpans:
+    """``mg.L{k}.<stage>`` for each stage, built once per level index."""
+    names = _LEVEL_SPANS.get(k)
+    if names is None:
+        names = _LEVEL_SPANS[k] = LevelSpans(
+            *(f"mg.L{k}.{stage}" for stage in STAGES))
+    return names
 
 
 def stationary_solve(e0, b, alpha, h, smoother: Smoother, tol: float,
@@ -74,7 +115,11 @@ def stationary_solve(e0, b, alpha, h, smoother: Smoother, tol: float,
     b2 = norm2(b)
     tol2 = (tol * tol) * b2
     e, k, rn2 = e0, 0, b2
-    while k < maxit and bool(rn2 > tol2):
+    while k < maxit:
+        with span(SPAN_FETCH):
+            above = fetch(rn2 > tol2)
+        if not above:
+            break
         e = smoother(e, b, alpha, h, sweeps_per_check,
                      logical_shape=logical_shape)
         rn2 = norm2(poisson_residual(e, b, alpha, h, logical_shape))
@@ -115,21 +160,28 @@ def sawtooth_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
                    restrict=restrict_full_weighting):
     """One sawtooth multigrid cycle on the error equation (reference parity;
     full weighting by default, ``restrict_inject`` for the strict mode)."""
-    r = poisson_residual(u, b, alpha, levels[0].h, _logical(levels[0]))
+    with span(level_spans(0).residual):
+        r = poisson_residual(u, b, alpha, levels[0].h, _logical(levels[0]))
     rs = [r]
     for j, lev in enumerate(levels[1:], start=1):
-        rc = restrict_level(rs[-1], levels[j - 1], lev, exact_restrict=restrict)
+        with span(level_spans(j - 1).restrict):
+            rc = restrict_level(rs[-1], levels[j - 1], lev,
+                                exact_restrict=restrict)
         if tuple(rc.shape) != lev.physical:
             raise RuntimeError(f"restricted {tuple(rc.shape)} != {lev.physical}")
         rs.append(rc)
-    e = torch.zeros_like(rs[-1])
-    e, _, _ = stationary_solve(e, rs[-1], alpha, levels[-1].h, smoother,
-                               coarse_tol, coarse_maxit,
-                               logical_shape=_logical(levels[-1]))
+    with span(SPAN_BOTTOM):
+        e = torch.zeros_like(rs[-1])
+        e, _, _ = stationary_solve(e, rs[-1], alpha, levels[-1].h, smoother,
+                                   coarse_tol, coarse_maxit,
+                                   logical_shape=_logical(levels[-1]))
     for j in range(len(levels) - 2, -1, -1):
-        e = prolong_level(e, levels[j + 1], levels[j])
-        e = smoother(e, rs[j], alpha, levels[j].h, nu,
-                     logical_shape=_logical(levels[j]))
+        names = level_spans(j)
+        with span(names.prolong_add):
+            e = prolong_level(e, levels[j + 1], levels[j])
+        with span(names.post_smooth):
+            e = smoother(e, rs[j], alpha, levels[j].h, nu,
+                         logical_shape=_logical(levels[j]))
     return u + e
 
 
@@ -152,18 +204,26 @@ def v_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
     h = lev.h
     logical = _logical(lev)
     if _level == len(levels) - 1:
-        if coarse_apply is not None:
-            return coarse_apply(b)
-        return smoother(u, b, alpha, h, coarse_sweeps, logical_shape=logical)
+        with span(SPAN_BOTTOM):
+            if coarse_apply is not None:
+                return coarse_apply(b)
+            return smoother(u, b, alpha, h, coarse_sweeps,
+                            logical_shape=logical)
+    names = level_spans(_level)
     if downleg is not None and lev.padded_shape is not None:
-        u, rc = downleg(u, b, lev, levels[_level + 1], nu1)
+        with span(names.restrict):
+            u, rc = downleg(u, b, lev, levels[_level + 1], nu1)
+            ec = torch.zeros_like(rc)
     else:
-        u = smoother(u, b, alpha, h, nu1, logical_shape=logical)
-        r = residual(u, b, alpha, h, logical)
-        rc = restrict_level(r, lev, levels[_level + 1],
-                            exact_restrict=restrict,
-                            padded_restrict=padded_restrict)
-    ec = torch.zeros_like(rc)
+        with span(names.pre_smooth):
+            u = smoother(u, b, alpha, h, nu1, logical_shape=logical)
+        with span(names.residual):
+            r = residual(u, b, alpha, h, logical)
+        with span(names.restrict):
+            rc = restrict_level(r, lev, levels[_level + 1],
+                                exact_restrict=restrict,
+                                padded_restrict=padded_restrict)
+            ec = torch.zeros_like(rc)
     for _ in range(gamma):
         ec = v_cycle(ec, rc, levels, alpha, smoother, nu1=nu1, nu2=nu2,
                      coarse_sweeps=coarse_sweeps, restrict=restrict,
@@ -172,12 +232,14 @@ def v_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
                      padded_restrict=padded_restrict,
                      prolong_add=prolong_add, _level=_level + 1)
     nxt = levels[_level + 1]
-    if (prolong_add is not None and lev.padded_shape is not None
-            and nxt.padded_shape is not None):
-        u = prolong_add(ec, u)
-    else:
-        u = u + prolong_level(ec, nxt, lev)
-    return smoother(u, b, alpha, h, nu2, logical_shape=logical)
+    with span(names.prolong_add):
+        if (prolong_add is not None and lev.padded_shape is not None
+                and nxt.padded_shape is not None):
+            u = prolong_add(ec, u)
+        else:
+            u = u + prolong_level(ec, nxt, lev)
+    with span(names.post_smooth):
+        return smoother(u, b, alpha, h, nu2, logical_shape=logical)
 
 
 def w_cycle(u, b, levels, alpha, smoother, **kw):
@@ -188,7 +250,8 @@ def w_cycle(u, b, levels, alpha, smoother, **kw):
 def fmg(b, levels: Sequence[GridLevel], alpha: float, smoother: Smoother,
         n_vcycles: int = 1, restrict=restrict_full_weighting, **vkw):
     """Full multigrid: coarsest-first nested iteration, then V-cycles per
-    level."""
+    level (each on ``levels`` from index ``j``, so its spans name the
+    levels by their index in the whole hierarchy)."""
     bs = [b]
     for j, lev in enumerate(levels[1:], start=1):
         bs.append(restrict_level(bs[-1], levels[j - 1], lev,
@@ -198,8 +261,8 @@ def fmg(b, levels: Sequence[GridLevel], alpha: float, smoother: Smoother,
         if j < len(levels) - 1:
             u = prolong_level(u, levels[j + 1], levels[j])
         for _ in range(n_vcycles):
-            u = v_cycle(u, bs[j], levels[j:], alpha, smoother,
-                        restrict=restrict, **vkw)
+            u = v_cycle(u, bs[j], levels, alpha, smoother,
+                        restrict=restrict, _level=j, **vkw)
     return u
 
 
@@ -455,18 +518,20 @@ class GMGSolver:
             e = self._error_cycle(r.to(self.smoother_dtype), cinv)
             return u + e.to(u.dtype)
         if self.cycle == "sawtooth":
-            u = self._smoother_for(u.dtype)(u, b, self.alpha,
-                                            self.levels[0].h, self.pre_sweeps,
-                                            logical_shape=self._logical0)
+            with span(level_spans(0).pre_smooth):
+                u = self._smoother_for(u.dtype)(
+                    u, b, self.alpha, self.levels[0].h, self.pre_sweeps,
+                    logical_shape=self._logical0)
         return self._cycle(u, b, cinv)
 
     def _error_cycle(self, r, cinv=None):
         """One cycle on the error equation ``A e = r`` from ``e = 0``."""
         e = torch.zeros_like(r)
         if self.cycle == "sawtooth":
-            e = self._smoother_for(r.dtype)(e, r, self.alpha,
-                                            self.levels[0].h, self.pre_sweeps,
-                                            logical_shape=self._logical0)
+            with span(level_spans(0).pre_smooth):
+                e = self._smoother_for(r.dtype)(
+                    e, r, self.alpha, self.levels[0].h, self.pre_sweeps,
+                    logical_shape=self._logical0)
         return self._cycle(e, r, cinv)
 
     def _input(self, x, name):
@@ -487,20 +552,27 @@ class GMGSolver:
             return pad_to(x, lev0.padded_shape)
         return x
 
+    def _rel_fetch(self, u, b):
+        """The history entry of ``u``: its relative residual, fetched."""
+        with span(SPAN_FETCH):
+            return fetch(rel_residual_norm(u, b, self.alpha, self.levels[0].h,
+                                           self._logical0))
+
     def _solve_impl(self, u, b, cinv=None):
         lev0 = self.levels[0]
-        b, u = self._padded(b), self._padded(u)
-        h0 = lev0.h
+        with span(SPAN_SPLIT):
+            b, u = self._padded(b), self._padded(u)
         tol = _tol_in(self.tol, b.dtype)
-        hist = [float(rel_residual_norm(u, b, self.alpha, h0, self._logical0))]
+        hist = [self._rel_fetch(u, b)]
         k = 0
         while k < self.maxit and hist[k] > tol:
-            u = self.step(u, b, cinv)
-            hist.append(float(rel_residual_norm(u, b, self.alpha, h0,
-                                                self._logical0)))
+            with span(SPAN_CYCLE):
+                u = self.step(u, b, cinv)
+            hist.append(self._rel_fetch(u, b))
             k += 1
         if lev0.padded_shape is not None:
-            u = crop_to(u, lev0.shape)
+            with span(SPAN_COMBINE):
+                u = crop_to(u, lev0.shape)
         return u, k, np.asarray(hist, dtype=_np_dtype(b.dtype))
 
     def solve_refined(self, b, inner_cg: int = 0) -> SolveResult:
@@ -518,12 +590,19 @@ class GMGSolver:
 
         ``smoother_dtype`` is not read here: the error cycles run in the
         outer dtype, as in the JAX package."""
-        b = self._padded(self._input(b, "b"))
+        with span(SPAN_SOLVE_REFINED):
+            return self._solve_refined(self._input(b, "b"), inner_cg)
+
+    def _solve_refined(self, b, inner_cg):
         lev0 = self.levels[0]
         h0 = lev0.h
         c = self.alpha / (h0 * h0)
-        d_hi, d_lo = ff_from_div(b, c)
-        b2 = norm2(b)
+        with span(SPAN_SPLIT):
+            b = self._padded(b)
+            d_hi, d_lo = ff_from_div(b, c)
+            b2 = norm2(b)
+            u_hi = torch.zeros_like(b)
+            u_lo = torch.zeros_like(b)
         cinv = self._coarse_inv_as(b.dtype)
         on_kernels = self._on_kernels(b.dtype)
         ff_residual = (self._ff_residual_fn if on_kernels
@@ -531,11 +610,13 @@ class GMGSolver:
         apply_op = self._apply_fn if on_kernels else poisson_apply
 
         def residual(u_hi, u_lo):
-            return ff_residual(u_hi, u_lo, d_hi, d_lo, b, self.alpha, h0,
-                               self._logical0)
+            with span(SPAN_FF_RESIDUAL):
+                return ff_residual(u_hi, u_lo, d_hi, d_lo, b, self.alpha, h0,
+                                   self._logical0)
 
         def rel(r):
-            return float(torch.sqrt(norm2(r) / b2))
+            with span(SPAN_FETCH):
+                return fetch(torch.sqrt(norm2(r) / b2))
 
         if inner_cg:
             bmask = boundary_mask(b.shape, self._logical0, b.device)
@@ -554,21 +635,22 @@ class GMGSolver:
             def inner_solve(r):
                 return self._error_cycle(r, cinv)
 
-        u_hi = torch.zeros_like(b)
-        u_lo = torch.zeros_like(b)
         r = residual(u_hi, u_lo)
         hist = [rel(r)]
         tol = _tol_in(self.tol, b.dtype)
         k = 0
         while k < self.maxit and hist[k] > tol:
-            e = inner_solve(r)
-            u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
+            with span(SPAN_CYCLE):
+                e = inner_solve(r)
+            with span(SPAN_PAIR_UPDATE):
+                u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
             r = residual(u_hi, u_lo)
             hist.append(rel(r))
             k += 1
-        u = u_hi + u_lo
-        if lev0.padded_shape is not None:
-            u = crop_to(u, lev0.shape)
+        with span(SPAN_COMBINE):
+            u = u_hi + u_lo
+            if lev0.padded_shape is not None:
+                u = crop_to(u, lev0.shape)
         hist_np = np.asarray(hist, dtype=_np_dtype(b.dtype))
         return SolveResult(u=u, history=hist_np, iterations=k,
                            converged=bool(hist_np[-1] <= tol))
@@ -579,18 +661,21 @@ class GMGSolver:
 
         ``fmg_start``: start from one full-multigrid pass.
         """
-        b = self._input(b, "b")
-        check_finite(b, "rhs b")
-        if fmg_start and u0 is None:
-            u0 = fmg(self._padded(b), self.levels, self.alpha,
-                     self._smoother_for(b.dtype), nu1=self.pre_sweeps,
-                     nu2=self.nu)
-        u0 = torch.zeros_like(b) if u0 is None else self._input(u0, "u0")
-        # the bottom solve runs in the cycle's dtype: the defect-correction
-        # cycle's is smoother_dtype (one cast from the f64 inverse)
-        cycle_dtype = (b.dtype if self.smoother_dtype is None
-                       else self.smoother_dtype)
-        u, k, hist = self._solve_impl(u0, b, self._coarse_inv_as(cycle_dtype))
+        with span(SPAN_SOLVE):
+            b = self._input(b, "b")
+            check_finite(b, "rhs b")
+            if fmg_start and u0 is None:
+                u0 = fmg(self._padded(b), self.levels, self.alpha,
+                         self._smoother_for(b.dtype), nu1=self.pre_sweeps,
+                         nu2=self.nu)
+            u0 = torch.zeros_like(b) if u0 is None else self._input(u0, "u0")
+            # the bottom solve runs in the cycle's dtype: the
+            # defect-correction cycle's is smoother_dtype (one cast from the
+            # f64 inverse)
+            cycle_dtype = (b.dtype if self.smoother_dtype is None
+                           else self.smoother_dtype)
+            u, k, hist = self._solve_impl(u0, b,
+                                          self._coarse_inv_as(cycle_dtype))
         return SolveResult(u=u, history=hist, iterations=k,
                            converged=bool(hist[-1] <= _tol_in(self.tol,
                                                               b.dtype)))

@@ -8,7 +8,11 @@
 * :class:`SolveMetrics` -- the residual history with its derived
   convergence factors and throughput, exported as JSON or CSV;
 * :func:`trace` -- a ``torch.profiler`` trace of a block (CPU, plus the
-  card's kernels where there is a card), written as a Chrome trace file.
+  card's kernels where there is a card), written as a Chrome trace file;
+* :func:`span` -- a named range in the trace of whatever profiler records
+  (the solvers' ``mg.*`` spans), nothing when none records;
+* :func:`fetch` -- a solver loop's scalar fetch to the host, counted in
+  ``COUNTERS["host_syncs"]``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,16 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _profiler
+
+# program counters: "host_syncs" counts the calls of fetch (a host sync
+# each on the card); read the change over a block of work
+COUNTERS = {"host_syncs": 0}
+_NO_SPAN = contextlib.nullcontext()
+# the range a span opens: torch's record-function context without the
+# Python op dispatch of torch.profiler.record_function, which costs several
+# times as much host time per range while a profiler records (PERF.md)
+_range = torch._C._profiler._RecordFunctionFast
 
 
 def _first_tensor(x):
@@ -129,13 +143,42 @@ class SolveMetrics:
                 fh.write(f"{k},{r:.17e},{red}\n")
 
 
+def span(name: str):
+    """A record-function range named ``name`` while a torch profiler
+    records (the profiler's own enabled flag), else the one shared no-op
+    context: one check, nothing allocated, no string made.
+
+    The range is a host event of the recording profiler, on the clock of
+    its device events, recorded as a host op (not as a user annotation, so
+    nothing is drawn on the device's timeline); a launch made inside it is
+    a runtime call inside every span then open, and carries its kernel's
+    correlation id."""
+    if _profiler._is_profiler_enabled:
+        return _range(name)
+    return _NO_SPAN
+
+
+def fetch(x) -> float:
+    """``x.item()``, counted in ``COUNTERS["host_syncs"]``: the one scalar
+    a solver loop fetches to the host (on the card the host waits for the
+    device there).  Returns what ``float(x)`` returns, or ``bool(x)`` for
+    a boolean ``x``.  The solvers call it inside their ``mg.fetch`` span,
+    together with the norm it fetches."""
+    COUNTERS["host_syncs"] += 1
+    return x.item()
+
+
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None):
     """``torch.profiler`` trace context (no-op when ``logdir`` is None).
 
     Records CPU activity, and CUDA activity when there is a card; on exit
     ``tensorboard_trace_handler`` writes ``*.pt.trace.json`` (a Chrome
-    trace, no tensorboard package needed) into ``logdir``."""
+    trace, no tensorboard package needed) into ``logdir``.  The trace
+    carries the solvers' ``mg.*`` spans (:func:`span`): a solve's root
+    span (``mg.solve_refined``, ``mg.solve``), the outer loop's stages and
+    each level's cycle stages beneath it, on the kernels' clock; the
+    solvers' fetches are counted in ``COUNTERS["host_syncs"]``."""
     if logdir is None:
         yield
         return

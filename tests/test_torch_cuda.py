@@ -471,6 +471,76 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
 
 
 @pytest.mark.cuda
+def test_cuda_spans_cover_a_solve_and_count_its_syncs(cuda_device):
+    """One profiled 65^3 ff32 ``solve_refined`` (config 4's V(2,2) cut to 3
+    levels): ``COUNTERS["host_syncs"]`` equals the synchronising runtime
+    calls inside ``mg.solve_refined`` (each fetch is one DtoH copy and one
+    ``cudaStreamSynchronize``); the device time launched beneath the root
+    span, attributed by correlation id (``portbench/spans.py``), covers at
+    least 99 % of the busy time inside it, and its idle time splits into
+    the outer loop's and the cycle's; no ``mg.*`` range counts as device
+    work in the benchmark's busy sum (the spans are host ops, and a range
+    drawn on the device's timeline would be a user annotation, which the
+    sum leaves out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.utils import metrics
+    from portbench import spans
+    from portbench import trace as tracing
+
+    solver = GMGSolver(device="cuda", shape=(65, 65, 65), length=1.0,
+                       alpha=1.0, num_levels=3, cycle="v", nu=2, tol=1e-8,
+                       maxit=40)
+    b = _rhs_3d(solver.levels[0], "cuda")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # starts the profiler up
+        solver.solve_refined(b)
+        torch.cuda.synchronize()
+    before = metrics.COUNTERS["host_syncs"]
+    with profile(activities=acts) as prof:
+        got = solver.solve_refined(b)
+        torch.cuda.synchronize()
+    syncs = metrics.COUNTERS["host_syncs"] - before
+    events = prof.events()
+    root, = [e for e in events if e.name == "mg.solve_refined"
+             and e.device_type == DeviceType.CPU]
+
+    def inside(e):
+        return root.time_range.start <= e.time_range.start <= \
+            root.time_range.end
+
+    assert all(e.is_user_annotation for e in events
+               if e.device_type == DeviceType.CUDA and e.name.startswith("mg."))
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    kind = {e.id: e.name for e in device}
+    calls = [e for e in events if e.device_type == DeviceType.CPU
+             and e.thread == root.thread and inside(e)]
+    stream_syncs = [e for e in calls if e.name.endswith("Synchronize")]
+    dtoh = [e for e in calls if e.name.startswith("cudaMemcpy")
+            and "DtoH" in kind.get(e.id, "")]
+    assert syncs == got.iterations + 1 == len(stream_syncs) == len(dtoh)
+
+    split = spans.reduce(events, syncs)
+    assert split.solves == 1
+    assert all(p.startswith("mg.solve_refined/") for p in split.busy)
+    busy_inside = sum(e.time_range.elapsed_us() for e in device
+                      if inside(e)) / 1e6
+    assert sum(split.busy.values()) >= 0.99 * busy_inside > 0
+    idle = sum(split.idle.values())
+    assert (split.idle_ms_per_solve(lambda p: spans.layer(p) == "outer")
+            + split.idle_ms_per_solve(lambda p: spans.layer(p) == "cycle")
+            == pytest.approx(idle * 1e3))
+    tr = tracing.summarize(events, 1.0, tracing.port_kernel_names(), 1,
+                           [got.iterations])
+    assert not any(name.startswith("mg.") for name in tr.by_name)
+    assert tr.busy_s == pytest.approx(
+        sum(e.time_range.elapsed_us() for e in device) / 1e6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims", [2, 3])
 def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
                                                               dims):

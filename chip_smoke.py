@@ -149,6 +149,7 @@ Usage (from the repository root, one card):  python3 chip_smoke.py
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import statistics
@@ -277,9 +278,14 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     # 4's Jacobi solve with it swapped in, run beside the path
     "jacobi3d": (f"{_PS3}:141", _SRC3),
     "jacobi3d_sweep": (f"{_PS3}:141", _SRC3),
+    # the 3D float-float residual replaces no TPU kernel: XLA fused the JAX
+    # function's elementwise chain there, torch runs it as ~120 passes
+    "ff_residual3d": ("none: XLA fused multigrid_prj_tpu/ops/extended.py:85"
+                      " on the TPU", _SRC3),
 }
 KERNELS_3D = ("apply3d", "apply3d_point", "residual3d", "residual3d_point",
-              "rbgs3d_fused", "rbgs3d_color", "jacobi3d", "jacobi3d_sweep")
+              "rbgs3d_fused", "rbgs3d_color", "jacobi3d", "jacobi3d_sweep",
+              "ff_residual3d")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -352,6 +358,7 @@ STENCIL_COST = {
     "rbgs3d_fused": (12, 18),
     "rbgs3d_color": (12, 18),
     "jacobi3d": (12, 24), "jacobi3d_sweep": (12, 24),
+    "ff_residual3d": (24, 95),
     "rbgs_fused_ext": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
@@ -547,8 +554,16 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     fused Jacobi every count of ``JACOBI3D_SWEEPS``, omega 0.8 and 1,
     against the per-sweep oracle and the twin; the residual's and the
     apply's march against the one-thread-per-point kernels and the twins;
-    the last case of each, against the twin (the smoothers' at 2 sweeps,
-    V(2,2), the Jacobi's at omega 0.8), is the one timed."""
+    the float-float residual against its twin, on a pair whose low half is
+    ~1e-8 of ``u`` and the pair of ``b / c``; the last case of each, against
+    the twin (the smoothers' at 2 sweeps, V(2,2), the Jacobi's at omega
+    0.8), is the one timed."""
+    from multigrid_prj_tpu_torch.ops import extended as text
+
+    u_lo = u * 1e-8
+    d_hi, d_lo = text.ff_from_div(b, alpha / (h * h))
+    ff_args = (u, u_lo, d_hi, d_lo, b, alpha, h, logical)
+
     def fused(s):
         return c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=s,
                                             logical_shape=logical)
@@ -618,6 +633,8 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
                 lambda: jac_twin(2, 0.8))]),
         "jacobi3d_sweep": [("sweeps 2, omega 0.8", lambda: per_sweep(2, 0.8),
                             lambda: jac_twin(2, 0.8))],
+        "ff_residual3d": [("", lambda: c3.ff_poisson_residual_3d(*ff_args),
+                           lambda: text.ff_poisson_residual(*ff_args))],
     }
 
 
@@ -825,12 +842,13 @@ def tile_kernel_report(cs, c3, log):
     chain and the Jacobi smoother (``apply_chain_kernel<A>``,
     ``jacobi_fused_kernel<S>``), of the prolong-add stream, of the
     residual's and apply's z-chunked march (``stencil3d_march_kernel``) and
-    of the 3D Jacobi's (``jacobi3d_march_kernel<S>``) from nvcc's
+    of the 3D Jacobi's (``jacobi3d_march_kernel<S>``) and of the 3D
+    float-float residual's (``ff_residual3d_march_kernel``) from nvcc's
     ``-Xptxas -v`` log; the tile kernels' shared memory is dynamic, so it
     comes from the tile geometry the wrapper passes (``cs.rbgs_tile``,
     ``c3.rbgs3d_tile``, ``cs.apply_tile``, ``cs.jacobi_tile``,
-    ``c3.jacobi3d_tile``); the residual march's is static, from the
-    log."""
+    ``c3.jacobi3d_tile``, ``c3.ff_residual3d_tile``); the residual
+    march's is static, from the log."""
     import re
 
     props, cur = {}, None
@@ -901,6 +919,14 @@ def tile_kernel_report(cs, c3, log):
                        f"registers, spill stores {st} B, spill loads {ld} B, "
                        f"no shared memory (strips of {strip} coarse rows, "
                        f"{quads} quads per block)")
+        elif "ff_residual3d_march_kernel" in mangled:
+            tx, ty, _, ahead = c3.ff_residual3d_tile((1, 1, 1))
+            slot = 2 * (tx + 2) * (ty + 2) + 3 * tx * ty
+            out.append(f"ff_residual3d_march_kernel: {pr.get('regs', '?')} "
+                       f"registers, spill stores {st} B, spill loads {ld} B, "
+                       f"dynamic shared memory {4 * (ahead + 2) * slot} B "
+                       f"({ahead + 2} slots of plane copies of u_hi and "
+                       f"u_lo with a ring, d_hi, d_lo and b)")
         elif "stencil3d_march_kernel" in mangled:
             what = ("residual3d: a ring of plane copies and b"
                     if "ILb1EE" in mangled else "apply3d: a ring of plane "
@@ -1023,15 +1049,14 @@ def flushed_ms(torch, fn, runs=10):
 
 
 def stencil_bytes(kname, shape, logical):
-    """Bytes one call of a 2D stencil kernel must move at ``shape``:
+    """Bytes one call of a 2D or 3D stencil kernel must move at ``shape``:
     ``STENCIL_COST``'s per-point count, except that the float-float
-    residual reads no ``d_hi`` / ``d_lo`` at boundary and dead-zone points
+    residuals read no ``d_hi`` / ``d_lo`` at boundary and dead-zone points
     (16 B there, 24 B inside)."""
-    npts = shape[0] * shape[1]
-    if kname != "ff_residual":
+    npts = math.prod(shape)
+    if kname not in ("ff_residual", "ff_residual3d"):
         return STENCIL_COST[kname][0] * npts
-    nl, ml = logical or shape
-    inside = (nl - 2) * (ml - 2)
+    inside = math.prod(n - 2 for n in (logical or shape))
     return 24 * inside + 16 * (npts - inside)
 
 
@@ -3144,6 +3169,11 @@ def main() -> int:
         check(n_res is None or (counts["residual3d"] == n_res
                                 and counts["residual3d_point"] == 0),
               f"{tag}: residual launches")
+        # the float-float residual: one launch per outer residual
+        print(f"[{tag}] ff_residual3d launches {counts['ff_residual3d']} "
+              f"(expected {res3.iterations + 1}: iterations + 1)")
+        check(counts["ff_residual3d"] == res3.iterations + 1,
+              f"{tag}: float-float residual launches")
         if tag[0] == "A":  # and with the point residual, and per colour
             check(calls == CONFIG4_FUSED_LAUNCHES, f"{tag}: {calls} calls")
             rs3 = point_residual3d(GMGSolver(**kw, **extra, device="cuda"))
@@ -3162,6 +3192,22 @@ def main() -> int:
                   f"{tag}: the march differs from the point residual")
             point3d[tag] = rs3
             del res3r
+            # and with the plain float-float residual in place of its kernel
+            fs3 = GMGSolver(**kw, **extra, device="cuda")
+            fs3._ff_residual_fn = text.ff_poisson_residual
+            res3f, counts_f = run_path(fs3, b3)
+            print(f"[{tag}] with the plain float-float residual: "
+                  f"{res3f.iterations} iterations, ff_residual3d "
+                  f"{counts_f['ff_residual3d']} launches; history and "
+                  f"solution equal: "
+                  f"{np.array_equal(res3f.history, res3.history)}, "
+                  f"{torch.equal(res3f.u, res3.u)}")
+            check(res3f.iterations == res3.iterations
+                  and np.array_equal(res3f.history, res3.history)
+                  and torch.equal(res3f.u, res3.u)
+                  and counts_f["ff_residual3d"] == 0,
+                  f"{tag}: the ff residual kernel differs from the plain one")
+            del fs3, res3f
             ps3 = per_colour3d(GMGSolver(**kw, **extra, device="cuda"))
             res3p, counts_p = run_path(ps3, b3)
             print(f"[{tag}] per-colour path: {res3p.iterations} iterations, "
@@ -3887,7 +3933,8 @@ def main() -> int:
             per = STENCIL_COST[kname]
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
             if kname in ("residual3d", "residual3d_point", "apply3d",
-                         "apply3d_point", "jacobi3d", "jacobi3d_sweep"):
+                         "apply3d_point", "jacobi3d", "jacobi3d_sweep",
+                         "ff_residual3d"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
                 note = (f"; L2 flushed before each call "
                         f"{extra['flushed_ms'] * 1e3:.1f} us")
@@ -3948,8 +3995,9 @@ def main() -> int:
                           f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }"
                           f"  ({card})")
             add_time(kname, label, record(
-                "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
-                per[1] * npts, **extra), note)
+                "x".join(map(str, shape)), t[0], t[1],
+                stencil_bytes(kname, shape, logical), per[1] * npts,
+                **extra), note)
         del u, bb
         torch.cuda.empty_cache()
     bshape = CONFIG4_BOTTOM

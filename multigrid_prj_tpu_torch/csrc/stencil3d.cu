@@ -20,6 +20,10 @@
 //                   sweep of a small array in one launch (below)
 //   jacobi3d_sweep <- the same, one sweep per launch: the per-sweep oracle
 //                   that jacobi3d is held to (no solver path)
+// and one kernel that ports no TPU kernel:
+//   ff_residual3d <- ops/extended.ff_poisson_residual on a 3-D array (XLA
+//                   fused it on the TPU): the float-float residual of the
+//                   refined solve, on the residual's z-chunked march (below)
 //
 // Layout: a contiguous f32 array of shape (nz, ny, nx), with 64-bit
 // offsets (nz*ny*nx passes 2^31 at about 1291^3).  (nzl, nyl, nxl) are the
@@ -47,7 +51,8 @@
 // bandwidth (bytes per point are noted at each kernel).  The smoothers'
 // launch shapes are described above rbgs3d_zmarch_kernel and
 // jacobi3d_march_kernel, the residual's and the apply's march above
-// stencil3d_march_kernel.
+// stencil3d_march_kernel, the float-float residual's above
+// ff_residual3d_march_kernel.
 
 #include <cuda_runtime.h>
 
@@ -582,6 +587,166 @@ __global__ void __launch_bounds__(kR3Threads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float-float residual, ff_residual3d_march_kernel: with u = (uh, ul)
+// and d = b / c = (dh, dl) carried as pairs, ops/extended.ff_poisson_residual
+// op for op on a 3-D array:
+//   acc = ff_add(4 uh, 4 ul, 2 uh, 2 ul);
+//   acc = ff_add(acc, -nb) for nb at z + 1, z - 1, y + 1, y - 1, x + 1, x - 1;
+//   t = ff_add(d, -acc);  interior r = c t_hi + c t_lo;
+//   boundary and dead-zone r = (b - uh) - ul;
+// every operation an explicit __f*_rn, so bit-equal to that function.  It
+// replaces no TPU kernel: XLA fused the twin's elementwise chain on the TPU,
+// and torch on the card runs it as ~120 separate passes over the arrays.
+//
+// Bound: memory, 24 B per point (read uh, ul, dh, dl and b, write r; 16 B
+// at boundary points, which need no d).  The arithmetic (8 float-float
+// additions, ~95 flops a point) is about a fifth of that time at the card's
+// f32 rate.  The design is the residual's march (stencil3d_march_kernel
+// above) with the pair in two rings:
+// * One block per x-y tile and z-chunk of the residual's march (its tile,
+//   residual3d_chunk); a thread per (y, x) column walks the chunk's planes,
+//   keeping the pair at z - 1 and z in registers, so each plane of uh and
+//   ul is copied once per chunk (plus the two planes just outside it).
+// * N, S, E and W come from shared copies of plane z of uh and ul with a
+//   one-cell ring, the z + 1 pair from the copies of the next plane; dh, dl
+//   and b land beside each plane without a ring, one word per thread
+//   (coalesced, read once).  All copies are 4-byte cp.async with zero fill,
+//   kF3Ahead planes ahead of the one computed, in a ring of kF3Ahead + 2
+//   slots of 2 * 660 + 3 * 512 words: one barrier per plane.  On the H100,
+//   2 planes in flight beat 1, 3 and 4 (3 and 4 fit fewer blocks per SM).
+// * r is stored once per point, two warps per tile row: coalesced.
+// The geometry is mirrored by ops/cuda_stencil_3d.ff_residual3d_tile; the C
+// entry point refuses another.
+constexpr int kF3Ahead = 2;             // planes in flight
+constexpr int kF3Slots = kF3Ahead + 2;  // ring slots
+// words of a slot: the copies of uh and ul, then dh, dl and b
+constexpr int kF3Slot = 2 * kR3Plane + 3 * kR3Threads;
+constexpr int kF3Smem = kF3Slots * kF3Slot * (int)sizeof(float);
+static_assert(kR3Plane % 4 == 0 && kR3Threads % 4 == 0, "16-byte slots");
+static_assert(kF3Smem <= 227 * 1024, "shared memory");
+
+// Knuth two-sum, then the fast-two-sum normalisation of ops/extended.ff_add
+// (as stencil2d.cu's ff_add).
+__device__ __forceinline__ void ff_add3(float xh, float xl, float yh,
+                                        float yl, float* oh, float* ol) {
+  const float s = __fadd_rn(xh, yh);
+  const float bb = __fsub_rn(s, xh);
+  float e = __fadd_rn(__fsub_rn(xh, __fsub_rn(s, bb)), __fsub_rn(yh, bb));
+  e = __fadd_rn(e, __fadd_rn(xl, yl));
+  const float s2 = __fadd_rn(s, e);
+  *oh = s2;
+  *ol = __fsub_rn(e, __fsub_rn(s2, s));
+}
+
+__global__ void __launch_bounds__(kR3Threads)
+    ff_residual3d_march_kernel(const float* __restrict__ uh,
+                               const float* __restrict__ ul,
+                               const float* __restrict__ dh,
+                               const float* __restrict__ dl,
+                               const float* __restrict__ b,
+                               float* __restrict__ r, int nz, int ny, int nx,
+                               int nzl, int nyl, int nxl, float c, int zc) {
+  extern __shared__ __align__(16) float f3_smem[];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kR3X, y0 = blockIdx.y * kR3Y;
+  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
+  const long long plane = (long long)ny * nx;
+  // the ring copies, as stencil3d_march_kernel's
+  int cw[kR3Copies];
+  unsigned cb[kR3Copies];
+  long long co[kR3Copies];
+#pragma unroll
+  for (int k = 0; k < kR3Copies; ++k) {
+    const int q = tid + k * kR3Threads;
+    const int y = y0 - 1 + q / kR3PX, x = x0 - 1 + q % kR3PX;
+    const bool in = q < kR3Plane && y >= 0 && y < ny && x >= 0 && x < nx;
+    cw[k] = q < kR3Plane ? q : -1;
+    cb[k] = in ? 4u : 0u;
+    co[k] = in ? (long long)y * nx + x : 0;
+  }
+  const int ty = tid / kR3X, tx = tid % kR3X;
+  const int y = y0 + ty, x = x0 + tx;
+  const bool own = y < ny && x < nx;
+  const long long go = own ? (long long)y * nx + x : 0;
+  const int cq = (ty + 1) * kR3PX + tx + 1;
+  const bool yx_in = y > 0 && y < nyl - 1 && x > 0 && x < nxl - 1;
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(f3_smem));
+
+  // one commit group per plane p of z0 .. z1 (z1: only for the last z + 1
+  // pair, so no d or b), empty past them
+  auto issue = [&](int p, int slot) {
+    if (p <= z1 && p < nz) {
+      const long long off = (long long)p * plane;
+      const unsigned s0 = base + 4u * (unsigned)(slot * kF3Slot);
+#pragma unroll
+      for (int k = 0; k < kR3Copies; ++k) {
+        if (cw[k] >= 0) {
+          cp_async4(s0 + 4u * cw[k], uh + off + co[k], cb[k]);
+          cp_async4(s0 + 4u * (kR3Plane + cw[k]), ul + off + co[k], cb[k]);
+        }
+      }
+      if (p < z1) {
+        const unsigned nb = own ? 4u : 0u;
+        const unsigned sd = s0 + 4u * (2 * kR3Plane + tid);
+        cp_async4(sd, dh + off + go, nb);
+        cp_async4(sd + 4u * kR3Threads, dl + off + go, nb);
+        cp_async4(sd + 8u * kR3Threads, b + off + go, nb);
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int p = 0; p <= kF3Ahead; ++p) issue(z0 + p, p);
+  // the pair at z - 1 and z of the thread's column
+  const long long zo = (long long)(z0 - 1) * plane + go;
+  float znh = (z0 > 0 && own) ? uh[zo] : 0.0f;
+  float znl = (z0 > 0 && own) ? ul[zo] : 0.0f;
+  float uch = 0.0f, ucl = 0.0f;
+  int s = 0;  // the slot of plane z
+  for (int z = z0; z < z1; ++z) {
+    cp_async_wait<kF3Ahead - 1>();  // planes z and z + 1 have landed
+    __syncthreads();  // visible to all; step z - 1 is done with its slot
+    const int s1 = s + 1 == kF3Slots ? 0 : s + 1;
+    const int sl = s == 0 ? kF3Slots - 1 : s - 1;  // plane z - 1's slot
+    issue(z + kF3Ahead + 1, sl);
+    const float* ph = f3_smem + s * kF3Slot;  // plane z: uh, ul, dh, dl, b
+    const float* pl = ph + kR3Plane;
+    const float* pd = ph + 2 * kR3Plane + tid;
+    if (z == z0) {
+      uch = ph[cq];
+      ucl = pl[cq];
+    }
+    const float* nh = f3_smem + s1 * kF3Slot;  // plane z + 1
+    const float zsh = z + 1 < nz ? nh[cq] : 0.0f;
+    const float zsl = z + 1 < nz ? nh[kR3Plane + cq] : 0.0f;
+    float out;
+    if (yx_in && z > 0 && z < nzl - 1) {
+      float ah, al;
+      ff_add3(__fmul_rn(4.0f, uch), __fmul_rn(4.0f, ucl),
+              __fmul_rn(2.0f, uch), __fmul_rn(2.0f, ucl), &ah, &al);
+      ff_add3(ah, al, -zsh, -zsl, &ah, &al);                      // z + 1
+      ff_add3(ah, al, -znh, -znl, &ah, &al);                      // z - 1
+      ff_add3(ah, al, -ph[cq + kR3PX], -pl[cq + kR3PX], &ah, &al);  // y + 1
+      ff_add3(ah, al, -ph[cq - kR3PX], -pl[cq - kR3PX], &ah, &al);  // y - 1
+      ff_add3(ah, al, -ph[cq + 1], -pl[cq + 1], &ah, &al);          // x + 1
+      ff_add3(ah, al, -ph[cq - 1], -pl[cq - 1], &ah, &al);          // x - 1
+      float th, tl;
+      ff_add3(pd[0], pd[kR3Threads], -ah, -al, &th, &tl);
+      out = __fadd_rn(__fmul_rn(c, th), __fmul_rn(c, tl));
+    } else {
+      out = __fsub_rn(__fsub_rn(pd[2 * kR3Threads], uch), ucl);
+    }
+    if (own) r[(long long)z * plane + go] = out;
+    znh = uch;
+    znl = ucl;
+    uch = zsh;
+    ucl = zsl;
+    s = s1;
+  }
+}
+
 constexpr int kResidentMaxPoints = 16384;  // u and b / c: 128 KB
 constexpr int kResThreads = 1024;
 // sites (z, y, column pair) per thread: nz * ny * ceil(nx / 2) is at most
@@ -1012,6 +1177,30 @@ int march3d_launch(const float* u, const float* b, float* r, int nz, int ny,
   return (int)cudaGetLastError();
 }
 
+int ff_residual3d_launch(const float* uh, const float* ul, const float* dh,
+                         const float* dl, const float* b, float* r, int nz,
+                         int ny, int nx, int nzl, int nyl, int nxl, float c,
+                         const int* geom, cudaStream_t stream) {
+  static bool smem_set = false;
+  const int zc = residual3d_chunk(nz, ny, nx);
+  if (geom[0] != kR3X || geom[1] != kR3Y || geom[2] != zc ||
+      geom[3] != kF3Ahead) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ff_residual3d_march_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kF3Smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((nx + kR3X - 1) / kR3X, (ny + kR3Y - 1) / kR3Y,
+                  (nz + zc - 1) / zc);
+  ff_residual3d_march_kernel<<<grid, kR3Threads, kF3Smem, stream>>>(
+      uh, ul, dh, dl, b, r, nz, ny, nx, nzl, nyl, nxl, c, zc);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -1050,6 +1239,17 @@ int mg_residual3d(const float* u, const float* b, float* r, int nz, int ny,
                   void* stream) {
   return march3d_launch<true>(u, b, r, nz, ny, nx, nzl, nyl, nxl, c, geom,
                               (cudaStream_t)stream);
+}
+
+// The float-float residual on its z-chunked march; geom = (tile columns,
+// tile rows, planes per chunk, planes in flight) as the caller computed
+// them, refused unless they are the compiled ones and the chunk rule's.
+int mg_ff_residual3d(const float* uh, const float* ul, const float* dh,
+                     const float* dl, const float* b, float* r, int nz, int ny,
+                     int nx, int nzl, int nyl, int nxl, float c,
+                     const int* geom, void* stream) {
+  return ff_residual3d_launch(uh, ul, dh, dl, b, r, nz, ny, nx, nzl, nyl, nxl,
+                              c, geom, (cudaStream_t)stream);
 }
 
 // The one-thread-per-point residual (chip_smoke.py's reference only).

@@ -25,8 +25,8 @@ on the card unless the caller names another device.  With ``use_pallas``
 (the default on CUDA) the smoothers, residuals, padded grid transfers, the
 fused down-leg (``fuse_downleg``) and the ``inner_cg`` operator apply run
 through the hand-written kernels of ``ops/cuda_stencil.py`` (3D:
-``ops/cuda_stencil_3d.py`` for the smoothers, residual and apply; the 3D
-transfers and float-float residual are plain ops, as in the JAX package).
+``ops/cuda_stencil_3d.py`` for the smoothers, residuals and apply; the 3D
+transfers are plain ops, as in the JAX package).
 As in the JAX kernel wrappers, which take float32 only, a cycle or residual
 in any other dtype (f64, or the bf16 ``smoother_dtype`` cycle) runs the
 plain ops on every device and launches nothing.
@@ -42,6 +42,7 @@ import torch
 
 from multigrid_prj_tpu_torch.grids import GridLevel, build_hierarchy
 from multigrid_prj_tpu_torch.ops import cuda_stencil as _cs
+from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as _c3
 from multigrid_prj_tpu_torch.ops.extended import (
     ff_accumulate,
     ff_from_div,
@@ -367,13 +368,17 @@ class GMGSolver:
 
             self.smoother = _sm
         self._logical0 = _logical(self.levels[0])
-        # the transfers and the float-float residual have 2D kernels only;
-        # in 3D the JAX package runs them as XLA ops, and so does the port
+        # the transfers have 2D kernels only; in 3D the JAX package runs
+        # them as XLA ops, and so does the port.  The float-float residual
+        # has a kernel per dimension (in 3D the JAX package leaves it to
+        # XLA's fusion, which torch does not make)
         kernels2d = self._use_pallas and len(self.levels[0].shape) == 2
         self._residual_fn = (_cs.poisson_residual if self._use_pallas
                              else poisson_residual)
-        self._ff_residual_fn = (_cs.ff_poisson_residual if kernels2d
-                                else _ff_residual_plain)
+        self._ff_residual_fn = (
+            _ff_residual_plain if not self._use_pallas
+            else _cs.ff_poisson_residual if kernels2d
+            else _c3.ff_poisson_residual_3d)
         self._apply_fn = (_cs.poisson_apply if self._use_pallas
                           else poisson_apply)
         self._downleg_fn = None

@@ -33,13 +33,14 @@ function                      replaces (pallas_stencil.py)   bytes per point
 
 Each public function keeps the JAX signature.  As in the JAX wrappers, a 3D
 tensor goes to ``ops/cuda_stencil_3d.py`` (the smoothers, residual and
-apply; the transfers and the float-float residual have no 3D kernel, and
-the 3D path runs them as plain ops).  Otherwise each function dispatches on
-the device of its tensors: a CPU tensor runs the plain torch twin
-(``*_plain``, the kernel's operation order, which matches the JAX Pallas
-function in interpret mode); a CUDA tensor launches the kernel or raises
-``NotImplementedError``.  There is no fallback.  All kernels are
-memory-bound.  The red-black smoother, the down-leg and the sharded
+apply; the transfers have no 3D kernel, and the 3D path runs them as plain
+ops; the 3D float-float residual is ``cuda_stencil_3d.
+ff_poisson_residual_3d``, which the solver calls directly).  Otherwise each
+function dispatches on the device of its tensors: a CPU tensor runs the
+plain torch twin (``*_plain``, the kernel's operation order, which matches
+the JAX Pallas function in interpret mode); a CUDA tensor launches the
+kernel or raises ``NotImplementedError``.  There is no fallback.  All
+kernels are memory-bound.  The red-black smoother, the down-leg and the sharded
 solver's extended-slab smoother fuse their passes on the colour-split
 shared-memory tile whose geometry :func:`rbgs_tile` gives; the apply chain
 its applies on the row-walking tile of :func:`apply_tile`, the Jacobi
@@ -65,7 +66,7 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "jacobi": 0, "jacobi_sweep": 0, "restrict_fw": 0,
             "prolong_add": 0, "prolong_add_point": 0,
             "apply3d": 0, "apply3d_point": 0, "residual3d": 0,
-            "residual3d_point": 0, "rbgs3d_fused": 0,
+            "residual3d_point": 0, "ff_residual3d": 0, "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0, "jacobi3d_sweep": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "rbgs_resfilter_tile48": 0,

@@ -14,6 +14,8 @@ function                       replaces                  bytes per point
                                                          <= 4 sweeps
 ``jacobi_3d``                  ``_jacobi3d_kernel``      12 per group of
                                                          <= 4 sweeps
+``ff_poisson_residual_3d``     none (XLA fused it)       24 (a z-chunked
+                                                         march)
 =============================  ========================  ===============
 
 Arrays are ``(nz, ny, nx)``; ``logical_shape`` gives the live extents of a
@@ -29,7 +31,10 @@ launch shapes by the array's size alone: a z-marching tile
 launch per group of <= 4 sweeps, or, for arrays of at most
 ``RESIDENT_MAX_POINTS`` points (the 17^3 bottom of a V-cycle), every sweep
 in one launch with the array resident in shared memory.  The residual and
-the apply run one z-chunked march (:func:`residual3d_tile`).  SOR
+the apply run one z-chunked march (:func:`residual3d_tile`), the
+float-float residual of the refined solve (``ops/extended.
+ff_poisson_residual``, its twin) another with the pair in two rings
+(:func:`ff_residual3d_tile`).  SOR
 (``omega != 1``) of the red-black smoother runs the XLA-order plain
 smoother and launches nothing, as the JAX wrapper does.  Each launch adds
 one to its ``cuda_stencil.LAUNCHES`` entry; the kernels the redesigns
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from multigrid_prj_tpu_torch.ops import extended as _ext
 from multigrid_prj_tpu_torch.ops import smoothers as _sm
 from multigrid_prj_tpu_torch.ops.cuda_stencil import (
     LAUNCHES,
@@ -76,6 +82,9 @@ _R3_TILE = (64, 8)
 _R3_AHEAD = 4
 _R3_MAX_CHUNK = 32
 _R3_TARGET_BLOCKS = 528
+# the float-float residual's z-chunked march (csrc/stencil3d.cu kF3*): the
+# residual's tiles and chunk rule, 2 planes of the pair, d and b in flight
+_F3_AHEAD = 2
 # the Jacobi smoother's z-chunked march (csrc/stencil3d.cu kJ3*): x-y tiles
 # of 64 columns by 24 rows with a halo of one cell per sweep, a chunk of 4
 # .. 32 output planes (the residual's rule), 3 planes in flight, up to 4
@@ -121,6 +130,15 @@ def residual3d_tile(shape):
     tiles = -(-nx // tx) * -(-ny // ty)
     zc = min(max(-(-nz * tiles // _R3_TARGET_BLOCKS), 1), _R3_MAX_CHUNK)
     return tx, ty, zc, _R3_AHEAD
+
+
+def ff_residual3d_tile(shape):
+    """Geometry of the float-float residual's z-chunked march of
+    ``csrc/stencil3d.cu`` (``ff_residual3d_march_kernel``) for an ``(nz,
+    ny, nx)`` array: ``(tile columns, tile rows, planes per chunk, planes in
+    flight)``: the residual's tile and chunk (:func:`residual3d_tile`), its
+    own depth in flight.  The C entry point refuses any other geometry."""
+    return (*residual3d_tile(shape)[:3], _F3_AHEAD)
 
 
 def jacobi3d_tile(shape, sweeps: int):
@@ -296,6 +314,34 @@ def _residual3d_launch(u, b, alpha, h, logical_shape, kernel):
         _ptr(u), _ptr(b), _ptr(r), *_dims(u, logical_shape), alpha / (h * h),
         *geom, _stream()), kernel)
     LAUNCHES[kernel] += 1
+    return r
+
+
+# The kernel runs ``ops/extended.ff_poisson_residual``'s chain op for op on a
+# 3-D array (neighbour pairs at z + 1, z - 1, y + 1, y - 1, x + 1, x - 1,
+# then ``t = d - acc``; interior ``c*t_hi + c*t_lo``, boundary ``(b - u_hi) -
+# u_lo``), so that function is its twin.
+ff_poisson_residual_3d_plain = _ext.ff_poisson_residual
+
+
+def ff_poisson_residual_3d(u_hi, u_lo, d_hi, d_lo, b, alpha, h,
+                           logical_shape=None):
+    """Fused extended-precision 7-point ``r = b - A u`` with ``u`` carried
+    as the pair ``(u_hi, u_lo)`` and ``b / c`` as ``(d_hi, d_lo)``: one
+    launch of its z-chunked march (:func:`ff_residual3d_tile`)."""
+    import ctypes
+
+    if u_hi.device.type == "cpu":
+        return ff_poisson_residual_3d_plain(u_hi, u_lo, d_hi, d_lo, b, alpha,
+                                            h, logical_shape)
+    _check_cuda3d("ff_poisson_residual_3d", u_hi, u_lo, d_hi, d_lo, b)
+    r = torch.empty_like(u_hi)
+    geom = (ctypes.c_int * 4)(*ff_residual3d_tile(u_hi.shape))
+    _raise_on(_lib().mg_ff_residual3d(
+        _ptr(u_hi), _ptr(u_lo), _ptr(d_hi), _ptr(d_lo), _ptr(b), _ptr(r),
+        *_dims(u_hi, logical_shape), alpha / (h * h), geom, _stream()),
+        "ff_residual3d")
+    LAUNCHES["ff_residual3d"] += 1
     return r
 
 

@@ -415,6 +415,10 @@ def test_cuda_solve_refined_matches_cpu_twins(cuda_device, extra, inner_cg,
               "prolong_add") + need:
         assert cs.LAUNCHES[k] > 0, k
     assert cs.LAUNCHES["rbgs_color"] == 0  # the oracle is on no path
+    # the 2D float-float residual: one 2D launch per residual, none of the
+    # 3D kernel
+    assert cs.LAUNCHES["ff_residual"] == got.iterations + 1
+    assert cs.LAUNCHES["ff_residual3d"] == 0
     want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
         b.cpu(), inner_cg=inner_cg)
     assert got.converged and got.iterations == want.iterations
@@ -444,8 +448,9 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     levels; RB-GS, padded RB-GS with inner_cg, Jacobi) vs the same solves
     through the twins on the CPU: the same iterations, histories within
     1e-2 relative plus 1e-12 (the coarse matvec, norms and dot products sum
-    in another order on the two devices).  The 2D kernels never launch:
-    the 3D transfers and float-float residual are plain ops."""
+    in another order on the two devices).  The 2D kernels never launch: the
+    3D transfers are plain ops, and the float-float residual launches its
+    3D kernel once per outer residual (iterations + 1)."""
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
@@ -457,6 +462,7 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     torch.cuda.synchronize()
     for k in need:
         assert cs.LAUNCHES[k] > 0, k
+    assert cs.LAUNCHES["ff_residual3d"] == got.iterations + 1
     assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_fused", "rbgs_color",
                                               "residual", "ff_residual",
                                               "apply", "jacobi",
@@ -1004,6 +1010,86 @@ def test_cuda_residual3d_refusals(cuda_device):
         assert lib.mg_residual3d(p(u), p(b), p(r), *dims, (ctypes.c_int * 4)(
             *g), stream) != 0, g
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", RESIDUAL3D_SHAPES)
+def test_cuda_ff_residual3d_equals_twin(cuda_device, shape, logical):
+    """The 3D float-float residual's march bit-equal to its twin
+    (``ops/extended.ff_poisson_residual``), one launch."""
+    u, b, u_lo, h = _cuda_inputs(shape, logical, cuda_device)
+    d_hi, d_lo = text.ff_from_div(b, ALPHA / (h * h))
+    args = (u, u_lo, d_hi, d_lo, b, ALPHA, h, logical)
+    cs.reset_launch_counts()
+    got = c3.ff_poisson_residual_3d(*args)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {"ff_residual3d": 1}
+    assert torch.equal(got, text.ff_poisson_residual(*args))
+
+
+@pytest.mark.cuda
+def test_cuda_ff_residual3d_refusals(cuda_device):
+    """The C entry point refuses a tile, a depth of planes in flight or a
+    chunk other than the compiled ones and the chunk rule's; the wrapper a
+    CPU or non-contiguous operand and float64, with no fallback."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    u, b, u_lo, h = _cuda_inputs((65, 65, 65), None, cuda_device)
+    d_hi, d_lo = text.ff_from_div(b, ALPHA / (h * h))
+    r = torch.empty_like(u)
+    ptrs = (p(u), p(u_lo), p(d_hi), p(d_lo), p(b), p(r))
+    dims = (65, 65, 65, 65, 65, 65, ALPHA / (h * h))
+    tx, ty, zc, ahead = c3.ff_residual3d_tile(u.shape)
+    assert lib.mg_ff_residual3d(*ptrs, *dims, (ctypes.c_int * 4)(
+        tx, ty, zc, ahead), stream) == 0
+    for g in ((tx, ty, zc + 1, ahead), (tx, ty, 32, ahead),
+              (32, ty, zc, ahead), (tx, 16, zc, ahead),
+              (tx, ty, zc, ahead + 1)):
+        assert lib.mg_ff_residual3d(*ptrs, *dims, (ctypes.c_int * 4)(*g),
+                                    stream) != 0, g
+    torch.cuda.synchronize()
+    cs.reset_launch_counts()
+    with pytest.raises(ValueError, match="agree"):
+        c3.ff_poisson_residual_3d(u, u_lo, d_hi, d_lo, b.cpu(), ALPHA, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        c3.ff_poisson_residual_3d(u, u_lo.transpose(0, 2), d_hi, d_lo, b,
+                                  ALPHA, h)
+    with pytest.raises(NotImplementedError):
+        c3.ff_poisson_residual_3d(*(t.double() for t in (u, u_lo, d_hi,
+                                                         d_lo, b)), ALPHA, h)
+    assert cs.LAUNCHES["ff_residual3d"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
+    """A 65^3 refined solve (config 4 cut to 3 levels) on the float-float
+    residual's kernel and the same solve with the solver's residual set to
+    the plain twin: the same history and solution bit for bit, one kernel
+    launch per outer residual on the one, none on the other."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+
+    kw = dict(shape=(65, 65, 65), length=1.0, alpha=1.0, num_levels=3,
+              cycle="v", nu=2, tol=1e-8, maxit=40)
+    runs = {}
+    for path in ("kernel", "plain"):
+        s = GMGSolver(device="cuda", **kw)
+        assert s._ff_residual_fn is c3.ff_poisson_residual_3d
+        if path == "plain":
+            s._ff_residual_fn = text.ff_poisson_residual
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+    (kern, ck), (plain, cp) = runs["kernel"], runs["plain"]
+    assert kern.converged and kern.iterations == plain.iterations
+    assert ck["ff_residual3d"] == kern.iterations + 1
+    assert cp["ff_residual3d"] == 0
+    np.testing.assert_array_equal(kern.history, plain.history)
+    assert torch.equal(kern.u, plain.u)
 
 
 @pytest.mark.cuda

@@ -85,15 +85,19 @@ non-zero):
   also against single applies and its 48 x 48 tile; the fused Jacobi at
   sweeps 0-11, omega 0.8 and 1, also against the per-sweep kernel; the
   prolong-add stream also against the one-thread-per-point kernel; the
-  geometry refusals of the chain, the Jacobi tile and the stream)
+  fused pair update and float-float residual also against the plain pair
+  update and the ff residual kernel in turn; the geometry refusals of the
+  chain, the Jacobi tile and the stream)
   4. 3D kernel vs twin (the fused smoother at sweeps 0-9, and 100 on the
   resident route, also against the per-colour oracle; the residual march
   also against the one-thread-per-point kernel, at a shape whose nz is no
   multiple of its chunk; the route of each shape; the march's geometry
   refusal; the fused Jacobi at sweeps 0-9 and 100, omega 0.8 and 1, also
   against the per-sweep oracle, on the route of each shape; the apply's
-  march also against the point apply; the Jacobi march's, the resident
-  Jacobi's and the apply's refusals)   5. main
+  march also against the point apply; the fused 3D pair update and
+  float-float residual also against the plain pair update and
+  ff_residual3d in turn; the Jacobi march's, the resident Jacobi's and the
+  apply's refusals)   5. main
   path (+ CPU-twin run, + the per-colour path)   5b. main
   path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2 (plain,
   inner_cg=4, fuse_downleg, the per-colour path)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
@@ -125,7 +129,8 @@ non-zero):
   flushed too, with the 3D Jacobi's ladder (1 / 2 / 4 / 9 sweeps at 257^3)
   and the 17^3 bottom's 100 Jacobi sweeps; L2-flushed times of the fused
   kernels, the
-  residuals and the float-float residual; the
+  residuals and the float-float residuals, the fused ones also against the
+  plain pair update and the residual kernel in turn; the
   17^3 bottom's 100 sweeps; the solves on three paths, the 1025^2 Jacobi
   and the 8193^2 solves and config 4's Jacobi and inner_cg=4 solves
   against their oracles swapped in, config 4 and
@@ -282,10 +287,17 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     # function's elementwise chain there, torch runs it as ~120 passes
     "ff_residual3d": ("none: XLA fused multigrid_prj_tpu/ops/extended.py:85"
                       " on the TPU", _SRC3),
+    # the pair update of the refined solve (multigrid_prj_tpu/gmg.py:638,
+    # ops/extended.py:114, an XLA op on the TPU) fused into the float-float
+    # residual that follows it: 2D with row 3's kernel, 3D with row 22's
+    "ff_update_residual": (f"{_PS}:792 with multigrid_prj_tpu/ops/"
+                           "extended.py:114, XLA's on the TPU", _SRC2),
+    "ff_update_residual3d": ("none: XLA fused multigrid_prj_tpu/ops/"
+                             "extended.py:85 and :114 on the TPU", _SRC3),
 }
 KERNELS_3D = ("apply3d", "apply3d_point", "residual3d", "residual3d_point",
               "rbgs3d_fused", "rbgs3d_color", "jacobi3d", "jacobi3d_sweep",
-              "ff_residual3d")
+              "ff_residual3d", "ff_update_residual3d")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -359,6 +371,9 @@ STENCIL_COST = {
     "rbgs3d_color": (12, 18),
     "jacobi3d": (12, 24), "jacobi3d_sweep": (12, 24),
     "ff_residual3d": (24, 95),
+    # the residual's and the pair update's (10 operations, at the point and
+    # its 4 neighbours in 2D, at each plane copy's ~1.3 cells a point in 3D)
+    "ff_update_residual": (36, 110), "ff_update_residual3d": (36, 108),
     "rbgs_fused_ext": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
@@ -563,6 +578,8 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     u_lo = u * 1e-8
     d_hi, d_lo = text.ff_from_div(b, alpha / (h * h))
     ff_args = (u, u_lo, d_hi, d_lo, b, alpha, h, logical)
+    e = (b * 1e-3).flip(0).contiguous()  # a correction, ~1e-3 of u
+    up_args = (u, u_lo, e, d_hi, d_lo, b, alpha, h, logical)
 
     def fused(s):
         return c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=s,
@@ -635,7 +652,22 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
                             lambda: jac_twin(2, 0.8))],
         "ff_residual3d": [("", lambda: c3.ff_poisson_residual_3d(*ff_args),
                            lambda: text.ff_poisson_residual(*ff_args))],
+        "ff_update_residual3d": fused_ff_calls(
+            c3.ff_update_residual_3d, c3.ff_poisson_residual_3d, text,
+            up_args),
     }
+
+
+def fused_ff_calls(fn, residual, text, args):
+    """The fused pair update and float-float residual against the
+    composition the path ran before (the plain pair update, then the
+    residual kernel), then against the twin; the last case is timed."""
+    def composition():
+        hi, lo = text.ff_accumulate(*args[:3])
+        return hi, lo, residual(hi, lo, *args[3:])
+
+    return [("vs the composition", lambda: fn(*args), composition),
+            ("", lambda: fn(*args), lambda: text.ff_update_residual(*args))]
 
 
 def bench_u(torch, n, device="cuda"):
@@ -658,6 +690,9 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
     """name -> [(label, kernel call, twin call)] on the same inputs."""
     d_hi, d_lo = text.ff_from_div(b, alpha / (h * h))
     ff = (u, u_lo, d_hi, d_lo, b, alpha, h, logical)
+    e = (b * 1e-3).flip(0).contiguous()  # a correction, ~1e-3 of u
+    up = (u, u_lo, e, d_hi, d_lo, b, alpha, h, logical)
+
     def fused(s):
         return cs.red_black_gauss_seidel(u, b, alpha, h, sweeps=s,
                                          logical_shape=logical)
@@ -698,6 +733,8 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
             "",
             lambda: cs.ff_poisson_residual(*ff),
             lambda: cs.ff_poisson_residual_plain(*ff))],
+        "ff_update_residual": fused_ff_calls(
+            cs.ff_update_residual, cs.ff_poisson_residual, text, up),
         "apply": [(
             "",
             lambda: cs.poisson_apply(u, alpha, h, logical),
@@ -919,6 +956,15 @@ def tile_kernel_report(cs, c3, log):
                        f"registers, spill stores {st} B, spill loads {ld} B, "
                        f"no shared memory (strips of {strip} coarse rows, "
                        f"{quads} quads per block)")
+        elif "ff_update_residual3d_march_kernel" in mangled:
+            tx, ty, _, ahead = c3.ff_residual3d_tile((1, 1, 1))
+            slot = 3 * (tx + 2) * (ty + 2) + 3 * tx * ty
+            out.append(f"ff_update_residual3d_march_kernel: "
+                       f"{pr.get('regs', '?')} registers, spill stores {st} "
+                       f"B, spill loads {ld} B, dynamic shared memory "
+                       f"{4 * (ahead + 2) * slot} B ({ahead + 2} slots of "
+                       f"plane copies of u_hi, u_lo and e with a ring, d_hi, "
+                       f"d_lo and b)")
         elif "ff_residual3d_march_kernel" in mangled:
             tx, ty, _, ahead = c3.ff_residual3d_tile((1, 1, 1))
             slot = 2 * (tx + 2) * (ty + 2) + 3 * tx * ty
@@ -1052,12 +1098,14 @@ def stencil_bytes(kname, shape, logical):
     """Bytes one call of a 2D or 3D stencil kernel must move at ``shape``:
     ``STENCIL_COST``'s per-point count, except that the float-float
     residuals read no ``d_hi`` / ``d_lo`` at boundary and dead-zone points
-    (16 B there, 24 B inside)."""
+    (16 B there, 24 B inside; with the fused pair update 28 and 36)."""
     npts = math.prod(shape)
-    if kname not in ("ff_residual", "ff_residual3d"):
+    if kname not in ("ff_residual", "ff_residual3d", "ff_update_residual",
+                     "ff_update_residual3d"):
         return STENCIL_COST[kname][0] * npts
     inside = math.prod(n - 2 for n in (logical or shape))
-    return 24 * inside + 16 * (npts - inside)
+    per = STENCIL_COST[kname][0]
+    return per * inside + (per - 8) * (npts - inside)
 
 
 def median_wall(torch, fn, runs=3):
@@ -2688,7 +2736,7 @@ def main() -> int:
         route = c3.rbgs3d_route(shape)
         for kname, cases in kernel_calls_3d(c3, u, b, h, logical).items():
             for label, kern, twin in cases:
-                got, want = kern(), twin()
+                got, want = flat(kern()), flat(twin())
                 torch.cuda.synchronize()
                 err = float((got - want).abs().max())
                 max_err[kname] = max(max_err[kname], err)
@@ -2705,7 +2753,8 @@ def main() -> int:
               f"{c3.jacobi3d_tile(shape, 2)}), sweeps 0-9 and 100, omega 1 "
               "and 0.8, also equal to the per-sweep oracle; residual3d and "
               f"apply3d (march {c3.residual3d_tile(shape)}) also to "
-              "residual3d_point and apply3d_point")
+              "residual3d_point and apply3d_point; ff_update_residual3d "
+              "also to the pair update and ff_residual3d in turn")
         del u, b
     # the residual's C entry point refuses a geometry other than the
     # compiled tile and the chunk rule's
@@ -2841,11 +2890,12 @@ def main() -> int:
               and counts_u["rbgs_fused"] - counts_f["rbgs_fused"] == n,
               f"{tag}: launches {counts_f}, unfused {counts_u}")
 
-    gs_need = ("rbgs_fused", "residual", "ff_residual", "restrict_fw",
-               "prolong_add")
+    gs_need = ("rbgs_fused", "residual", "ff_residual", "ff_update_residual",
+               "restrict_fw", "prolong_add")
     # every level above the bottom is padded, so the fused down-leg takes
     # all the cycle's residual and restriction launches
-    fused_need = ("rbgs_fused", "ff_residual", "prolong_add",
+    fused_need = ("rbgs_fused", "ff_residual", "ff_update_residual",
+                  "prolong_add",
                   "rbgs_resfilter")
 
     def per_colour(s):
@@ -3169,10 +3219,14 @@ def main() -> int:
         check(n_res is None or (counts["residual3d"] == n_res
                                 and counts["residual3d_point"] == 0),
               f"{tag}: residual launches")
-        # the float-float residual: one launch per outer residual
+        # the float-float residual: the first on its own kernel, each later
+        # one fused with the pair update before it
         print(f"[{tag}] ff_residual3d launches {counts['ff_residual3d']} "
-              f"(expected {res3.iterations + 1}: iterations + 1)")
-        check(counts["ff_residual3d"] == res3.iterations + 1,
+              f"(expected 1), ff_update_residual3d "
+              f"{counts['ff_update_residual3d']} (expected "
+              f"{res3.iterations}: one per iteration)")
+        check(counts["ff_residual3d"] == 1
+              and counts["ff_update_residual3d"] == res3.iterations,
               f"{tag}: float-float residual launches")
         if tag[0] == "A":  # and with the point residual, and per colour
             check(calls == CONFIG4_FUSED_LAUNCHES, f"{tag}: {calls} calls")
@@ -3192,21 +3246,27 @@ def main() -> int:
                   f"{tag}: the march differs from the point residual")
             point3d[tag] = rs3
             del res3r
-            # and with the plain float-float residual in place of its kernel
+            # and with the plain pair update and float-float residual in
+            # place of their kernels
             fs3 = GMGSolver(**kw, **extra, device="cuda")
             fs3._ff_residual_fn = text.ff_poisson_residual
+            fs3._ff_update_residual_fn = None
             res3f, counts_f = run_path(fs3, b3)
-            print(f"[{tag}] with the plain float-float residual: "
-                  f"{res3f.iterations} iterations, ff_residual3d "
-                  f"{counts_f['ff_residual3d']} launches; history and "
+            print(f"[{tag}] with the plain pair update and float-float "
+                  f"residual: {res3f.iterations} iterations, ff_residual3d "
+                  f"{counts_f['ff_residual3d']} launches, "
+                  f"ff_update_residual3d "
+                  f"{counts_f['ff_update_residual3d']}; history and "
                   f"solution equal: "
                   f"{np.array_equal(res3f.history, res3.history)}, "
                   f"{torch.equal(res3f.u, res3.u)}")
             check(res3f.iterations == res3.iterations
                   and np.array_equal(res3f.history, res3.history)
                   and torch.equal(res3f.u, res3.u)
-                  and counts_f["ff_residual3d"] == 0,
-                  f"{tag}: the ff residual kernel differs from the plain one")
+                  and counts_f["ff_residual3d"] == 0
+                  and counts_f["ff_update_residual3d"] == 0,
+                  f"{tag}: the ff residual kernels differ from the plain "
+                  "ones")
             del fs3, res3f
             ps3 = per_colour3d(GMGSolver(**kw, **extra, device="cuda"))
             res3p, counts_p = run_path(ps3, b3)
@@ -3805,12 +3865,15 @@ def main() -> int:
             t = (median_ms(torch, kern), median_ms(torch, twin))
             per = STENCIL_COST[kname]
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
-            if kname == "rbgs_resfilter":  # and the kernels it fuses
+            if kname in ("rbgs_resfilter", "ff_update_residual"):
+                # and the kernels it fuses
                 extra["composition_ms"] = median_ms(torch, cases[-2][2])
                 extra["composition_device_ms"] = device_ms(
                     torch, cases[-2][2], npts)
-                note = (f"; per-colour smoother + residual + restriction "
-                        f"kernels {extra['composition_ms'] * 1e3:.1f} us "
+                what = ("per-colour smoother + residual + restriction "
+                        "kernels" if kname == "rbgs_resfilter" else
+                        "plain pair update + ff_residual kernel")
+                note = (f"; {what} {extra['composition_ms'] * 1e3:.1f} us "
                         f"(device {extra['composition_device_ms'] * 1e3:.1f}"
                         " us)")
             if kname == "rbgs_fused":  # and the per-colour oracle
@@ -3836,7 +3899,8 @@ def main() -> int:
                              f"{extra['oracle_flushed_ms'] * 1e3:.1f} us")
             if npts > 4_000_000 and kname in (
                     "rbgs_fused", "ff_residual", "rbgs_resfilter", "jacobi",
-                    "jacobi_sweep", "prolong_add", "prolong_add_point"):
+                    "jacobi_sweep", "prolong_add", "prolong_add_point",
+                    "ff_update_residual"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
                 note += (f"; L2 flushed before each call "
                          f"{extra['flushed_ms'] * 1e3:.1f} us")
@@ -3934,10 +3998,18 @@ def main() -> int:
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
             if kname in ("residual3d", "residual3d_point", "apply3d",
                          "apply3d_point", "jacobi3d", "jacobi3d_sweep",
-                         "ff_residual3d"):
+                         "ff_residual3d", "ff_update_residual3d"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
                 note = (f"; L2 flushed before each call "
                         f"{extra['flushed_ms'] * 1e3:.1f} us")
+            if kname == "ff_update_residual3d":  # and the kernels it fuses
+                comp = cases[-2][2]
+                extra["composition_device_ms"] = device_ms(torch, comp, npts)
+                extra["composition_flushed_ms"] = flushed_ms(torch, comp)
+                note += (f"; plain pair update + ff_residual3d (device) "
+                         f"{extra['composition_device_ms'] * 1e3:.1f} us, "
+                         f"L2 flushed "
+                         f"{extra['composition_flushed_ms'] * 1e3:.1f} us")
             replaced = {"residual3d": "residual3d_point",
                         "apply3d": "apply3d_point",
                         "jacobi3d": "jacobi3d_sweep"}.get(kname)

@@ -11,6 +11,8 @@
 //                  that the fused tiles are held to (no solver path)
 //   residual    <- poisson_residual (_residual_kernel)
 //   ff_residual <- ff_poisson_residual (_ff_residual_kernel)
+//   ff_update_residual <- the same, fused with the refined solve's pair
+//                  update (ff_accumulate, an XLA op on the TPU)
 //   apply       <- poisson_apply (_apply_kernel / _apply_carry_kernel)
 //   jacobi_fused <- jacobi (_jacobi_fused_kernel / _jacobi_fused2d_kernel,
 //                  shared body _fused_jacobi_passes): up to 8 sweeps per
@@ -161,6 +163,60 @@ __global__ void ff_residual_kernel(const float* __restrict__ uh,
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     ff_add(ah, al, -uh[nb[k]], -ul[nb[k]], &ah, &al);
+  }
+  float th, tl;
+  ff_add(dh[p], dl[p], -ah, -al, &th, &tl);
+  r[p] = __fadd_rn(__fmul_rn(c, th), __fmul_rn(c, tl));
+}
+
+// Pair + float, ops/extended.ff_add_f: two-sum of xh and y, + xl, then the
+// fast-two-sum normalisation.
+__device__ __forceinline__ void ff_add_f(float xh, float xl, float y,
+                                         float* oh, float* ol) {
+  const float s = __fadd_rn(xh, y);
+  const float bb = __fsub_rn(s, xh);
+  float e = __fadd_rn(__fsub_rn(xh, __fsub_rn(s, bb)), __fsub_rn(y, bb));
+  e = __fadd_rn(e, xl);
+  const float s2 = __fadd_rn(s, e);
+  *oh = s2;
+  *ol = __fsub_rn(e, __fsub_rn(s2, s));
+}
+
+// The refined solve's pair update and the float-float residual of the
+// updated pair in one pass: (uh2, ul2) = ff_add_f(uh, ul, e) at every point
+// (boundary and dead zone too, as ops/extended.ff_accumulate), then
+// ff_residual_kernel's chain on (uh2, ul2).  A thread updates the pair at
+// its point and at its 4 neighbours (5 updates of ~10 operations, recomputed
+// where ff_residual_kernel reads a neighbour), so the output pair is out of
+// place: uh2 and ul2 must not alias uh, ul or e.
+// 36 B/point: read uh, ul, e, dh, dl, b, write uh2, ul2, r (28 B at
+// boundary points, which read no d).
+__global__ void ff_update_residual_kernel(
+    const float* __restrict__ uh, const float* __restrict__ ul,
+    const float* __restrict__ e, const float* __restrict__ dh,
+    const float* __restrict__ dl, const float* __restrict__ b,
+    float* __restrict__ uh2, float* __restrict__ ul2, float* __restrict__ r,
+    int n, int m, int nl, int ml, float c) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= n || j >= m) return;
+  const long long p = (long long)i * m + j;
+  float ch, cl;
+  ff_add_f(uh[p], ul[p], e[p], &ch, &cl);
+  uh2[p] = ch;
+  ul2[p] = cl;
+  if (is_boundary(i, j, nl, ml)) {
+    r[p] = __fsub_rn(__fsub_rn(b[p], ch), cl);
+    return;
+  }
+  float ah = __fmul_rn(4.0f, ch);
+  float al = __fmul_rn(4.0f, cl);
+  const long long nb[4] = {p + m, p - m, p + 1, p - 1};  // S, N, E, W
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float vh, vl;
+    ff_add_f(uh[nb[k]], ul[nb[k]], e[nb[k]], &vh, &vl);
+    ff_add(ah, al, -vh, -vl, &ah, &al);
   }
   float th, tl;
   ff_add(dh[p], dl[p], -ah, -al, &th, &tl);
@@ -1587,6 +1643,16 @@ int mg_ff_residual(const float* uh, const float* ul, const float* dh,
   ff_residual_kernel<<<grid_for(n, m), dim3(kBlockX, kBlockY), 0,
                        (cudaStream_t)stream>>>(uh, ul, dh, dl, b, r, n, m, nl,
                                                ml, c);
+  return (int)cudaGetLastError();
+}
+
+int mg_ff_update_residual(const float* uh, const float* ul, const float* e,
+                          const float* dh, const float* dl, const float* b,
+                          float* uh2, float* ul2, float* r, int n, int m,
+                          int nl, int ml, float c, void* stream) {
+  ff_update_residual_kernel<<<grid_for(n, m), dim3(kBlockX, kBlockY), 0,
+                              (cudaStream_t)stream>>>(
+      uh, ul, e, dh, dl, b, uh2, ul2, r, n, m, nl, ml, c);
   return (int)cudaGetLastError();
 }
 

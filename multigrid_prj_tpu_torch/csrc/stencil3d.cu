@@ -20,10 +20,12 @@
 //                   sweep of a small array in one launch (below)
 //   jacobi3d_sweep <- the same, one sweep per launch: the per-sweep oracle
 //                   that jacobi3d is held to (no solver path)
-// and one kernel that ports no TPU kernel:
+// and two kernels that port no TPU kernel:
 //   ff_residual3d <- ops/extended.ff_poisson_residual on a 3-D array (XLA
 //                   fused it on the TPU): the float-float residual of the
 //                   refined solve, on the residual's z-chunked march (below)
+//   ff_update_residual3d <- the same, fused with the refined solve's pair
+//                   update (ops/extended.ff_accumulate), on the same march
 //
 // Layout: a contiguous f32 array of shape (nz, ny, nx), with 64-bit
 // offsets (nz*ny*nx passes 2^31 at about 1291^3).  (nzl, nyl, nxl) are the
@@ -52,7 +54,7 @@
 // launch shapes are described above rbgs3d_zmarch_kernel and
 // jacobi3d_march_kernel, the residual's and the apply's march above
 // stencil3d_march_kernel, the float-float residual's above
-// ff_residual3d_march_kernel.
+// ff_residual3d_march_kernel and ff_update_residual3d_march_kernel.
 
 #include <cuda_runtime.h>
 
@@ -747,6 +749,180 @@ __global__ void __launch_bounds__(kR3Threads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The refined solve's pair update fused into the float-float residual,
+// ff_update_residual3d_march_kernel: (uh2, ul2) = ff_add_f(uh, ul, e) at
+// every point (ops/extended.ff_accumulate, boundary and dead zone too), then
+// ff_residual3d_march_kernel's chain on (uh2, ul2), op for op.  The update
+// is ops/extended.ff_add_f: two-sum of uh and e, + ul, fast-two-sum.
+//
+// Bound: memory, 36 B per point (read uh, ul, e, dh, dl and b, write uh2,
+// ul2 and r; 28 B at boundary points, which need no d), where the plain
+// update (20 B) and the residual (24 B) took two passes.  The design is
+// ff_residual3d_march_kernel's with e in a third ring beside uh and ul:
+// * Each slot holds plane copies of uh, ul and e with the one-cell ring,
+//   then dh, dl and b, one word per thread: 3 * 660 + 3 * 512 words, 4
+//   slots (2 planes in flight) in 56256 B.
+// * A thread updates, in place, the ring cells it copied itself, once its
+//   copies of the plane have landed and before the step's barrier (a
+//   thread sees its own cp.async writes after its wait): plane z + 1 at
+//   step z, and plane z0 too at a chunk's first step.  After the barrier
+//   every cell of planes z and z + 1 holds the updated pair, so the chain
+//   reads the pair exactly as ff_residual3d_march_kernel reads its input:
+//   ~1.3 updates a point (a plane copy's 660 cells over 512 points), none
+//   recomputed per neighbour.  The column's pair at z0 - 1 is read from
+//   global memory and updated in registers.
+// * The updated pair at the thread's own point is stored with r, each
+//   coalesced, out of place: the neighbouring blocks read the old pair, so
+//   uh2 and ul2 must not alias uh, ul or e.
+// The geometry is ff_residual3d_march_kernel's (its tile, chunk rule and
+// depth), mirrored by ops/cuda_stencil_3d.ff_update_residual3d_tile; the C
+// entry point refuses another.
+constexpr int kU3Slot = 3 * kR3Plane + 3 * kR3Threads;
+constexpr int kU3Smem = kF3Slots * kU3Slot * (int)sizeof(float);
+static_assert(kU3Slot % 4 == 0, "16-byte slots");
+static_assert(kU3Smem <= 227 * 1024, "shared memory");
+
+// Pair + float (ops/extended.ff_add_f).
+__device__ __forceinline__ void ff_add_f3(float xh, float xl, float y,
+                                          float* oh, float* ol) {
+  const float s = __fadd_rn(xh, y);
+  const float bb = __fsub_rn(s, xh);
+  float e = __fadd_rn(__fsub_rn(xh, __fsub_rn(s, bb)), __fsub_rn(y, bb));
+  e = __fadd_rn(e, xl);
+  const float s2 = __fadd_rn(s, e);
+  *oh = s2;
+  *ol = __fsub_rn(e, __fsub_rn(s2, s));
+}
+
+__global__ void __launch_bounds__(kR3Threads)
+    ff_update_residual3d_march_kernel(
+        const float* __restrict__ uh, const float* __restrict__ ul,
+        const float* __restrict__ e, const float* __restrict__ dh,
+        const float* __restrict__ dl, const float* __restrict__ b,
+        float* __restrict__ uh2, float* __restrict__ ul2,
+        float* __restrict__ r, int nz, int ny, int nx, int nzl, int nyl,
+        int nxl, float c, int zc) {
+  extern __shared__ __align__(16) float u3_smem[];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kR3X, y0 = blockIdx.y * kR3Y;
+  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
+  const long long plane = (long long)ny * nx;
+  // the ring copies, as stencil3d_march_kernel's
+  int cw[kR3Copies];
+  unsigned cb[kR3Copies];
+  long long co[kR3Copies];
+#pragma unroll
+  for (int k = 0; k < kR3Copies; ++k) {
+    const int q = tid + k * kR3Threads;
+    const int y = y0 - 1 + q / kR3PX, x = x0 - 1 + q % kR3PX;
+    const bool in = q < kR3Plane && y >= 0 && y < ny && x >= 0 && x < nx;
+    cw[k] = q < kR3Plane ? q : -1;
+    cb[k] = in ? 4u : 0u;
+    co[k] = in ? (long long)y * nx + x : 0;
+  }
+  const int ty = tid / kR3X, tx = tid % kR3X;
+  const int y = y0 + ty, x = x0 + tx;
+  const bool own = y < ny && x < nx;
+  const long long go = own ? (long long)y * nx + x : 0;
+  const int cq = (ty + 1) * kR3PX + tx + 1;
+  const bool yx_in = y > 0 && y < nyl - 1 && x > 0 && x < nxl - 1;
+  const unsigned base =
+      static_cast<unsigned>(__cvta_generic_to_shared(u3_smem));
+
+  // one commit group per plane p of z0 .. z1 (z1: only for the last z + 1
+  // pair, so no d or b), empty past them
+  auto issue = [&](int p, int slot) {
+    if (p <= z1 && p < nz) {
+      const long long off = (long long)p * plane;
+      const unsigned s0 = base + 4u * (unsigned)(slot * kU3Slot);
+#pragma unroll
+      for (int k = 0; k < kR3Copies; ++k) {
+        if (cw[k] >= 0) {
+          cp_async4(s0 + 4u * cw[k], uh + off + co[k], cb[k]);
+          cp_async4(s0 + 4u * (kR3Plane + cw[k]), ul + off + co[k], cb[k]);
+          cp_async4(s0 + 4u * (2 * kR3Plane + cw[k]), e + off + co[k],
+                    cb[k]);
+        }
+      }
+      if (p < z1) {
+        const unsigned nb = own ? 4u : 0u;
+        const unsigned sd = s0 + 4u * (3 * kR3Plane + tid);
+        cp_async4(sd, dh + off + go, nb);
+        cp_async4(sd + 4u * kR3Threads, dl + off + go, nb);
+        cp_async4(sd + 8u * kR3Threads, b + off + go, nb);
+      }
+    }
+    cp_async_commit();
+  };
+  // the pair of a slot's cells this thread copied, updated in place
+  auto update = [&](int slot) {
+    float* w = u3_smem + slot * kU3Slot;
+#pragma unroll
+    for (int k = 0; k < kR3Copies; ++k) {
+      if (cw[k] >= 0) {
+        ff_add_f3(w[cw[k]], w[kR3Plane + cw[k]], w[2 * kR3Plane + cw[k]],
+                  &w[cw[k]], &w[kR3Plane + cw[k]]);
+      }
+    }
+  };
+#pragma unroll
+  for (int p = 0; p <= kF3Ahead; ++p) issue(z0 + p, p);
+  // the updated pair at z - 1 and z of the thread's column
+  const long long zo = (long long)(z0 - 1) * plane + go;
+  float znh = 0.0f, znl = 0.0f;
+  if (z0 > 0 && own) ff_add_f3(uh[zo], ul[zo], e[zo], &znh, &znl);
+  float uch = 0.0f, ucl = 0.0f;
+  int s = 0;  // the slot of plane z
+  for (int z = z0; z < z1; ++z) {
+    cp_async_wait<kF3Ahead - 1>();  // planes z and z + 1 have landed
+    const int s1 = s + 1 == kF3Slots ? 0 : s + 1;
+    if (z == z0) update(s);
+    if (z + 1 < nz) update(s1);
+    __syncthreads();  // visible to all; step z - 1 is done with its slot
+    const int sl = s == 0 ? kF3Slots - 1 : s - 1;  // plane z - 1's slot
+    issue(z + kF3Ahead + 1, sl);
+    const float* ph = u3_smem + s * kU3Slot;  // plane z: uh, ul, e, d, b
+    const float* pl = ph + kR3Plane;
+    const float* pd = ph + 3 * kR3Plane + tid;
+    if (z == z0) {
+      uch = ph[cq];
+      ucl = pl[cq];
+    }
+    const float* nh = u3_smem + s1 * kU3Slot;  // plane z + 1
+    const float zsh = z + 1 < nz ? nh[cq] : 0.0f;
+    const float zsl = z + 1 < nz ? nh[kR3Plane + cq] : 0.0f;
+    float out;
+    if (yx_in && z > 0 && z < nzl - 1) {
+      float ah, al;
+      ff_add3(__fmul_rn(4.0f, uch), __fmul_rn(4.0f, ucl),
+              __fmul_rn(2.0f, uch), __fmul_rn(2.0f, ucl), &ah, &al);
+      ff_add3(ah, al, -zsh, -zsl, &ah, &al);                      // z + 1
+      ff_add3(ah, al, -znh, -znl, &ah, &al);                      // z - 1
+      ff_add3(ah, al, -ph[cq + kR3PX], -pl[cq + kR3PX], &ah, &al);  // y + 1
+      ff_add3(ah, al, -ph[cq - kR3PX], -pl[cq - kR3PX], &ah, &al);  // y - 1
+      ff_add3(ah, al, -ph[cq + 1], -pl[cq + 1], &ah, &al);          // x + 1
+      ff_add3(ah, al, -ph[cq - 1], -pl[cq - 1], &ah, &al);          // x - 1
+      float th, tl;
+      ff_add3(pd[0], pd[kR3Threads], -ah, -al, &th, &tl);
+      out = __fadd_rn(__fmul_rn(c, th), __fmul_rn(c, tl));
+    } else {
+      out = __fsub_rn(__fsub_rn(pd[2 * kR3Threads], uch), ucl);
+    }
+    if (own) {
+      const long long o = (long long)z * plane + go;
+      uh2[o] = uch;
+      ul2[o] = ucl;
+      r[o] = out;
+    }
+    znh = uch;
+    znl = ucl;
+    uch = zsh;
+    ucl = zsl;
+    s = s1;
+  }
+}
+
 constexpr int kResidentMaxPoints = 16384;  // u and b / c: 128 KB
 constexpr int kResThreads = 1024;
 // sites (z, y, column pair) per thread: nz * ny * ceil(nx / 2) is at most
@@ -1201,6 +1377,32 @@ int ff_residual3d_launch(const float* uh, const float* ul, const float* dh,
   return (int)cudaGetLastError();
 }
 
+int ff_update_residual3d_launch(const float* uh, const float* ul,
+                                const float* e, const float* dh,
+                                const float* dl, const float* b, float* uh2,
+                                float* ul2, float* r, int nz, int ny, int nx,
+                                int nzl, int nyl, int nxl, float c,
+                                const int* geom, cudaStream_t stream) {
+  static bool smem_set = false;
+  const int zc = residual3d_chunk(nz, ny, nx);
+  if (geom[0] != kR3X || geom[1] != kR3Y || geom[2] != zc ||
+      geom[3] != kF3Ahead) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ff_update_residual3d_march_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kU3Smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((nx + kR3X - 1) / kR3X, (ny + kR3Y - 1) / kR3Y,
+                  (nz + zc - 1) / zc);
+  ff_update_residual3d_march_kernel<<<grid, kR3Threads, kU3Smem, stream>>>(
+      uh, ul, e, dh, dl, b, uh2, ul2, r, nz, ny, nx, nzl, nyl, nxl, c, zc);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -1250,6 +1452,18 @@ int mg_ff_residual3d(const float* uh, const float* ul, const float* dh,
                      const int* geom, void* stream) {
   return ff_residual3d_launch(uh, ul, dh, dl, b, r, nz, ny, nx, nzl, nyl, nxl,
                               c, geom, (cudaStream_t)stream);
+}
+
+// The pair update fused into the float-float residual, on the same march;
+// geom as mg_ff_residual3d's.  uh2 and ul2 must not alias uh, ul or e.
+int mg_ff_update_residual3d(const float* uh, const float* ul, const float* e,
+                            const float* dh, const float* dl, const float* b,
+                            float* uh2, float* ul2, float* r, int nz, int ny,
+                            int nx, int nzl, int nyl, int nxl, float c,
+                            const int* geom, void* stream) {
+  return ff_update_residual3d_launch(uh, ul, e, dh, dl, b, uh2, ul2, r, nz,
+                                     ny, nx, nzl, nyl, nxl, c, geom,
+                                     (cudaStream_t)stream);
 }
 
 // The one-thread-per-point residual (chip_smoke.py's reference only).

@@ -26,7 +26,9 @@ on the card unless the caller names another device.  With ``use_pallas``
 fused down-leg (``fuse_downleg``) and the ``inner_cg`` operator apply run
 through the hand-written kernels of ``ops/cuda_stencil.py`` (3D:
 ``ops/cuda_stencil_3d.py`` for the smoothers, residuals and apply; the 3D
-transfers are plain ops, as in the JAX package).
+transfers are plain ops, as in the JAX package); in ``solve_refined`` each
+iteration's pair update runs in the same launch as the float-float residual
+that follows it.
 As in the JAX kernel wrappers, which take float32 only, a cycle or residual
 in any other dtype (f64, or the bf16 ``smoother_dtype`` cycle) runs the
 plain ops on every device and launches nothing.
@@ -379,6 +381,13 @@ class GMGSolver:
             _ff_residual_plain if not self._use_pallas
             else _cs.ff_poisson_residual if kernels2d
             else _c3.ff_poisson_residual_3d)
+        # the refined solve's pair update fused into that residual, per
+        # dimension; without the kernels the update and the residual run
+        # one after the other
+        self._ff_update_residual_fn = (
+            None if not self._use_pallas
+            else _cs.ff_update_residual if kernels2d
+            else _c3.ff_update_residual_3d)
         self._apply_fn = (_cs.poisson_apply if self._use_pallas
                           else poisson_apply)
         self._downleg_fn = None
@@ -585,7 +594,9 @@ class GMGSolver:
         equation against an extended-precision residual, which reaches
         ~1e-8 where plain f32 floors at ``eps_f32 * kappa(A)``.  One
         extended residual per iteration, carried into the next correction
-        and the history entry.
+        and the history entry.  On the kernel route (f32 with
+        ``use_pallas``) the pair update and the residual after it are one
+        launch, bit-equal to the two in turn.
 
         ``inner_cg = k > 0`` replaces each correction's single cycle with
         ``k`` iterations of cycle-preconditioned CG on the f32 error
@@ -612,6 +623,7 @@ class GMGSolver:
         on_kernels = self._on_kernels(b.dtype)
         ff_residual = (self._ff_residual_fn if on_kernels
                        else _ff_residual_plain)
+        update_residual = self._ff_update_residual_fn if on_kernels else None
         apply_op = self._apply_fn if on_kernels else poisson_apply
 
         def residual(u_hi, u_lo):
@@ -643,13 +655,24 @@ class GMGSolver:
         r = residual(u_hi, u_lo)
         hist = [rel(r)]
         tol = _tol_in(self.tol, b.dtype)
+        spare = None  # the fused route's other pair of buffers
         k = 0
         while k < self.maxit and hist[k] > tol:
             with span(SPAN_CYCLE):
                 e = inner_solve(r)
-            with span(SPAN_PAIR_UPDATE):
-                u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
-            r = residual(u_hi, u_lo)
+            if update_residual is None:
+                with span(SPAN_PAIR_UPDATE):
+                    u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
+                r = residual(u_hi, u_lo)
+            else:
+                # one launch writes the updated pair into the spare buffers
+                # (neighbours read the old pair), and the two pairs swap
+                with span(SPAN_FF_RESIDUAL):
+                    old = (u_hi, u_lo)
+                    u_hi, u_lo, r = update_residual(
+                        u_hi, u_lo, e, d_hi, d_lo, b, self.alpha, h0,
+                        self._logical0, out=spare)
+                    spare = old
             hist.append(rel(r))
             k += 1
         with span(SPAN_COMBINE):

@@ -41,6 +41,8 @@ _SIGNATURES = {
     "mg_rbgs_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _ip, _vp],
     "mg_residual": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _vp],
+    "mg_ff_update_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                              _i, _i, _i, _i, _f, _vp],
     "mg_apply": [_vp, _vp, _i, _i, _i, _i, _f, _vp],
     "mg_jacobi": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _f, _f, _vp],
     "mg_jacobi_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _i, _f, _f,
@@ -54,6 +56,8 @@ _SIGNATURES = {
     "mg_residual3d_point": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_ff_residual3d": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                          _f, _ip, _vp],
+    "mg_ff_update_residual3d": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                                _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
     "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
     "mg_rbgs3d_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i,
                         _ip, _vp],

@@ -13,6 +13,8 @@ function                      replaces (pallas_stencil.py)   bytes per point
                               ``_rbgs_fused2d_kernel``       <= 4 sweeps
 ``poisson_residual``          ``_residual_kernel``           12
 ``ff_poisson_residual``       ``_ff_residual_kernel``        24
+``ff_update_residual``        ``_ff_residual_kernel`` and    36
+                              the pair update (XLA there)
 ``poisson_apply``             ``_apply_kernel`` /            8
                               ``_apply_carry_kernel``
 ``jacobi``                    ``_jacobi_fused_kernel`` /     12 per group of
@@ -62,11 +64,12 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 # (the ELL kernels of ops/cuda_spmv.py and the design probes of benchmarks/
 # count here too)
 LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
-            "ff_residual": 0, "apply": 0,
+            "ff_residual": 0, "ff_update_residual": 0, "apply": 0,
             "jacobi": 0, "jacobi_sweep": 0, "restrict_fw": 0,
             "prolong_add": 0, "prolong_add_point": 0,
             "apply3d": 0, "apply3d_point": 0, "residual3d": 0,
-            "residual3d_point": 0, "ff_residual3d": 0, "rbgs3d_fused": 0,
+            "residual3d_point": 0, "ff_residual3d": 0,
+            "ff_update_residual3d": 0, "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0, "jacobi3d_sweep": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "rbgs_resfilter_tile48": 0,
@@ -205,6 +208,22 @@ def _check_cuda(name, *tensors, same_shape=True):
                              f"shape ({t.device}, {t.dtype}, {tuple(t.shape)})")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def _refuse_overlap(name, outs, ins):
+    """Raise if an output buffer shares memory with an input or with the
+    other outputs (the fused kernels write out of place)."""
+    def extent(t):
+        start = t.data_ptr()
+        return start, start + t.numel() * t.element_size()
+
+    for k, o in enumerate(outs):
+        lo, hi = extent(o)
+        for t in (*ins, *outs[k + 1:]):
+            t_lo, t_hi = extent(t)
+            if t.device == o.device and lo < t_hi and t_lo < hi:
+                raise ValueError(f"{name}: an output buffer overlaps an "
+                                 "input or the other output")
 
 
 def _stream():
@@ -377,6 +396,38 @@ def ff_poisson_residual(u_hi, u_lo, d_hi, d_lo, b, alpha, h,
                                     ml, c, _stream()), "ff_residual")
     LAUNCHES["ff_residual"] += 1
     return r
+
+
+# The fused kernel runs ``ops/extended.ff_accumulate`` at every point and then
+# ``ff_poisson_residual``'s chain on the updated pair, op for op, so
+# ``ops/extended.ff_update_residual`` is its twin.
+def ff_update_residual(u_hi, u_lo, e, d_hi, d_lo, b, alpha, h,
+                       logical_shape=None, out=None):
+    """The refined solve's pair update ``(u_hi, u_lo) += e`` and the
+    extended-precision residual of the updated pair in one launch; returns
+    ``(u_hi', u_lo', r)``.  ``out``: a pair of buffers the kernel writes
+    ``(u_hi', u_lo')`` into (new ones when None).  They must not overlap
+    the inputs, since neighbouring threads read the old pair.  On the CPU
+    the twin runs and returns its own tensors."""
+    if out is not None:
+        _refuse_overlap("ff_update_residual", out,
+                        (u_hi, u_lo, e, d_hi, d_lo, b))
+    if u_hi.device.type == "cpu":
+        return _ext.ff_update_residual(u_hi, u_lo, e, d_hi, d_lo, b, alpha,
+                                       h, logical_shape)
+    hi2, lo2 = out if out is not None else (torch.empty_like(u_hi),
+                                            torch.empty_like(u_hi))
+    _check_cuda("ff_update_residual", u_hi, u_lo, e, d_hi, d_lo, b, hi2, lo2)
+    n, m = u_hi.shape
+    nl, ml = _logical(u_hi.shape, logical_shape)
+    c = alpha / (h * h)
+    r = torch.empty_like(u_hi)
+    _raise_on(_lib().mg_ff_update_residual(
+        _ptr(u_hi), _ptr(u_lo), _ptr(e), _ptr(d_hi), _ptr(d_lo), _ptr(b),
+        _ptr(hi2), _ptr(lo2), _ptr(r), n, m, nl, ml, c, _stream()),
+        "ff_update_residual")
+    LAUNCHES["ff_update_residual"] += 1
+    return hi2, lo2, r
 
 
 # ---------------------------------------------------------------------------

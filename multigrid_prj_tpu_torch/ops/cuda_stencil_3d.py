@@ -16,6 +16,8 @@ function                       replaces                  bytes per point
                                                          <= 4 sweeps
 ``ff_poisson_residual_3d``     none (XLA fused it)       24 (a z-chunked
                                                          march)
+``ff_update_residual_3d``      none (XLA fused it)       36 (the same
+                                                         march)
 =============================  ========================  ===============
 
 Arrays are ``(nz, ny, nx)``; ``logical_shape`` gives the live extents of a
@@ -34,7 +36,8 @@ in one launch with the array resident in shared memory.  The residual and
 the apply run one z-chunked march (:func:`residual3d_tile`), the
 float-float residual of the refined solve (``ops/extended.
 ff_poisson_residual``, its twin) another with the pair in two rings
-(:func:`ff_residual3d_tile`).  SOR
+(:func:`ff_residual3d_tile`), and the same march with the correction ``e``
+in a third ring fuses the pair update into it (``ff_update_residual_3d``).  SOR
 (``omega != 1``) of the red-black smoother runs the XLA-order plain
 smoother and launches nothing, as the JAX wrapper does.  Each launch adds
 one to its ``cuda_stencil.LAUNCHES`` entry; the kernels the redesigns
@@ -55,6 +58,7 @@ from multigrid_prj_tpu_torch.ops.cuda_stencil import (
     _pingpong,
     _ptr,
     _raise_on,
+    _refuse_overlap,
     _stream,
 )
 from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
@@ -134,7 +138,8 @@ def residual3d_tile(shape):
 
 def ff_residual3d_tile(shape):
     """Geometry of the float-float residual's z-chunked march of
-    ``csrc/stencil3d.cu`` (``ff_residual3d_march_kernel``) for an ``(nz,
+    ``csrc/stencil3d.cu`` (``ff_residual3d_march_kernel``, and
+    ``ff_update_residual3d_march_kernel`` with it) for an ``(nz,
     ny, nx)`` array: ``(tile columns, tile rows, planes per chunk, planes in
     flight)``: the residual's tile and chunk (:func:`residual3d_tile`), its
     own depth in flight.  The C entry point refuses any other geometry."""
@@ -343,6 +348,39 @@ def ff_poisson_residual_3d(u_hi, u_lo, d_hi, d_lo, b, alpha, h,
         "ff_residual3d")
     LAUNCHES["ff_residual3d"] += 1
     return r
+
+
+# The fused kernel runs ``ops/extended.ff_accumulate`` at every point and then
+# the chain above on the updated pair, op for op, so
+# ``ops/extended.ff_update_residual`` is its twin.
+def ff_update_residual_3d(u_hi, u_lo, e, d_hi, d_lo, b, alpha, h,
+                          logical_shape=None, out=None):
+    """The refined solve's pair update ``(u_hi, u_lo) += e`` and the 7-point
+    extended-precision residual of the updated pair: one launch of the
+    float-float residual's march (:func:`ff_residual3d_tile`) with ``e`` in
+    a third ring.  Returns ``(u_hi', u_lo', r)``; ``out`` as
+    ``cuda_stencil.ff_update_residual``'s, a pair of buffers that must not
+    overlap the inputs."""
+    import ctypes
+
+    if out is not None:
+        _refuse_overlap("ff_update_residual_3d", out,
+                        (u_hi, u_lo, e, d_hi, d_lo, b))
+    if u_hi.device.type == "cpu":
+        return _ext.ff_update_residual(u_hi, u_lo, e, d_hi, d_lo, b, alpha,
+                                       h, logical_shape)
+    hi2, lo2 = out if out is not None else (torch.empty_like(u_hi),
+                                            torch.empty_like(u_hi))
+    _check_cuda3d("ff_update_residual_3d", u_hi, u_lo, e, d_hi, d_lo, b, hi2,
+                  lo2)
+    r = torch.empty_like(u_hi)
+    geom = (ctypes.c_int * 4)(*ff_residual3d_tile(u_hi.shape))
+    _raise_on(_lib().mg_ff_update_residual3d(
+        _ptr(u_hi), _ptr(u_lo), _ptr(e), _ptr(d_hi), _ptr(d_lo), _ptr(b),
+        _ptr(hi2), _ptr(lo2), _ptr(r), *_dims(u_hi, logical_shape),
+        alpha / (h * h), geom, _stream()), "ff_update_residual3d")
+    LAUNCHES["ff_update_residual3d"] += 1
+    return hi2, lo2, r
 
 
 # ---------------------------------------------------------------------------

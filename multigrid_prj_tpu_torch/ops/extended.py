@@ -94,3 +94,14 @@ def ff_poisson_residual(u_hi, u_lo, d_hi, d_lo, b, alpha: float, h: float,
 def ff_accumulate(u_hi, u_lo, e):
     """(u_hi, u_lo) += e, renormalized."""
     return ff_add_f(u_hi, u_lo, e)
+
+
+def ff_update_residual(u_hi, u_lo, e, d_hi, d_lo, b, alpha: float, h: float,
+                       logical_shape=None):
+    """A refined solve's step from a correction ``e``: the pair update
+    (:func:`ff_accumulate`, at every point) and the extended residual of the
+    updated pair (:func:`ff_poisson_residual`).  Returns ``(u_hi, u_lo,
+    r)``; the twin of the kernels that fuse the two."""
+    u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
+    return u_hi, u_lo, ff_poisson_residual(u_hi, u_lo, d_hi, d_lo, b, alpha,
+                                           h, logical_shape)

@@ -415,10 +415,13 @@ def test_cuda_solve_refined_matches_cpu_twins(cuda_device, extra, inner_cg,
               "prolong_add") + need:
         assert cs.LAUNCHES[k] > 0, k
     assert cs.LAUNCHES["rbgs_color"] == 0  # the oracle is on no path
-    # the 2D float-float residual: one 2D launch per residual, none of the
-    # 3D kernel
-    assert cs.LAUNCHES["ff_residual"] == got.iterations + 1
+    # the 2D float-float residual: the first residual on its own kernel,
+    # each later one fused with the pair update before it; none of the 3D
+    # kernels
+    assert cs.LAUNCHES["ff_residual"] == 1
+    assert cs.LAUNCHES["ff_update_residual"] == got.iterations
     assert cs.LAUNCHES["ff_residual3d"] == 0
+    assert cs.LAUNCHES["ff_update_residual3d"] == 0
     want = GMGSolver(device="cpu", use_pallas=True, **kw).solve_refined(
         b.cpu(), inner_cg=inner_cg)
     assert got.converged and got.iterations == want.iterations
@@ -450,7 +453,8 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     1e-2 relative plus 1e-12 (the coarse matvec, norms and dot products sum
     in another order on the two devices).  The 2D kernels never launch: the
     3D transfers are plain ops, and the float-float residual launches its
-    3D kernel once per outer residual (iterations + 1)."""
+    3D kernel for the first outer residual and the fused update-and-residual
+    kernel for each later one (iterations)."""
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
@@ -462,9 +466,11 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     torch.cuda.synchronize()
     for k in need:
         assert cs.LAUNCHES[k] > 0, k
-    assert cs.LAUNCHES["ff_residual3d"] == got.iterations + 1
+    assert cs.LAUNCHES["ff_residual3d"] == 1
+    assert cs.LAUNCHES["ff_update_residual3d"] == got.iterations
     assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_fused", "rbgs_color",
                                               "residual", "ff_residual",
+                                              "ff_update_residual",
                                               "apply", "jacobi",
                                               "restrict_fw", "prolong_add",
                                               "rbgs3d_color"))
@@ -1063,12 +1069,115 @@ def test_cuda_ff_residual3d_refusals(cuda_device):
     assert cs.LAUNCHES["ff_residual3d"] == 0
 
 
+# the fused update-and-residual kernels: 2D at the main path's levels, an
+# exact odd layout, the 8193^2 finest level, a ragged non-square and an odd
+# unpadded shape; 3D at the residual march's shapes (odd, padded,
+# non-cubic, chunks that do not divide nz, the 17^3 bottom)
+FUSED_FF_SHAPES = CUDA_SHAPES + [SCALE_SHAPE, ((256, 384), (201, 329)),
+                                 ((255, 383), None)]
+
+
+def _fused_ff_args(shape, logical, device):
+    """The fused kernels' operands: a pair (low half ~1e-8 of the high), a
+    correction ``e`` of ~1e-3 and the pair of ``b / c``."""
+    u, b, u_lo, h = _cuda_inputs(shape, logical, device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    e = torch.randn(shape, generator=gen, device=device) * 1e-3
+    d_hi, d_lo = text.ff_from_div(b, ALPHA / (h * h))
+    return (u, u_lo, e, d_hi, d_lo, b, ALPHA, h, logical)
+
+
+def _check_fused_ff(fn, residual, key, args):
+    """``fn`` (new buffers and given ones) bit-equal to its twin in the
+    updated pair and r, and r to the pair update followed by ``residual``
+    (the kernel route before the fusion); one launch per call."""
+    want = text.ff_update_residual(*args)
+    out = (torch.empty_like(args[0]), torch.empty_like(args[0]))
+    cs.reset_launch_counts()
+    got = fn(*args)
+    got_out = fn(*args, out=out)
+    hi, lo = text.ff_accumulate(*args[:3])
+    before = residual(hi, lo, *args[3:])
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES[key] == 2
+    assert got_out[0] is out[0] and got_out[1] is out[1]
+    for g, go, w in zip(got, got_out, want):
+        assert torch.equal(g, w) and torch.equal(go, w)
+    assert torch.equal(got[2], before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", FUSED_FF_SHAPES)
+def test_cuda_ff_update_residual_equals_twin(cuda_device, shape, logical):
+    """The 2D fused pair update and float-float residual bit-equal to the
+    twin (``ff_accumulate``, then ``ff_poisson_residual``)."""
+    _check_fused_ff(cs.ff_update_residual, cs.ff_poisson_residual,
+                    "ff_update_residual",
+                    _fused_ff_args(shape, logical, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,logical", RESIDUAL3D_SHAPES)
+def test_cuda_ff_update_residual3d_equals_twin(cuda_device, shape, logical):
+    """The 3D fused march bit-equal to the same twin."""
+    _check_fused_ff(c3.ff_update_residual_3d, c3.ff_poisson_residual_3d,
+                    "ff_update_residual3d",
+                    _fused_ff_args(shape, logical, cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_ff_update_residual_refusals(cuda_device):
+    """Both fused wrappers refuse output buffers that are, or overlap, an
+    input or each other, a CPU buffer and float64, before any launch; the
+    3D entry point a geometry other than the compiled one and the chunk
+    rule's."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels._build import library
+
+    for shape, fn, key in (((160, 160), cs.ff_update_residual,
+                            "ff_update_residual"),
+                           ((33, 33, 33), c3.ff_update_residual_3d,
+                            "ff_update_residual3d")):
+        args = _fused_ff_args(shape, None, cuda_device)
+        u = args[0]
+        free = torch.empty_like(u)
+        both = torch.empty((2, *shape), device=cuda_device)
+        shifted = both.view(-1)[1:1 + u.numel()].view(shape)
+        cs.reset_launch_counts()
+        for out in ((u, free), (free, args[1]), (args[2], free),
+                    (free, args[3]), (free, args[5]), (free, free),
+                    (shifted, both[1])):
+            with pytest.raises(ValueError, match="overlaps"):
+                fn(*args, out=out)
+        with pytest.raises(ValueError):
+            fn(*args, out=(free, free.cpu()))
+        with pytest.raises(NotImplementedError):
+            fn(*(t.double() for t in args[:6]), *args[6:])
+        assert cs.LAUNCHES[key] == 0
+        fn(*args, out=(both[0], both[1]))  # adjacent, not overlapping
+        assert cs.LAUNCHES[key] == 1
+    lib, stream, p = library(), cs._stream(), cs._ptr
+    r, hi2, lo2 = (torch.empty_like(u) for _ in range(3))
+    ptrs = tuple(p(t) for t in args[:6]) + (p(hi2), p(lo2), p(r))
+    dims = (33, 33, 33, 33, 33, 33, ALPHA / (args[7] ** 2))
+    tx, ty, zc, ahead = c3.ff_residual3d_tile(u.shape)
+    assert lib.mg_ff_update_residual3d(*ptrs, *dims, (ctypes.c_int * 4)(
+        tx, ty, zc, ahead), stream) == 0
+    for g in ((tx, ty, zc + 1, ahead), (32, ty, zc, ahead),
+              (tx, 16, zc, ahead), (tx, ty, zc, ahead + 1)):
+        assert lib.mg_ff_update_residual3d(*ptrs, *dims, (ctypes.c_int * 4)(
+            *g), stream) != 0, g
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
     """A 65^3 refined solve (config 4 cut to 3 levels) on the float-float
-    residual's kernel and the same solve with the solver's residual set to
-    the plain twin: the same history and solution bit for bit, one kernel
-    launch per outer residual on the one, none on the other."""
+    residual's kernels and the same solve with the solver's residual set to
+    the plain twin and no fused update: the same history and solution bit
+    for bit; on the one the first residual's launch and one fused launch
+    per iteration, on the other none."""
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     kw = dict(shape=(65, 65, 65), length=1.0, alpha=1.0, num_levels=3,
@@ -1077,8 +1186,10 @@ def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
     for path in ("kernel", "plain"):
         s = GMGSolver(device="cuda", **kw)
         assert s._ff_residual_fn is c3.ff_poisson_residual_3d
+        assert s._ff_update_residual_fn is c3.ff_update_residual_3d
         if path == "plain":
             s._ff_residual_fn = text.ff_poisson_residual
+            s._ff_update_residual_fn = None
         b = _rhs_3d(s.levels[0], "cuda")
         cs.reset_launch_counts()
         res = s.solve_refined(b)
@@ -1086,8 +1197,9 @@ def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
         runs[path] = (res, dict(cs.LAUNCHES))
     (kern, ck), (plain, cp) = runs["kernel"], runs["plain"]
     assert kern.converged and kern.iterations == plain.iterations
-    assert ck["ff_residual3d"] == kern.iterations + 1
-    assert cp["ff_residual3d"] == 0
+    assert ck["ff_residual3d"] == 1
+    assert ck["ff_update_residual3d"] == kern.iterations
+    assert cp["ff_residual3d"] == cp["ff_update_residual3d"] == 0
     np.testing.assert_array_equal(kern.history, plain.history)
     assert torch.equal(kern.u, plain.u)
 

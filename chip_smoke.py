@@ -81,8 +81,8 @@ non-zero):
   memory, the apply chain's and the residual march's too)   3. 2D kernel
   vs twin (with the down-leg, apply chain and colour sweep; the fused
   smoother at sweeps 0-9 and the down-leg at 0-3 also against the
-  per-colour oracle and the 48 x 48 tile; the apply chain at 0-11 applies
-  also against single applies and its 48 x 48 tile; the fused Jacobi at
+  per-colour oracle; the apply chain at 0-11 applies also against single
+  applies; the fused Jacobi at
   sweeps 0-11, omega 0.8 and 1, also against the per-sweep kernel; the
   prolong-add stream also against the one-thread-per-point kernel; the
   fused pair update and float-float residual also against the plain pair
@@ -90,8 +90,8 @@ non-zero):
   chain, the Jacobi tile and the stream)
   4. 3D kernel vs twin (the fused smoother at sweeps 0-9, and 100 on the
   resident route, also against the per-colour oracle; the residual march
-  also against the one-thread-per-point kernel, at a shape whose nz is no
-  multiple of its chunk; the route of each shape; the march's geometry
+  at a shape whose nz is no multiple of its chunk; the route of each
+  shape; the march's geometry
   refusal; the fused Jacobi at sweeps 0-9 and 100, omega 0.8 and 1, also
   against the per-sweep oracle, on the route of each shape; the apply's
   march also against the point apply; the fused 3D pair update and
@@ -101,12 +101,12 @@ non-zero):
   path (+ CPU-twin run, + the per-colour path)   5b. main
   path with fuse_downleg (+ 129^2 CPU-twin run)   6. 8193^2 (plain,
   inner_cg=4, fuse_downleg, the per-colour path)   7. 1025^2 inner_cg / Jacobi (+ CPU-twin
-  runs)   8. plain ops   9. CLI   10. 3D paths A, B, C (A also with the
-  point residual swapped in, bit-equal)   10b. config 4 with Jacobi
+  runs)   8. plain ops   9. CLI   10. 3D paths A, B, C   10b. config 4
+  with Jacobi
   (+ the per-sweep kernel swapped in) and with inner_cg=4 (+ the point
   apply), each bit-equal   11. 3D variants D
   (+ CPU-twin runs)   12. options (f64 with the kernels, bf16)   12b. bench
-  paths: apply chain (also on its 48 x 48 tile), colour sweep   13. AMG
+  paths: apply chain, colour sweep   13. AMG
   set-up   14. AMG kernels vs
   twins (with the SpMM)   15. AMG 1024^2 solves   16. AMG 256^2 vs CPU twins,
   FEM and the AMG CLI   16b. bench SpMM path   16c. sharded kernel vs twin (and colour sweeps of the global grid)
@@ -220,9 +220,9 @@ F64_ITERATIONS = 9
 BENCH_N = 8192
 CHAIN_FUSE = 8
 CHAIN_PASSES = 4
-# the apply chain is held to its twin, to single applies and to the 48 x 48
-# tile at every apply count here (11: launches of 8 + 3); its ladder at
-# 8192^2 from graph replays
+# the apply chain is held to its twin and to single applies at every apply
+# count here (11: launches of 8 + 3); its ladder at 8192^2 from graph
+# replays
 CHAIN_APPLIES = tuple(range(12))
 LADDER_CHAIN = (1, 2, 4, 8)
 # the fused Jacobi is held to its twin and to the per-sweep kernel at every
@@ -266,11 +266,8 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     # of config 4's inner_cg=4 solve with it swapped in, run beside the path
     "apply3d": (f"{_PS3}:107", _SRC3),
     "apply3d_point": (f"{_PS3}:107", _SRC3),
-    # the residual's z-chunked march; residual3d_point, the one-thread-per-
-    # point kernel it replaced, is on no solver path: its launches are those
-    # of config 4's solve with it swapped in, run beside the path
+    # the residual's z-chunked march
     "residual3d": (f"{_PS3}:117", _SRC3),
-    "residual3d_point": (f"{_PS3}:117", _SRC3),
     # the 3D smoother: the z-marching tile, or the whole array resident in
     # shared memory (the 17^3 bottom); rbgs3d_color is its per-colour
     # oracle, on no solver path: its launches are those of the per-colour
@@ -295,9 +292,9 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
     "ff_update_residual3d": ("none: XLA fused multigrid_prj_tpu/ops/"
                              "extended.py:85 and :114 on the TPU", _SRC3),
 }
-KERNELS_3D = ("apply3d", "apply3d_point", "residual3d", "residual3d_point",
-              "rbgs3d_fused", "rbgs3d_color", "jacobi3d", "jacobi3d_sweep",
-              "ff_residual3d", "ff_update_residual3d")
+KERNELS_3D = ("apply3d", "apply3d_point", "residual3d", "rbgs3d_fused",
+              "rbgs3d_color", "jacobi3d", "jacobi3d_sweep", "ff_residual3d",
+              "ff_update_residual3d")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -306,9 +303,6 @@ KERNELS.update({
     "ff_residual_ell": (f"{_PSPMV}:695", _SRCS),
     "rbgs_resfilter": (f"{_PS}:497", _SRC2),
     "apply_chain": (f"{_PS}:871", _SRC2),
-    # the 48 x 48 tile the row-walking chain replaced, on no solver path:
-    # its launches are those of the bench chain path run on it beside
-    "apply_chain_tile48": (f"{_PS}:871", _SRC2),
     "rbgs_color_sweep": (f"{_PS}:321", _SRC2),
     "ell_spmm": (f"{_PSPMV}:274", _SRCS),
 })
@@ -338,14 +332,11 @@ PROBE_FLOPS = {"copy": 1, "rolls": 3, "shifts": 3, "halo": 3, "full": 6,
 PROBE_N = 8192
 PROBE_CHAIN = 29
 ALSO_REPLACES = {"spmv": f"{_PSPMV}:877", "apply_chain": f"{_PS}:412",
-                 "apply_chain_tile48": f"{_PS}:412",
                  "rbgs_fused": f"{_PS}:392", "jacobi": f"{_PS}:402",
                  "jacobi_sweep": f"{_PS}:402"}
 # the kernels kept only as references of their redesigns: on no path
-ON_NO_PATH = {"apply_chain_tile48": "apply_chain",
-              "residual3d_point": "residual3d", "rbgs_color": "rbgs_fused",
-              "rbgs3d_color": "rbgs3d_fused", "jacobi_sweep": "jacobi",
-              "prolong_add_point": "prolong_add",
+ON_NO_PATH = {"rbgs_color": "rbgs_fused", "rbgs3d_color": "rbgs3d_fused",
+              "jacobi_sweep": "jacobi", "prolong_add_point": "prolong_add",
               "jacobi3d_sweep": "jacobi3d", "apply3d_point": "apply3d"}
 # the JAX wrapper that reaches the kernel body in "replaces"
 VIA = {"rbgs3d_fused": f"{_PS3}:220", "rbgs3d_color": f"{_PS3}:220",
@@ -363,10 +354,8 @@ STENCIL_COST = {
     "apply": (8, 6), "jacobi": (12, 18), "jacobi_sweep": (12, 18),
     "restrict_fw": (5, 5), "prolong_add": (9, 3),
     "prolong_add_point": (9, 3), "rbgs_resfilter": (13, 24),
-    "apply_chain": (8, 48), "apply_chain_tile48": (8, 48),
-    "rbgs_color_sweep": (12, 3),
+    "apply_chain": (8, 48), "rbgs_color_sweep": (12, 3),
     "apply3d": (8, 8), "apply3d_point": (8, 8), "residual3d": (12, 9),
-    "residual3d_point": (12, 9),
     "rbgs3d_fused": (12, 18),
     "rbgs3d_color": (12, 18),
     "jacobi3d": (12, 24), "jacobi3d_sweep": (12, 24),
@@ -516,6 +505,14 @@ SAMG_RANKS = 4
 SAMG_TWIN_N = 256  # card vs CPU twin on one hierarchy
 
 
+def swap(solver, **fields):
+    """``solver`` with fields of its float32 route (``ops/routes.Route``)
+    swapped, e.g. the smoother for an oracle: the same solve on other
+    kernels."""
+    solver._f32_route = solver._f32_route._replace(**fields)
+    return solver
+
+
 def check(cond, msg):
     if not cond:
         raise RuntimeError(f"chip_smoke: FAILED: {msg}")
@@ -567,8 +564,9 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     The fused smoother runs every sweep count against the per-colour oracle
     and against the twin (the resident route also the bottom's 100); the
     fused Jacobi every count of ``JACOBI3D_SWEEPS``, omega 0.8 and 1,
-    against the per-sweep oracle and the twin; the residual's and the
-    apply's march against the one-thread-per-point kernels and the twins;
+    against the per-sweep oracle and the twin; the residual's march against
+    its twin, the apply's against the one-thread-per-point kernel and the
+    twin;
     the float-float residual against its twin, on a pair whose low half is
     ~1e-8 of ``u`` and the pair of ``b / c``; the last case of each, against
     the twin (the smoothers' at 2 sweeps, V(2,2), the Jacobi's at omega
@@ -612,18 +610,9 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
                for s in counts if s != 2]
             + [("sweeps 2", lambda: fused(2), lambda: twin(2))]),
         "rbgs3d_color": [("sweeps 2", lambda: oracle(2), lambda: twin(2))],
-        "residual3d": [
-            ("vs residual3d_point",
-             lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
-             lambda: c3._residual3d_launch(u, b, alpha, h, logical,
-                                           "residual3d_point")),
-            ("",
-             lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
-             lambda: c3.poisson_residual_3d_plain(u, b, alpha, h, logical))],
-        "residual3d_point": [(
+        "residual3d": [(
             "",
-            lambda: c3._residual3d_launch(u, b, alpha, h, logical,
-                                          "residual3d_point"),
+            lambda: c3.poisson_residual_3d(u, b, alpha, h, logical),
             lambda: c3.poisson_residual_3d_plain(u, b, alpha, h, logical))],
         "apply3d": [
             ("vs apply3d_point",
@@ -763,8 +752,7 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
         lambda col=col: cs.rbgs_color_sweep_plain(u, b, alpha, h, col,
                                                   logical))
         for col in (0, 1)]
-    calls["apply_chain"], calls["apply_chain_tile48"] = chain_calls(
-        cs, u, h, logical)
+    calls["apply_chain"] = chain_calls(cs, u, h, logical)
     n, m = u.shape
     if n % 2 == 0 and m % 2 == 0:  # the transfers live on padded levels
         lg = logical or (n, m)
@@ -790,20 +778,15 @@ def kernel_calls(cs, text, u, b, u_lo, h, logical, alpha=10.0):
 
 
 def chain_calls(cs, u, h, logical):
-    """The apply chain at every count of ``CHAIN_APPLIES`` against its twin,
-    against as many single apply launches and against the 48 x 48 tile it
-    replaced, alpha = h^2 (c = 1 keeps 11 applies of a unit-size field
-    finite); the last case, 8 applies against the twin, is the one timed.
-    Then the 48 x 48 tile's own case, 8 applies against the twin."""
+    """The apply chain at every count of ``CHAIN_APPLIES`` against its twin
+    and against as many single apply launches, alpha = h^2 (c = 1 keeps 11
+    applies of a unit-size field finite); the last case, 8 applies against
+    the twin, is the one timed."""
     def chain(s):
         return cs.poisson_apply_chain(u, h * h, h, s, logical)
 
     def twin(s):
         return cs.poisson_apply_chain_plain(u, h * h, h, s, logical)
-
-    def tile48(s):
-        return cs._apply_chain_launches(u, h * h, h, s, logical,
-                                        "apply_chain_tile48")
 
     def singles(s):
         x = u.clone()
@@ -814,13 +797,10 @@ def chain_calls(cs, u, h, logical):
     return ([(f"{s} applies{tag}", lambda s=s: chain(s),
               lambda s=s, ref=ref: ref(s))
              for s in CHAIN_APPLIES
-             for tag, ref in ((" vs the 48 x 48 tile", tile48),
-                              (" vs single applies", singles), ("", twin))
+             for tag, ref in ((" vs single applies", singles), ("", twin))
              if (s, tag) != (CHAIN_FUSE, "")]
             + [(f"{CHAIN_FUSE} applies", lambda: chain(CHAIN_FUSE),
-                lambda: twin(CHAIN_FUSE))],
-            [(f"{CHAIN_FUSE} applies", lambda: tile48(CHAIN_FUSE),
-              lambda: twin(CHAIN_FUSE))])
+                lambda: twin(CHAIN_FUSE))])
 
 
 def flat(x):
@@ -835,21 +815,16 @@ def flat(x):
 
 def downleg_calls(cs, u, b, h, logical, alpha):
     """The fused down-leg (u2 and the coarse residual) at sweeps 0-3
-    against its twin, against the three kernels it
-    fuses (the smoother as the fused kernel and as the per-colour oracle's
-    launches) and against the 48 x 48 tile it replaced; the last case, 2
-    sweeps against the twin, is the one timed, the one before it the
-    composition the path ran before (the per-colour oracle, the residual
-    and the restriction) timed beside it."""
+    against its twin and against the three kernels it fuses (the smoother
+    as the fused kernel and as the per-colour oracle's launches); the last
+    case, 2 sweeps against the twin, is the one timed, the one before it
+    the composition the path ran before (the per-colour oracle, the
+    residual and the restriction) timed beside it."""
     def fused(s):
         return cs.rbgs_residual_restrict(u, b, alpha, h, s, logical)
 
     def twin(s):
         return cs.rbgs_residual_restrict_plain(u, b, alpha, h, s, logical)
-
-    def tile48(s):
-        return cs._downleg_launch(u, b, alpha, h, s, logical,
-                                  "rbgs_resfilter_tile48")
 
     def composition(s, per_colour=True):
         u2 = (cs._rbgs_per_colour(u, b, alpha, h, s, logical) if per_colour
@@ -860,8 +835,6 @@ def downleg_calls(cs, u, b, h, logical, alpha):
 
     return ([(f"sweeps {s}", lambda s=s: fused(s), lambda s=s: twin(s))
              for s in DOWNLEG_SWEEPS if s != 2]
-            + [(f"sweeps {s} vs the 48 x 48 tile", lambda s=s: fused(s),
-                lambda s=s: tile48(s)) for s in DOWNLEG_SWEEPS]
             + [(f"sweeps {s} vs the kernels it fuses (fused smoother)",
                 lambda s=s: fused(s),
                 lambda s=s: composition(s, per_colour=False))
@@ -2751,10 +2724,10 @@ def main() -> int:
               "equal to the per-colour oracle; jacobi3d on the "
               f"{c3.jacobi3d_route(shape)} route (2-sweep march "
               f"{c3.jacobi3d_tile(shape, 2)}), sweeps 0-9 and 100, omega 1 "
-              "and 0.8, also equal to the per-sweep oracle; residual3d and "
-              f"apply3d (march {c3.residual3d_tile(shape)}) also to "
-              "residual3d_point and apply3d_point; ff_update_residual3d "
-              "also to the pair update and ff_residual3d in turn")
+              "and 0.8, also equal to the per-sweep oracle; apply3d "
+              f"(march {c3.residual3d_tile(shape)}) also to apply3d_point; "
+              "ff_update_residual3d also to the pair update and "
+              "ff_residual3d in turn")
         del u, b
     # the residual's C entry point refuses a geometry other than the
     # compiled tile and the chunk rule's
@@ -2905,8 +2878,7 @@ def main() -> int:
         def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
             return cs._rbgs_per_colour(u, b, alpha, h, sweeps, logical_shape)
 
-        s.smoother = _sm
-        return s
+        return swap(s, smooth=_sm)
 
     def check_smoother_launches(tag, s, res, counts, fused):
         """One fused launch per smoother call of <= 4 sweeps: 2 calls per
@@ -3022,8 +2994,8 @@ def main() -> int:
     del res8p
     # with the one-thread-per-point prolong-add swapped in for the stream:
     # bit-equal, one point launch in place of each stream launch
-    big_pt = GMGSolver(**SCALE_KW, device="cuda")
-    big_pt._prolong_add_fn = cs._prolong_add_point
+    big_pt = swap(GMGSolver(**SCALE_KW, device="cuda"),
+                  prolong_add=cs._prolong_add_point)
     res8t, counts = run_path(big_pt, big_b)
     res8, counts8 = big_res[0]
     print(f"[8193] with prolong_add_point swapped in: {res8t.iterations} "
@@ -3067,8 +3039,7 @@ def main() -> int:
             return cs._jacobi_per_sweep(u, b, alpha, h, JACOBI_KW["omega"],
                                         sweeps, logical_shape)
 
-        s.smoother = _sm
-        return s
+        return swap(s, smooth=_sm)
 
     jac_o = per_sweep(GMGSolver(**JACOBI_KW, device="cuda"))
     res_jo, counts_o = run_path(jac_o, b)
@@ -3140,7 +3111,7 @@ def main() -> int:
     # 10. 3D paths A (config 4 verbatim), B (padded), C (513^3)
     phases.next("3D paths A, B, C")
     need3d = ("rbgs3d_fused", "residual3d")
-    paths3d, colour3d, point3d = {}, {}, {}
+    paths3d, colour3d = {}, {}
 
     def per_colour3d(s):
         """``s`` with its smoother swapped for the 3D per-colour oracle (2 x
@@ -3150,18 +3121,7 @@ def main() -> int:
             return c3._rbgs3d_per_colour(u, b, alpha, h, sweeps,
                                          logical_shape)
 
-        s.smoother = _sm
-        return s
-
-    def point_residual3d(s):
-        """``s`` with its residual swapped for the one-thread-per-point
-        kernel the march replaced (``residual3d_point``)."""
-        def _res(u, b, alpha, h, logical_shape=None):
-            return c3._residual3d_launch(u, b, alpha, h, logical_shape,
-                                         "residual3d_point")
-
-        s._residual_fn = _res
-        return s
+        return swap(s, smooth=_sm)
 
     def smoother3d_calls(s, res):
         """Smoother calls of a 3D solve: 2 per smoothed level and iteration,
@@ -3214,10 +3174,8 @@ def main() -> int:
         n_res = {"A": CONFIG4_RESIDUAL_LAUNCHES,
                  "C": SCALE3D_RESIDUAL_LAUNCHES}.get(tag[0])
         print(f"[{tag}] residual3d launches {counts['residual3d']} "
-              f"(expected {n_res}: one per smoothed level and iteration), "
-              f"residual3d_point {counts['residual3d_point']}")
-        check(n_res is None or (counts["residual3d"] == n_res
-                                and counts["residual3d_point"] == 0),
+              f"(expected {n_res}: one per smoothed level and iteration)")
+        check(n_res is None or counts["residual3d"] == n_res,
               f"{tag}: residual launches")
         # the float-float residual: the first on its own kernel, each later
         # one fused with the pair update before it
@@ -3228,29 +3186,13 @@ def main() -> int:
         check(counts["ff_residual3d"] == 1
               and counts["ff_update_residual3d"] == res3.iterations,
               f"{tag}: float-float residual launches")
-        if tag[0] == "A":  # and with the point residual, and per colour
+        if tag[0] == "A":  # and with the plain ff ops, and per colour
             check(calls == CONFIG4_FUSED_LAUNCHES, f"{tag}: {calls} calls")
-            rs3 = point_residual3d(GMGSolver(**kw, **extra, device="cuda"))
-            res3r, counts_r = run_path(rs3, b3)
-            print(f"[{tag}] with residual3d_point swapped in: "
-                  f"{res3r.iterations} iterations, residual3d_point "
-                  f"{counts_r['residual3d_point']} launches, residual3d "
-                  f"{counts_r['residual3d']}; history and solution equal: "
-                  f"{np.array_equal(res3r.history, res3.history)}, "
-                  f"{torch.equal(res3r.u, res3.u)}")
-            check(res3r.iterations == res3.iterations
-                  and np.array_equal(res3r.history, res3.history)
-                  and torch.equal(res3r.u, res3.u)
-                  and counts_r["residual3d_point"] == n_res
-                  and counts_r["residual3d"] == 0,
-                  f"{tag}: the march differs from the point residual")
-            point3d[tag] = rs3
-            del res3r
-            # and with the plain pair update and float-float residual in
-            # place of their kernels
-            fs3 = GMGSolver(**kw, **extra, device="cuda")
-            fs3._ff_residual_fn = text.ff_poisson_residual
-            fs3._ff_update_residual_fn = None
+            # with the plain pair update and float-float residual in place
+            # of their kernels
+            fs3 = swap(GMGSolver(**kw, **extra, device="cuda"),
+                       ff_residual=text.ff_poisson_residual,
+                       ff_update_residual=text.ff_update_residual)
             res3f, counts_f = run_path(fs3, b3)
             print(f"[{tag}] with the plain pair update and float-float "
                   f"residual: {res3f.iterations} iterations, ff_residual3d "
@@ -3323,8 +3265,7 @@ def main() -> int:
                                           JACOBI3D_KW["omega"], sweeps,
                                           logical_shape)
 
-        s.smoother = _sm
-        return s
+        return swap(s, smooth=_sm)
 
     jac3_o = per_sweep3d(GMGSolver(**JACOBI3D_KW, device="cuda"))
     res_j3o, counts_o = run_path(jac3_o, b_c4)
@@ -3348,8 +3289,7 @@ def main() -> int:
             return c3._apply3d_launch(u, alpha, h, logical_shape,
                                       "apply3d_point")
 
-        s._apply_fn = _apply
-        return s
+        return swap(s, apply=_apply)
 
     cg3 = GMGSolver(**CONFIG4_KW, device="cuda")
     res_c3, counts = run_path(cg3, b_c4, inner_cg=4)
@@ -3473,22 +3413,8 @@ def main() -> int:
     check(c_c["apply_chain"] == CHAIN_PASSES == sum(c_c.values())
           and torch.equal(x_c, twin_c) and bool(torch.isfinite(x_c).all()),
           "bench chain path")
-
-    def chain_path_tile48():
-        x = u_b
-        for _ in range(CHAIN_PASSES):
-            x = cs._apply_chain_launches(x, h_b * h_b, h_b, CHAIN_FUSE, None,
-                                         "apply_chain_tile48")
-        return x
-
-    x_t, c_t = run_counted(chain_path_tile48)
-    print(f"[bench chain] the same on the 48 x 48 tile: launches "
-          f"{({k: v for k, v in c_t.items() if v})}; equal: "
-          f"{torch.equal(x_t, x_c)}")
-    check(c_t["apply_chain_tile48"] == CHAIN_PASSES == sum(c_t.values())
-          and torch.equal(x_t, x_c), "bench chain path on the 48 x 48 tile")
-    del x_c, twin_c, x_t
-    for label, kern, ref in chain_calls(cs, u_b, h_b, None)[0]:
+    del x_c, twin_c
+    for label, kern, ref in chain_calls(cs, u_b, h_b, None):
         got, want = kern(), ref()
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -3496,8 +3422,8 @@ def main() -> int:
         check(torch.equal(got, want),
               f"apply_chain ({label}) != reference at {BENCH_N}^2 ({err})")
     print(f"[kernels] apply_chain at {BENCH_N}^2, applies "
-          f"{CHAIN_APPLIES[0]}-{CHAIN_APPLIES[-1]}: equal to its twin, to "
-          "single applies and to the 48 x 48 tile (torch.equal)")
+          f"{CHAIN_APPLIES[0]}-{CHAIN_APPLIES[-1]}: equal to its twin and "
+          "to single applies (torch.equal)")
     lev0 = solver.levels[0]
     b_pad = pad_to(b, lev0.padded_shape)
 
@@ -3827,11 +3753,9 @@ def main() -> int:
                  nnz_per_s=nnz * CHAIN_FUSE / (t_k * 1e-3),
                  single_nnz_per_s=nnz * CHAIN_FUSE / (t_s * 1e-3))
     # the ladder: device time per call by applies, the row-walking tile
-    # against the 48 x 48 tile it replaced and as many single applies
+    # against as many single applies
     chain_paths = {
         "apply_chain": lambda s: cs.poisson_apply_chain(u_b, a_b, h_b, s),
-        "apply_chain_tile48": lambda s: cs._apply_chain_launches(
-            u_b, a_b, h_b, s, None, "apply_chain_tile48"),
         "single applies": singles}
     chain_ladder = {k: {s: device_ms(torch, lambda s=s, f=f: f(s), n_b * n_b)
                         for s in LADDER_CHAIN} for k, f in chain_paths.items()}
@@ -3839,22 +3763,13 @@ def main() -> int:
         print(f"[ladder] {k} at {n_b}x{n_b}, device us per call by applies: "
               f"{ {s: round(v * 1e3, 1) for s, v in row.items()} }  ({card})")
     rec["ladder_ms"] = chain_ladder
-    rec["tile48_device_ms"] = chain_ladder["apply_chain_tile48"][CHAIN_FUSE]
     rec["single_applies_device_ms"] = \
         chain_ladder["single applies"][CHAIN_FUSE]
     add_time("apply_chain", f"{CHAIN_FUSE} applies", rec,
              f"; {CHAIN_FUSE} single applies {t_s * 1e3:.1f} us (device "
-             f"{rec['single_applies_device_ms'] * 1e3:.1f} us); the 48 x 48 "
-             f"tile (device) {rec['tile48_device_ms'] * 1e3:.1f} us; "
+             f"{rec['single_applies_device_ms'] * 1e3:.1f} us); "
              f"{rec['nnz_per_s']:.4g} nnz/s fused, "
              f"{rec['single_nnz_per_s']:.4g} single")
-    t_o = median_ms(torch, lambda: chain_paths["apply_chain_tile48"](
-        CHAIN_FUSE))
-    add_time("apply_chain_tile48", f"{CHAIN_FUSE} applies", record(
-        f"{n_b}x{n_b} (bench.py's chain, c = 1)", t_o, t_p,
-        per[0] * n_b * n_b, per[1] * n_b * n_b,
-        device_ms=rec["tile48_device_ms"],
-        nnz_per_s=nnz * CHAIN_FUSE / (t_o * 1e-3)))
     del u_b
     for shape, logical in TIME_SHAPES:
         u, bb, u_lo, h = kernel_inputs(torch, shape, logical, seed=99)
@@ -3911,18 +3826,16 @@ def main() -> int:
         del u, bb, u_lo
         torch.cuda.empty_cache()
     # the per-pass ladder at 8448^2, device time per call from graph
-    # replays: the down-leg at sweeps 0-3 on the colour-split tile and on
-    # the 48 x 48 tile it replaced; the smoother at 1, 2 and 4 sweeps, fused
-    # and as the per-colour oracle
+    # replays: the down-leg at sweeps 0-3; the smoother at 1, 2 and 4
+    # sweeps, fused and as the per-colour oracle
     (shape, logical) = TIME_SHAPES[1]
     u, bb, _, h = kernel_inputs(torch, shape, logical, seed=97)
     npts = shape[0] * shape[1]
     ladder = {}
     for s in DOWNLEG_SWEEPS:
-        for k in ("rbgs_resfilter", "rbgs_resfilter_tile48"):
-            ladder.setdefault(k, {})[s] = device_ms(
-                torch, lambda s=s, k=k: cs._downleg_launch(
-                    u, bb, 10.0, h, s, logical, k), npts)
+        ladder.setdefault("rbgs_resfilter", {})[s] = device_ms(
+            torch, lambda s=s: cs.rbgs_residual_restrict(
+                u, bb, 10.0, h, s, logical), npts)
     for s in LADDER_SMOOTHER:
         ladder.setdefault("rbgs_fused", {})[s] = device_ms(
             torch, lambda s=s: cs.red_black_gauss_seidel(
@@ -3938,7 +3851,7 @@ def main() -> int:
     times["rbgs_fused"][-1]["ladder_ms"] = {
         k: ladder[k] for k in ("rbgs_fused", "per-colour")}
     times["rbgs_resfilter"][-1]["ladder_ms"] = {
-        k: ladder[k] for k in ("rbgs_resfilter", "rbgs_resfilter_tile48")}
+        "rbgs_resfilter": ladder["rbgs_resfilter"]}
     del u, bb
     torch.cuda.empty_cache()
     # the Jacobi tile and the prolong-add stream at 8192^2 (exact layout)
@@ -3996,7 +3909,7 @@ def main() -> int:
                  median_ms(torch, twin, runs=10))
             per = STENCIL_COST[kname]
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
-            if kname in ("residual3d", "residual3d_point", "apply3d",
+            if kname in ("residual3d", "apply3d",
                          "apply3d_point", "jacobi3d", "jacobi3d_sweep",
                          "ff_residual3d", "ff_update_residual3d"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
@@ -4010,8 +3923,7 @@ def main() -> int:
                          f"{extra['composition_device_ms'] * 1e3:.1f} us, "
                          f"L2 flushed "
                          f"{extra['composition_flushed_ms'] * 1e3:.1f} us")
-            replaced = {"residual3d": "residual3d_point",
-                        "apply3d": "apply3d_point",
+            replaced = {"apply3d": "apply3d_point",
                         "jacobi3d": "jacobi3d_sweep"}.get(kname)
             if replaced:  # and the kernel it replaced, on the same call
                 point = next(c[2] for c in cases if "vs " in c[0]
@@ -4127,7 +4039,7 @@ def main() -> int:
     # slab (the per-colour oracle, its clone of u included) and against the
     # fused smoother's one launch there (the same sweeps without the row
     # offset, on the same tile); the ladder, sweeps 1-4 from graph replays,
-    # against the 48 x 48 tile it replaced and the fused smoother
+    # against the fused smoother
     ne, m = EXT_TIME_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(98)
     ue, be = (torch.randn(EXT_TIME_SHAPE, generator=gen, device="cuda")
@@ -4137,13 +4049,8 @@ def main() -> int:
     ext_paths = {
         "rbgs_fused_ext": lambda s: cs.rbgs_fused_extended(
             ue, be, -8, lg, 10.0, h_e, s),
-        "rbgs_fused_ext_tile48": lambda s: cs._fused_ext_launch(
-            ue, be, -8, lg[0], lg[1], 10.0, h_e, s, "rbgs_fused_ext_tile48"),
         "rbgs_fused": lambda s: cs.red_black_gauss_seidel(
             ue, be, 10.0, h_e, sweeps=s)}
-    check(all(torch.equal(ext_paths["rbgs_fused_ext"](s),
-                          ext_paths["rbgs_fused_ext_tile48"](s))
-              for s in (1, 2, 3, 4)), "rbgs_fused_ext != the 48 x 48 tile")
     ext_ladder = {k: {s: device_ms(torch, lambda s=s, f=f: f(s), ne * m)
                       for s in (1, 2, 3, 4)} for k, f in ext_paths.items()}
     for k, row in ext_ladder.items():
@@ -4166,13 +4073,10 @@ def main() -> int:
             per[1] * ne * m * sw // 4, colour_launches_ms=t_c,
             rbgs_fused_device_ms=t_f, flushed_ms=t_l2,
             device_ms=ext_ladder["rbgs_fused_ext"][sw],
-            tile48_device_ms=ext_ladder["rbgs_fused_ext_tile48"][sw],
             **({"ladder_ms": ext_ladder} if sw == 4 else {})),
             f"; L2 flushed {t_l2 * 1e3:.1f} us; {2 * sw} rbgs_color launches "
-            f"{t_c * 1e3:.1f} us; the 48 x 48 tile "
-            f"{ext_ladder['rbgs_fused_ext_tile48'][sw] * 1e3:.1f} us "
-            f"(device); the fused smoother on the slab {t_f * 1e3:.1f} us "
-            "(device)")
+            f"{t_c * 1e3:.1f} us; the fused smoother on the slab "
+            f"{t_f * 1e3:.1f} us (device)")
     del ue, be, ext_paths
     torch.cuda.empty_cache()
     # bench.py's measure_ell_spmm: 4 vectors on banded_csr(2**20), against
@@ -4284,25 +4188,18 @@ def main() -> int:
                   f"{statistics.median(w) * 1e3:.2f} ms over 3 "
                   f"({[round(x * 1e3, 2) for x in w]} ms, alternating), "
                   f"{iters} iterations  ({card})")
-    # config 4 (A) and 513^3 (C): fused (F) against the per-colour path (P)
-    # and against the point residual swapped in (R), F P R R P F F R P,
-    # median of 3 each, after one warm run of each
+    # config 4 (A) and 513^3 (C): fused (F) against the per-colour path (P),
+    # F P P F F P, median of 3 each, after one warm run of each
     colour3d["C 513^3"] = per_colour3d(GMGSolver(**SCALE3D_KW,
                                                  device="cuda"))
-    point3d["C 513^3"] = point_residual3d(GMGSolver(**SCALE3D_KW,
-                                                    device="cuda"))
     for tag, ps3 in colour3d.items():
         s3, b3, res3 = paths3d[tag]
-        rs3 = point3d[tag]
         fns = {"fused": lambda s3=s3, b3=b3: s3.solve_refined(b3),
-               "per-colour": lambda ps3=ps3, b3=b3: ps3.solve_refined(b3),
-               "point residual": lambda rs3=rs3, b3=b3: rs3.solve_refined(
-                   b3)}
+               "per-colour": lambda ps3=ps3, b3=b3: ps3.solve_refined(b3)}
         walls = {k: [] for k in fns}
         for k in fns:
             fns[k]()
-        for k in ("fused", "per-colour", "point residual", "point residual",
-                  "per-colour", "fused", "fused", "point residual",
+        for k in ("fused", "per-colour", "per-colour", "fused", "fused",
                   "per-colour"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4317,8 +4214,6 @@ def main() -> int:
                   f"{res3.iterations} iterations  ({card})")
         if tag[0] == "A":
             for k, fn in fns.items():
-                if k == "point residual":
-                    continue
                 try:
                     wall, busy, nev, top = profile_run(torch, fn)
                 except Exception as exc:  # the trace is a measurement aid
@@ -4331,7 +4226,7 @@ def main() -> int:
                 for kname, (us, cnt) in top[:6]:
                     print(f"[profile]   {us / 1e3:8.3f} ms  {cnt:5d}x  "
                           f"{kname[:90]}")
-    del colour3d, point3d
+    del colour3d
     walls_3d = [(f"solve_refined 3D {tag}",
                  lambda s3=s3, b3=b3: s3.solve_refined(b3), res3.iterations)
                 for tag, (s3, b3, res3) in paths3d.items() if tag[0] == "B"]

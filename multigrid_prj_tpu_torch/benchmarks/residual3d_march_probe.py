@@ -6,16 +6,16 @@ The kernel is compiled with ``kR3Ahead`` = 4 planes in flight and tiles of
 ``ahead:rows[:cols]`` this builds the kernel library from a copy of the
 source with those constants (under
 ``multigrid_prj_tpu_torch/build/r3_march/``), holds the residual to its twin
-and to the one-thread-per-point kernel at every level of config 4 and at a
-shape whose nz is no multiple of its chunk, and times it at 257^3 and 513^3
-from CUDA-graph replays (``benchmarks/program.py``) and with L2 flushed,
-beside the one-thread-per-point kernel.  The card only.
+and to ``b`` less the one-thread-per-point apply (the march's point oracle)
+at every level of config 4 and at a shape whose nz is no multiple of its
+chunk, and times it at 257^3 and 513^3 from CUDA-graph replays
+(``benchmarks/program.py``) and with L2 flushed.  The card only.
 
     python -m multigrid_prj_tpu_torch.benchmarks.residual3d_march_probe \\
         [ahead:rows[:cols] ...]
 
 Prints one line per variant and size: equal to the twin and the point
-kernel, and device microseconds per call.
+oracle, and device microseconds per call.
 """
 
 from __future__ import annotations
@@ -68,8 +68,7 @@ def _inputs(shape, seed):
 
 def _calls(u, b, h):
     return (lambda: c3.poisson_residual_3d(u, b, 1.0, h),
-            lambda: c3._residual3d_launch(u, b, 1.0, h, None,
-                                          "residual3d_point"),
+            lambda: b - c3._apply3d_launch(u, 1.0, h, None, "apply3d_point"),
             lambda: c3.poisson_residual_3d_plain(u, b, 1.0, h))
 
 
@@ -103,14 +102,12 @@ def run(variants):
                 got = march()
                 ok &= torch.equal(got, twin()) and torch.equal(got, point())
             for shape in TIME_SHAPES:
-                march, point, _ = _calls(*_inputs(shape, seed=9))
+                march = _calls(*_inputs(shape, seed=9))[0]
                 t = {"march": device_us(march, reps=10),
-                     "march L2 flushed": flushed_us(march),
-                     "point": device_us(point, reps=10),
-                     "point L2 flushed": flushed_us(point)}
+                     "march L2 flushed": flushed_us(march)}
                 rows.append((var, shape, ok, t))
                 print(f"[residual3d march {ahead} ahead, {ty} x {tx}] "
-                      f"equal to the twin and the point kernel: {ok}; "
+                      f"equal to the twin and the point oracle: {ok}; "
                       f"{'x'.join(map(str, shape))} device us per call "
                       f"{({k: round(v, 1) for k, v in t.items()})}",
                       flush=True)

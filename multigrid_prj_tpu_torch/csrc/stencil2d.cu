@@ -30,7 +30,6 @@
 //   apply_chain      <- poisson_apply_chain (_apply_fused_kernel /
 //                       _apply_fused2d_kernel, shared body
 //                       _fused_apply_passes): up to 8 applies per launch
-//   apply_chain_tile48 <- the same on the earlier 48 x 48 tile (no path)
 //   rbgs_color_sweep <- rbgs_color_sweep (_rbgs_color_kernel)
 //   rbgs_fused_ext   <- rbgs_fused_extended (_rbgs_fused_offset_kernel,
 //                       shared body _fused_rbgs_passes)
@@ -387,251 +386,21 @@ __global__ void rbgs_color_sweep_kernel(const float* __restrict__ u,
 }
 
 // ---------------------------------------------------------------------------
-// Temporally fused kernels: one block per kTile x kTile core tile, whose
-// operands sit in shared memory with a halo of kHalo cells on each side.
-//
 // The ring argument of pallas_stencil.py (_rbgs_resfilter_kernel, :507-509;
-// _apply_fused_kernel, :875-882): a pass that updates a cell from its four
-// neighbours cannot update the tile's outermost ring (its neighbours are not
-// loaded), so each dependent pass leaves one more ring stale, counted from
-// the tile's edge.  After p passes rings 0 .. p-1 may be wrong and every
-// cell at distance >= p from the edge holds exactly what p separate launches
-// give.  The core starts kHalo cells in, so up to kHalo dependent passes
-// keep it exact.  Cells outside the array are loaded as 0 and never updated;
-// only boundary points (which read no neighbour) sit next to them, so no
-// interior point ever reads one.  Every op is the separate kernels' op in
-// the same order, so the core is bit-equal to them.
+// _apply_fused_kernel, :875-882), on which the temporally fused kernels
+// below rest: a pass that updates a cell from its four neighbours cannot
+// update the tile's outermost ring (its neighbours are not loaded), so each
+// dependent pass leaves one more ring stale, counted from the tile's edge.
+// After p passes rings 0 .. p-1 may be wrong and every cell at distance >= p
+// from the edge holds exactly what p separate launches give.  Cells outside
+// the array are loaded as 0 and never updated; only boundary points (which
+// read no neighbour) sit next to them, so no interior point ever reads one.
+// Every op is the separate kernels' op in the same order, so the core is
+// bit-equal to them.
 //
-// Bound: memory.  The tile halo makes each block re-read (48/32)^2 = 2.25x
-// its core from L2 (HBM sees about the core once when neighbouring tiles'
-// halos hit L2); the passes themselves run in shared memory.  Larger or
-// rectangular tiles would cut the halo share; that is later tuning.
-constexpr int kTile = 32;
+// The sharded smoother's extended slab carries kHalo halo rows above and
+// below (ops/cuda_stencil._EXT_HALO): room for 2 x 4 dependent passes.
 constexpr int kHalo = 8;
-constexpr int kExt = kTile + 2 * kHalo;  // 48
-constexpr int kExt2 = kExt * kExt;
-constexpr int kFusedThreads = 256;
-
-__device__ __forceinline__ bool on_tile_edge(int li, int lj) {
-  return li == 0 || lj == 0 || li == kExt - 1 || lj == kExt - 1;
-}
-
-// Load the (kExt, kExt) tile of x whose cell (0, 0) is array point (i0, j0);
-// cells outside the array get 0.
-__device__ __forceinline__ void load_tile(float* __restrict__ s,
-                                          const float* __restrict__ x, int i0,
-                                          int j0, int n, int m) {
-  for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
-    const int i = i0 + q / kExt;
-    const int j = j0 + q % kExt;
-    s[q] = (i >= 0 && j >= 0 && i < n && j < m) ? x[(long long)i * m + j]
-                                                : 0.0f;
-  }
-}
-
-// Axis-0 pass of the restriction at local fine cell (li, lj) of the
-// residual tile s, for coarse row k: fw_rows on shared memory.
-__device__ __forceinline__ float fw_rows_tile(const float* __restrict__ s,
-                                              int li, int lj, int k,
-                                              int nc_r) {
-  const int p = li * kExt + lj;
-  if (k == 0 || k == nc_r - 1) return s[p];
-  return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, s[p - kExt]),
-                             __fmul_rn(0.5f, s[p])),
-                   __fmul_rn(0.25f, s[p + kExt]));
-}
-
-// The earlier down-leg on the 48 x 48 tile, kept only so that the
-// per-pass ladder of chip_smoke.py can time it beside its redesign
-// (rbgs_resfilter_kernel below, which replaces it on every path): `sweeps`
-// (<= 3) red-black sweeps, the residual and the full-weighting restriction,
-// every pass over all 2304 cells with per-cell div/mod, an 8-cell halo
-// whatever the sweep count, scalar synchronous loads.  Equal to the new
-// kernel bit for bit.
-__global__ void __launch_bounds__(kFusedThreads)
-    rbgs_resfilter_tile48_kernel(const float* __restrict__ u,
-                                 const float* __restrict__ b,
-                                 float* __restrict__ u2,
-                                 float* __restrict__ rc, int n, int m, int nl,
-                                 int ml, float inv_c, float c, int sweeps) {
-  __shared__ float su[kExt2];
-  __shared__ float sb[kExt2];  // b, then the residual
-  const int i0 = blockIdx.y * kTile - kHalo;
-  const int j0 = blockIdx.x * kTile - kHalo;
-  load_tile(su, u, i0, j0, n, m);
-  load_tile(sb, b, i0, j0, n, m);
-  __syncthreads();
-  for (int s = 0; s < sweeps; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
-        const int li = q / kExt, lj = q % kExt;
-        const int i = i0 + li, j = j0 + lj;
-        if (i < 0 || j < 0 || i >= n || j >= m || on_tile_edge(li, lj) ||
-            ((i + j) & 1) != color) {
-          continue;
-        }
-        if (is_boundary(i, j, nl, ml)) {
-          su[q] = sb[q];
-          continue;
-        }
-        float t = __fmul_rn(sb[q], inv_c);
-        t = __fadd_rn(t, su[q - kExt]);  // north
-        t = __fadd_rn(t, su[q + kExt]);  // south
-        t = __fadd_rn(t, su[q + 1]);     // east
-        t = __fadd_rn(t, su[q - 1]);     // west
-        su[q] = __fmul_rn(t, 0.25f);
-      }
-      __syncthreads();
-    }
-  }
-  for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
-    const int li = q / kExt, lj = q % kExt;
-    const int i = i0 + li, j = j0 + lj;
-    if (i < 0 || j < 0 || i >= n || j >= m || on_tile_edge(li, lj)) continue;
-    const float uc = su[q];
-    float a = uc;
-    if (!is_boundary(i, j, nl, ml)) {
-      float t = __fmul_rn(4.0f, uc);
-      t = __fsub_rn(t, su[q - kExt]);  // north
-      t = __fsub_rn(t, su[q + kExt]);  // south
-      t = __fsub_rn(t, su[q + 1]);     // east
-      t = __fsub_rn(t, su[q - 1]);     // west
-      a = __fmul_rn(c, t);
-    }
-    sb[q] = __fsub_rn(sb[q], a);
-  }
-  __syncthreads();
-  for (int q = threadIdx.x; q < kTile * kTile; q += kFusedThreads) {
-    const int li = kHalo + q / kTile, lj = kHalo + q % kTile;
-    const int i = i0 + li, j = j0 + lj;
-    if (i < n && j < m) u2[(long long)i * m + j] = su[li * kExt + lj];
-  }
-  constexpr int kHalf = kTile / 2;
-  const int mc = m / 2;
-  const int nc_r = (nl + 1) / 2, nc_c = (ml + 1) / 2;
-  for (int q = threadIdx.x; q < kHalf * kHalf; q += kFusedThreads) {
-    const int kk = q / kHalf, qq = q % kHalf;
-    const int k = blockIdx.y * kHalf + kk;
-    const int qc = blockIdx.x * kHalf + qq;
-    if (k >= n / 2 || qc >= mc) continue;
-    const long long o = (long long)k * mc + qc;
-    if (k >= nc_r || qc >= nc_c) {
-      rc[o] = 0.0f;
-      continue;
-    }
-    const int li = kHalo + 2 * kk, lj = kHalo + 2 * qq;  // fine (2k, 2qc)
-    if (qc == 0 || qc == nc_c - 1) {
-      rc[o] = fw_rows_tile(sb, li, lj, k, nc_r);
-      continue;
-    }
-    const float w = fw_rows_tile(sb, li, lj - 1, k, nc_r);
-    const float ce = fw_rows_tile(sb, li, lj, k, nc_r);
-    const float e = fw_rows_tile(sb, li, lj + 1, k, nc_r);
-    rc[o] = __fadd_rn(__fadd_rn(__fmul_rn(0.25f, w), __fmul_rn(0.5f, ce)),
-                      __fmul_rn(0.25f, e));
-  }
-}
-
-// The earlier apply chain on the 48 x 48 tile, kept only so that
-// chip_smoke.py can hold its redesign (apply_chain_kernel<A> below, which
-// replaces it on every path) to it and time the two in one run: y =
-// A^applies u (applies <= kHalo = 8), every apply over all 2304 cells with
-// per-cell div/mod and five shared reads, an 8-cell halo whatever the apply
-// count, scalar synchronous loads.  Equal to the new kernel bit for bit.
-__global__ void __launch_bounds__(kFusedThreads)
-    apply_chain_tile48_kernel(const float* __restrict__ u,
-                              float* __restrict__ y, int n, int m, int nl,
-                              int ml, float c, int applies) {
-  __shared__ float sx[2][kExt2];
-  const int i0 = blockIdx.y * kTile - kHalo;
-  const int j0 = blockIdx.x * kTile - kHalo;
-  load_tile(sx[0], u, i0, j0, n, m);
-  __syncthreads();
-  int cur = 0;
-  for (int a = 0; a < applies; ++a) {
-    const float* __restrict__ x = sx[cur];
-    float* __restrict__ z = sx[cur ^ 1];
-    for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
-      const int li = q / kExt, lj = q % kExt;
-      const int i = i0 + li, j = j0 + lj;
-      const float xc = x[q];
-      float out = xc;  // identity rows, the stale ring, outside the array
-      if (i >= 0 && j >= 0 && i < n && j < m && !on_tile_edge(li, lj) &&
-          !is_boundary(i, j, nl, ml)) {
-        float t = __fmul_rn(4.0f, xc);
-        t = __fsub_rn(t, x[q - kExt]);  // north
-        t = __fsub_rn(t, x[q + kExt]);  // south
-        t = __fsub_rn(t, x[q + 1]);     // east
-        t = __fsub_rn(t, x[q - 1]);     // west
-        out = __fmul_rn(c, t);
-      }
-      z[q] = out;
-    }
-    __syncthreads();
-    cur ^= 1;
-  }
-  for (int q = threadIdx.x; q < kTile * kTile; q += kFusedThreads) {
-    const int li = kHalo + q / kTile, lj = kHalo + q % kTile;
-    const int i = i0 + li, j = j0 + lj;
-    if (i < n && j < m) y[(long long)i * m + j] = sx[cur][li * kExt + lj];
-  }
-}
-
-// The earlier sharded smoother on the 48 x 48 tile, kept only so that
-// chip_smoke.py's ladder can time it beside its redesign
-// (rbgs_fused_ext_kernel below, which replaces it on every path): `sweeps`
-// (<= 4) red-black sweeps on a shard's rows extended by kHalo halo rows
-// above and below, each pass over all 2304 cells with per-cell div/mod, an
-// 8-cell halo whatever the sweep count, scalar synchronous loads.  The
-// colour and the pinning are global, as below; equal to the new kernel bit
-// for bit.
-__global__ void __launch_bounds__(kFusedThreads)
-    rbgs_fused_ext_tile48_kernel(const float* __restrict__ ue,
-                                 const float* __restrict__ be,
-                                 float* __restrict__ out, int ne, int m,
-                                 int row0, int nl, int ml, float inv_c,
-                                 int sweeps) {
-  __shared__ float su[kExt2];
-  __shared__ float sb[kExt2];
-  // tile cell (kHalo, kHalo) is core cell (blockIdx.y * kTile, blockIdx.x *
-  // kTile), i.e. slab row kHalo + blockIdx.y * kTile
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile - kHalo;
-  load_tile(su, ue, i0, j0, ne, m);
-  load_tile(sb, be, i0, j0, ne, m);
-  __syncthreads();
-  for (int s = 0; s < sweeps; ++s) {
-    for (int color = 0; color < 2; ++color) {
-      for (int q = threadIdx.x; q < kExt2; q += kFusedThreads) {
-        const int li = q / kExt, lj = q % kExt;
-        const int i = i0 + li, j = j0 + lj;
-        const int row = row0 + i;
-        if (i >= ne || j < 0 || j >= m || on_tile_edge(li, lj) ||
-            ((row + j) & 1) != color) {
-          continue;
-        }
-        if (row <= 0 || row >= nl - 1 || j <= 0 || j >= ml - 1) {
-          su[q] = sb[q];
-          continue;
-        }
-        float t = __fmul_rn(sb[q], inv_c);
-        t = __fadd_rn(t, su[q - kExt]);  // north
-        t = __fadd_rn(t, su[q + kExt]);  // south
-        t = __fadd_rn(t, su[q + 1]);     // east
-        t = __fadd_rn(t, su[q - 1]);     // west
-        su[q] = __fmul_rn(t, 0.25f);
-      }
-      __syncthreads();
-    }
-  }
-  const int r = ne - 2 * kHalo;
-  for (int q = threadIdx.x; q < kTile * kTile; q += kFusedThreads) {
-    const int li = kHalo + q / kTile, lj = kHalo + q % kTile;
-    const int k = blockIdx.y * kTile + q / kTile;  // out row
-    const int j = j0 + lj;
-    if (k < r && j < m) out[(long long)k * m + j] = su[li * kExt + lj];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The colour-split red-black tile: rbgs_fused_kernel<SWEEPS> (the smoother,
@@ -1760,18 +1529,6 @@ int mg_rbgs_resfilter(const float* u, const float* b, float* u2, float* rc,
                          rb_vec(m, u2), (cudaStream_t)stream);
 }
 
-// The earlier down-leg on the 48 x 48 tile (the ladder's reference only).
-int mg_rbgs_resfilter_tile48(const float* u, const float* b, float* u2,
-                             float* rc, int n, int m, int nl, int ml,
-                             float inv_c, float c, int sweeps, void* stream) {
-  if (sweeps < 0 || 2 * sweeps + 2 > kHalo) return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  rbgs_resfilter_tile48_kernel<<<grid, kFusedThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      u, b, u2, rc, n, m, nl, ml, inv_c, c, sweeps);
-  return (int)cudaGetLastError();
-}
-
 // `applies` (1 .. 8) applies u -> y on the row-walking tile; geom = (row
 // halo, column halo, tile rows, tile columns) as the caller computed it,
 // refused unless it is the compiled one.
@@ -1784,18 +1541,6 @@ int mg_apply_chain(const float* u, float* y, int n, int m, int nl, int ml,
   if (applies < 1 || applies > 8) return (int)cudaErrorInvalidValue;
   return kLaunch[applies - 1](u, y, n, m, nl, ml, c, geom,
                               (cudaStream_t)stream);
-}
-
-// The earlier apply chain on the 48 x 48 tile (chip_smoke.py's reference
-// only).
-int mg_apply_chain_tile48(const float* u, float* y, int n, int m, int nl,
-                          int ml, float c, int applies, void* stream) {
-  if (applies < 1 || applies > kHalo) return (int)cudaErrorInvalidValue;
-  const dim3 grid((m + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-  apply_chain_tile48_kernel<<<grid, kFusedThreads, 0,
-                              (cudaStream_t)stream>>>(u, y, n, m, nl, ml, c,
-                                                      applies);
-  return (int)cudaGetLastError();
 }
 
 // `sweeps` (1 .. 4) red-black sweeps on an extended slab of ne > 2 kHalo
@@ -1811,22 +1556,6 @@ int mg_rbgs_fused_ext(const float* ue, const float* be, float* out, int ne,
   }
   return kLaunch[sweeps - 1](ue, be, out, ne, m, row0, nl, ml, inv_c, geom,
                              rb_vec(m, out), (cudaStream_t)stream);
-}
-
-// The earlier extended-slab smoother on the 48 x 48 tile (the ladder's
-// reference only).
-int mg_rbgs_fused_ext_tile48(const float* ue, const float* be, float* out,
-                             int ne, int m, int row0, int nl, int ml,
-                             float inv_c, int sweeps, void* stream) {
-  if (sweeps < 0 || 2 * sweeps > kHalo || ne <= 2 * kHalo) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int r = ne - 2 * kHalo;
-  const dim3 grid((m + kTile - 1) / kTile, (r + kTile - 1) / kTile);
-  rbgs_fused_ext_tile48_kernel<<<grid, kFusedThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      ue, be, out, ne, m, row0, nl, ml, inv_c, sweeps);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

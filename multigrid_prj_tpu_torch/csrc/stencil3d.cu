@@ -7,8 +7,7 @@
 //                   z-chunked march without b (below); apply3d_point, one
 //                   thread per point, is the first port, on no path
 //   residual3d   <- poisson_residual_3d (_residual3d_kernel): a z-chunked
-//                   march (below); residual3d_point, one thread per point,
-//                   is the first port, on no path
+//                   march (below)
 //   rbgs3d_fused <- red_black_gauss_seidel_3d (_rbgs3d_color_kernel, one
 //                   pass per colour there): the smoother, up to 4 sweeps
 //                   per launch on a z-marching tile, or every sweep of a
@@ -45,9 +44,9 @@
 // the torch twins in ops/cuda_stencil_3d.py, so each kernel is bit-equal to
 // its twin.
 //
-// apply3d_point, residual3d_point, rbgs3d_color and jacobi3d_sweep are the
-// simple first versions, kept as oracles: one thread per point on a 3D grid
-// of 32 x 8 blocks (x fastest), neighbours read through L1/L2 (no
+// apply3d_point, rbgs3d_color and jacobi3d_sweep are the simple first
+// versions, kept as oracles: one thread per point on a 3D grid of 32 x 8
+// blocks (x fastest), neighbours read through L1/L2 (no
 // shared-memory tiling), one launch per colour half-sweep or Jacobi sweep.
 // Each streams its operands from HBM once per launch and is bound by memory
 // bandwidth (bytes per point are noted at each kernel).  The smoothers'
@@ -109,27 +108,6 @@ __global__ void apply3d_point_kernel(const float* __restrict__ u,
   }
   const float nb = neighbor_sum(u, pt.p, nx, (long long)ny * nx);
   y[pt.p] = __fmul_rn(c, __fsub_rn(__fmul_rn(6.0f, uc), nb));
-}
-
-// r = b - (boundary ? u : c*(6u - nb)), one thread per point: the first
-// port of _residual3d_kernel (:117), kept only so that chip_smoke.py can
-// hold the z-chunked march (stencil3d_march_kernel<true> below, which
-// replaces it on every path) to it and time the two in one run.  12 B/point: read u and
-// b, write r; each plane of u is fetched three times through L2.
-__global__ void residual3d_point_kernel(const float* __restrict__ u,
-                                        const float* __restrict__ b,
-                                        float* __restrict__ r, int nz,
-                                        int ny, int nx, int nzl, int nyl,
-                                        int nxl, float c) {
-  Point pt;
-  if (!this_point(nz, ny, nx, &pt)) return;
-  const float uc = u[pt.p];
-  float a = uc;
-  if (!is_boundary3d(pt.z, pt.y, pt.x, nzl, nyl, nxl)) {
-    const float nb = neighbor_sum(u, pt.p, nx, (long long)ny * nx);
-    a = __fmul_rn(c, __fsub_rn(__fmul_rn(6.0f, uc), nb));
-  }
-  r[pt.p] = __fsub_rn(b[pt.p], a);
 }
 
 // One colour half-sweep of red-black Gauss-Seidel, in place on u
@@ -444,8 +422,8 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
 // The residual and the apply, stencil3d_march_kernel<kResidual>: r = b -
 // (boundary ? u : c * (6u - ((((N + S) + E) + W) + Zn) + Zs)) with
 // kResidual, y = (boundary ? u : c * (...)) without (no b is copied),
-// residual3d_point_kernel's and apply3d_point_kernel's ops in their order,
-// so bit-equal to them and to the twins, on a z-chunked march.
+// apply3d_point_kernel's ops in their order, so bit-equal to it and to the
+// twins, on a z-chunked march.
 //
 // Bound: memory, 12 B per point for the residual (read u and b, write r),
 // 8 B for the apply (read u, write y).  The one-thread-
@@ -1464,16 +1442,6 @@ int mg_ff_update_residual3d(const float* uh, const float* ul, const float* e,
   return ff_update_residual3d_launch(uh, ul, e, dh, dl, b, uh2, ul2, r, nz,
                                      ny, nx, nzl, nyl, nxl, c, geom,
                                      (cudaStream_t)stream);
-}
-
-// The one-thread-per-point residual (chip_smoke.py's reference only).
-int mg_residual3d_point(const float* u, const float* b, float* r, int nz,
-                        int ny, int nx, int nzl, int nyl, int nxl, float c,
-                        void* stream) {
-  residual3d_point_kernel<<<grid3d_for(nz, ny, nx), dim3(kBlockX, kBlockY), 0,
-                            (cudaStream_t)stream>>>(u, b, r, nz, ny, nx, nzl,
-                                                    nyl, nxl, c);
-  return (int)cudaGetLastError();
 }
 
 int mg_rbgs3d_color(float* u, const float* b, int nz, int ny, int nx, int nzl,

@@ -21,17 +21,15 @@ spans named below (``SPAN_*``, :func:`level_spans`), which cost one check
 each when no profiler records.
 
 Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there,
-on the card unless the caller names another device.  With ``use_pallas``
-(the default on CUDA) the smoothers, residuals, padded grid transfers, the
-fused down-leg (``fuse_downleg``) and the ``inner_cg`` operator apply run
-through the hand-written kernels of ``ops/cuda_stencil.py`` (3D:
-``ops/cuda_stencil_3d.py`` for the smoothers, residuals and apply; the 3D
-transfers are plain ops, as in the JAX package); in ``solve_refined`` each
-iteration's pair update runs in the same launch as the float-float residual
-that follows it.
-As in the JAX kernel wrappers, which take float32 only, a cycle or residual
-in any other dtype (f64, or the bf16 ``smoother_dtype`` cycle) runs the
-plain ops on every device and launches nothing.
+on the card unless the caller names another device.  Which function runs
+each stencil operation is the solver's route (``ops/routes.py``), chosen
+once per dtype: with ``use_pallas`` (the default on CUDA) float32 work takes
+the hand-written kernels (the smoothers, residuals, float-float residual
+and pair update, ``inner_cg`` operator apply, and in 2D the padded grid
+transfers and the fused down-leg of ``fuse_downleg``); as in the JAX kernel
+wrappers, which take float32 only, work in any other dtype (f64, or the
+bf16 ``smoother_dtype`` cycle) takes the plain ops on every device and
+launches nothing.
 """
 
 from __future__ import annotations
@@ -43,21 +41,11 @@ import numpy as np
 import torch
 
 from multigrid_prj_tpu_torch.grids import GridLevel, build_hierarchy
-from multigrid_prj_tpu_torch.ops import cuda_stencil as _cs
-from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as _c3
-from multigrid_prj_tpu_torch.ops.extended import (
-    ff_accumulate,
-    ff_from_div,
-    ff_poisson_residual as _ff_residual_plain,
-)
+from multigrid_prj_tpu_torch.ops.extended import ff_from_div
 from multigrid_prj_tpu_torch.ops.krylov import cg_arrays
 from multigrid_prj_tpu_torch.ops.residual import norm2, rel_residual_norm
-from multigrid_prj_tpu_torch.ops.smoothers import make_smoother
-from multigrid_prj_tpu_torch.ops.stencil import (
-    boundary_mask,
-    poisson_apply,
-    poisson_residual,
-)
+from multigrid_prj_tpu_torch.ops.routes import Route, kernel_route, plain_route
+from multigrid_prj_tpu_torch.ops.stencil import boundary_mask, poisson_residual
 from multigrid_prj_tpu_torch.ops.transfer import (
     crop_to,
     pad_to,
@@ -78,10 +66,9 @@ Smoother = Callable[..., torch.Tensor]  # (u, b, alpha, h, sweeps, logical_shape
 SPAN_SOLVE_REFINED = "mg.solve_refined"
 SPAN_SOLVE = "mg.solve"
 SPAN_SPLIT = "mg.outer.split"  # padding, b / c pair, ||b||^2, zero pair
-SPAN_FF_RESIDUAL = "mg.outer.ff_residual"
+SPAN_FF_RESIDUAL = "mg.outer.ff_residual"  # with the pair update before it
 SPAN_FETCH = "mg.fetch"  # a norm and its fetch to the host
 SPAN_CYCLE = "mg.outer.cycle"
-SPAN_PAIR_UPDATE = "mg.outer.pair_update"
 SPAN_COMBINE = "mg.outer.combine"  # u_hi + u_lo, the crop
 SPAN_BOTTOM = "mg.bottom"
 STAGES = ("pre_smooth", "residual", "restrict", "prolong_add", "post_smooth")
@@ -304,16 +291,16 @@ class GMGSolver:
 
     Parameters mirror the JAX ``GMGSolver`` (and through it the reference
     CLI), plus ``device`` (default the card; ``device="cpu"`` for the CPU).
-    ``use_pallas`` keeps its JAX meaning -- route the smoother, residuals,
-    padded transfers and ``inner_cg`` apply through the kernel functions --
-    and defaults to True on CUDA and False on the CPU.  On the CPU,
-    ``use_pallas=True`` runs the kernels' torch twins; ``False`` runs the
-    XLA-order plain ops on any device.  ``fuse_downleg`` (with
-    ``use_pallas``, ``smoother="gs"`` and ``omega=1``) runs each padded
-    level's pre-smoothing, residual and restriction as one
-    ``rbgs_residual_restrict`` call, bit-equal to the three separate ones;
-    that kernel is 2D, as the JAX one is, so a 3D solver keeps the separate
-    ops.
+    ``use_pallas`` keeps its JAX meaning -- route the float32 smoother,
+    residuals, padded transfers and ``inner_cg`` apply through the kernel
+    functions (``ops/routes.kernel_route``) -- and defaults to True on CUDA
+    and False on the CPU.  On the CPU, ``use_pallas=True`` runs the kernels'
+    torch twins; ``False`` runs the XLA-order plain ops on any device.
+    ``fuse_downleg`` (with ``use_pallas``, ``smoother="gs"`` and
+    ``omega=1``) runs each padded level's pre-smoothing, residual and
+    restriction as one ``rbgs_residual_restrict`` call, bit-equal to the
+    three separate ones; that kernel is 2D, as the JAX one is, so a 3D
+    solver keeps the separate ops.
     """
 
     def __init__(
@@ -352,63 +339,15 @@ class GMGSolver:
         self.coarse_maxit = int(coarse_maxit)
         if use_pallas is None:
             use_pallas = self.device.type == "cuda"
-        self._use_pallas = bool(use_pallas)
         self.smoother_dtype = smoother_dtype
-        self._plain_smoother = make_smoother(smoother, omega=omega)
-        self.smoother = self._plain_smoother
-        if self._use_pallas and smoother == "gs":
-            def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
-                return _cs.red_black_gauss_seidel(
-                    u, b, alpha, h, sweeps=sweeps, omega=omega,
-                    logical_shape=logical_shape)
-
-            self.smoother = _sm
-        elif self._use_pallas and smoother == "jacobi":
-            def _sm(u, b, alpha, h, sweeps=1, logical_shape=None):
-                return _cs.jacobi(u, b, alpha, h, omega=omega, sweeps=sweeps,
-                                  logical_shape=logical_shape)
-
-            self.smoother = _sm
         self._logical0 = _logical(self.levels[0])
-        # the transfers have 2D kernels only; in 3D the JAX package runs
-        # them as XLA ops, and so does the port.  The float-float residual
-        # has a kernel per dimension (in 3D the JAX package leaves it to
-        # XLA's fusion, which torch does not make)
-        kernels2d = self._use_pallas and len(self.levels[0].shape) == 2
-        self._residual_fn = (_cs.poisson_residual if self._use_pallas
-                             else poisson_residual)
-        self._ff_residual_fn = (
-            _ff_residual_plain if not self._use_pallas
-            else _cs.ff_poisson_residual if kernels2d
-            else _c3.ff_poisson_residual_3d)
-        # the refined solve's pair update fused into that residual, per
-        # dimension; without the kernels the update and the residual run
-        # one after the other
-        self._ff_update_residual_fn = (
-            None if not self._use_pallas
-            else _cs.ff_update_residual if kernels2d
-            else _c3.ff_update_residual_3d)
-        self._apply_fn = (_cs.poisson_apply if self._use_pallas
-                          else poisson_apply)
-        self._downleg_fn = None
-        self._restrict_padded_fn = restrict_fw_padded
-        self._prolong_add_fn = None
-        if kernels2d:
-            # the transfer kernels at every padded level: they are bit-equal
-            # to the plain transfers, and one launch replaces the plain
-            # transfer's many (the JAX package gates them at >= 4M fine
-            # points, a TPU measurement that does not carry over)
-            self._restrict_padded_fn = _cs.restrict_fw_padded_fast
-            self._prolong_add_fn = _cs.prolong_add_padded_fast
-            if fuse_downleg and smoother == "gs" and omega == 1.0:
-                def _downleg(u, b, lev, nxt, nu1):
-                    u2, rc = _cs.rbgs_residual_restrict(
-                        u, b, self.alpha, lev.h, nu1, lev.shape)
-                    if nxt.padded_shape is None:
-                        rc = crop_to(rc, nxt.shape)
-                    return u2, rc
-
-                self._downleg_fn = _downleg
+        # the routes, built once: float32 work takes the kernels with
+        # use_pallas, every other dtype the plain ops (_route)
+        self._plain_route = plain_route(smoother, omega)
+        self._f32_route = (
+            kernel_route(len(self.levels[0].shape), smoother, omega,
+                         fuse_downleg, self.alpha)
+            if use_pallas else self._plain_route)
         # direct bottom solve: dense inverse of the coarsest operator, built
         # once in f64 on the host and kept on the device (f64); solves use a
         # copy cast to their dtype
@@ -470,40 +409,39 @@ class GMGSolver:
 
         return apply_inv
 
-    def _on_kernels(self, dtype) -> bool:
-        """Whether work in ``dtype`` takes the kernel route: the JAX kernel
-        wrappers take float32 only and send every other dtype (f64, the
-        bf16 ``smoother_dtype`` cycle) to XLA ops (``_is_supported``), so
-        here such work runs the plain ops on every device and launches
+    @property
+    def smoother(self) -> Smoother:
+        """The float32 route's smoother (the JAX solver's attribute)."""
+        return self._f32_route.smooth
+
+    def _route(self, dtype) -> Route:
+        """The route of work in ``dtype``: the JAX kernel wrappers take
+        float32 only and send every other dtype (f64, the bf16
+        ``smoother_dtype`` cycle) to XLA ops (``_is_supported``), so here
+        such work takes the plain route on every device and launches
         nothing."""
-        return self._use_pallas and dtype == torch.float32
+        return self._f32_route if dtype == torch.float32 else self._plain_route
 
-    def _smoother_for(self, dtype):
-        """The smoother for a cycle in ``dtype`` (see :meth:`_on_kernels`)."""
-        if self._on_kernels(dtype):
-            return self.smoother
-        return self._plain_smoother
-
-    def _cycle(self, u, b, cinv=None):
-        smoother = self._smoother_for(u.dtype)
-        if self._on_kernels(u.dtype):
-            hooks = dict(residual=self._residual_fn, downleg=self._downleg_fn,
-                         padded_restrict=self._restrict_padded_fn,
-                         prolong_add=self._prolong_add_fn)
-        else:
-            hooks = dict(residual=poisson_residual,
-                         padded_restrict=restrict_fw_padded)
-        hooks.update(nu1=self.pre_sweeps, nu2=self.nu,
-                     coarse_apply=self._coarse_apply_of(cinv))
+    def _cycle(self, route: Route, u, b, cinv=None):
+        """One outer cycle on ``route``, after the sawtooth's
+        pre-smoothing sweeps."""
         if self.cycle == "sawtooth":
-            return sawtooth_cycle(u, b, self.levels, self.alpha, smoother,
+            with span(level_spans(0).pre_smooth):
+                u = route.smooth(u, b, self.alpha, self.levels[0].h,
+                                 self.pre_sweeps,
+                                 logical_shape=self._logical0)
+            return sawtooth_cycle(u, b, self.levels, self.alpha, route.smooth,
                                   nu=self.nu, coarse_tol=self.coarse_tol,
                                   coarse_maxit=self.coarse_maxit)
-        if self.cycle == "v":
-            return v_cycle(u, b, self.levels, self.alpha, smoother, **hooks)
-        if self.cycle == "w":
-            return w_cycle(u, b, self.levels, self.alpha, smoother, **hooks)
-        raise ValueError(f"unknown cycle {self.cycle!r}")
+        cycle = {"v": v_cycle, "w": w_cycle}.get(self.cycle)
+        if cycle is None:
+            raise ValueError(f"unknown cycle {self.cycle!r}")
+        return cycle(u, b, self.levels, self.alpha, route.smooth,
+                     nu1=self.pre_sweeps, nu2=self.nu,
+                     coarse_apply=self._coarse_apply_of(cinv),
+                     residual=route.residual, downleg=route.downleg,
+                     padded_restrict=route.padded_restrict,
+                     prolong_add=route.prolong_add)
 
     def step(self, u, b, cinv=None):
         """One outer iteration: pre-smooths (sawtooth) + one cycle.
@@ -525,28 +463,17 @@ class GMGSolver:
             raise ValueError(f"step takes finest-level buffers of shape "
                              f"{phys}, got u {tuple(u.shape)} and b "
                              f"{tuple(b.shape)}")
+        route = self._route(u.dtype)
         if self.smoother_dtype is not None:
-            residual = (self._residual_fn if self._on_kernels(u.dtype)
-                        else poisson_residual)
-            r = residual(u, b, self.alpha, self.levels[0].h, self._logical0)
+            r = route.residual(u, b, self.alpha, self.levels[0].h,
+                               self._logical0)
             e = self._error_cycle(r.to(self.smoother_dtype), cinv)
             return u + e.to(u.dtype)
-        if self.cycle == "sawtooth":
-            with span(level_spans(0).pre_smooth):
-                u = self._smoother_for(u.dtype)(
-                    u, b, self.alpha, self.levels[0].h, self.pre_sweeps,
-                    logical_shape=self._logical0)
-        return self._cycle(u, b, cinv)
+        return self._cycle(route, u, b, cinv)
 
     def _error_cycle(self, r, cinv=None):
         """One cycle on the error equation ``A e = r`` from ``e = 0``."""
-        e = torch.zeros_like(r)
-        if self.cycle == "sawtooth":
-            with span(level_spans(0).pre_smooth):
-                e = self._smoother_for(r.dtype)(
-                    e, r, self.alpha, self.levels[0].h, self.pre_sweeps,
-                    logical_shape=self._logical0)
-        return self._cycle(e, r, cinv)
+        return self._cycle(self._route(r.dtype), torch.zeros_like(r), r, cinv)
 
     def _input(self, x, name):
         """``x`` as a tensor on the solver's device (numpy is copied there;
@@ -594,9 +521,9 @@ class GMGSolver:
         equation against an extended-precision residual, which reaches
         ~1e-8 where plain f32 floors at ``eps_f32 * kappa(A)``.  One
         extended residual per iteration, carried into the next correction
-        and the history entry.  On the kernel route (f32 with
-        ``use_pallas``) the pair update and the residual after it are one
-        launch, bit-equal to the two in turn.
+        and the history entry; each iteration's pair update runs with that
+        residual (one launch on the kernel route: f32 with
+        ``use_pallas``).
 
         ``inner_cg = k > 0`` replaces each correction's single cycle with
         ``k`` iterations of cycle-preconditioned CG on the f32 error
@@ -620,16 +547,7 @@ class GMGSolver:
             u_hi = torch.zeros_like(b)
             u_lo = torch.zeros_like(b)
         cinv = self._coarse_inv_as(b.dtype)
-        on_kernels = self._on_kernels(b.dtype)
-        ff_residual = (self._ff_residual_fn if on_kernels
-                       else _ff_residual_plain)
-        update_residual = self._ff_update_residual_fn if on_kernels else None
-        apply_op = self._apply_fn if on_kernels else poisson_apply
-
-        def residual(u_hi, u_lo):
-            with span(SPAN_FF_RESIDUAL):
-                return ff_residual(u_hi, u_lo, d_hi, d_lo, b, self.alpha, h0,
-                                   self._logical0)
+        route = self._route(b.dtype)
 
         def rel(r):
             with span(SPAN_FETCH):
@@ -644,7 +562,7 @@ class GMGSolver:
                 # operator, and A and the cycle preserve that subspace: run
                 # CG there and solve the identity rows directly
                 e, _, _, _ = cg_arrays(
-                    lambda v: apply_op(v, self.alpha, h0, self._logical0),
+                    lambda v: route.apply(v, self.alpha, h0, self._logical0),
                     r.masked_fill(bmask, 0.0), tol=0.0, maxit=inner_cg,
                     M=lambda rr: self._error_cycle(rr, cinv))
                 return torch.where(bmask, r, e)
@@ -652,27 +570,24 @@ class GMGSolver:
             def inner_solve(r):
                 return self._error_cycle(r, cinv)
 
-        r = residual(u_hi, u_lo)
+        with span(SPAN_FF_RESIDUAL):
+            r = route.ff_residual(u_hi, u_lo, d_hi, d_lo, b, self.alpha, h0,
+                                  self._logical0)
         hist = [rel(r)]
         tol = _tol_in(self.tol, b.dtype)
-        spare = None  # the fused route's other pair of buffers
+        spare = None  # the other pair of buffers
         k = 0
         while k < self.maxit and hist[k] > tol:
             with span(SPAN_CYCLE):
                 e = inner_solve(r)
-            if update_residual is None:
-                with span(SPAN_PAIR_UPDATE):
-                    u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
-                r = residual(u_hi, u_lo)
-            else:
-                # one launch writes the updated pair into the spare buffers
-                # (neighbours read the old pair), and the two pairs swap
-                with span(SPAN_FF_RESIDUAL):
-                    old = (u_hi, u_lo)
-                    u_hi, u_lo, r = update_residual(
-                        u_hi, u_lo, e, d_hi, d_lo, b, self.alpha, h0,
-                        self._logical0, out=spare)
-                    spare = old
+            # the update writes the new pair into the spare buffers (a
+            # kernel's neighbours read the old pair), and the two pairs swap
+            with span(SPAN_FF_RESIDUAL):
+                old = (u_hi, u_lo)
+                u_hi, u_lo, r = route.ff_update_residual(
+                    u_hi, u_lo, e, d_hi, d_lo, b, self.alpha, h0,
+                    self._logical0, out=spare)
+                spare = old
             hist.append(rel(r))
             k += 1
         with span(SPAN_COMBINE):
@@ -694,7 +609,7 @@ class GMGSolver:
             check_finite(b, "rhs b")
             if fmg_start and u0 is None:
                 u0 = fmg(self._padded(b), self.levels, self.alpha,
-                         self._smoother_for(b.dtype), nu1=self.pre_sweeps,
+                         self._route(b.dtype).smooth, nu1=self.pre_sweeps,
                          nu2=self.nu)
             u0 = torch.zeros_like(b) if u0 is None else self._input(u0, "u0")
             # the bottom solve runs in the cycle's dtype: the

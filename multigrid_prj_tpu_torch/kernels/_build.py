@@ -53,7 +53,6 @@ _SIGNATURES = {
     "mg_apply3d": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
     "mg_apply3d_point": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_residual3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
-    "mg_residual3d_point": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp],
     "mg_ff_residual3d": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
                          _f, _ip, _vp],
     "mg_ff_update_residual3d": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
@@ -75,15 +74,10 @@ _SIGNATURES = {
     "mg_rbgs_color_sweep": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_rbgs_resfilter": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f, _i,
                           _ip, _vp],
-    "mg_rbgs_resfilter_tile48": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _f, _f,
-                                 _i, _vp],
     "mg_apply_chain": [_vp, _vp, _i, _i, _i, _i, _f, _i, _ip, _vp],
-    "mg_apply_chain_tile48": [_vp, _vp, _i, _i, _i, _i, _f, _i, _vp],
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _ip,
                           _vp],
-    "mg_rbgs_fused_ext_tile48": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i,
-                                 _vp],
     "mg_probe_copy": [_vp, _vp, _i, _i, _i, _vp],
     "mg_probe_neighbour": [_vp, _vp, _i, _i, _i, _i, _vp],
     "mg_probe_carry": [_vp, _vp, _i, _i, _i, _vp],

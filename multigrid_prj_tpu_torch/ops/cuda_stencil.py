@@ -36,8 +36,10 @@ function                      replaces (pallas_stencil.py)   bytes per point
 Each public function keeps the JAX signature.  As in the JAX wrappers, a 3D
 tensor goes to ``ops/cuda_stencil_3d.py`` (the smoothers, residual and
 apply; the transfers have no 3D kernel, and the 3D path runs them as plain
-ops; the 3D float-float residual is ``cuda_stencil_3d.
-ff_poisson_residual_3d``, which the solver calls directly).  Otherwise each
+ops; the 3D float-float residual and fused update have only their
+``cuda_stencil_3d`` wrappers).  A solver reaches these functions through
+its route (``ops/routes.py``), which takes each from the module of its
+dimension.  Otherwise each
 function dispatches on the device of its tensors: a CPU tensor runs the
 plain torch twin (``*_plain``, the kernel's operation order, which matches
 the JAX Pallas function in interpret mode); a CUDA tensor launches the
@@ -68,14 +70,12 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "jacobi": 0, "jacobi_sweep": 0, "restrict_fw": 0,
             "prolong_add": 0, "prolong_add_point": 0,
             "apply3d": 0, "apply3d_point": 0, "residual3d": 0,
-            "residual3d_point": 0, "ff_residual3d": 0,
+            "ff_residual3d": 0,
             "ff_update_residual3d": 0, "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0, "jacobi3d_sweep": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
-            "rbgs_resfilter_tile48": 0,
-            "apply_chain": 0, "apply_chain_tile48": 0,
-            "rbgs_color_sweep": 0, "ell_spmm": 0,
-            "rbgs_fused_ext": 0, "rbgs_fused_ext_tile48": 0,
+            "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
+            "rbgs_fused_ext": 0,
             "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,
             "probe_halo": 0, "probe_full": 0, "probe_carry": 0,
             "probe_stream": 0, "probe_staticwin": 0, "probe_noshuffle": 0}
@@ -650,14 +650,6 @@ def rbgs_residual_restrict(u, b, alpha, h, sweeps, logical_shape):
                                     logical_shape=logical_shape)
         r = poisson_residual(u2, b, alpha, h, logical_shape)
         return u2, restrict_fw_padded_fast(r, logical_shape)
-    return _downleg_launch(u, b, alpha, h, sweeps, logical_shape,
-                           "rbgs_resfilter")
-
-
-def _downleg_launch(u, b, alpha, h, sweeps, logical_shape, kernel):
-    """One launch of the down-leg ``kernel``: ``rbgs_resfilter`` (the
-    colour-split tile) or ``rbgs_resfilter_tile48`` (the 48 x 48 tile it
-    replaced, which only ``chip_smoke.py``'s per-pass ladder calls)."""
     _check_cuda("rbgs_residual_restrict", u, b)
     n, m = u.shape
     if n % 2 or m % 2:
@@ -667,12 +659,11 @@ def _downleg_launch(u, b, alpha, h, sweeps, logical_shape, kernel):
     c = alpha / (h * h)
     u2 = torch.empty_like(u)
     rc = torch.empty((n // 2, m // 2), dtype=u.dtype, device=u.device)
-    args = [_ptr(u), _ptr(b), _ptr(u2), _ptr(rc), n, m, nl, ml, 1.0 / c, c,
-            int(sweeps)]
-    if kernel == "rbgs_resfilter":
-        args.append(_geometry(2 * int(sweeps) + 2))
-    _raise_on(getattr(_lib(), f"mg_{kernel}")(*args, _stream()), kernel)
-    LAUNCHES[kernel] += 1
+    _raise_on(_lib().mg_rbgs_resfilter(
+        _ptr(u), _ptr(b), _ptr(u2), _ptr(rc), n, m, nl, ml, 1.0 / c, c,
+        int(sweeps), _geometry(2 * int(sweeps) + 2), _stream()),
+        "rbgs_resfilter")
+    LAUNCHES["rbgs_resfilter"] += 1
     return u2, rc
 
 
@@ -704,27 +695,16 @@ def poisson_apply_chain(u, alpha, h, applies: int, logical_shape=None):
         return x if applies else u.clone()
     if u.device.type == "cpu":
         return poisson_apply_chain_plain(u, alpha, h, applies, logical_shape)
-    return _apply_chain_launches(u, alpha, h, applies, logical_shape,
-                                 "apply_chain")
-
-
-def _apply_chain_launches(u, alpha, h, applies, logical_shape, kernel):
-    """The chain's launches of ``kernel``: ``apply_chain`` (the row-walking
-    tile) or ``apply_chain_tile48`` (the 48 x 48 tile it replaced, which
-    only ``chip_smoke.py`` calls, to hold the new kernel to it and time the
-    two)."""
     _check_cuda("poisson_apply_chain", u)
     n, m = u.shape
     nl, ml = _logical(u.shape, logical_shape)
     c = alpha / (h * h)
-    fn = getattr(_lib(), f"mg_{kernel}")
+    fn = _lib().mg_apply_chain
 
     def launch(x, y, s):
-        geom = ([_geometry(s, apply_tile)] if kernel == "apply_chain"
-                else [])
-        _raise_on(fn(_ptr(x), _ptr(y), n, m, nl, ml, c, s, *geom,
-                     _stream()), kernel)
-        LAUNCHES[kernel] += 1
+        _raise_on(fn(_ptr(x), _ptr(y), n, m, nl, ml, c, s,
+                     _geometry(s, apply_tile), _stream()), "apply_chain")
+        LAUNCHES["apply_chain"] += 1
 
     return _pingpong(u, _groups(applies, _MAX_FUSED_APPLIES), launch)
 
@@ -851,23 +831,13 @@ def rbgs_fused_extended(ue, be, row0, logical_shape, alpha: float, h: float,
     if sweeps < 1 or ue.shape[0] == 2 * _EXT_HALO:
         _check_cuda("rbgs_fused_extended", ue, be)
         return ue[_EXT_HALO:ue.shape[0] - _EXT_HALO].clone()
-    return _fused_ext_launch(ue, be, row0, nl, ml, alpha, h, sweeps,
-                             "rbgs_fused_ext")
-
-
-def _fused_ext_launch(ue, be, row0, nl, ml, alpha, h, sweeps, kernel):
-    """One launch of the extended-slab ``kernel``: ``rbgs_fused_ext`` (the
-    colour-split tile) or ``rbgs_fused_ext_tile48`` (the 48 x 48 tile it
-    replaced, which only ``chip_smoke.py``'s ladder calls)."""
     _check_cuda("rbgs_fused_extended", ue, be)
     ne, m = ue.shape
     c = alpha / (h * h)
     out = torch.empty((ne - 2 * _EXT_HALO, m), dtype=ue.dtype,
                       device=ue.device)
-    args = [_ptr(ue), _ptr(be), _ptr(out), ne, m, int(row0), nl, ml, 1.0 / c,
-            int(sweeps)]
-    if kernel == "rbgs_fused_ext":
-        args.append(_geometry(2 * int(sweeps)))
-    _raise_on(getattr(_lib(), f"mg_{kernel}")(*args, _stream()), kernel)
-    LAUNCHES[kernel] += 1
+    _raise_on(_lib().mg_rbgs_fused_ext(
+        _ptr(ue), _ptr(be), _ptr(out), ne, m, int(row0), nl, ml, 1.0 / c,
+        int(sweeps), _geometry(2 * int(sweeps)), _stream()), "rbgs_fused_ext")
+    LAUNCHES["rbgs_fused_ext"] += 1
     return out

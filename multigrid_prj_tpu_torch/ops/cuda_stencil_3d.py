@@ -301,24 +301,15 @@ def poisson_residual_3d(u, b, alpha, h, logical_shape=None):
     (:func:`residual3d_tile`)."""
     if u.device.type == "cpu":
         return poisson_residual_3d_plain(u, b, alpha, h, logical_shape)
-    return _residual3d_launch(u, b, alpha, h, logical_shape, "residual3d")
-
-
-def _residual3d_launch(u, b, alpha, h, logical_shape, kernel):
-    """One launch of ``kernel``: ``residual3d`` (the z-chunked march) or
-    ``residual3d_point`` (the one-thread-per-point kernel it replaced, which
-    only ``chip_smoke.py`` calls, to hold the march to it and time the
-    two)."""
     import ctypes
 
     _check_cuda3d("poisson_residual_3d", u, b)
     r = torch.empty_like(u)
-    geom = ([(ctypes.c_int * 4)(*residual3d_tile(u.shape))]
-            if kernel == "residual3d" else [])
-    _raise_on(getattr(_lib(), f"mg_{kernel}")(
+    geom = (ctypes.c_int * 4)(*residual3d_tile(u.shape))
+    _raise_on(_lib().mg_residual3d(
         _ptr(u), _ptr(b), _ptr(r), *_dims(u, logical_shape), alpha / (h * h),
-        *geom, _stream()), kernel)
-    LAUNCHES[kernel] += 1
+        geom, _stream()), "residual3d")
+    LAUNCHES["residual3d"] += 1
     return r
 
 

@@ -97,11 +97,12 @@ def ff_accumulate(u_hi, u_lo, e):
 
 
 def ff_update_residual(u_hi, u_lo, e, d_hi, d_lo, b, alpha: float, h: float,
-                       logical_shape=None):
+                       logical_shape=None, out=None):
     """A refined solve's step from a correction ``e``: the pair update
     (:func:`ff_accumulate`, at every point) and the extended residual of the
     updated pair (:func:`ff_poisson_residual`).  Returns ``(u_hi, u_lo,
-    r)``; the twin of the kernels that fuse the two."""
+    r)``; the twin of the kernels that fuse the two.  ``out``, the kernels'
+    output buffers, is accepted and ignored: the result is new tensors."""
     u_hi, u_lo = ff_accumulate(u_hi, u_lo, e)
     return u_hi, u_lo, ff_poisson_residual(u_hi, u_lo, d_hi, d_lo, b, alpha,
                                            h, logical_shape)

@@ -110,10 +110,8 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     cs.prolong_add_padded_fast(rc, u)
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
-    # the chain: a launch per group of <= 8 applies; its 48 x 48 reference
-    # counts under its own key
+    # the chain: a launch per group of <= 8 applies
     cs.poisson_apply_chain(u, h * h, h, 11)
-    cs._apply_chain_launches(u, h * h, h, 3, None, "apply_chain_tile48")
     # Jacobi: one fused launch per group of <= 8 sweeps; the oracles count
     # under their own keys
     cs._jacobi_per_sweep(u, b, ALPHA, h, 0.8, 3)
@@ -121,7 +119,7 @@ def test_cuda_wrappers_count_and_refuse(cuda_device):
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
         "rbgs_fused": 1, "residual": 1, "apply": 1, "jacobi": 1,
         "restrict_fw": 1, "prolong_add": 1, "apply_chain": 2,
-        "apply_chain_tile48": 1, "jacobi_sweep": 3, "prolong_add_point": 1}
+        "jacobi_sweep": 3, "prolong_add_point": 1}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -244,13 +242,12 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
     # SOR is the plain smoother (no launch), as in the JAX kernel wrapper
     cs.red_black_gauss_seidel(u, b, ALPHA, h, omega=1.2)
     # the oracles of the redesigned kernels count under their own keys
-    c3._residual3d_launch(u, b, ALPHA, h, None, "residual3d_point")
     c3._apply3d_launch(u, ALPHA, h, None, "apply3d_point")
     c3._jacobi3d_per_sweep(u, b, ALPHA, h, 0.8, 3)
     # 3 Jacobi sweeps are one launch of the march, 3 of the per-sweep oracle
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
         "apply3d": 1, "residual3d": 1, "rbgs3d_fused": 1, "jacobi3d": 1,
-        "residual3d_point": 1, "apply3d_point": 1, "jacobi3d_sweep": 3}
+        "apply3d_point": 1, "jacobi3d_sweep": 3}
     assert torch.equal(u, u0)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
@@ -362,8 +359,7 @@ def test_cuda_3d_solve_launch_counts_fused_and_per_colour(cuda_device):
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     assert set(cs.LAUNCHES) >= {"rbgs3d_fused", "rbgs3d_color",
-                                "rbgs_fused_ext", "rbgs_fused_ext_tile48",
-                                "apply_chain_tile48", "residual3d_point"}
+                                "rbgs_fused_ext", "apply_chain"}
     kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=2,
               cycle="v", nu=2, tol=1e-6, maxit=40)
     runs = {}
@@ -371,9 +367,9 @@ def test_cuda_3d_solve_launch_counts_fused_and_per_colour(cuda_device):
         s = GMGSolver(device="cuda", **kw)
         assert s._coarse_inv is None
         if path == "per-colour":
-            s.smoother = (lambda u, b, alpha, h, sweeps=1, logical_shape=None:
-                          c3._rbgs3d_per_colour(u, b, alpha, h, sweeps,
-                                                logical_shape))
+            s._f32_route = s._f32_route._replace(
+                smooth=lambda u, b, alpha, h, sweeps=1, logical_shape=None:
+                c3._rbgs3d_per_colour(u, b, alpha, h, sweeps, logical_shape))
         b = _rhs_3d(s.levels[0], "cuda")
         cs.reset_launch_counts()
         res = s.solve_refined(b)
@@ -716,11 +712,10 @@ DOWNLEG_SHAPES = [((1280, 1280), (1025, 1025)), ((640, 640), (513, 513)),
 @pytest.mark.parametrize("shape,logical", DOWNLEG_SHAPES)
 def test_cuda_downleg_equals_twin_and_composition(cuda_device, shape,
                                                   logical):
-    """The fused down-leg kernel, sweeps 0-3, bit-equal to its twin, to the
-    three kernels it replaces (the smoother as the per-colour oracle's
-    launches and as the fused smoother) and to the 48 x 48 tile it
-    replaced; sweeps 4 runs the composition and makes no fused launch;
-    ``u`` is never written."""
+    """The fused down-leg kernel, sweeps 0-3, bit-equal to its twin and to
+    the three kernels it replaces (the smoother as the per-colour oracle's
+    launches and as the fused smoother); sweeps 4 runs the composition and
+    makes no fused launch; ``u`` is never written."""
     u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
     u0 = u.clone()
     for sweeps in (0, 1, 2, 3, 4):
@@ -739,10 +734,6 @@ def test_cuda_downleg_equals_twin_and_composition(cuda_device, shape,
             r = cs.poisson_residual(cu, b, ALPHA, h, logical)
             assert torch.equal(u2, cu), sweeps
             assert torch.equal(rc, cs.restrict_fw_padded_fast(r, logical))
-        if sweeps <= 3:
-            o2, orc = cs._downleg_launch(u, b, ALPHA, h, sweeps, logical,
-                                         "rbgs_resfilter_tile48")
-            assert torch.equal(u2, o2) and torch.equal(rc, orc), sweeps
         assert torch.equal(u, u0)
     torch.cuda.synchronize()
 
@@ -785,12 +776,11 @@ CHAIN_SHAPES = [((1280, 1280), (1025, 1025)), ((385, 385), None),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,logical", CHAIN_SHAPES)
-def test_cuda_apply_chain_equals_tile48_and_singles(cuda_device, shape,
-                                                    logical):
+def test_cuda_apply_chain_equals_twin_and_singles(cuda_device, shape,
+                                                  logical):
     """The row-walking apply chain at 0-11 applies (11: launches of 8 + 3)
-    bit-equal to its twin, to ``applies`` single apply launches and to the
-    48 x 48 tile it replaced; one launch per group; ``u`` is never
-    written."""
+    bit-equal to its twin and to ``applies`` single apply launches; one
+    launch per group; ``u`` is never written."""
     u, _, _, h = _cuda_inputs(shape, logical, cuda_device)
     u0 = u.clone()
     for applies in range(12):
@@ -806,10 +796,6 @@ def test_cuda_apply_chain_equals_tile48_and_singles(cuda_device, shape,
         for _ in range(applies):
             x = cs.poisson_apply(x, h * h, h, logical)
         assert torch.equal(got, x), applies
-        old = cs._apply_chain_launches(u, h * h, h, applies, logical,
-                                       "apply_chain_tile48")
-        assert cs.LAUNCHES["apply_chain_tile48"] == -(-applies // 8)
-        assert torch.equal(got, old), applies
         assert torch.equal(u, u0) and bool(torch.isfinite(got).all())
     torch.cuda.synchronize()
 
@@ -839,7 +825,6 @@ def test_cuda_apply_chain_refusals(cuda_device):
                        (9, geom(9, 12, 64, 128))):
         assert lib.mg_apply_chain(p(u), p(y), *args, applies, g,
                                   stream) != 0, (applies, list(g))
-    assert lib.mg_apply_chain_tile48(p(u), p(y), *args, 9, stream) != 0
     with pytest.raises(ValueError, match="1 .. 8 applies"):
         cs.apply_tile(9)
     torch.cuda.synchronize()
@@ -952,7 +937,7 @@ def test_cuda_jacobi_solve_fused_and_per_sweep(cuda_device):
         return cs._jacobi_per_sweep(u, b, alpha, h, 0.8, sweeps,
                                     logical_shape)
 
-    ref_s.smoother = per_sweep
+    ref_s._f32_route = ref_s._f32_route._replace(smooth=per_sweep)
     cs.reset_launch_counts()
     ref = ref_s.solve_refined(b)
     assert res.converged and n_fused > 0 and cs.LAUNCHES["jacobi"] == 0
@@ -961,7 +946,7 @@ def test_cuda_jacobi_solve_fused_and_per_sweep(cuda_device):
     assert torch.equal(res.u, ref.u)
     gs = GMGSolver(**kw, device="cuda")
     pt = GMGSolver(**kw, device="cuda")
-    pt._prolong_add_fn = cs._prolong_add_point
+    pt._f32_route = pt._f32_route._replace(prolong_add=cs._prolong_add_point)
     res, ref = gs.solve_refined(b), pt.solve_refined(b)
     assert np.array_equal(res.history, ref.history)
     assert torch.equal(res.u, ref.u)
@@ -979,20 +964,21 @@ RESIDUAL3D_SHAPES = [((257, 257, 257), None), ((65, 65, 65), None),
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,logical", RESIDUAL3D_SHAPES)
-def test_cuda_residual3d_equals_twin_and_point_kernel(cuda_device, shape,
-                                                      logical):
-    """The z-chunked residual march bit-equal to its twin and to the
-    one-thread-per-point kernel it replaced, one launch each."""
+def test_cuda_residual3d_equals_twin_and_point_apply(cuda_device, shape,
+                                                     logical):
+    """The z-chunked residual march bit-equal to its twin and to ``b``
+    less the one-thread-per-point apply (the point oracle of the march the
+    residual and the apply share), one launch each."""
     u, b, _, h = _cuda_inputs(shape, logical, cuda_device)
     cs.reset_launch_counts()
     got = c3.poisson_residual_3d(u, b, ALPHA, h, logical)
-    old = c3._residual3d_launch(u, b, ALPHA, h, logical, "residual3d_point")
+    au = c3._apply3d_launch(u, ALPHA, h, logical, "apply3d_point")
     torch.cuda.synchronize()
     assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
-        "residual3d": 1, "residual3d_point": 1}
+        "residual3d": 1, "apply3d_point": 1}
     assert torch.equal(got, c3.poisson_residual_3d_plain(u, b, ALPHA, h,
                                                          logical))
-    assert torch.equal(got, old)
+    assert torch.equal(got, b - au)
 
 
 @pytest.mark.cuda
@@ -1174,10 +1160,10 @@ def test_cuda_ff_update_residual_refusals(cuda_device):
 @pytest.mark.cuda
 def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
     """A 65^3 refined solve (config 4 cut to 3 levels) on the float-float
-    residual's kernels and the same solve with the solver's residual set to
-    the plain twin and no fused update: the same history and solution bit
-    for bit; on the one the first residual's launch and one fused launch
-    per iteration, on the other none."""
+    residual's kernels and the same solve with the route's residual and
+    update set to the plain twins: the same history and solution bit for
+    bit; on the one the first residual's launch and one fused launch per
+    iteration, on the other none."""
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     kw = dict(shape=(65, 65, 65), length=1.0, alpha=1.0, num_levels=3,
@@ -1185,11 +1171,13 @@ def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
     runs = {}
     for path in ("kernel", "plain"):
         s = GMGSolver(device="cuda", **kw)
-        assert s._ff_residual_fn is c3.ff_poisson_residual_3d
-        assert s._ff_update_residual_fn is c3.ff_update_residual_3d
+        route = s._route(torch.float32)
+        assert route.ff_residual is c3.ff_poisson_residual_3d
+        assert route.ff_update_residual is c3.ff_update_residual_3d
         if path == "plain":
-            s._ff_residual_fn = text.ff_poisson_residual
-            s._ff_update_residual_fn = None
+            s._f32_route = route._replace(
+                ff_residual=text.ff_poisson_residual,
+                ff_update_residual=text.ff_update_residual)
         b = _rhs_3d(s.levels[0], "cuda")
         cs.reset_launch_counts()
         res = s.solve_refined(b)
@@ -1202,36 +1190,6 @@ def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
     assert cp["ff_residual3d"] == cp["ff_update_residual3d"] == 0
     np.testing.assert_array_equal(kern.history, plain.history)
     assert torch.equal(kern.u, plain.u)
-
-
-@pytest.mark.cuda
-def test_cuda_3d_solve_equals_residual_point_path(cuda_device):
-    """33^3 with 3 levels, the solver's residual swapped for the
-    one-thread-per-point kernel: the same history and solution bit for bit,
-    one residual launch per smoothed level and iteration on either path."""
-    from multigrid_prj_tpu_torch.gmg import GMGSolver
-
-    kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
-              cycle="v", nu=2, tol=1e-6, maxit=40)
-    runs = {}
-    for path in ("march", "point"):
-        s = GMGSolver(device="cuda", **kw)
-        if path == "point":
-            s._residual_fn = (lambda u, b, alpha, h, logical_shape=None:
-                              c3._residual3d_launch(u, b, alpha, h,
-                                                    logical_shape,
-                                                    "residual3d_point"))
-        b = _rhs_3d(s.levels[0], "cuda")
-        cs.reset_launch_counts()
-        res = s.solve_refined(b)
-        torch.cuda.synchronize()
-        runs[path] = (res, dict(cs.LAUNCHES))
-    (march, cm), (point, cp) = runs["march"], runs["point"]
-    assert march.converged and march.iterations == point.iterations
-    assert cm["residual3d"] == 2 * march.iterations == cp["residual3d_point"]
-    assert cm["residual3d_point"] == 0 and cp["residual3d"] == 0
-    np.testing.assert_array_equal(march.history, point.history)
-    assert torch.equal(march.u, point.u)
 
 
 # the 3D Jacobi march's and apply march's shapes: every level of config 4
@@ -1365,9 +1323,10 @@ def test_cuda_3d_solves_equal_with_jacobi_and_apply_oracles(cuda_device):
         s = GMGSolver(device="cuda", **jkw)
         assert s._coarse_inv is None
         if path == "per-sweep":
-            s.smoother = (lambda u, b, alpha, h, sweeps=1, logical_shape=None:
-                          c3._jacobi3d_per_sweep(u, b, alpha, h, 0.8, sweeps,
-                                                 logical_shape))
+            s._f32_route = s._f32_route._replace(
+                smooth=lambda u, b, alpha, h, sweeps=1, logical_shape=None:
+                c3._jacobi3d_per_sweep(u, b, alpha, h, 0.8, sweeps,
+                                       logical_shape))
         b = _rhs_3d(s.levels[0], "cuda")
         cs.reset_launch_counts()
         res = s.solve_refined(b)
@@ -1384,9 +1343,10 @@ def test_cuda_3d_solves_equal_with_jacobi_and_apply_oracles(cuda_device):
     for path in ("march", "point"):
         s = GMGSolver(device="cuda", **kw)
         if path == "point":
-            s._apply_fn = (lambda u, alpha, h, logical_shape=None:
-                           c3._apply3d_launch(u, alpha, h, logical_shape,
-                                              "apply3d_point"))
+            s._f32_route = s._f32_route._replace(
+                apply=lambda u, alpha, h, logical_shape=None:
+                c3._apply3d_launch(u, alpha, h, logical_shape,
+                                   "apply3d_point"))
         b = _rhs_3d(s.levels[0], "cuda")
         cs.reset_launch_counts()
         res = s.solve_refined(b, inner_cg=2)
@@ -1510,12 +1470,11 @@ def test_cuda_fused_ext_equals_twin(cuda_device, rows, m, logical, row0):
 
 
 @pytest.mark.cuda
-def test_cuda_fused_ext_equals_tile48_and_refuses(cuda_device):
-    """The colour-split extended-slab kernel equals the 48 x 48 tile it
-    replaced (the ladder's reference) bit for bit at sweeps 1-4; no sweeps
-    is a copy of the core and no launch; the C entry point refuses a
-    geometry other than the compiled one, more than 4 sweeps, and a slab
-    with no core row."""
+def test_cuda_fused_ext_equals_twin_and_refuses(cuda_device):
+    """The colour-split extended-slab kernel equals its twin bit for bit at
+    sweeps 1-4 on an odd row offset; no sweeps is a copy of the core and no
+    launch; the C entry point refuses a geometry other than the compiled
+    one, more than 4 sweeps, and a slab with no core row."""
     import ctypes
 
     from multigrid_prj_tpu_torch.kernels._build import library
@@ -1528,12 +1487,10 @@ def test_cuda_fused_ext_equals_tile48_and_refuses(cuda_device):
         cs.reset_launch_counts()
         got = cs.rbgs_fused_extended(ue, be, 57, (8192, 330), ALPHA, h,
                                      sweeps)
-        old = cs._fused_ext_launch(ue, be, 57, 8192, 330, ALPHA, h, sweeps,
-                                   "rbgs_fused_ext_tile48")
         torch.cuda.synchronize()
-        assert cs.LAUNCHES["rbgs_fused_ext"] == 1
-        assert cs.LAUNCHES["rbgs_fused_ext_tile48"] == 1
-        assert torch.equal(got, old), sweeps
+        assert sum(cs.LAUNCHES.values()) == cs.LAUNCHES["rbgs_fused_ext"] == 1
+        assert torch.equal(got, cs.rbgs_fused_extended_plain(
+            ue, be, 57, (8192, 330), ALPHA, h, sweeps)), sweeps
     cs.reset_launch_counts()
     assert torch.equal(cs.rbgs_fused_extended(ue, be, 57, (8192, 330), ALPHA,
                                               h, 0), ue[8:-8])

@@ -224,19 +224,6 @@ def test_cpu_wrapper_runs_the_twin_and_launches_nothing():
                                                     args[5], logical))
 
 
-@pytest.mark.parametrize("shape,use_pallas,want", [
-    ((9, 9, 9), True, c3.ff_poisson_residual_3d),
-    ((9, 9, 9), False, ext.ff_poisson_residual),
-    ((17, 17), True, cs.ff_poisson_residual),
-    ((17, 17), False, ext.ff_poisson_residual)])
-def test_solver_selects_the_residual_by_dimension(shape, use_pallas, want):
-    """The solver's float-float residual: the 3D kernel's wrapper in 3D with
-    the kernels on, the 2D one in 2D, the plain function without them."""
-    s = tgmg.GMGSolver(shape=shape, num_levels=2, device="cpu",
-                       use_pallas=use_pallas)
-    assert s._ff_residual_fn is want
-
-
 @pytest.mark.parametrize("dtype,calls", [(torch.float32, True),
                                          (torch.float64, False)])
 def test_3d_refined_solve_calls_the_kernel_route_in_f32_only(dtype, calls):
@@ -256,28 +243,13 @@ def test_3d_refined_solve_calls_the_kernel_route_in_f32_only(dtype, calls):
         fused.append(a[0].dtype)
         return c3.ff_update_residual_3d(*a, **kw)
 
-    s._ff_residual_fn = spy
-    s._ff_update_residual_fn = fused_spy
+    s._f32_route = s._f32_route._replace(ff_residual=spy,
+                                         ff_update_residual=fused_spy)
     b = torch.ones((9, 9, 9), dtype=dtype)
     out = s.solve_refined(b)
     assert out.converged and out.iterations > 1
     assert len(seen) == (1 if calls else 0)
     assert fused == ([torch.float32] * out.iterations if calls else [])
-
-
-@pytest.mark.parametrize("shape,use_pallas,want", [
-    ((9, 9, 9), True, c3.ff_update_residual_3d),
-    ((9, 9, 9), False, None),
-    ((17, 17), True, cs.ff_update_residual),
-    ((17, 17), False, None)])
-def test_solver_selects_the_fused_update_by_dimension(shape, use_pallas,
-                                                      want):
-    """The solver's fused pair update and residual: the 3D kernel's wrapper
-    in 3D with the kernels on, the 2D one in 2D; without them none, and the
-    update and the residual run in turn."""
-    s = tgmg.GMGSolver(shape=shape, num_levels=2, device="cpu",
-                       use_pallas=use_pallas)
-    assert s._ff_update_residual_fn is want
 
 
 FUSED_WRAPPERS = [((20, 24, 136), (17, 21, 129), c3.ff_update_residual_3d,
@@ -329,17 +301,21 @@ def test_fused_wrappers_refuse_outputs_that_alias_inputs(shape, logical, fn,
 def test_cpu_refined_solve_unchanged_by_the_fused_route(shape, extra,
                                                         inner_cg):
     """A CPU refined solve on the kernel route (the twins) gives the same
-    history and solution bit for bit with the fused update and residual as
-    with the update and the residual in turn, its iterations swapping two
-    pairs of buffers."""
+    history and solution bit for bit with the kernel wrappers' fused update
+    and residual as with the plain route's ``ff_update_residual`` (the
+    update and the residual in turn), its iterations swapping two pairs of
+    buffers."""
     kw = dict(shape=shape, num_levels=3, cycle="v", nu=2, tol=1e-8,
               maxit=40, device="cpu", use_pallas=True, **extra)
     runs = []
     for fused in (True, False):
         s = tgmg.GMGSolver(**kw)
-        assert s._ff_update_residual_fn is not None
+        route = s._route(torch.float32)
+        assert route.ff_update_residual in (cs.ff_update_residual,
+                                            c3.ff_update_residual_3d)
         if not fused:
-            s._ff_update_residual_fn = None
+            s._f32_route = route._replace(
+                ff_update_residual=ext.ff_update_residual)
         g = torch.Generator().manual_seed(11)
         b = torch.rand(shape, generator=g)
         runs.append(s.solve_refined(b, inner_cg=inner_cg))

@@ -199,7 +199,8 @@ def test_fused_downleg_solve_129_matches_jax_pallas(method, tol, atol):
     fused = solver_state_from_numpy(_state(js), device="cpu", use_pallas=True,
                                     fuse_downleg=True)
     plain = solver_state_from_numpy(_state(js), device="cpu", use_pallas=True)
-    assert fused._downleg_fn is not None and plain._downleg_fn is None
+    assert fused._route(torch.float32).downleg is not None
+    assert plain._route(torch.float32).downleg is None
     b = jpoisson.assemble_rhs(js.levels[0], 10.0, test=1, dtype=jnp.float32)
     with pltpu.force_tpu_interpret_mode():
         want = getattr(js, method)(b)

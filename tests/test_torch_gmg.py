@@ -2,7 +2,8 @@
 solver (``solve`` / ``solve_refined`` with and without ``inner_cg``, the
 Jacobi smoother, ``fmg_start``), the CLI (``-smt 0/1/2``, ``-device``), the
 f64 route of the kernel solver (the plain ops, as the JAX wrappers run XLA),
-where ``fuse_downleg`` applies, the card as the default device, and that the
+the route each solver and dtype takes (the kernels of its dimension, and
+where ``fuse_downleg`` applies), the card as the default device, and that the
 port imports without jax.  The fused down-leg's solves are in
 ``tests/test_torch_fused2d.py``.
 
@@ -33,6 +34,10 @@ from multigrid_prj_tpu_torch.cli import gmg_main as tcli
 from multigrid_prj_tpu_torch.convert import solver_state_from_numpy
 from multigrid_prj_tpu_torch.models import poisson as tpoisson
 from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
+from multigrid_prj_tpu_torch.ops import extended as text
+from multigrid_prj_tpu_torch.ops import stencil as tstencil
+from multigrid_prj_tpu_torch.ops import transfer as ttransfer
 from multigrid_prj_tpu_torch.utils import io as tio
 from multigrid_prj_tpu_torch.utils.guards import check_finite
 
@@ -300,22 +305,70 @@ def test_f64_with_kernels_runs_the_plain_ops(monkeypatch, method, kw):
     assert called
 
 
-def test_fuse_downleg_takes_the_gs_kernel_route_only():
-    """``fuse_downleg`` wires the fused down-leg where the JAX solver does:
-    the kernel route, RB-GS, omega 1; and only in 2D, the kernel being 2D
-    (``coarse="none"`` makes no tensor, so the CUDA solver builds without a
-    card)."""
-    base = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=128,
-                coarse="none", fuse_downleg=True)
-    assert tgmg.GMGSolver(**base, device="cpu")._downleg_fn is None
-    assert tgmg.GMGSolver(**base, device="cuda")._downleg_fn is not None
-    assert tgmg.GMGSolver(**base, use_pallas=True,
-                          device="cpu")._downleg_fn is not None
-    for kw in (dict(smoother="jacobi"), dict(omega=1.2),
-               dict(shape=(17, 17, 17), num_levels=3,
-                    pad_align=(8, 8, 128))):
-        assert tgmg.GMGSolver(**dict(base, **kw), use_pallas=True,
-                              device="cpu")._downleg_fn is None, kw
+def _route_fns(kind):
+    """The functions a route of ``kind`` holds (all but the smoother):
+    ``plain``, ``2d`` (the 2D kernels' wrappers, the down-leg left out) or
+    ``3d``."""
+    if kind == "plain":
+        return dict(residual=tstencil.poisson_residual,
+                    apply=tstencil.poisson_apply,
+                    padded_restrict=ttransfer.restrict_fw_padded,
+                    prolong_add=None, downleg=None,
+                    ff_residual=text.ff_poisson_residual,
+                    ff_update_residual=text.ff_update_residual)
+    if kind == "2d":
+        return dict(residual=cs.poisson_residual, apply=cs.poisson_apply,
+                    padded_restrict=cs.restrict_fw_padded_fast,
+                    prolong_add=cs.prolong_add_padded_fast,
+                    ff_residual=cs.ff_poisson_residual,
+                    ff_update_residual=cs.ff_update_residual)
+    return dict(residual=c3.poisson_residual_3d, apply=c3.poisson_apply_3d,
+                padded_restrict=ttransfer.restrict_fw_padded,
+                prolong_add=None, downleg=None,
+                ff_residual=c3.ff_poisson_residual_3d,
+                ff_update_residual=c3.ff_update_residual_3d)
+
+
+_BASE2 = dict(shape=(129, 129), num_levels=4, cycle="v", pad_align=128,
+              coarse="none", fuse_downleg=True)
+_BASE3 = dict(_BASE2, shape=(17, 17, 17), num_levels=3, pad_align=(8, 8, 128))
+
+
+@pytest.mark.parametrize("kw,dtype,kind,downleg", [
+    (dict(_BASE2, device="cpu"), torch.float32, "plain", False),
+    (dict(_BASE2, device="cuda"), torch.float32, "2d", True),
+    (dict(_BASE2, device="cuda"), torch.float64, "plain", False),
+    (dict(_BASE2, use_pallas=True, device="cpu"), torch.float32, "2d", True),
+    (dict(_BASE2, use_pallas=True, device="cpu"), torch.bfloat16, "plain",
+     False),
+    (dict(_BASE2, fuse_downleg=False, use_pallas=True, device="cpu"),
+     torch.float32, "2d", False),
+    (dict(_BASE2, smoother="jacobi", use_pallas=True, device="cpu"),
+     torch.float32, "2d", False),
+    (dict(_BASE2, omega=1.2, use_pallas=True, device="cpu"), torch.float32,
+     "2d", False),
+    (dict(_BASE3, use_pallas=True, device="cpu"), torch.float32, "3d", False),
+    (dict(_BASE3, use_pallas=True, device="cpu"), torch.float64, "plain",
+     False),
+    (dict(_BASE3, use_pallas=False, device="cpu"), torch.float32, "plain",
+     False),
+    (dict(_BASE3, device="cuda"), torch.float32, "3d", False)])
+def test_route_per_solver_and_dtype(kw, dtype, kind, downleg):
+    """The route ``_route(dtype)`` of a solver: the 2D kernels' wrappers in
+    2D and the 3D ones in 3D (plain transfers, no down-leg) for float32
+    with ``use_pallas`` (the default on the card), the plain ops for any
+    other dtype or without ``use_pallas``; the fused down-leg where the JAX
+    solver wires it: the 2D kernel route, RB-GS, omega 1, ``fuse_downleg``.
+    The public ``smoother`` is the float32 route's (``coarse="none"`` makes
+    no tensor, so a CUDA solver builds without a card)."""
+    s = tgmg.GMGSolver(**kw)
+    route = s._route(dtype)
+    for field, want in _route_fns(kind).items():
+        assert getattr(route, field) is want, field
+    assert (route.downleg is not None) == downleg
+    assert s.smoother is s._route(torch.float32).smooth
+    assert (s._route(torch.float64).smooth
+            is s._route(torch.bfloat16).smooth)
 
 
 def _device_defaults():

@@ -30,6 +30,7 @@ from multigrid_prj_tpu_torch import gmg as tgmg
 from multigrid_prj_tpu_torch.convert import solver_state_from_numpy
 from multigrid_prj_tpu_torch.grids import GridLevel
 from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
+from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
 from tests.test_torch_gmg import _state
 
 torch.set_num_threads(1)
@@ -170,15 +171,16 @@ def test_bf16_cycle_runs_plain_ops_in_bf16():
     ts = tgmg.GMGSolver(shape=(17, 17, 17), num_levels=3, tol=1e-3,
                         maxit=10, smoother_dtype=torch.bfloat16,
                         use_pallas=True, device="cpu", **CONFIG4)
-    assert ts._residual_fn is cs.poisson_residual
+    route = ts._route(torch.float32)
+    assert route.residual is c3.poisson_residual_3d
     seen = []
 
     def spy(u, b, *a):
         seen.append(u.dtype)
-        return cs.poisson_residual(u, b, *a)
+        return c3.poisson_residual_3d(u, b, *a)
 
-    ts._residual_fn = spy
-    ts.smoother = None  # the kernel-route smoother must not be called
+    # the kernel route's smoother must not be called
+    ts._f32_route = route._replace(residual=spy, smooth=None)
     b = torch.from_numpy(_rhs(jgmg.GMGSolver(shape=(17, 17, 17),
                                              num_levels=3, use_pallas=False,
                                              **CONFIG4)))

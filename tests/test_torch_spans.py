@@ -2,11 +2,15 @@
 (``multigrid_prj_tpu_torch.gmg`` through ``utils/metrics.span`` and
 ``fetch``) on the CPU, under ``torch.profiler`` with CPU activity:
 ``solve_refined`` and ``solve`` at 65^2 (3 levels; V-cycle on a padded
-layout, sawtooth) and 17^3 (3 levels, V-cycle).
+layout, sawtooth) and 17^3 (3 levels, V-cycle), on the plain route (f64)
+and, for the refined solve's spans, on the kernel route too (the twins, in
+f32).
 
 * the span names and their nesting beneath one root span per solve;
 * per iteration one ``mg.outer.cycle``, and one of each of the cycle's
-  ``mg.L<k>.<stage>`` spans at every level above the bottom;
+  ``mg.L<k>.<stage>`` spans at every level above the bottom; a refined
+  solve's ``mg.outer.ff_residual`` once before the loop and once per
+  iteration, with the pair update inside it, on either route;
 * ``COUNTERS["host_syncs"]`` counts the fetches: ``iterations + 1`` in the
   outer loop (plus the sawtooth's bottom checks);
 * the answer and the history are the same with and without a profiler;
@@ -38,18 +42,28 @@ ENTRIES = ("solve_refined", "solve")
 ROOT = {"solve_refined": gmg.SPAN_SOLVE_REFINED, "solve": gmg.SPAN_SOLVE}
 params = pytest.mark.parametrize("entry,case", [(e, c) for c in CASES
                                                 for e in ENTRIES])
+# the plain route in f64; the kernel route (its CPU twins) in f32
+ROUTES = {"plain": (False, torch.float64), "kernel": (True, torch.float32)}
+route_params = pytest.mark.parametrize(
+    "entry,case,route",
+    [pytest.param(e, c, "plain", id=f"{e}-{c}") for c in CASES
+     for e in ENTRIES]
+    + [pytest.param("solve_refined", c, "kernel",
+                    id=f"solve_refined-{c}-kernel") for c in CASES])
 
 
-def _solver(case):
-    return GMGSolver(device="cpu", tol=1e-6, maxit=60, **CASES[case])
+def _solver(case, route="plain"):
+    return GMGSolver(device="cpu", tol=1e-6, maxit=60,
+                     use_pallas=ROUTES[route][0], **CASES[case])
 
 
-def _rhs(solver):
+def _rhs(solver, route="plain"):
+    dtype = ROUTES[route][1]
     if len(solver.levels[0].shape) == 2:
-        return assemble_rhs(solver.levels[0], solver.length,
-                            dtype=torch.float64, device="cpu")
+        return assemble_rhs(solver.levels[0], solver.length, dtype=dtype,
+                            device="cpu")
     return assemble_rhs(  # BASELINE config 4's smooth 3D pair
-        solver.levels[0], solver.length, dtype=torch.float64, device="cpu",
+        solver.levels[0], solver.length, dtype=dtype, device="cpu",
         f=lambda x, y, z: torch.sin(3.0 * x) * torch.cos(2.0 * y) + z,
         g=lambda x, y, z: torch.exp(x) * torch.exp(-2.0 * y) * z)
 
@@ -65,11 +79,11 @@ def _mg_path(e):
 
 
 @functools.cache
-def _runs(entry, case):
+def _runs(entry, case, route="plain"):
     """The solve without and with a profiler recording: both results, the
     ``mg.*`` spans' paths of the traced one, and its host-sync count."""
-    solver = _solver(case)
-    b = _rhs(solver)
+    solver = _solver(case, route)
+    b = _rhs(solver, route)
     plain = getattr(solver, entry)(b)
     before = metrics.COUNTERS["host_syncs"]
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -93,16 +107,16 @@ def _stages(case):
                                     "post_smooth"}}
 
 
-@params
-def test_span_names_and_nesting(entry, case):
-    _, traced, paths, _ = _runs(entry, case)
+@route_params
+def test_span_names_and_nesting(entry, case, route):
+    _, traced, paths, _ = _runs(entry, case, route)
     root = ROOT[entry]
     assert [p for p in paths if len(p) == 1] == [(root,)]
     outer = {gmg.SPAN_SPLIT, gmg.SPAN_FETCH, gmg.SPAN_CYCLE}
     if _combines(entry, case):
         outer.add(gmg.SPAN_COMBINE)
     if entry == "solve_refined":
-        outer |= {gmg.SPAN_FF_RESIDUAL, gmg.SPAN_PAIR_UPDATE}
+        outer.add(gmg.SPAN_FF_RESIDUAL)
     levels = {f"mg.L{k}.{s}" for k, stages in _stages(case).items()
               for s in stages} | {gmg.SPAN_BOTTOM}
     got = {p[1:] for p in paths if len(p) > 1}
@@ -115,9 +129,9 @@ def test_span_names_and_nesting(entry, case):
     assert traced.iterations > 2
 
 
-@params
-def test_one_cycle_and_each_stage_once_per_iteration(entry, case):
-    _, traced, paths, _ = _runs(entry, case)
+@route_params
+def test_one_cycle_and_each_stage_once_per_iteration(entry, case, route):
+    _, traced, paths, _ = _runs(entry, case, route)
     k = traced.iterations
     ends = [p[-1] for p in paths]
     assert ends.count(gmg.SPAN_CYCLE) == k
@@ -129,7 +143,7 @@ def test_one_cycle_and_each_stage_once_per_iteration(entry, case):
     assert not any(e.startswith("mg.L2.") for e in ends)
     if entry == "solve_refined":
         assert ends.count(gmg.SPAN_FF_RESIDUAL) == k + 1
-        assert ends.count(gmg.SPAN_PAIR_UPDATE) == k
+    assert "mg.outer.pair_update" not in ends
     assert ends.count(gmg.SPAN_SPLIT) == 1
     assert ends.count(gmg.SPAN_COMBINE) == _combines(entry, case)
 

@@ -25,7 +25,8 @@ paths' shapes.  Imports nothing of JAX.  The paths:
   RHS): A. config 4 verbatim, 257^3, 5 levels, bf16 ``smoother_dtype``,
   ``solve_refined`` to 1e-8, one fused smoother launch per smoother call
   (the 17^3 bottom's 100 sweeps in one resident launch), and the same
-  solve on the per-colour path, equal to it bit for bit; B. the same with
+  solve on the per-colour path and with the plain exact-layout transfers
+  in place of their kernels, each equal to it bit for bit; B. the same with
   ``pad_align=(8, 8, 128)``; C. 513^3, 6 levels, to 1e-8; D. 65^3 with
   ``pad_align=(8, 8, 128)`` (GS, ``inner_cg=4``, Jacobi omega 0.8, and the
   bf16 defect-correction ``.solve``), each against its CPU-twin run; and
@@ -291,10 +292,17 @@ KERNELS = {  # wrapper counter name -> (TPU kernel it replaces, source)
                            "extended.py:114, XLA's on the TPU", _SRC2),
     "ff_update_residual3d": ("none: XLA fused multigrid_prj_tpu/ops/"
                              "extended.py:85 and :114 on the TPU", _SRC3),
+    # the exact-layout grid transfers of the 3D V-cycle replace no TPU
+    # kernel either: XLA fused the JAX functions there, torch runs each as
+    # ~15 launches of slices, products, sums, stacks and concatenations
+    "restrict_fw3d": ("none: XLA fused multigrid_prj_tpu/ops/transfer.py:91"
+                      " on the TPU", _SRC3),
+    "prolong_add3d": ("none: XLA fused multigrid_prj_tpu/ops/"
+                      "transfer.py:129 and the add on the TPU", _SRC3),
 }
 KERNELS_3D = ("apply3d", "apply3d_point", "residual3d", "rbgs3d_fused",
               "rbgs3d_color", "jacobi3d", "jacobi3d_sweep", "ff_residual3d",
-              "ff_update_residual3d")
+              "ff_update_residual3d", "restrict_fw3d", "prolong_add3d")
 _PSPMV = "multigrid_prj_tpu/ops/pallas_spmv.py"
 _SRCS = "multigrid_prj_tpu_torch/csrc/spmv.cu"
 KERNELS.update({
@@ -363,6 +371,10 @@ STENCIL_COST = {
     # the residual's and the pair update's (10 operations, at the point and
     # its 4 neighbours in 2D, at each plane copy's ~1.3 cells a point in 3D)
     "ff_update_residual": (36, 110), "ff_update_residual3d": (36, 108),
+    # the 3D transfers per fine point, as portbench/roofline.py prices them:
+    # the fine grid read, the coarse one written, 53 / 8 flops; u and the
+    # coarse e read, u written, 27 / 8 + 1 flops
+    "restrict_fw3d": (4.5, 6.625), "prolong_add3d": (8.5, 4.375),
     "rbgs_fused_ext": (12, 24)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
@@ -568,16 +580,19 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
     its twin, the apply's against the one-thread-per-point kernel and the
     twin;
     the float-float residual against its twin, on a pair whose low half is
-    ~1e-8 of ``u`` and the pair of ``b / c``; the last case of each, against
-    the twin (the smoothers' at 2 sweeps, V(2,2), the Jacobi's at omega
-    0.8), is the one timed."""
+    ~1e-8 of ``u`` and the pair of ``b / c``; the exact-layout restriction
+    of ``u`` and prolong-add of a coarse ``e`` into ``u`` against theirs;
+    the last case of each, against the twin (the smoothers' at 2 sweeps,
+    V(2,2), the Jacobi's at omega 0.8), is the one timed."""
     from multigrid_prj_tpu_torch.ops import extended as text
+    from multigrid_prj_tpu_torch.ops import transfer as tr
 
     u_lo = u * 1e-8
     d_hi, d_lo = text.ff_from_div(b, alpha / (h * h))
     ff_args = (u, u_lo, d_hi, d_lo, b, alpha, h, logical)
     e = (b * 1e-3).flip(0).contiguous()  # a correction, ~1e-3 of u
     up_args = (u, u_lo, e, d_hi, d_lo, b, alpha, h, logical)
+    ec = b[::2, ::2, ::2].contiguous()  # a coarse correction of u's grid
 
     def fused(s):
         return c3.red_black_gauss_seidel_3d(u, b, alpha, h, sweeps=s,
@@ -644,6 +659,10 @@ def kernel_calls_3d(c3, u, b, h, logical, alpha=1.0):
         "ff_update_residual3d": fused_ff_calls(
             c3.ff_update_residual_3d, c3.ff_poisson_residual_3d, text,
             up_args),
+        "restrict_fw3d": [("", lambda: c3.restrict_fw3d(u),
+                           lambda: tr.restrict_full_weighting(u))],
+        "prolong_add3d": [("", lambda: c3.prolong_add3d(ec, u),
+                           lambda: u + tr.prolong(ec, u.shape))],
     }
 
 
@@ -2588,6 +2607,7 @@ def main() -> int:
     from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
     from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
     from multigrid_prj_tpu_torch.ops import extended as text
+    from multigrid_prj_tpu_torch.ops import transfer as tr
     from multigrid_prj_tpu_torch.ops.transfer import pad_to
     from multigrid_prj_tpu_torch.utils.io import load_vector
 
@@ -3186,6 +3206,15 @@ def main() -> int:
         check(counts["ff_residual3d"] == 1
               and counts["ff_update_residual3d"] == res3.iterations,
               f"{tag}: float-float residual launches")
+        # the transfers: a kernel launch each at every exact-layout level
+        # above the bottom per iteration, plain ops at padded ones
+        n_exact = sum(lev.padded_shape is None for lev in s3.levels[:-1])
+        print(f"[{tag}] restrict_fw3d launches {counts['restrict_fw3d']}, "
+              f"prolong_add3d {counts['prolong_add3d']} (expected "
+              f"{n_exact * res3.iterations}: {n_exact} exact-layout "
+              "transfer levels, one each per iteration)")
+        check(counts["restrict_fw3d"] == counts["prolong_add3d"]
+              == n_exact * res3.iterations, f"{tag}: transfer launches")
         if tag[0] == "A":  # and with the plain ff ops, and per colour
             check(calls == CONFIG4_FUSED_LAUNCHES, f"{tag}: {calls} calls")
             # with the plain pair update and float-float residual in place
@@ -3210,6 +3239,25 @@ def main() -> int:
                   f"{tag}: the ff residual kernels differ from the plain "
                   "ones")
             del fs3, res3f
+            # with the plain exact-layout transfers in place of their
+            # kernels
+            ts3 = swap(GMGSolver(**kw, **extra, device="cuda"),
+                       exact_restrict=tr.restrict_full_weighting,
+                       exact_prolong_add=tr.prolong_add)
+            res3t, counts_t = run_path(ts3, b3)
+            print(f"[{tag}] with the plain transfers: {res3t.iterations} "
+                  f"iterations, restrict_fw3d {counts_t['restrict_fw3d']} "
+                  f"launches, prolong_add3d {counts_t['prolong_add3d']}; "
+                  f"history and solution equal: "
+                  f"{np.array_equal(res3t.history, res3.history)}, "
+                  f"{torch.equal(res3t.u, res3.u)}")
+            check(res3t.iterations == res3.iterations
+                  and np.array_equal(res3t.history, res3.history)
+                  and torch.equal(res3t.u, res3.u)
+                  and counts_t["restrict_fw3d"] == 0
+                  and counts_t["prolong_add3d"] == 0,
+                  f"{tag}: the transfer kernels differ from the plain ops")
+            del ts3, res3t
             ps3 = per_colour3d(GMGSolver(**kw, **extra, device="cuda"))
             res3p, counts_p = run_path(ps3, b3)
             print(f"[{tag}] per-colour path: {res3p.iterations} iterations, "
@@ -3911,7 +3959,8 @@ def main() -> int:
             extra, note = {"device_ms": device_ms(torch, kern, npts)}, ""
             if kname in ("residual3d", "apply3d",
                          "apply3d_point", "jacobi3d", "jacobi3d_sweep",
-                         "ff_residual3d", "ff_update_residual3d"):
+                         "ff_residual3d", "ff_update_residual3d",
+                         "restrict_fw3d", "prolong_add3d"):
                 extra["flushed_ms"] = flushed_ms(torch, kern)
                 note = (f"; L2 flushed before each call "
                         f"{extra['flushed_ms'] * 1e3:.1f} us")

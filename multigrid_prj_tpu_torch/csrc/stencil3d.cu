@@ -19,12 +19,18 @@
 //                   sweep of a small array in one launch (below)
 //   jacobi3d_sweep <- the same, one sweep per launch: the per-sweep oracle
 //                   that jacobi3d is held to (no solver path)
-// and two kernels that port no TPU kernel:
+// and four kernels that port no TPU kernel:
 //   ff_residual3d <- ops/extended.ff_poisson_residual on a 3-D array (XLA
 //                   fused it on the TPU): the float-float residual of the
 //                   refined solve, on the residual's z-chunked march (below)
 //   ff_update_residual3d <- the same, fused with the refined solve's pair
 //                   update (ops/extended.ff_accumulate), on the same march
+//   restrict_fw3d <- ops/transfer.restrict_full_weighting on a 3-D array
+//                   (XLA fused it on the TPU): the V-cycle's restriction at
+//                   exact-layout levels, a march over coarse planes (below)
+//   prolong_add3d <- u + ops/transfer.prolong(e, u.shape) on a 3-D array
+//                   (the same): the V-cycle's prolong-add there, a march
+//                   over coarse planes emitting two fine planes a step
 //
 // Layout: a contiguous f32 array of shape (nz, ny, nx), with 64-bit
 // offsets (nz*ny*nx passes 2^31 at about 1291^3).  (nzl, nyl, nxl) are the
@@ -53,7 +59,8 @@
 // launch shapes are described above rbgs3d_zmarch_kernel and
 // jacobi3d_march_kernel, the residual's and the apply's march above
 // stencil3d_march_kernel, the float-float residual's above
-// ff_residual3d_march_kernel and ff_update_residual3d_march_kernel.
+// ff_residual3d_march_kernel and ff_update_residual3d_march_kernel, the
+// transfers' above restrict_fw3d_kernel.
 
 #include <cuda_runtime.h>
 
@@ -1266,6 +1273,286 @@ __global__ void __launch_bounds__(kResThreads)
   for (int i = threadIdx.x; i < n; i += kResThreads) out[i] = res[i];
 }
 
+// ---------------------------------------------------------------------------
+// The grid transfers of the exact layout: restrict_fw3d_kernel is
+// ops/transfer.restrict_full_weighting and prolong_add3d_kernel is
+// u + ops/transfer.prolong(e, u.shape), op for op, on a 3-D array.  They
+// replace no TPU kernel: the JAX package leaves these transfers to XLA,
+// which fuses each into one pass on the TPU; torch on the card runs them as
+// ~32 launches of strided slices, products, sums, stacks and concatenations
+// per level and V-cycle.
+//
+// Arithmetic, as the plain functions order it: the restriction filters z,
+// then y, then x, each coarse point k of an axis of n fine points
+//   k == 0: fine 0 (injected);  k == nc - 1: fine n - 1 (n odd) or 0 (n
+//   even: the fake high edge);  otherwise (0.25 f[2k-1] + 0.5 f[2k]) +
+//   0.25 f[2k+1];
+// the prolongation refines z, then y, then x, fine point j of an axis of
+// nc coarse points
+//   j = 2i: c[i];  j = 2i + 1: 0.5 (c[i] + c[i + 1]) if i + 1 < nc, else
+//   c[nc - 1] (the repeated last node of a 2 nc target);
+// then adds u.  Every operation is an explicit __f*_rn, so both are
+// bit-equal to the plain functions.
+//
+// Bound: memory.  The restriction must read the fine grid and write the
+// coarse one (4.5 B per fine point), the prolong-add read u and the coarse
+// e and write u (8.5 B per fine point); either does ~5 flops a fine point.
+//
+// restrict_fw3d_kernel marches over coarse planes.  A block owns a tile of
+// kT3CY x kT3CX coarse (y, x) points and a chunk of coarse planes; coarse
+// plane K needs fine planes 2K - 1, 2K and 2K + 1.
+// * Each thread owns up to kT3Cols fine (y, x) columns of the tile's fine
+//   window (2 kT3CY + 1 rows by 2 kT3CX + 1 columns, the neighbours of the
+//   tile's edge points included; window cells in thread order, so a warp
+//   reads runs of a row: coalesced).  It filters z in registers, carrying
+//   fine plane 2K + 1 into the next step as 2K' - 1, so every fine plane
+//   of the chunk is read once (and the one before it), and loads the next
+//   step's two planes before it works on this one.
+// * The z-filtered window goes to shared memory (two buffers: one barrier
+//   a step); a thread per coarse (y, x) point filters y at the three fine
+//   columns it needs, then x, and stores the coarse point: a warp a coarse
+//   row, coalesced.
+// * Chunks keep the card busy: zc = ceil(ncz * tiles / kX3TargetBlocks),
+//   clamped to 1 .. kX3MaxChunk coarse planes (257^3: 8 planes, 1445
+//   blocks; 129^3: 4, 459; 65^3: 1, 330; 33^3: 1, 51).  A chunk re-reads
+//   one fine plane of 2 zc + 1, the window one fine row and column of
+//   2 kT3CY + 1 and 2 kT3CX + 1.  On the H100 at 257^3 (L2 flushed) chunks
+//   of 4 to 19 planes all take 35-36 us, 1 plane 46 us, 43 planes 44 us;
+//   at 129^3 2 to 4 planes are fastest (PERF.md, rows 23 and 24).
+//
+// prolong_add3d_kernel is the mirror: a block owns a tile of kP3Y x kP3X
+// fine (y, x) columns and a chunk of coarse planes, and emits fine planes
+// 2I and 2I + 1 at coarse plane I.
+// * The tile's coarse window (kP3Y / 2 + 1 rows by kP3X / 2 + 1 columns)
+//   of e planes I and I + 1 sits in a ring of shared-memory slots beside u
+//   at fine planes 2I and 2I + 1 (a word per thread, read once), all as
+//   4-byte cp.async with zero fill (rows are not 16-byte aligned at odd
+//   widths), kP3Ahead coarse planes ahead of the one computed: one barrier
+//   per coarse plane.  Each e plane of the chunk is copied once (and the
+//   one after it).
+// * A thread per fine (y, x) column refines its (up to 4) coarse corners
+//   in z, then y, then x from the two e planes, adds u, and stores each
+//   fine plane once: two warps a fine row, coalesced.
+// * Chunks: the restriction's rule over the prolong-add's tiles (257^3:
+//   8 planes, 2805 blocks; 129^3: 7, 510; 65^3: 2, 306; 33^3: 1, 85).  At
+//   257^3 chunks of 8 to 16 planes take 65-66 us, 43 planes 72 us.
+//
+// The geometry is mirrored by ops/cuda_stencil_3d.restrict3d_tile and
+// prolong3d_tile; the C entry points refuse another.
+constexpr int kT3CX = 32;                  // coarse tile columns: a warp a row
+constexpr int kT3CY = 8;                   // coarse tile rows
+constexpr int kT3Threads = kT3CX * kT3CY;  // a thread per coarse (y, x)
+constexpr int kT3FX = 2 * kT3CX + 1;       // fine window columns
+constexpr int kT3FY = 2 * kT3CY + 1;       // fine window rows
+constexpr int kT3Cells = kT3FX * kT3FY;
+constexpr int kT3Cols = (kT3Cells + kT3Threads - 1) / kT3Threads;
+
+constexpr int kP3X = 64;                   // fine tile columns: two warps a row
+constexpr int kP3Y = 8;                    // fine tile rows
+constexpr int kP3Threads = kP3X * kP3Y;    // a thread per fine (y, x)
+constexpr int kP3EX = kP3X / 2 + 1;        // coarse window columns
+constexpr int kP3EY = kP3Y / 2 + 1;        // coarse window rows
+constexpr int kP3EPlane = kP3EX * kP3EY;   // words of an e window
+constexpr int kP3Ahead = 3;                // coarse planes in flight
+constexpr int kP3Slots = kP3Ahead + 2;     // ring slots
+constexpr int kP3Slot = kP3EPlane + 2 * kP3Threads;  // e window, u at 2I, 2I+1
+static_assert(kP3EPlane <= kP3Threads, "a thread per e window cell");
+static_assert(kP3Slots * kP3Slot * 4 <= 48 * 1024, "static shared memory");
+
+constexpr int kX3MaxChunk = 8;          // coarse planes per chunk at most
+constexpr int kX3TargetBlocks = 528;    // 4 per SM of an H100's 132
+
+// The chunk rule (above) for ncz coarse planes over `tiles` x-y tiles.
+int transfer3d_chunk(int ncz, long long tiles) {
+  const long long zc = (ncz * tiles + kX3TargetBlocks - 1) / kX3TargetBlocks;
+  return (int)(zc < 1 ? 1 : zc > kX3MaxChunk ? kX3MaxChunk : zc);
+}
+
+int restrict3d_chunk(int nz, int ny, int nx) {
+  const int ncz = (nz + 1) / 2, ncy = (ny + 1) / 2, ncx = (nx + 1) / 2;
+  const long long tiles =
+      (long long)((ncx + kT3CX - 1) / kT3CX) * ((ncy + kT3CY - 1) / kT3CY);
+  return transfer3d_chunk(ncz, tiles);
+}
+
+int prolong3d_chunk(int ncz, int ny, int nx) {
+  const long long tiles =
+      (long long)((nx + kP3X - 1) / kP3X) * ((ny + kP3Y - 1) / kP3Y);
+  return transfer3d_chunk(ncz, tiles);
+}
+
+// (0.25 lo + 0.5 mid) + 0.25 hi: one full-weighting filter
+__device__ __forceinline__ float fw3(float lo, float mid, float hi) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(0.25f, lo), __fmul_rn(0.5f, mid)),
+                   __fmul_rn(0.25f, hi));
+}
+
+// 0.5 (a + b): one refinement midpoint
+__device__ __forceinline__ float mid3(float a, float b) {
+  return __fmul_rn(0.5f, __fadd_rn(a, b));
+}
+
+__global__ void __launch_bounds__(kT3Threads)
+    restrict_fw3d_kernel(const float* __restrict__ r, float* __restrict__ rc,
+                         int nz, int ny, int nx, int zc) {
+  __shared__ float zf[2][kT3Cells];
+  const int ncz = (nz + 1) / 2, ncy = (ny + 1) / 2, ncx = (nx + 1) / 2;
+  const int tid = threadIdx.x;
+  const int cx0 = blockIdx.x * kT3CX, cy0 = blockIdx.y * kT3CY;
+  const int k0 = blockIdx.z * zc, k1 = min(k0 + zc, ncz);
+  const long long plane = (long long)ny * nx;
+  // window cell q = tid + k kT3Threads is the window's (q / kT3FX,
+  // q % kT3FX), the array's (2 cy0 - 1 + row, 2 cx0 - 1 + col); its offset
+  // in a plane, -1 outside the array (read as 0, never used)
+  int off[kT3Cols];
+#pragma unroll
+  for (int k = 0; k < kT3Cols; ++k) {
+    const int q = tid + k * kT3Threads;
+    const int y = 2 * cy0 - 1 + q / kT3FX, x = 2 * cx0 - 1 + q % kT3FX;
+    off[k] = (q < kT3Cells && y >= 0 && y < ny && x >= 0 && x < nx)
+                 ? y * nx + x
+                 : -1;
+  }
+  auto load = [&](int p, int k) -> float {
+    return (off[k] >= 0 && p < nz) ? r[(long long)p * plane + off[k]] : 0.0f;
+  };
+  // fine planes 2K - 1 (carried), 2K and 2K + 1 at each cell
+  float lo[kT3Cols], a[kT3Cols], c[kT3Cols];
+#pragma unroll
+  for (int k = 0; k < kT3Cols; ++k) {
+    lo[k] = k0 > 0 ? load(2 * k0 - 1, k) : 0.0f;
+    a[k] = load(2 * k0, k);
+    c[k] = load(2 * k0 + 1, k);
+  }
+  // the thread's coarse point; w: its fine (2 cy, 2 cx) in the window
+  const int ty = tid / kT3CX, tx = tid % kT3CX;
+  const int cy = cy0 + ty, cx = cx0 + tx;
+  const bool own = cy < ncy && cx < ncx;
+  const int w = (2 * ty + 1) * kT3FX + 2 * tx + 1;
+  for (int K = k0; K < k1; ++K) {
+    float na[kT3Cols], nc[kT3Cols];  // the next step's planes, in flight
+#pragma unroll
+    for (int k = 0; k < kT3Cols; ++k) {
+      const bool next = K + 1 < k1;
+      na[k] = next ? load(2 * K + 2, k) : 0.0f;
+      nc[k] = next ? load(2 * K + 3, k) : 0.0f;
+    }
+    float* buf = zf[K & 1];
+#pragma unroll
+    for (int k = 0; k < kT3Cols; ++k) {
+      const int q = tid + k * kT3Threads;
+      if (q < kT3Cells) {
+        buf[q] = K == 0         ? a[k]
+                 : K == ncz - 1 ? ((nz & 1) ? a[k] : 0.0f)
+                                : fw3(lo[k], a[k], c[k]);
+      }
+      lo[k] = c[k];
+      a[k] = na[k];
+      c[k] = nc[k];
+    }
+    __syncthreads();  // the window is written; the other buffer is free
+    if (own) {
+      // y filtered at fine column 2 cx + d, then x
+      auto yf = [&](int d) -> float {
+        const float* p = buf + w + d;
+        return cy == 0           ? p[0]
+               : cy == ncy - 1   ? ((ny & 1) ? p[0] : 0.0f)
+                                 : fw3(p[-kT3FX], p[0], p[kT3FX]);
+      };
+      const float v = cx == 0         ? yf(0)
+                      : cx == ncx - 1 ? ((nx & 1) ? yf(0) : 0.0f)
+                                      : fw3(yf(-1), yf(0), yf(1));
+      rc[((long long)K * ncy + cy) * ncx + cx] = v;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kP3Threads)
+    prolong_add3d_kernel(const float* __restrict__ e,
+                         const float* __restrict__ u, float* __restrict__ out,
+                         int ncz, int ncy, int ncx, int nz, int ny, int nx,
+                         int zc) {
+  __shared__ __align__(16) float sm[kP3Slots][kP3Slot];
+  const int tid = threadIdx.x;
+  const int x0 = blockIdx.x * kP3X, y0 = blockIdx.y * kP3Y;
+  const int cx0 = x0 / 2, cy0 = y0 / 2;
+  const int i0 = blockIdx.z * zc, i1 = min(i0 + zc, ncz);
+  const long long cplane = (long long)ncy * ncx, fplane = (long long)ny * nx;
+  // the e window cell this thread copies (threads < kP3EPlane), 0 bytes
+  // from a clamped address outside the array
+  const bool ecopy = tid < kP3EPlane;
+  const int ey = cy0 + tid / kP3EX, ex = cx0 + tid % kP3EX;
+  const bool ein = ecopy && ey < ncy && ex < ncx;
+  const long long eo = ein ? (long long)ey * ncx + ex : 0;
+  // the thread's fine column
+  const int ty = tid / kP3X, tx = tid % kP3X;
+  const int y = y0 + ty, x = x0 + tx;
+  const bool own = y < ny && x < nx;
+  const long long uo = own ? (long long)y * nx + x : 0;
+  const unsigned base = static_cast<unsigned>(__cvta_generic_to_shared(sm));
+  // one commit group per coarse plane p of i0 .. i1 (the e window; u at
+  // fine 2p and 2p + 1 for p < i1), empty past them
+  auto issue = [&](int p, int slot) {
+    if (p <= i1 && p < ncz) {
+      const unsigned s = base + 4u * (unsigned)(slot * kP3Slot);
+      if (ecopy) {
+        cp_async4(s + 4u * tid, e + p * cplane + eo, ein ? 4u : 0u);
+      }
+      if (p < i1) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int fz = 2 * p + h;
+          const bool in = own && fz < nz;
+          cp_async4(s + 4u * (kP3EPlane + h * kP3Threads + tid),
+                    u + (in ? fz * fplane + uo : 0), in ? 4u : 0u);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int p = 0; p <= kP3Ahead; ++p) issue(i0 + p, p);
+  // the thread's coarse corner in the window, and whether its odd fine y
+  // and x average two coarse nodes (the last node of a 2 nc target repeats)
+  const int w = (ty >> 1) * kP3EX + (tx >> 1);
+  const bool ypair = (ty & 1) && cy0 + (ty >> 1) + 1 < ncy;
+  const bool xpair = (tx & 1) && cx0 + (tx >> 1) + 1 < ncx;
+  int s = 0;  // the slot of coarse plane i
+  for (int i = i0; i < i1; ++i) {
+    cp_async_wait<kP3Ahead - 1>();  // planes i and i + 1 have landed
+    __syncthreads();  // visible to all; step i - 1 is done with its slot
+    const int s1 = s + 1 == kP3Slots ? 0 : s + 1;
+    const int sl = s == 0 ? kP3Slots - 1 : s - 1;  // plane i - 1's slot
+    issue(i + kP3Ahead + 1, sl);
+    if (own) {
+      const float* e0 = sm[s];
+      const float* e1 = sm[s1];
+      const bool zpair = i + 1 < ncz;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int fz = 2 * i + h;
+        if (fz < nz) {
+          // z, at the corners (dy, dx) the thread needs
+          auto zr = [&](int d) -> float {
+            return (h && zpair) ? mid3(e0[w + d], e1[w + d]) : e0[w + d];
+          };
+          const float z00 = zr(0);
+          const float y0v = ypair ? mid3(z00, zr(kP3EX)) : z00;
+          float v = y0v;
+          if (xpair) {
+            const float z01 = zr(1);
+            const float y1v = ypair ? mid3(z01, zr(kP3EX + 1)) : z01;
+            v = mid3(y0v, y1v);
+          }
+          out[fz * fplane + uo] =
+              __fadd_rn(sm[s][kP3EPlane + h * kP3Threads + tid], v);
+        }
+      }
+    }
+    s = s1;
+  }
+}
+
 template <int S>
 int jacobi3d_march_launch(const float* u, const float* b, float* out, int nz,
                           int ny, int nx, int nzl, int nyl, int nxl, float c,
@@ -1381,6 +1668,44 @@ int ff_update_residual3d_launch(const float* uh, const float* ul,
   return (int)cudaGetLastError();
 }
 
+int restrict_fw3d_launch(const float* r, float* rc, int nz, int ny, int nx,
+                         const int* geom, cudaStream_t stream) {
+  if (nz < 3 || ny < 3 || nx < 3) return (int)cudaErrorInvalidValue;
+  const int zc = restrict3d_chunk(nz, ny, nx);
+  if (geom[0] != kT3CX || geom[1] != kT3CY || geom[2] != zc) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int ncz = (nz + 1) / 2, ncy = (ny + 1) / 2, ncx = (nx + 1) / 2;
+  const dim3 grid((ncx + kT3CX - 1) / kT3CX, (ncy + kT3CY - 1) / kT3CY,
+                  (ncz + zc - 1) / zc);
+  restrict_fw3d_kernel<<<grid, kT3Threads, 0, stream>>>(r, rc, nz, ny, nx,
+                                                         zc);
+  return (int)cudaGetLastError();
+}
+
+// An axis of nc coarse points refines to 2 nc - 1 or 2 nc fine ones.
+bool refines(int nc, int n) {
+  return nc >= 2 && (n == 2 * nc - 1 || n == 2 * nc);
+}
+
+int prolong_add3d_launch(const float* e, const float* u, float* out, int ncz,
+                         int ncy, int ncx, int nz, int ny, int nx,
+                         const int* geom, cudaStream_t stream) {
+  if (!refines(ncz, nz) || !refines(ncy, ny) || !refines(ncx, nx)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int zc = prolong3d_chunk(ncz, ny, nx);
+  if (geom[0] != kP3X || geom[1] != kP3Y || geom[2] != zc ||
+      geom[3] != kP3Ahead) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid((nx + kP3X - 1) / kP3X, (ny + kP3Y - 1) / kP3Y,
+                  (ncz + zc - 1) / zc);
+  prolong_add3d_kernel<<<grid, kP3Threads, 0, stream>>>(
+      e, u, out, ncz, ncy, ncx, nz, ny, nx, zc);
+  return (int)cudaGetLastError();
+}
+
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;
 
@@ -1442,6 +1767,28 @@ int mg_ff_update_residual3d(const float* uh, const float* ul, const float* e,
   return ff_update_residual3d_launch(uh, ul, e, dh, dl, b, uh2, ul2, r, nz,
                                      ny, nx, nzl, nyl, nxl, c, geom,
                                      (cudaStream_t)stream);
+}
+
+// Full-weighting restriction of the exact layout, fine (nz, ny, nx) ->
+// coarse ((nz + 1) / 2, (ny + 1) / 2, (nx + 1) / 2), every axis >= 3; geom
+// = (coarse tile columns, coarse tile rows, coarse planes per chunk) as the
+// caller computed them, refused unless they are the compiled ones and the
+// chunk rule's.
+int mg_restrict_fw3d(const float* r, float* rc, int nz, int ny, int nx,
+                     const int* geom, void* stream) {
+  return restrict_fw3d_launch(r, rc, nz, ny, nx, geom, (cudaStream_t)stream);
+}
+
+// out = u + prolong(e) of the exact layout: e (ncz, ncy, ncx), u and out
+// (nz, ny, nx) with each fine extent 2 nc - 1 or 2 nc; geom = (fine tile
+// columns, fine tile rows, coarse planes per chunk, coarse planes in
+// flight), refused unless they are the compiled ones and the chunk rule's.
+// out must not alias u or e.
+int mg_prolong_add3d(const float* e, const float* u, float* out, int ncz,
+                     int ncy, int ncx, int nz, int ny, int nx,
+                     const int* geom, void* stream) {
+  return prolong_add3d_launch(e, u, out, ncz, ncy, ncx, nz, ny, nx, geom,
+                              (cudaStream_t)stream);
 }
 
 int mg_rbgs3d_color(float* u, const float* b, int nz, int ny, int nx, int nzl,

@@ -25,8 +25,9 @@ on the card unless the caller names another device.  Which function runs
 each stencil operation is the solver's route (``ops/routes.py``), chosen
 once per dtype: with ``use_pallas`` (the default on CUDA) float32 work takes
 the hand-written kernels (the smoothers, residuals, float-float residual
-and pair update, ``inner_cg`` operator apply, and in 2D the padded grid
-transfers and the fused down-leg of ``fuse_downleg``); as in the JAX kernel
+and pair update, ``inner_cg`` operator apply, in 2D the padded grid
+transfers and the fused down-leg of ``fuse_downleg``, in 3D the
+exact-layout grid transfers); as in the JAX kernel
 wrappers, which take float32 only, work in any other dtype (f64, or the
 bf16 ``smoother_dtype`` cycle) takes the plain ops on every device and
 launches nothing.
@@ -53,6 +54,9 @@ from multigrid_prj_tpu_torch.ops.transfer import (
     prolong_padded,
     restrict_full_weighting,
     restrict_fw_padded,
+)
+from multigrid_prj_tpu_torch.ops.transfer import (
+    prolong_add as plain_prolong_add,
 )
 from multigrid_prj_tpu_torch.utils.guards import check_finite
 from multigrid_prj_tpu_torch.utils.metrics import fetch, span
@@ -180,7 +184,8 @@ def v_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
             coarse_sweeps: int = 100, restrict=restrict_full_weighting,
             gamma: int = 1, coarse_apply=None, residual=poisson_residual,
             downleg=None, padded_restrict=restrict_fw_padded,
-            prolong_add=None, _level: int = 0):
+            prolong_add=None, exact_prolong_add=plain_prolong_add,
+            _level: int = 0):
     """Correction-scheme V-cycle (``gamma = 2`` gives the W-cycle).
 
     ``coarse_apply``: exact bottom solve ``b -> A^{-1} b`` (the dense
@@ -188,7 +193,9 @@ def v_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
     implementation (``GMGSolver`` passes the CUDA kernel's wrapper).
     ``downleg``: fused pre-smooth+residual+restrict ``(u, b, lev, nxt, nu1)
     -> (u, r_coarse)`` on padded levels.  ``prolong_add``: fused ``u +
-    prolong(e)`` on padded levels.
+    prolong(e)`` on padded levels.  ``restrict`` and ``exact_prolong_add``:
+    the restriction and ``u + prolong(e)`` of exact-layout levels
+    (``GMGSolver`` passes its route's).
     """
     lev = levels[_level]
     h = lev.h
@@ -220,11 +227,13 @@ def v_cycle(u, b, levels: Sequence[GridLevel], alpha: float,
                      gamma=gamma, coarse_apply=coarse_apply,
                      residual=residual, downleg=downleg,
                      padded_restrict=padded_restrict,
-                     prolong_add=prolong_add, _level=_level + 1)
+                     prolong_add=prolong_add,
+                     exact_prolong_add=exact_prolong_add, _level=_level + 1)
     nxt = levels[_level + 1]
     with span(names.prolong_add):
-        if (prolong_add is not None and lev.padded_shape is not None
-                and nxt.padded_shape is not None):
+        if lev.padded_shape is None:
+            u = exact_prolong_add(ec, u)
+        elif prolong_add is not None and nxt.padded_shape is not None:
             u = prolong_add(ec, u)
         else:
             u = u + prolong_level(ec, nxt, lev)
@@ -292,7 +301,7 @@ class GMGSolver:
     Parameters mirror the JAX ``GMGSolver`` (and through it the reference
     CLI), plus ``device`` (default the card; ``device="cpu"`` for the CPU).
     ``use_pallas`` keeps its JAX meaning -- route the float32 smoother,
-    residuals, padded transfers and ``inner_cg`` apply through the kernel
+    residuals, grid transfers and ``inner_cg`` apply through the kernel
     functions (``ops/routes.kernel_route``) -- and defaults to True on CUDA
     and False on the CPU.  On the CPU, ``use_pallas=True`` runs the kernels'
     torch twins; ``False`` runs the XLA-order plain ops on any device.
@@ -440,8 +449,10 @@ class GMGSolver:
                      nu1=self.pre_sweeps, nu2=self.nu,
                      coarse_apply=self._coarse_apply_of(cinv),
                      residual=route.residual, downleg=route.downleg,
+                     restrict=route.exact_restrict,
                      padded_restrict=route.padded_restrict,
-                     prolong_add=route.prolong_add)
+                     prolong_add=route.prolong_add,
+                     exact_prolong_add=route.exact_prolong_add)
 
     def step(self, u, b, cinv=None):
         """One outer iteration: pre-smooths (sawtooth) + one cycle.

@@ -57,6 +57,8 @@ _SIGNATURES = {
                          _f, _ip, _vp],
     "mg_ff_update_residual3d": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
                                 _i, _i, _i, _i, _i, _i, _f, _ip, _vp],
+    "mg_restrict_fw3d": [_vp, _vp, _i, _i, _i, _ip, _vp],
+    "mg_prolong_add3d": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _ip, _vp],
     "mg_rbgs3d_color": [_vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i, _vp],
     "mg_rbgs3d_fused": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i,
                         _ip, _vp],

@@ -35,11 +35,11 @@ function                      replaces (pallas_stencil.py)   bytes per point
 
 Each public function keeps the JAX signature.  As in the JAX wrappers, a 3D
 tensor goes to ``ops/cuda_stencil_3d.py`` (the smoothers, residual and
-apply; the transfers have no 3D kernel, and the 3D path runs them as plain
-ops; the 3D float-float residual and fused update have only their
-``cuda_stencil_3d`` wrappers).  A solver reaches these functions through
-its route (``ops/routes.py``), which takes each from the module of its
-dimension.  Otherwise each
+apply; the padded transfers have no 3D kernel, and the 3D path runs them as
+plain ops; the 3D float-float residual and fused update, and the 3D
+exact-layout transfers, have only their ``cuda_stencil_3d`` wrappers).  A
+solver reaches these functions through its route (``ops/routes.py``),
+which takes each from the module of its dimension.  Otherwise each
 function dispatches on the device of its tensors: a CPU tensor runs the
 plain torch twin (``*_plain``, the kernel's operation order, which matches
 the JAX Pallas function in interpret mode); a CUDA tensor launches the
@@ -71,7 +71,8 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "prolong_add": 0, "prolong_add_point": 0,
             "apply3d": 0, "apply3d_point": 0, "residual3d": 0,
             "ff_residual3d": 0,
-            "ff_update_residual3d": 0, "rbgs3d_fused": 0,
+            "ff_update_residual3d": 0, "restrict_fw3d": 0,
+            "prolong_add3d": 0, "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0, "jacobi3d_sweep": 0,
             "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,

@@ -18,6 +18,13 @@ function                       replaces                  bytes per point
                                                          march)
 ``ff_update_residual_3d``      none (XLA fused it)       36 (the same
                                                          march)
+``restrict_fw3d``              none (XLA fused            4.5 per fine
+                               ``restrict_full_           point (a march
+                               weighting``)               over coarse
+                                                         planes)
+``prolong_add3d``              none (XLA fused            8.5 per fine
+                               ``u + prolong(e)``)        point (the
+                                                         mirror march)
 =============================  ========================  ===============
 
 Arrays are ``(nz, ny, nx)``; ``logical_shape`` gives the live extents of a
@@ -37,8 +44,12 @@ the apply run one z-chunked march (:func:`residual3d_tile`), the
 float-float residual of the refined solve (``ops/extended.
 ff_poisson_residual``, its twin) another with the pair in two rings
 (:func:`ff_residual3d_tile`), and the same march with the correction ``e``
-in a third ring fuses the pair update into it (``ff_update_residual_3d``).  SOR
-(``omega != 1``) of the red-black smoother runs the XLA-order plain
+in a third ring fuses the pair update into it (``ff_update_residual_3d``).
+The grid transfers of the exact layout (``ops/transfer.
+restrict_full_weighting`` and ``u + prolong(e, u.shape)``, their twins)
+march over coarse planes (:func:`restrict3d_tile`,
+:func:`prolong3d_tile`); the padded layout's 3D transfers have no kernel.
+SOR (``omega != 1``) of the red-black smoother runs the XLA-order plain
 smoother and launches nothing, as the JAX wrapper does.  Each launch adds
 one to its ``cuda_stencil.LAUNCHES`` entry; the kernels the redesigns
 replaced stay on no path as oracles (``*_point``, ``_*_per_*``).
@@ -51,6 +62,7 @@ import torch
 
 from multigrid_prj_tpu_torch.ops import extended as _ext
 from multigrid_prj_tpu_torch.ops import smoothers as _sm
+from multigrid_prj_tpu_torch.ops import transfer as _tr
 from multigrid_prj_tpu_torch.ops.cuda_stencil import (
     LAUNCHES,
     _groups,
@@ -99,6 +111,16 @@ _J3_MIN_CHUNK = 4
 _J3_MAX_CHUNK = 32
 _J3_TARGET_BLOCKS = 528
 _MAX_FUSED_JACOBI3D = 4
+# the exact-layout transfers' marches over coarse planes (csrc/stencil3d.cu
+# kT3*, kP3*): the restriction's tiles of 32 coarse columns by 8 coarse
+# rows, the prolong-add's of 64 fine columns by 8 fine rows with 3 coarse
+# planes in flight; chunks of at most 8 coarse planes, chosen so that every
+# level launches about 528 blocks where it has the planes
+_T3_TILE = (32, 8)
+_P3_TILE = (64, 8)
+_P3_AHEAD = 3
+_X3_MAX_CHUNK = 8
+_X3_TARGET_BLOCKS = 528
 
 
 def rbgs3d_tile(passes: int):
@@ -144,6 +166,41 @@ def ff_residual3d_tile(shape):
     flight)``: the residual's tile and chunk (:func:`residual3d_tile`), its
     own depth in flight.  The C entry point refuses any other geometry."""
     return (*residual3d_tile(shape)[:3], _F3_AHEAD)
+
+
+def _transfer3d_chunk(ncz, tiles):
+    return min(max(-(-ncz * tiles // _X3_TARGET_BLOCKS), 1), _X3_MAX_CHUNK)
+
+
+def restrict3d_tile(shape):
+    """Geometry of the restriction's march of ``csrc/stencil3d.cu``
+    (``restrict_fw3d_kernel``) for a fine ``(nz, ny, nx)`` array: ``(coarse
+    tile columns, coarse tile rows, coarse planes per chunk)``.  A block
+    walks one tile of coarse (y, x) points through one chunk of coarse
+    planes, reading the tile's fine window (``2 * rows + 1`` by ``2 *
+    columns + 1``, from fine row and column ``2 * y0 - 1`` and ``2 * x0 -
+    1``) at fine planes ``2 * k0 - 1 .. 2 * k1 - 1``; the chunk is
+    ``ceil(ncz * tiles / 528)`` clamped to 1 .. 8.  The C entry point
+    refuses any other geometry."""
+    ncz, ncy, ncx = ((int(s) + 1) // 2 for s in shape)
+    tx, ty = _T3_TILE
+    return tx, ty, _transfer3d_chunk(ncz, -(-ncx // tx) * -(-ncy // ty))
+
+
+def prolong3d_tile(shape):
+    """Geometry of the prolong-add's march of ``csrc/stencil3d.cu``
+    (``prolong_add3d_kernel``) for a fine ``(nz, ny, nx)`` array: ``(fine
+    tile columns, fine tile rows, coarse planes per chunk, coarse planes in
+    flight)``.  A block walks one tile of fine (y, x) columns through one
+    chunk of coarse planes i0 .. i1 - 1, emitting fine planes 2i and 2i + 1
+    from e's planes i and i + 1 (the plane after the chunk included) over
+    the tile's coarse window (``rows / 2 + 1`` by ``columns / 2 + 1``);
+    the chunk follows :func:`restrict3d_tile`'s rule.  The C entry point
+    refuses any other geometry."""
+    nz, ny, nx = (int(s) for s in shape)
+    tx, ty = _P3_TILE
+    chunk = _transfer3d_chunk((nz + 1) // 2, -(-nx // tx) * -(-ny // ty))
+    return tx, ty, chunk, _P3_AHEAD
 
 
 def jacobi3d_tile(shape, sweeps: int):
@@ -530,3 +587,78 @@ def _jacobi3d_per_sweep(u, b, alpha, h, omega: float = 1.0, sweeps: int = 1,
         LAUNCHES["jacobi3d_sweep"] += 1
 
     return _pingpong(u, [1] * sweeps, launch)
+
+
+# ---------------------------------------------------------------------------
+# grid transfers of the exact layout
+# ---------------------------------------------------------------------------
+
+
+# The kernels run ``transfer.restrict_full_weighting`` (z, then y, then x)
+# and ``transfer.prolong_add`` (``u + prolong(e, u.shape)``) op for op, so
+# those functions are their twins.
+restrict_fw3d_plain = _tr.restrict_full_weighting
+prolong_add3d_plain = _tr.prolong_add
+
+
+def _check_transfer3d(name, *tensors):
+    """Raise on what the transfer kernels do not take: contiguous 3D f32
+    tensors on one CUDA device, and a fine grid (the last tensor) of at
+    least 3 points an axis, at most 65535 planes (the other 3D kernels'
+    limit) and fewer than 2^31 points a plane."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{name}: the CUDA kernels take float32, got {t.dtype}")
+        if t.ndim != 3 or t.device != tensors[0].device:
+            raise ValueError(f"{name}: operands must be 3D on one device "
+                             f"({t.device}, {tuple(t.shape)})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    fine = tensors[-1].shape
+    if min(fine) < 3 or fine[0] > 65535 or fine[1] * fine[2] >= 2**31:
+        raise ValueError(f"{name}: a fine grid of {tuple(fine)} points is "
+                         "out of the kernel's range (each axis >= 3, nz <= "
+                         "65535, a plane < 2^31 points)")
+
+
+def restrict_fw3d(r):
+    """Full-weighting restriction of the exact layout, fine ``(nz, ny,
+    nx)`` -> coarse ``((nz + 1) // 2, ...)``, equal to
+    ``transfer.restrict_full_weighting``: one launch of the march of
+    :func:`restrict3d_tile`."""
+    if r.device.type == "cpu":
+        return restrict_fw3d_plain(r)
+    import ctypes
+
+    _check_transfer3d("restrict_fw3d", r)
+    rc = torch.empty(tuple((n + 1) // 2 for n in r.shape), dtype=r.dtype,
+                     device=r.device)
+    _raise_on(_lib().mg_restrict_fw3d(
+        _ptr(r), _ptr(rc), *r.shape,
+        (ctypes.c_int * 3)(*restrict3d_tile(r.shape)), _stream()),
+        "restrict_fw3d")
+    LAUNCHES["restrict_fw3d"] += 1
+    return rc
+
+
+def prolong_add3d(e, u):
+    """``u + transfer.prolong(e, u.shape)`` of the exact layout, out of
+    place (each fine extent ``2 nc - 1`` or ``2 nc`` of ``e``'s ``nc``):
+    one launch of the march of :func:`prolong3d_tile`."""
+    if u.device.type == "cpu":
+        return prolong_add3d_plain(e, u)
+    import ctypes
+
+    _check_transfer3d("prolong_add3d", e, u)
+    if not all(nc >= 2 and n in (2 * nc - 1, 2 * nc)
+               for nc, n in zip(e.shape, u.shape)):
+        raise ValueError(f"prolong_add3d: u {tuple(u.shape)} is no "
+                         f"refinement of e {tuple(e.shape)}")
+    out = torch.empty_like(u)
+    _raise_on(_lib().mg_prolong_add3d(
+        _ptr(e), _ptr(u), _ptr(out), *e.shape, *u.shape,
+        (ctypes.c_int * 4)(*prolong3d_tile(u.shape)), _stream()),
+        "prolong_add3d")
+    LAUNCHES["prolong_add3d"] += 1
+    return out

@@ -9,9 +9,11 @@ kernel in which dimension:
   and in every dtype, launching nothing;
 * :func:`kernel_route`: the hand-written kernels' wrappers,
   ``ops/cuda_stencil`` in 2D and ``ops/cuda_stencil_3d`` in 3D (each runs
-  its plain twin on a CPU tensor).  The grid transfers and the fused
-  down-leg have 2D kernels only, as in the JAX package; the 3D route runs
-  the plain transfers.
+  its plain twin on a CPU tensor).  The grid transfers have kernels for
+  the padded layout in 2D, as in the JAX package, and for the exact
+  layout in 3D, where the JAX package leaves them to XLA's fusion; the
+  other transfers (2D exact, 3D padded) and, in 3D, the down-leg run
+  plain.
 
 The JAX kernel wrappers take float32 only and send every other dtype to XLA
 ops, so a solver takes the kernel route for float32 work with
@@ -37,6 +39,8 @@ class Route(NamedTuple):
     apply: Callable  # (u, alpha, h, logical_shape) -> A u
     padded_restrict: Callable  # (r, logical_shape) -> coarse r
     prolong_add: Callable | None  # (e, u) -> u + prolong; None: separate
+    exact_restrict: Callable  # r -> coarse r (exact layout)
+    exact_prolong_add: Callable  # (e, u) -> u + prolong (exact layout)
     downleg: Callable | None  # (u, b, lev, nxt, nu1) -> (u, r_coarse)
     ff_residual: Callable  # (u_hi, u_lo, d_hi, d_lo, b, alpha, h, logical)
     # (u_hi, u_lo, e, d_hi, d_lo, b, alpha, h, logical, out=None)
@@ -50,6 +54,8 @@ def plain_route(smoother: str, omega: float) -> Route:
     return Route(smooth=make_smoother(smoother, omega=omega),
                  residual=_st.poisson_residual, apply=_st.poisson_apply,
                  padded_restrict=_tr.restrict_fw_padded, prolong_add=None,
+                 exact_restrict=_tr.restrict_full_weighting,
+                 exact_prolong_add=_tr.prolong_add,
                  downleg=None, ff_residual=_ext.ff_poisson_residual,
                  ff_update_residual=_ext.ff_update_residual)
 
@@ -85,14 +91,16 @@ def kernel_route(ndim: int, smoother: str, omega: float, fuse_downleg: bool,
     gates them at >= 4M fine points, a TPU measurement that does not carry
     over) and, with ``fuse_downleg``, ``smoother="gs"`` and ``omega == 1``,
     the fused down-leg ``rbgs_residual_restrict`` (``alpha`` is the
-    solver's).  In 3D the JAX package leaves the float-float residual to
-    XLA's fusion, which torch does not make: it has a kernel here too."""
+    solver's).  In 3D the JAX package leaves the float-float residual and
+    the exact-layout transfers to XLA's fusion, which torch does not make:
+    they have kernels here too, bit-equal to the plain ops."""
     smooth = _kernel_smoother(ndim, smoother, omega)
     if ndim != 2:
         return Route(smooth=smooth, residual=_c3.poisson_residual_3d,
                      apply=_c3.poisson_apply_3d,
                      padded_restrict=_tr.restrict_fw_padded,
-                     prolong_add=None, downleg=None,
+                     prolong_add=None, exact_restrict=_c3.restrict_fw3d,
+                     exact_prolong_add=_c3.prolong_add3d, downleg=None,
                      ff_residual=_c3.ff_poisson_residual_3d,
                      ff_update_residual=_c3.ff_update_residual_3d)
     downleg = None
@@ -107,6 +115,8 @@ def kernel_route(ndim: int, smoother: str, omega: float, fuse_downleg: bool,
     return Route(smooth=smooth, residual=_cs.poisson_residual,
                  apply=_cs.poisson_apply,
                  padded_restrict=_cs.restrict_fw_padded_fast,
-                 prolong_add=_cs.prolong_add_padded_fast, downleg=downleg,
+                 prolong_add=_cs.prolong_add_padded_fast,
+                 exact_restrict=_tr.restrict_full_weighting,
+                 exact_prolong_add=_tr.prolong_add, downleg=downleg,
                  ff_residual=_cs.ff_poisson_residual,
                  ff_update_residual=_cs.ff_update_residual)

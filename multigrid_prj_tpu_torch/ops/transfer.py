@@ -2,14 +2,18 @@
 
 * ``restrict_inject``: the reference's masked read, ``r[::2, ::2]``.
 * ``restrict_full_weighting``: [1/4, 1/2, 1/4] per axis, edge nodes injected.
-* ``prolong``: axis-by-axis linear refinement (bilinear in 2D).
+* ``prolong``: axis-by-axis linear refinement (bilinear in 2D);
+  ``prolong_add``: ``u + prolong(e, u.shape)``.
 * ``restrict_fw_padded`` / ``prolong_padded``: the same operators on the
   padded layout (fine physical ``P`` <-> coarse ``P/2``), which keeps the
   dead zone at zero.
 
-Plain torch on every device.  The padded restriction and prolong-and-add
-also have CUDA kernels (``ops/cuda_stencil.py``), which these functions are
-the twins of.  Every function returns a new tensor.
+Plain torch on every device.  These functions are the twins of CUDA
+kernels: the 2D padded restriction and prolong-and-add
+(``restrict_fw_padded``, ``u + prolong_padded(e)``) of
+``ops/cuda_stencil.py``, and the 3D exact-layout restriction and
+prolong-and-add (``restrict_full_weighting``, :func:`prolong_add`) of
+``ops/cuda_stencil_3d.py``.  Every function returns a new tensor.
 """
 
 from __future__ import annotations
@@ -92,6 +96,11 @@ def prolong(e: torch.Tensor, fine_shape) -> torch.Tensor:
     for ax, target in enumerate(fine_shape):
         e = _refine_axis(e, ax, int(target))
     return e
+
+
+def prolong_add(e: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``u + prolong(e, u.shape)``: the coarse correction added to ``u``."""
+    return u + prolong(e, u.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -253,8 +253,9 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
         cs.poisson_residual(u.double(), b.double(), ALPHA, h)
     with pytest.raises(ValueError):
         c3.poisson_residual_3d(u, b[:, :, :63].contiguous(), ALPHA, h)
-    # the transfers and the float-float residual have no 3D kernel (nor
-    # does the JAX package): refused, no fallback inside the wrapper
+    # the 2D module's padded transfers and float-float residual take no 3D
+    # tensor (the 3D kernels are cuda_stencil_3d's): refused, no fallback
+    # inside the wrapper
     for call in (lambda: cs.restrict_fw_padded_fast(u, (33, 33, 33)),
                  lambda: cs.prolong_add_padded_fast(u[:18, :18, :32]
                                                     .contiguous(), u),
@@ -448,9 +449,10 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
     through the twins on the CPU: the same iterations, histories within
     1e-2 relative plus 1e-12 (the coarse matvec, norms and dot products sum
     in another order on the two devices).  The 2D kernels never launch: the
-    3D transfers are plain ops, and the float-float residual launches its
-    3D kernel for the first outer residual and the fused update-and-residual
-    kernel for each later one (iterations)."""
+    3D transfers run their kernels at exact levels (2 a cycle) and plain
+    ops at padded ones, and the float-float residual launches its 3D kernel
+    for the first outer residual and the fused update-and-residual kernel
+    for each later one (iterations)."""
     from multigrid_prj_tpu_torch.gmg import GMGSolver
 
     kw = dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=3,
@@ -464,6 +466,9 @@ def test_cuda_3d_solve_refined_matches_cpu_twins(cuda_device, extra,
         assert cs.LAUNCHES[k] > 0, k
     assert cs.LAUNCHES["ff_residual3d"] == 1
     assert cs.LAUNCHES["ff_update_residual3d"] == got.iterations
+    exact = 0 if "pad_align" in extra else 2 * got.iterations
+    assert cs.LAUNCHES["restrict_fw3d"] == exact
+    assert cs.LAUNCHES["prolong_add3d"] == exact
     assert all(cs.LAUNCHES[k] == 0 for k in ("rbgs_fused", "rbgs_color",
                                               "residual", "ff_residual",
                                               "ff_update_residual",
@@ -1190,6 +1195,146 @@ def test_cuda_3d_solve_refined_equals_plain_ff_residual_path(cuda_device):
     assert cp["ff_residual3d"] == cp["ff_update_residual3d"] == 0
     np.testing.assert_array_equal(kern.history, plain.history)
     assert torch.equal(kern.u, plain.u)
+
+
+# the 3D exact-layout transfers' shapes: config 4's exact levels (each
+# kernel's chunk rule from one chunk to many), odd / even / mixed shapes,
+# the smallest, and even axes (the fake high edge, the repeated last node)
+TRANSFER3D_SHAPES = [(257, 257, 257), (129, 129, 129), (65, 65, 65),
+                     (33, 33, 33), (9, 10, 11), (17, 33, 8), (3, 3, 3),
+                     (264, 264, 384), (71, 45, 77)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", TRANSFER3D_SHAPES)
+def test_cuda_transfer3d_equals_twins(cuda_device, shape):
+    """The exact-layout restriction and prolong-add kernels against their
+    plain twins, bit for bit, one launch each; the inputs are only read."""
+    from multigrid_prj_tpu_torch.ops import transfer as tr
+
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    r = torch.randn(shape, generator=gen, device="cuda")
+    coarse = tuple((n + 1) // 2 for n in shape)
+    e = torch.randn(coarse, generator=gen, device="cuda")
+    r0, e0 = r.clone(), e.clone()
+    cs.reset_launch_counts()
+    got_r, got_p = c3.restrict_fw3d(r), c3.prolong_add3d(e, r)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "restrict_fw3d": 1, "prolong_add3d": 1}
+    assert torch.equal(got_r, tr.restrict_full_weighting(r))
+    assert torch.equal(got_p, r + tr.prolong(e, r.shape))
+    assert torch.equal(got_p, c3.prolong_add3d_plain(e, r))
+    assert torch.equal(r, r0) and torch.equal(e, e0)
+
+
+@pytest.mark.cuda
+def test_cuda_transfer3d_refusals(cuda_device):
+    """The wrappers refuse what the kernels do not take, before any launch;
+    the C entry points refuse a geometry other than the compiled one and
+    the chunk rule's, and shapes that are no refinement."""
+    import ctypes
+
+    from multigrid_prj_tpu_torch.kernels import _build
+
+    u = torch.randn((17, 33, 8), device="cuda")
+    e = torch.randn((9, 17, 4), device="cuda")
+    cs.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match="float32"):
+        c3.restrict_fw3d(u.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        c3.restrict_fw3d(u.transpose(1, 2))
+    with pytest.raises(ValueError, match="range"):
+        c3.restrict_fw3d(u[:, :2].contiguous())
+    with pytest.raises(ValueError, match="refinement"):
+        c3.prolong_add3d(e[:, :, :3].contiguous(), u)
+    with pytest.raises(ValueError, match="one device"):
+        c3.prolong_add3d(e.cpu(), u)
+    assert sum(cs.LAUNCHES.values()) == 0
+    lib, stream = _build.library(), cs._stream()
+    rc, out = torch.empty((9, 17, 4), device="cuda"), torch.empty_like(u)
+    geo = c3.restrict3d_tile(u.shape)
+    ok = lib.mg_restrict_fw3d(cs._ptr(u), cs._ptr(rc), *u.shape,
+                              (ctypes.c_int * 3)(*geo), stream)
+    bad = [lib.mg_restrict_fw3d(cs._ptr(u), cs._ptr(rc), *u.shape,
+                                (ctypes.c_int * 3)(*g), stream)
+           for g in ((geo[0], geo[1], geo[2] + 1), (64, geo[1], geo[2]),
+                     (geo[0], 16, geo[2]))]
+    pgeo = c3.prolong3d_tile(u.shape)
+    ok_p = lib.mg_prolong_add3d(cs._ptr(e), cs._ptr(u), cs._ptr(out),
+                                *e.shape, *u.shape,
+                                (ctypes.c_int * 4)(*pgeo), stream)
+    bad += [lib.mg_prolong_add3d(cs._ptr(e), cs._ptr(u), cs._ptr(out),
+                                 *e.shape, *u.shape,
+                                 (ctypes.c_int * 4)(*g), stream)
+            for g in ((pgeo[0], pgeo[1], pgeo[2] + 1, pgeo[3]),
+                      (32, pgeo[1], pgeo[2], pgeo[3]),
+                      (pgeo[0], pgeo[1], pgeo[2], pgeo[3] + 1))]
+    bad.append(lib.mg_prolong_add3d(cs._ptr(e), cs._ptr(u), cs._ptr(out),
+                                    9, 17, 3, *u.shape,
+                                    (ctypes.c_int * 4)(*pgeo), stream))
+    torch.cuda.synchronize()
+    assert ok == 0 and ok_p == 0 and all(bad)
+
+
+@pytest.mark.cuda
+def test_cuda_3d_solve_refined_equals_plain_transfer_path(cuda_device):
+    """Config 4's 257^3 refined solve on the transfer kernels and the same
+    solve with the route's exact-layout transfers set to the plain
+    functions: 11 iterations, the same history and solution bit for bit;
+    on the one 44 launches of each kernel (4 transfer levels, 11
+    iterations), on the other none."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.ops import transfer as tr
+
+    kw = dict(shape=(257, 257, 257), length=1.0, alpha=1.0, num_levels=5,
+              cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60)
+    runs = {}
+    for path in ("kernel", "plain"):
+        s = GMGSolver(device="cuda", **kw)
+        route = s._route(torch.float32)
+        assert route.exact_restrict is c3.restrict_fw3d
+        assert route.exact_prolong_add is c3.prolong_add3d
+        if path == "plain":
+            s._f32_route = route._replace(
+                exact_restrict=tr.restrict_full_weighting,
+                exact_prolong_add=tr.prolong_add)
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+        del s
+    (kern, ck), (plain, cp) = runs["kernel"], runs["plain"]
+    assert kern.iterations == plain.iterations == 11 and kern.converged
+    assert ck["restrict_fw3d"] == ck["prolong_add3d"] == 44
+    assert cp["restrict_fw3d"] == cp["prolong_add3d"] == 0
+    for k in ("restrict_fw3d", "prolong_add3d"):
+        del ck[k], cp[k]
+    assert ck == cp  # every other kernel launches alike
+    np.testing.assert_array_equal(kern.history, plain.history)
+    assert torch.equal(kern.u, plain.u)
+
+
+@pytest.mark.cuda
+def test_cuda_8193_refined_launch_counts(cuda_device):
+    """The 2D cell's solve (test 1 at 8193^2, 8 padded levels) launches the
+    2D kernels it launched before the 3D transfer kernels came, and none of
+    those: 9 iterations; 126 smoother, 63 residual, 63 restriction and 63
+    prolong-add launches, one float-float residual and 9 fused updates."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+
+    s = GMGSolver(shape=(8193, 8193), num_levels=8, cycle="v", nu=2,
+                  tol=1e-7, maxit=200, pad_align=256, device="cuda")
+    b = assemble_rhs(s.levels[0], 10.0, test=1, device="cuda")
+    cs.reset_launch_counts()
+    res = s.solve_refined(b)
+    torch.cuda.synchronize()
+    assert res.converged and res.iterations == 9
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {
+        "rbgs_fused": 126, "residual": 63, "restrict_fw": 63,
+        "prolong_add": 63, "ff_residual": 1, "ff_update_residual": 9}
 
 
 # the 3D Jacobi march's and apply march's shapes: every level of config 4

@@ -39,7 +39,10 @@ paths' shapes.  Imports nothing of JAX.  The paths:
 * AMG (BASELINE config 3's FD system, ``benchmarks/amg_bench.py``): the
   1024^2 FD hierarchy (12 levels max, 2000-row bottom, Chebyshev, RCM,
   f32, the ELL kernels from 4096 rows) with ``solve``, ``solve_pcg`` and
-  ``solve_refined``; 256^2 and the P1 FEM system of an 81 x 81 mesh against
+  ``solve_refined``, each with the ELL launches its path should make; the
+  cycle's fused ELL kernels (``ell_spmv_axpy``, ``ell_cheb_step``) equal
+  to their twins on every level's A, P and P^T and on the RCM'd 2049^2 P1
+  system; 256^2 and the P1 FEM system of an 81 x 81 mesh against
   their CPU-twin runs; ``amg_main -matrix`` on a MatrixMarket file;
 * the fused down-leg (``fuse_downleg=True``): the main path and the 8193^2
   solve again, each equal to its unfused run bit for bit, and 129^2
@@ -313,9 +316,16 @@ KERNELS.update({
     "apply_chain": (f"{_PS}:871", _SRC2),
     "rbgs_color_sweep": (f"{_PS}:321", _SRC2),
     "ell_spmm": (f"{_PSPMV}:274", _SRCS),
+    # the AMG cycle's fused ELL kernels replace no TPU kernel: the JAX
+    # cycle runs the residual, the prolong-add and Chebyshev's vector
+    # updates as XLA ops around PallasELL.spmv2d
+    "spmv_axpy": (f"none: XLA ops around {_PSPMV}:613 (b - A x, x + P e) "
+                  "on the TPU", _SRCS),
+    "cheb_step": (f"none: the Chebyshev smoother's XLA ops around "
+                  f"{_PSPMV}:613 on the TPU", _SRCS),
 })
 KERNELS["rbgs_fused_ext"] = (f"{_PS}:476", _SRC2)
-KERNELS_AMG = ("spmv", "ff_residual_ell")
+KERNELS_AMG = ("spmv", "spmv_axpy", "cheb_step", "ff_residual_ell")
 # the design probes of benchmarks/ (csrc/ablation.cu, ROADMAP B17 / B18),
 # driven through the port's two harnesses (multigrid_prj_tpu_torch/
 # benchmarks/), whose mains are their path; checked for launches after it
@@ -389,6 +399,7 @@ AMG_LEVELS = [1048576, 382447, 77684, 13796, 2057, 280]
 AMG_SOLVES = (("solve", 1e-5, 5), ("solve_pcg", 1e-5, 4),
               ("solve_refined", 1e-8, 8))
 AMG_TWIN_N = 256  # CUDA vs CPU twins on one hierarchy
+P1_N = 2049  # the amg-p1-2049-ff32 cell's P1 system: its fine level
 FEM_N = 81  # structured P1 mesh: 6241 interior dofs, as many as mesh1
 FEM_SOLVES = (("solve_pcg", 1e-6), ("solve_refined", 1e-9))
 CLI_N = 128  # the amg_main run on a MatrixMarket file
@@ -1004,6 +1015,10 @@ def ell_cost(kname, E, nvec=1):
     m = E.shape[1]
     if kname == "ff_residual_ell":
         return 12 * K * n + 8 * m + 12 * n, 30 * E.nnz
+    if kname == "spmv_axpy":  # z read, y written
+        return 8 * K * n + 4 * m + 8 * n, 2 * E.nnz + n
+    if kname == "cheb_step":  # a later step: b, d, p read; p, x_out written
+        return 8 * K * n + 4 * m + 20 * n, 2 * E.nnz + 6 * n
     return 8 * K * n + 4 * nvec * (m + n), 2 * E.nnz * nvec
 
 
@@ -1190,6 +1205,80 @@ def check_spmv_cases(torch, cv, cases, dev, seed):
     return worst
 
 
+def check_fused_cases(torch, cv, cases, dev, seed):
+    """Each ``(label, CudaELL)``: the SpMV-and-add kernel (``z - A x``,
+    ``z + A x``) and, on a square matrix, the Chebyshev steps (the first
+    from ``x`` and from zero, a later one) vs their twins on the same
+    random vectors (``torch.equal``); returns the largest |difference| of
+    each, as ``(spmv_axpy, cheb_step)``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    worst = [0.0, 0.0]
+
+    def same(got, want, k, what):
+        sync(torch, dev)
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        worst[k] = max(worst[k], err)
+        check(torch.equal(got, want), f"{what} != twin (max abs diff {err})")
+
+    for label, E in cases:
+        n, m = E.shape
+        x = torch.randn(m, generator=gen, device=dev)
+        z = torch.randn(n, generator=gen, device=dev)
+        for subtract in (True, False):
+            same(cv.ell_spmv_axpy(E.colsT, E.valsT, x, z, subtract),
+                 cv.ell_spmv_axpy_plain(E.colsT, E.valsT, x, z, subtract), 0,
+                 f"ell_spmv_axpy (subtract {subtract}) on {label}")
+        same(E.spmv_add(x, z), z + E.spmv(x), 0, f"spmv_add on {label}")
+        done = "ell_spmv_axpy"
+        if n == m:
+            same(E.residual(x, z), z - E.spmv(x), 0, f"residual on {label}")
+            d = torch.rand(n, generator=gen, device=dev) + 0.5
+            for x0 in (x, None):
+                p, xo = E.cheb_step(x0, z, d, None, 0.0, 1.7, True)
+                pw, xw = cv.ell_cheb_step_plain(E.colsT, E.valsT, x0, z, d,
+                                                None, 0.0, 1.7, True)
+                same(p, pw, 1, f"ell_cheb_step (first) p on {label}")
+                same(xo, xw, 1, f"ell_cheb_step (first) x on {label}")
+                p2, xo2 = E.cheb_step(xo, z, d, p, 0.61, 0.37, False)
+                pw2, xw2 = cv.ell_cheb_step_plain(E.colsT, E.valsT, xw, z, d,
+                                                  pw, 0.61, 0.37, False)
+                same(p2, pw2, 1, f"ell_cheb_step p on {label}")
+                same(xo2, xw2, 1, f"ell_cheb_step x on {label}")
+            done += " and ell_cheb_step (first from x and from zero, later)"
+        print(f"[amg kernels] {done} on {label}: {n} x {m}, K {E.k}, "
+              f"{E.nnz} nnz: equal to their twins (torch.equal)")
+    return tuple(worst)
+
+
+def amg_launches(solver, method, k):
+    """The ELL launches a ``method`` solve of ``k`` iterations makes on
+    ``solver``'s kernel path (Chebyshev, V(1, 1)): per cycle, each level
+    above the bottom whose A is a kernel (no dense matrix) runs
+    ``2 * cheb_degree`` Chebyshev steps and its residual, each whose P is
+    one its prolong-add (``spmv_axpy``), each whose P^T is one its
+    restriction (``spmv``).  ``solve``: k cycles and k + 1 stop tests on
+    level 0's residual; ``solve_pcg``: k + 1 cycles (the preconditioner)
+    and k + 1 applies of level 0's A; ``solve_refined``: k cycles and k + 1
+    float-float residuals."""
+    above = solver.levels[:-1]
+    a = sum(lv.A_fast is not None and lv.A_dense is None for lv in above)
+    p = sum(lv.P_fast is not None for lv in above)
+    pt = sum(lv.Pt_fast is not None for lv in above)
+    lv0 = solver.levels[0]
+    fast0 = int(lv0.A_fast is not None and lv0.A_dense is None)
+    cycles = k + 1 if method == "solve_pcg" else k
+    want = {"spmv": pt * cycles, "spmv_axpy": (a + p) * cycles,
+            "cheb_step": 2 * solver.cheb_degree * a * cycles,
+            "ff_residual_ell": 0}
+    if method == "solve":
+        want["spmv_axpy"] += (k + 1) * fast0
+    elif method == "solve_pcg":
+        want["spmv"] += (k + 1) * fast0
+    else:
+        want["ff_residual_ell"] = k + 1
+    return want
+
+
 def check_spmm_cases(torch, cv, cases, dev, seed):
     """Each ``(label, host CSR, CudaELL)``: the SpMM kernel with 1, 4 and 9
     vectors (9: two launches) vs its twin and, column by column, the SpMV
@@ -1301,9 +1390,10 @@ def profile_run(torch, fn):
 
 def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
             twin_n=AMG_TWIN_N, fem_n=FEM_N, cli_n=CLI_N, spmm_n=SPMM_N,
-            expected=True):
+            p1_n=P1_N, expected=True):
     """The AMG phases: kernels vs twins on the path's matrices (with the
-    SpMM on banded_csr(spmm_n) and the level-0 operators), the n^2 FD
+    SpMM on banded_csr(spmm_n) and the level-0 operators, the fused cycle
+    kernels on every level and on the RCM'd P1 p1_n^2 system), the n^2 FD
     solves (the main AMG path, counted into ``launches``), the twin_n^2
     CUDA-vs-CPU-twin solves, the FEM solves and the ``amg_main`` CLI.
     ``expected`` holds the n = 1024 counts.  Returns what the times phase
@@ -1313,6 +1403,7 @@ def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
     from multigrid_prj_tpu_torch import native
     from multigrid_prj_tpu_torch.amg import AMGSolver
     from multigrid_prj_tpu_torch.models.fem import (
+        P1System,
         assemble_p1,
         structured_unit_square_mesh,
     )
@@ -1363,6 +1454,23 @@ def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
     del shuffled
     max_err["spmv"] = max(max_err["spmv"],
                           check_spmv_cases(torch, cv, cases, dev, seed=7))
+    # the fused cycle kernels on every kernel operator of the hierarchy,
+    # and on the P1 cell's fine level (RCM'd as the solver orders it)
+    fused = [(f"level {i} {name}", E) for i, lvl in enumerate(lv)
+             for name, E in (("A_fast", lvl.A_fast), ("P_fast", lvl.P_fast),
+                             ("Pt_fast", lvl.Pt_fast)) if E is not None]
+    if p1_n:
+        t0 = time.perf_counter()
+        P1 = P1System(structured_unit_square_mesh(p1_n)).A
+        P1 = P1.permute(P1.rcm_permutation())
+        fused.append((f"the RCM'd P1 {p1_n}^2 system (the AMG cell's level "
+                      f"0; {time.perf_counter() - t0:.1f} s to assemble)",
+                      cv.CudaELL.build(P1, device=dev)))
+        del P1
+    errs = check_fused_cases(torch, cv, fused, dev, seed=10)
+    for k, err in zip(("spmv_axpy", "cheb_step"), errs):
+        max_err[k] = max(max_err[k], err)
+    del fused
     host0, hP = amg.host_matrices[0], amg.host_P[0]
     spmm_cases = [(f"banded_csr({spmm_n})", banded_csr(spmm_n), None),
                   (f"the RCM'd FD {n}^2 (level 0)", host0, lv[0].A_fast),
@@ -1417,9 +1525,9 @@ def run_amg(torch, phases, launches, max_err, dev="cuda", n=AMG_N,
                   f"AMG {method}: {res.iterations} iterations, expected "
                   f"{iters}")
         if on_cuda:
-            check(counts["spmv"] > 0 and (counts["ff_residual_ell"] > 0)
-                  == (method == "solve_refined"),
-                  f"AMG {method}: kernel launches {counts}")
+            want = amg_launches(amg, method, res.iterations)
+            check(counts == want, f"AMG {method}: kernel launches {counts},"
+                  f" the path's {want}")
         results[method] = (tol, res)
     if on_cuda:
         print(f"[amg {n}] device memory of the AMG path: the hierarchy "
@@ -1504,6 +1612,8 @@ def time_amg(torch, ctx, card, times):
         bh = torch.randn(rows, generator=gen, device="cuda")
         xl, bl = x * 1e-8, bh * 1e-8
         xcol = x[:, None].contiguous()
+        d = bh.abs() + 0.5  # a diagonal and a direction for Chebyshev
+        p = torch.randn(rows, generator=gen, device="cuda")
         calls = {  # name -> (kernel, twin, library call or None)
             "spmv": (lambda: E.spmv(x),
                      lambda: cv.ell_spmv_plain(E.colsT, E.valsT, x),
@@ -1512,7 +1622,18 @@ def time_amg(torch, ctx, card, times):
                 lambda: E.residual_ff(bh, bl, x, xl),
                 lambda: cv.ell_ff_residual_plain(E.colsT, E.valsT, E.valsT_lo,
                                                  bh, bl, x, xl),
-                None)}  # no library call carries the float-float pair
+                None),  # no library call carries the float-float pair
+            # the cycle's fused forms: the residual b - A x and a later
+            # Chebyshev step (p updated in place); no library call fuses
+            "spmv_axpy": (
+                lambda: E.residual(x, bh),
+                lambda: cv.ell_spmv_axpy_plain(E.colsT, E.valsT, x, bh, True),
+                None),
+            "cheb_step": (
+                lambda: E.cheb_step(x, bh, d, p, 0.61, 0.37, False),
+                lambda: cv.ell_cheb_step_plain(E.colsT, E.valsT, x, bh, d, p,
+                                               0.61, 0.37, False),
+                None)}
         at = (f"{rows} rows (FD {n}^2, RCM)" if n == AMG_N
               else f"{rows} rows (FD {n}^2)")
         for k, (kern, twin, libcall) in calls.items():
@@ -1531,7 +1652,7 @@ def time_amg(torch, ctx, card, times):
                   f"bound {rec['bound_ms'] * 1e3:.1f} us ({rec['bound_by']});"
                   f" kernel {nbytes / t[0] / 1e6:.0f} GB/s, "
                   f"{E.nnz / t[0] / 1e6:.2f} Gnnz/s  ({card})")
-        del E, x, bh, xl, bl, lib, xcol
+        del E, x, bh, xl, bl, lib, xcol, d, p
         torch.cuda.empty_cache()
     amg, b_dev = ctx["amg"], ctx["b_dev"]
     for method, (tol, res) in ctx["results"].items():
@@ -1586,9 +1707,9 @@ def compare_twin_solves(torch, tag, solver, twin, b, solves):
         check(bool((diff <= 1e-12 + AMG_HISTORY_RTOL * want.history).all()),
               f"{tag} {method}: histories differ beyond the bound")
         if torch.device(solver.device).type == "cuda":
-            check(counts["spmv"] > 0 and (counts["ff_residual_ell"] > 0)
-                  == (method == "solve_refined"),
-                  f"{tag} {method}: kernel launches {counts}")
+            want = amg_launches(solver, method, got.iterations)
+            check(counts == want, f"{tag} {method}: kernel launches "
+                  f"{counts}, the path's {want}")
 
 
 # -- the sharded GMG path (device-generic where it can be, so the phases can

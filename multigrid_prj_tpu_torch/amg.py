@@ -8,7 +8,10 @@ cycles on a torch device.
   both packages build bit-identical hierarchies.
 * Each level's operator goes to the device as an ``ELLMatrix`` (gather form)
   and, on the kernel path, as a ``CudaELL`` (``A_fast``/``P_fast``/
-  ``Pt_fast``), whose SpMV is the hand-written kernel of ``csrc/spmv.cu``.
+  ``Pt_fast``), whose SpMV is the hand-written kernel of ``csrc/spmv.cu``;
+  the cycle's residual, prolong-add and Chebyshev steps run its fused
+  forms (one launch each, bit-equal to the SpMV and the torch ops after
+  it), and each level's cycle starts from a zero ``x`` without an SpMV.
   The kernel path (``use_pallas``, default on CUDA) runs only where the JAX
   package runs its Pallas kernel: f32, levels of at least
   ``pallas_min_rows`` rows.  Small intermediate levels run a dense matvec
@@ -19,8 +22,15 @@ cycles on a torch device.
   on the kernel path through ``CudaELL.residual_ff``) and
   ``reference_sawtooth_pass``.  The JAX package runs each solve as one
   ``lax.while_loop``; here the loops are Python loops with one scalar fetch
-  per iteration (the stop test), and the history is written on the device
-  with the JAX semantics (``HIST_CAP``, entry 0, ``history_truncated``).
+  per iteration (the stop test, through ``utils/metrics.fetch``), and the
+  history is written on the device with the JAX semantics (``HIST_CAP``,
+  entry 0, ``history_truncated``) and fetched once, at the end.
+  ``solve_p1`` runs ``solve_refined`` (its answer summed on the device) on
+  a P1 system's device-side load and returns the nodal field there.
+* ``solve`` and ``solve_refined`` open ``GMGSolver``'s profiler spans
+  (``utils/metrics``: root, split, float-float residual, fetch, cycle with
+  each level's stages and the bottom, combine); ``setup_times`` holds the
+  set-up's wall seconds by phase.
 
 Defaults follow the JAX package with CUDA in the TPU's place: ``dtype=None``
 is f64 on the CPU and f32 on CUDA, ``smoother="auto"`` Chebyshev on CUDA and
@@ -54,6 +64,20 @@ from multigrid_prj_tpu_torch.ops.sparse_extended import (
 )
 from multigrid_prj_tpu_torch.utils.config import on_cuda_flag
 from multigrid_prj_tpu_torch.utils.guards import check_finite
+from multigrid_prj_tpu_torch.utils.metrics import (
+    SPAN_BOTTOM,
+    SPAN_COMBINE,
+    SPAN_CYCLE,
+    SPAN_FETCH,
+    SPAN_FF_RESIDUAL,
+    SPAN_SOLVE,
+    SPAN_SOLVE_REFINED,
+    SPAN_SPLIT,
+    PhaseTimer,
+    fetch,
+    level_spans,
+    span,
+)
 
 THETA_DEFAULT = 0.2  # AMG/include/AMG.hpp:21 (EPSILON)
 
@@ -478,6 +502,24 @@ def apply_P(lvl: AMGLevel, xc: torch.Tensor) -> torch.Tensor:
     return lvl.P_fast.spmv(xc) if lvl.P_fast is not None else lvl.P.spmv(xc)
 
 
+def _fast_A(lvl: AMGLevel) -> Optional[CudaELL]:
+    """The kernel operator that ``apply_A`` runs on a level, else None."""
+    return lvl.A_fast if lvl.A_dense is None else None
+
+
+def residual_A(lvl: AMGLevel, x: torch.Tensor, b: torch.Tensor):
+    """``b - A x`` on a level (one launch where ``apply_A`` is a kernel)."""
+    fast = _fast_A(lvl)
+    return fast.residual(x, b) if fast is not None else b - apply_A(lvl, x)
+
+
+def prolong_add(lvl: AMGLevel, x: torch.Tensor, xc: torch.Tensor):
+    """``x + P xc`` (one launch where ``apply_P`` is a kernel)."""
+    if lvl.P_fast is not None:
+        return lvl.P_fast.spmv_add(xc, x)
+    return x + apply_P(lvl, xc)
+
+
 def apply_Pt(lvl: AMGLevel, r: torch.Tensor) -> torch.Tensor:
     return lvl.Pt_fast.spmv(r) if lvl.Pt_fast is not None else lvl.Pt.spmv(r)
 
@@ -525,7 +567,7 @@ def mc_gs_sweep(level: AMGLevel, x: torch.Tensor, b: torch.Tensor):
 
 
 def jacobi_sweep(level: AMGLevel, x, b, omega: float = 2.0 / 3.0):
-    r = b - apply_A(level, x)
+    r = residual_A(level, x, b)
     return x + omega * r / level.diag
 
 
@@ -533,13 +575,27 @@ def chebyshev_smooth(level: AMGLevel, x, b, degree: int = 3,
                      lmin_ratio: float = 0.30):
     """Degree-``degree`` Chebyshev polynomial smoother on
     ``[lmin_ratio * lmax, 1.05 * lmax]`` of ``D^{-1} A`` (``degree`` SpMVs,
-    no inner products; ``lmax`` estimated once at setup)."""
+    no inner products; ``lmax`` estimated once at setup).  Where ``apply_A``
+    is a kernel, each step (the SpMV and its vector updates) is one launch
+    of ``CudaELL.cheb_step``, bit-equal to the torch ops below; ``x`` None
+    is a zero ``x``."""
     lmax = 1.05 * level.lmax
     lmin = lmin_ratio * level.lmax
     theta = 0.5 * (lmax + lmin)
     delta = 0.5 * (lmax - lmin)
     sigma = theta / delta
     rho = 1.0 / sigma
+    fast = _fast_A(level)
+    if fast is not None:
+        p, x = fast.cheb_step(x, b, level.diag, None, 0.0, theta, True)
+        for _ in range(degree - 1):
+            rho_new = 1.0 / (2.0 * sigma - rho)
+            p, x = fast.cheb_step(x, b, level.diag, p, rho_new * rho,
+                                  2.0 * rho_new / delta, False)
+            rho = rho_new
+        return x
+    if x is None:
+        x = torch.zeros_like(b)
     r = b - apply_A(level, x)
     p = _div(r / level.diag, theta)
     x = x + p
@@ -585,11 +641,13 @@ class AMGSolver:
         self._configure(theta, smoother, cheb_degree, dtype, use_pallas,
                         pallas_min_rows, device)
         coarsen = {"pmis": coarsen_pmis, "greedy": coarsen_greedy}[coarsening]
+        phase = self._timer.phase
         # the permutation is internal: every public entry point translates
         # b in and x out
         if reorder == "rcm" or (reorder == "auto" and self._use_pallas):
-            self._perm = A.rcm_permutation()
-            A = A.permute(self._perm)
+            with phase("rcm"):
+                self._perm = A.rcm_permutation()
+                A = A.permute(self._perm)
             if rhs is not None:
                 rhs = np.asarray(rhs)[self._perm]
 
@@ -599,14 +657,18 @@ class AMGSolver:
         for li in range(num_levels - 1):
             if cur.shape[0] <= min_coarse:
                 break
-            labels = coarsen(cur, theta, seed)
+            with phase("coarsening"):
+                labels = coarsen(cur, theta, seed)
             if labels.sum() == cur.shape[0]:  # no coarsening progress
                 break
-            P = build_prolongation(cur, labels, theta)
-            if interp == "smoothed":
-                P = smooth_prolongation(cur, P, self._lmax_of(li),
-                                        coarse_rows=np.flatnonzero(labels == 1))
-            cur = rap(P, cur)
+            with phase("interpolation"):
+                P = build_prolongation(cur, labels, theta)
+                if interp == "smoothed":
+                    P = smooth_prolongation(
+                        cur, P, self._lmax_of(li),
+                        coarse_rows=np.flatnonzero(labels == 1))
+            with phase("rap"):
+                cur = rap(P, cur)
             self.host_P.append(P)
             self.host_matrices.append(cur)
         self._build_levels(rhs)
@@ -654,6 +716,7 @@ class AMGSolver:
         self._perm_dev = self._inv_perm_dev = None
         self._lmax: dict[int, float] = {}
         self._ell_pair = self._ell_pair_fast = None
+        self._timer = PhaseTimer()
         if on_cuda:
             # float32 matmuls (dense levels, bottom inverse) in full float32,
             # never TF32 (the default; set explicitly)
@@ -665,6 +728,17 @@ class AMGSolver:
         if i not in self._lmax:
             self._lmax[i] = _estimate_lmax(self.host_matrices[i])
         return self._lmax[i]
+
+    @property
+    def setup_times(self) -> dict[str, float]:
+        """Wall seconds of each set-up phase so far: ``rcm`` (the
+        reordering), ``coarsening`` (strength and C/F splitting),
+        ``interpolation`` (the prolongations and every lmax estimate, which
+        smoothed interpolation and Chebyshev both read), ``rap`` (the
+        Galerkin products), ``upload`` (the transposes, layouts and copies
+        to the device; the float-float operator at the first
+        ``solve_refined``) and ``bottom_inverse`` (at the first cycle)."""
+        return dict(self._timer.phases)
 
     def _fast(self, M: HostCSR) -> Optional[CudaELL]:
         if not self._use_pallas or M.shape[0] < self._pallas_min_rows:
@@ -678,6 +752,17 @@ class AMGSolver:
         self.levels: List[AMGLevel] = []
         rhs_l = None if rhs is None else np.asarray(rhs, dtype=np.float64)
         n_levels = len(self.host_matrices)
+        if self.smoother_name == "chebyshev":
+            with self._timer.phase("interpolation"):
+                for i in range(n_levels):
+                    self._lmax_of(i)
+        with self._timer.phase("upload"):
+            self._upload_levels(rhs_l, dtype, device, n_levels)
+        self._inv_bottom = inv_bottom
+        self._coarse_dense_dev = None
+
+    def _upload_levels(self, rhs_l, dtype, device, n_levels):
+        """Each level's operators on the device, into ``levels``."""
         for i, M in enumerate(self.host_matrices):
             ell, diag, colors, n_colors, blocks = _to_device_level(
                 M, dtype, device, with_colors=(self.smoother_name == "mcgs"))
@@ -708,8 +793,6 @@ class AMGSolver:
                          P=P, Pt=Pt, rhs=lvl_rhs, lmax=lmax,
                          color_blocks=blocks, A_fast=self._fast(M),
                          P_fast=P_fast, Pt_fast=Pt_fast, A_dense=A_dense))
-        self._inv_bottom = inv_bottom
-        self._coarse_dense_dev = None
 
     @property
     def _coarse_dense(self) -> torch.Tensor:
@@ -718,17 +801,19 @@ class AMGSolver:
         the first use (a solver that never cycles, as ``amg_debug``'s
         one-level smoother, never pays the O(n^3) inversion)."""
         if self._coarse_dense_dev is None:
-            inv = self._inv_bottom
-            if inv is None:
-                bottom = self.host_matrices[-1].to_dense()
-                try:
-                    inv = np.linalg.inv(bottom)
-                except np.linalg.LinAlgError:
-                    # a (numerically) singular bottom operator must not
-                    # kill setup; the outer cycle corrects the
-                    # inconsistent part
-                    inv = np.linalg.pinv(bottom)
-            self._coarse_dense_dev = to_device(inv, self.dtype, self.device)
+            with self._timer.phase("bottom_inverse"):
+                inv = self._inv_bottom
+                if inv is None:
+                    bottom = self.host_matrices[-1].to_dense()
+                    try:
+                        inv = np.linalg.inv(bottom)
+                    except np.linalg.LinAlgError:
+                        # a (numerically) singular bottom operator must not
+                        # kill setup; the outer cycle corrects the
+                        # inconsistent part
+                        inv = np.linalg.pinv(bottom)
+                self._coarse_dense_dev = to_device(inv, self.dtype,
+                                                   self.device)
             self._inv_bottom = None
         return self._coarse_dense_dev
 
@@ -745,6 +830,9 @@ class AMGSolver:
     # -- solve: standard residual-correction V-cycle -------------------------
 
     def _smooth(self, lvl: AMGLevel, x, b, sweeps: int):
+        """``sweeps`` sweeps from ``x`` (None: zero) on ``A x = b``."""
+        if x is None and (self.smoother_name != "chebyshev" or sweeps == 0):
+            x = torch.zeros_like(b)
         for _ in range(sweeps):
             if self.smoother_name == "mcgs":
                 x = mc_gs_sweep(lvl, x, b)
@@ -755,15 +843,24 @@ class AMGSolver:
         return x
 
     def _vcycle_impl(self, x, b, nu1=1, nu2=1, _level=0):
+        """One V(nu1, nu2) cycle from ``x`` (None: zero, as each coarse
+        level starts)."""
         lvl = self.levels[_level]
         if _level == len(self.levels) - 1:
-            return self._coarse_dense @ b  # the precomputed inverse
-        x = self._smooth(lvl, x, b, nu1)
-        r = b - apply_A(lvl, x)
-        bc = apply_Pt(lvl, r)
-        xc = self._vcycle_impl(torch.zeros_like(bc), bc, nu1, nu2, _level + 1)
-        x = x + apply_P(lvl, xc)
-        return self._smooth(lvl, x, b, nu2)
+            with span(SPAN_BOTTOM):
+                return self._coarse_dense @ b  # the precomputed inverse
+        names = level_spans(_level)
+        with span(names.pre_smooth):
+            x = self._smooth(lvl, x, b, nu1)
+        with span(names.residual):
+            r = residual_A(lvl, x, b)
+        with span(names.restrict):
+            bc = apply_Pt(lvl, r)
+        xc = self._vcycle_impl(None, bc, nu1, nu2, _level + 1)
+        with span(names.prolong_add):
+            x = prolong_add(lvl, x, xc)
+        with span(names.post_smooth):
+            return self._smooth(lvl, x, b, nu2)
 
     def vcycle(self, x, b, nu1: int = 1, nu2: int = 1):
         """One V(nu1, nu2) cycle in the internal (permuted) frame."""
@@ -777,21 +874,26 @@ class AMGSolver:
                                           torch.zeros_like(rn2)))
 
         def rn2_of(x):
-            r = b - apply_A(self.levels[0], x)
+            r = residual_A(self.levels[0], x, b)
             return torch.sum(r * r)
 
-        rn2 = rn2_of(x)
         hist = torch.full((HIST_CAP + 1,), float("nan"), dtype=b.dtype,
                           device=b.device)
-        hist[0] = rel_of(rn2)
-        tol_t = torch.tensor(tol, dtype=b.dtype, device=b.device)
+        tol_t = torch.full((), tol, dtype=b.dtype, device=b.device)
         stop = tol_t * tol_t * b2
         k = 0
-        while k < maxit and bool(rn2 > stop):
-            x = self._vcycle_impl(x, b)
+        with span(SPAN_FETCH):
             rn2 = rn2_of(x)
-            hist[min(k + 1, HIST_CAP)] = rel_of(rn2)
+            hist[0] = rel_of(rn2)
+            go = k < maxit and fetch(rn2 > stop)
+        while go:
+            with span(SPAN_CYCLE):
+                x = self._vcycle_impl(x, b)
             k += 1
+            with span(SPAN_FETCH):
+                rn2 = rn2_of(x)
+                hist[min(k, HIST_CAP)] = rel_of(rn2)
+                go = k < maxit and fetch(rn2 > stop)
         return x, k, rel_of(rn2), hist
 
     # -- permutation translation (internal RCM frame <-> caller frame) -------
@@ -840,9 +942,12 @@ class AMGSolver:
 
     @staticmethod
     def _result(x, k, rel, hist):
-        """The result of ``k`` iterations, ``x`` in the caller's frame."""
-        hist = hist[: min(k, HIST_CAP) + 1].cpu().numpy()
-        return AMGSolveResult(x, k, float(rel), hist,
+        """The result of ``k`` iterations, ``x`` in the caller's frame; the
+        history and ``rel`` come to the host in one copy."""
+        n = min(k, HIST_CAP) + 1
+        host = torch.cat([hist[:n], rel.reshape(1).to(hist.dtype)]).cpu()
+        host = host.numpy()
+        return AMGSolveResult(x, k, float(host[-1]), host[:-1],
                               history_truncated=k > HIST_CAP)
 
     def solve(self, b, x0=None, tol: float = 1e-10, maxit: int = 100):
@@ -850,15 +955,44 @@ class AMGSolver:
 
         Returns an :class:`AMGSolveResult`: unpacks as ``(x, iterations,
         rel_residual)`` with ``x`` a tensor on the device (caller frame),
-        and carries ``.history``.
+        and carries ``.history``.  A right-hand side with a NaN or an
+        infinity raises ``ValueError`` (found where the loop stops at its
+        first test, which such a ``b`` always makes it do).
         """
-        check_finite(b, "rhs b")
-        b = self._input(b, "b")
-        x0 = torch.zeros_like(b) if x0 is None else self._input(x0, "x0")
-        x, k, rel, hist = self._solve_impl(x0, b, tol, maxit)
-        return self._result(self._perm_out(x), k, rel, hist)
+        with span(SPAN_SOLVE):
+            return self._solve(b, x0, tol, maxit)
 
-    def solve_refined(self, b, tol: float = 1e-10, maxit: int = 100):
+    def _solve(self, b, x0, tol, maxit):
+        with span(SPAN_SPLIT):
+            b = self._input(b, "b")
+            x0 = torch.zeros_like(b) if x0 is None else self._input(x0, "x0")
+        x, k, rel, hist = self._solve_impl(x0, b, tol, maxit)
+        if k == 0:
+            check_finite(b, "rhs b")
+        with span(SPAN_COMBINE):
+            return self._result(self._perm_out(x), k, rel, hist)
+
+    def _ff_residual(self):
+        """The float-float residual ``(b_hi, b_lo, x_hi, x_lo) -> r`` on the
+        finest operator (its pair operator built at the first call)."""
+        if self._use_pallas:
+            if self._ell_pair_fast is None:
+                with self._timer.phase("upload"):
+                    self._ell_pair_fast = CudaELL.build(
+                        self.host_matrices[0], dtype=torch.float32,
+                        pair=True, device=self.device)
+            return self._ell_pair_fast.residual_ff
+        if self._ell_pair is None:
+            with self._timer.phase("upload"):
+                self._ell_pair = ELLPair.from_host_csr(self.host_matrices[0],
+                                                       device=self.device)
+
+        def residual(b_hi, b_lo, x_hi, x_lo):
+            return ell_residual_ff(self._ell_pair, b_hi, b_lo, x_hi, x_lo)
+        return residual
+
+    def solve_refined(self, b, tol: float = 1e-10, maxit: int = 100,
+                      on_device: bool = False):
         """Iterative refinement with float-float extended-precision
         residuals: the V-cycle runs in the solver's dtype, the outer
         residual ``r = b - A x`` with error-free transformations (the
@@ -866,58 +1000,82 @@ class AMGSolver:
         ``ops/sparse_extended.ell_residual_ff``), the iterate carried as an
         f32 pair.  Returns ``(x, iterations, rel_residual)`` like
         :meth:`solve`, with ``x`` the pair summed on the host in f64 (a
-        numpy array), so the extended precision survives the return."""
-        check_finite(b, "rhs b")
-        b = self._perm_in(self._on_device(b, "b"))
-        if self._use_pallas:
-            if self._ell_pair_fast is None:
-                self._ell_pair_fast = CudaELL.build(
-                    self.host_matrices[0], dtype=torch.float32, pair=True,
-                    device=self.device)
-            residual = self._ell_pair_fast.residual_ff
-        else:
-            if self._ell_pair is None:
-                self._ell_pair = ELLPair.from_host_csr(self.host_matrices[0],
-                                                       device=self.device)
+        numpy array), so the extended precision survives the return; with
+        ``on_device``, summed in f64 on the device (a tensor there).  A
+        non-finite ``b`` raises as in :meth:`solve`."""
+        with span(SPAN_SOLVE_REFINED):
+            return self._solve_refined(b, tol, maxit, on_device)
 
-            def residual(b_hi, b_lo, x_hi, x_lo):
-                return ell_residual_ff(self._ell_pair, b_hi, b_lo, x_hi, x_lo)
-
-        b_hi, b_lo = ff_pair_from_f64(b, device=self.device)
+    def _solve_refined(self, b, tol, maxit, on_device):
         f32 = torch.float32
-        b2 = torch.sum(b_hi * b_hi)
+        with span(SPAN_SPLIT):
+            b = self._perm_in(self._on_device(b, "b"))
+            residual = self._ff_residual()
+            b_hi, b_lo = ff_pair_from_f64(b, device=self.device)
+            b2 = torch.sum(b_hi * b_hi)
+            # residual carry: ONE extended-precision evaluation per
+            # iteration (the one at the end of iteration k is the residual
+            # iteration k+1 corrects)
+            hist = torch.full((HIST_CAP + 1,), float("nan"), dtype=f32,
+                              device=self.device)
+            hist[0] = 1.0  # x0 = 0
+            x_hi = torch.zeros_like(b_hi)
+            x_lo = torch.zeros_like(b_hi)
+            tol_t = torch.full((), tol, dtype=f32, device=self.device)
+            stop = tol_t * tol_t * b2
 
         def rel_of(rn2):
             return torch.sqrt(torch.where(b2 > 0, rn2 / b2,
                                           torch.zeros_like(rn2)))
 
-        # residual carry: ONE extended-precision evaluation per iteration
-        # (the one at the end of iteration k is the residual iteration k+1
-        # corrects)
-        hist = torch.full((HIST_CAP + 1,), float("nan"), dtype=f32,
-                          device=self.device)
-        hist[0] = 1.0  # x0 = 0
-        x_hi = torch.zeros_like(b_hi)
-        x_lo = torch.zeros_like(b_hi)
-        r = residual(b_hi, b_lo, x_hi, x_lo)
-        rn2 = b2
-        tol_t = torch.tensor(tol, dtype=f32, device=self.device)
-        stop = tol_t * tol_t * b2
-        k = 0
-        while k < maxit and bool(rn2 > stop):
-            e = self._vcycle_impl(torch.zeros_like(r, dtype=self.dtype),
-                                  r.to(self.dtype)).to(f32)
-            x_hi, x_lo = ff_add_f(x_hi, x_lo, e)
+        with span(SPAN_FF_RESIDUAL):
             r = residual(b_hi, b_lo, x_hi, x_lo)
-            rn2 = torch.sum(r * r)
-            hist[min(k + 1, HIST_CAP)] = rel_of(rn2)
+        rn2 = b2
+        k = 0
+        with span(SPAN_FETCH):
+            go = k < maxit and fetch(rn2 > stop)
+        while go:
+            with span(SPAN_CYCLE):
+                e = self._vcycle_impl(None, r.to(self.dtype)).to(f32)
+            with span(SPAN_FF_RESIDUAL):
+                x_hi, x_lo = ff_add_f(x_hi, x_lo, e)
+                r = residual(b_hi, b_lo, x_hi, x_lo)
             k += 1
-        # back to the caller's order on the device (a permutation commutes
-        # with the pair sum), then the sum on the host in f64
-        x_hi, x_lo = self._perm_out(x_hi), self._perm_out(x_lo)
-        x = (x_hi.cpu().numpy().astype(np.float64)
-             + x_lo.cpu().numpy().astype(np.float64))
-        return self._result(x, k, rel_of(rn2), hist)
+            with span(SPAN_FETCH):
+                rn2 = torch.sum(r * r)
+                hist[min(k, HIST_CAP)] = rel_of(rn2)
+                go = k < maxit and fetch(rn2 > stop)
+        if k == 0:
+            check_finite(b, "rhs b")
+        with span(SPAN_COMBINE):
+            # back to the caller's order (a permutation commutes with the
+            # pair sum), the sum in f64 on the device or on the host
+            if on_device:
+                x = self._perm_out(x_hi.to(torch.float64)
+                                   + x_lo.to(torch.float64))
+            else:
+                x_hi, x_lo = self._perm_out(x_hi), self._perm_out(x_lo)
+                x = (x_hi.cpu().numpy().astype(np.float64)
+                     + x_lo.cpu().numpy().astype(np.float64))
+            return self._result(x, k, rel_of(rn2), hist)
+
+    def solve_p1(self, system, f_nodes, g_nodes, tol: float = 1e-10,
+                 maxit: int = 100):
+        """Solve a P1 system for nodal data on the device: ``system``
+        (``models/fem.P1System``, whose ``A`` this solver was set up on)
+        turns nodal ``f`` and ``g`` (tensors on the solver's device) into
+        the right-hand side, :meth:`solve_refined` solves for the interior
+        with its answer summed on the device (``on_device``), and the
+        system puts the nodal field back together.  Returns an
+        :class:`AMGSolveResult` whose ``x`` is the nodal field, float64 on
+        the device.  The load and the field run on the device just outside
+        ``solve_refined``'s root span."""
+        g_nodes = self._on_device(g_nodes, "g")
+        b = system.load(self._on_device(f_nodes, "f"), g_nodes)
+        res = self.solve_refined(b, tol, maxit, on_device=True)
+        return AMGSolveResult(system.field(res.x, g_nodes), res.iterations,
+                              res.rel_residual, res.history,
+                              res.history_truncated)
 
     def solve_pcg(self, b, x0=None, tol: float = 1e-10, maxit: int = 200):
         """AMG-preconditioned conjugate gradients (one V(1,1) cycle as the
@@ -928,7 +1086,7 @@ class AMGSolver:
         lvl0 = self.levels[0]
         x, k, rel, hist = cg_arrays(
             lambda v: apply_A(lvl0, v), b, x0=x0, tol=tol, maxit=maxit,
-            M=lambda r: self._vcycle_impl(torch.zeros_like(r), r),
+            M=lambda r: self._vcycle_impl(None, r),
             history=True, hist_cap=HIST_CAP)
         return self._result(self._perm_out(x), k, rel, hist)
 

@@ -43,7 +43,6 @@ from multigrid_prj_tpu_torch.models.poisson import banded_csr
 from multigrid_prj_tpu_torch.ops.cuda_spmv import (
     CudaELL,
     _check_cuda_ell,
-    _on_cpu,
     ell_local_spmv,
 )
 from multigrid_prj_tpu_torch.ops.cuda_stencil import (
@@ -105,9 +104,8 @@ _PLAIN = {"probe_stream": probe_stream_plain,
 
 def _probe(tag):
     def run(colsT, valsT, x, block_rows):
-        if _on_cpu(tag, colsT, valsT, x):
+        if _check_cuda_ell(tag, colsT, (valsT,), (x,)):
             return _PLAIN[tag](colsT, valsT, x)
-        _check_cuda_ell(tag, colsT, (valsT,), (x,))
         K, n = colsT.shape
         if block_rows <= 0 or x.shape[0] % _LANE:
             raise ValueError(f"{tag}: x must be padded to a multiple of "

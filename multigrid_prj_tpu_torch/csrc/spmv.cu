@@ -8,6 +8,10 @@
 //   ell_ff_residual  <- PallasELL.residual_ff (_ffres_kernel,
 //                       _ffres_compact_kernel)
 //   ell_spmm         <- PallasELL.spmm / spmm2d (_spmm_kernel)
+// and, replacing no TPU kernel (the JAX package runs these as XLA ops
+// around the SpMV), the SpMV with the add or subtraction after it
+// (ell_spmv_axpy: the cycle's residual and prolong-add) and the Chebyshev
+// smoother's steps (ell_cheb_zero, ell_cheb_first, ell_cheb_step).
 //
 // Layout: one slot-major ELL serves every matrix (square A, rectangular P
 // and P^T; RCM-ordered or not).  colsT (K, n) int32 holds absolute column
@@ -52,6 +56,92 @@ __global__ void ell_spmv_kernel(const int* __restrict__ colsT,
     acc = __fadd_rn(acc, __fmul_rn(valsT[p], __ldg(&x[colsT[p]])));
   }
   y[row] = acc;
+}
+
+// y = z - A x (subtract != 0) or y = z + A x: ell_spmv_kernel's sum, then
+// one rounded add, so y is bit-equal to the SpMV followed by torch's
+// subtraction (the residual b - A x) or addition (x + P e, the
+// prolongation and add).  8 B per slot, the x gather, z read, y written.
+__global__ void ell_spmv_axpy_kernel(const int* __restrict__ colsT,
+                                     const float* __restrict__ valsT,
+                                     const float* __restrict__ x,
+                                     const float* __restrict__ z,
+                                     float* __restrict__ y, int n, int K,
+                                     int subtract) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float acc = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const long long p = (long long)k * n + row;
+    acc = __fadd_rn(acc, __fmul_rn(valsT[p], __ldg(&x[colsT[p]])));
+  }
+  y[row] = subtract ? __fsub_rn(z[row], acc) : __fadd_rn(z[row], acc);
+}
+
+// One step of the Chebyshev smoother of amg.chebyshev_smooth, in its
+// operation order: r = b - A x, t = r / d, then p = t / theta on the first
+// step or p = c1 p + c2 t on a later one, and x_out = x + p.  x_out is
+// written out of place (other rows gather x); p in place (only its own
+// row reads it).  The first step from x = 0 (each level's start in a
+// cycle) reads no matrix: r = b - 0 and x_out = 0 + p, as the SpMV of
+// zeros (whose sum is +0) gives.  Three kernels, so that a trace prices
+// each by what it moves.
+__device__ __forceinline__ float ell_row_sum(const int* __restrict__ colsT,
+                                             const float* __restrict__ valsT,
+                                             const float* __restrict__ x,
+                                             int row, int n, int K) {
+  float acc = 0.0f;
+  for (int k = 0; k < K; ++k) {
+    const long long p = (long long)k * n + row;
+    acc = __fadd_rn(acc, __fmul_rn(valsT[p], __ldg(&x[colsT[p]])));
+  }
+  return acc;
+}
+
+__global__ void ell_cheb_zero_kernel(const float* __restrict__ b,
+                                     const float* __restrict__ d,
+                                     float* __restrict__ p,
+                                     float* __restrict__ x_out, int n,
+                                     float theta) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const float r = __fsub_rn(b[row], 0.0f);
+  const float pn = __fdiv_rn(__fdiv_rn(r, d[row]), theta);
+  p[row] = pn;
+  x_out[row] = __fadd_rn(0.0f, pn);
+}
+
+__global__ void ell_cheb_first_kernel(const int* __restrict__ colsT,
+                                      const float* __restrict__ valsT,
+                                      const float* __restrict__ x,
+                                      const float* __restrict__ b,
+                                      const float* __restrict__ d,
+                                      float* __restrict__ p,
+                                      float* __restrict__ x_out, int n,
+                                      int K, float theta) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const float r = __fsub_rn(b[row], ell_row_sum(colsT, valsT, x, row, n, K));
+  const float pn = __fdiv_rn(__fdiv_rn(r, d[row]), theta);
+  p[row] = pn;
+  x_out[row] = __fadd_rn(x[row], pn);
+}
+
+__global__ void ell_cheb_step_kernel(const int* __restrict__ colsT,
+                                     const float* __restrict__ valsT,
+                                     const float* __restrict__ x,
+                                     const float* __restrict__ b,
+                                     const float* __restrict__ d,
+                                     float* __restrict__ p,
+                                     float* __restrict__ x_out, int n, int K,
+                                     float c1, float c2) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  const float r = __fsub_rn(b[row], ell_row_sum(colsT, valsT, x, row, n, K));
+  const float t = __fdiv_rn(r, d[row]);
+  const float pn = __fadd_rn(__fmul_rn(c1, p[row]), __fmul_rn(c2, t));
+  p[row] = pn;
+  x_out[row] = __fadd_rn(x[row], pn);
 }
 
 // r = b - A x with A = (vh + vl), x = (xh + xl), b = (bh + bl) as f32
@@ -157,6 +247,36 @@ int mg_ell_spmv(const int* colsT, const float* valsT, const float* x,
   if (n <= 0) return 0;
   ell_spmv_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(
       colsT, valsT, x, y, n, K);
+  return (int)cudaGetLastError();
+}
+
+int mg_ell_spmv_axpy(const int* colsT, const float* valsT, const float* x,
+                     const float* z, float* y, int n, int K, int subtract,
+                     void* stream) {
+  if (n <= 0) return 0;
+  ell_spmv_axpy_kernel<<<blocks_for(n), kBlock, 0, (cudaStream_t)stream>>>(
+      colsT, valsT, x, z, y, n, K, subtract);
+  return (int)cudaGetLastError();
+}
+
+int mg_ell_cheb_step(const int* colsT, const float* valsT, const float* x,
+                     const float* b, const float* d, float* p, float* x_out,
+                     int n, int K, float c1, float c2, int first,
+                     void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (first && x == nullptr) {
+    ell_cheb_zero_kernel<<<blocks_for(n), kBlock, 0, s>>>(b, d, p, x_out, n,
+                                                          c2);
+  } else if (first) {
+    ell_cheb_first_kernel<<<blocks_for(n), kBlock, 0, s>>>(
+        colsT, valsT, x, b, d, p, x_out, n, K, c2);
+  } else if (x == nullptr) {
+    return (int)cudaErrorInvalidValue;  // only the first step starts at 0
+  } else {
+    ell_cheb_step_kernel<<<blocks_for(n), kBlock, 0, s>>>(
+        colsT, valsT, x, b, d, p, x_out, n, K, c1, c2);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -17,7 +17,7 @@ that goes into ``history``).  History semantics are the same: entry 0 is the
 initial residual, and the loop stops at ``tol`` or ``maxit``.  Every such
 fetch goes through ``utils/metrics.fetch`` (counted in
 ``COUNTERS["host_syncs"]``), and a solve's stages run inside the profiler
-spans named below (``SPAN_*``, :func:`level_spans`), which cost one check
+spans of ``utils/metrics`` (``SPAN_*``, ``level_spans``), which cost one check
 each when no profiler records.
 
 Devices are explicit: ``GMGSolver(device=...)`` makes every tensor there,
@@ -36,7 +36,7 @@ launches nothing.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Sequence
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
@@ -59,44 +59,21 @@ from multigrid_prj_tpu_torch.ops.transfer import (
     prolong_add as plain_prolong_add,
 )
 from multigrid_prj_tpu_torch.utils.guards import check_finite
-from multigrid_prj_tpu_torch.utils.metrics import fetch, span
+from multigrid_prj_tpu_torch.utils.metrics import (
+    SPAN_BOTTOM,
+    SPAN_COMBINE,
+    SPAN_CYCLE,
+    SPAN_FETCH,
+    SPAN_FF_RESIDUAL,
+    SPAN_SOLVE,
+    SPAN_SOLVE_REFINED,
+    SPAN_SPLIT,
+    fetch,
+    level_spans,
+    span,
+)
 
 Smoother = Callable[..., torch.Tensor]  # (u, b, alpha, h, sweeps, logical_shape)
-
-# Profiler spans (utils/metrics.span; ranges only while a torch profiler
-# records).  A solve is one root span; inside it the outer loop's stages,
-# and inside mg.outer.cycle the cycle's stages of level k (L0 the finest)
-# and the bottom solve.  The nesting alone tells the solves apart.
-SPAN_SOLVE_REFINED = "mg.solve_refined"
-SPAN_SOLVE = "mg.solve"
-SPAN_SPLIT = "mg.outer.split"  # padding, b / c pair, ||b||^2, zero pair
-SPAN_FF_RESIDUAL = "mg.outer.ff_residual"  # with the pair update before it
-SPAN_FETCH = "mg.fetch"  # a norm and its fetch to the host
-SPAN_CYCLE = "mg.outer.cycle"
-SPAN_COMBINE = "mg.outer.combine"  # u_hi + u_lo, the crop
-SPAN_BOTTOM = "mg.bottom"
-STAGES = ("pre_smooth", "residual", "restrict", "prolong_add", "post_smooth")
-
-
-class LevelSpans(NamedTuple):
-    """The span names of one level's cycle stages."""
-    pre_smooth: str
-    residual: str
-    restrict: str  # with the zero coarse correction; the fused down-leg
-    prolong_add: str
-    post_smooth: str
-
-
-_LEVEL_SPANS: dict[int, LevelSpans] = {}
-
-
-def level_spans(k: int) -> LevelSpans:
-    """``mg.L{k}.<stage>`` for each stage, built once per level index."""
-    names = _LEVEL_SPANS.get(k)
-    if names is None:
-        names = _LEVEL_SPANS[k] = LevelSpans(
-            *(f"mg.L{k}.{stage}" for stage in STAGES))
-    return names
 
 
 def stationary_solve(e0, b, alpha, h, smoother: Smoother, tol: float,

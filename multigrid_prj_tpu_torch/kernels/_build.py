@@ -71,6 +71,9 @@ _SIGNATURES = {
     "mg_jacobi3d_sweep": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _f, _i,
                           _f, _f, _vp],
     "mg_ell_spmv": [_vp, _vp, _vp, _vp, _i, _i, _vp],
+    "mg_ell_spmv_axpy": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    "mg_ell_cheb_step": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _f, _f,
+                         _i, _vp],
     "mg_ell_ff_residual": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i,
                            _vp],
     "mg_rbgs_color_sweep": [_vp, _vp, _vp, _i, _i, _i, _i, _f, _i, _vp],

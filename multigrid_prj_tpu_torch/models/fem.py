@@ -42,6 +42,7 @@ import dataclasses
 from typing import Callable, Tuple
 
 import numpy as np
+import torch
 
 from multigrid_prj_tpu_torch.ops.sparse import HostCSR
 
@@ -174,24 +175,25 @@ def parse_msh(path: str, use_native: bool = True) -> TriangularMesh:
 
 def structured_unit_square_mesh(n: int) -> TriangularMesh:
     """n x n node structured triangulation of the unit square (test utility —
-    gives the framework a mesh source independent of gmsh files)."""
+    gives the framework a mesh source independent of gmsh files).
+
+    Node ``r * n + c`` lies at ``(x, y) = (c, r) / (n - 1)``; the square with
+    lower-left node ``a = r * n + c`` (``r``, ``c`` in row-major order) holds
+    the triangles ``(a, a + 1, a + n)`` and ``(a + 1, a + n, a + n + 1)``, in
+    that order, each row sorted ascending."""
     xs = np.linspace(0.0, 1.0, n)
     X, Y = np.meshgrid(xs, xs, indexing="xy")
     nodes = np.stack([X.ravel(), Y.ravel()], axis=1)
-    tris = []
-    for r in range(n - 1):
-        for c in range(n - 1):
-            a = r * n + c
-            b, d, e = a + 1, a + n, a + n + 1
-            tris.append(sorted((a, b, d)))
-            tris.append(sorted((b, e, d)))
+    lower_left = (np.arange(n - 1)[:, None] * n
+                  + np.arange(n - 1)[None, :]).ravel()
+    tris = np.empty((2 * lower_left.size, 3), dtype=np.int64)
+    tris[0::2] = lower_left[:, None] + np.array([0, 1, n])
+    tris[1::2] = lower_left[:, None] + np.array([1, n, n + 1])
     on_b = (
         (nodes[:, 0] == 0) | (nodes[:, 0] == 1)
         | (nodes[:, 1] == 0) | (nodes[:, 1] == 1)
     )
-    return TriangularMesh(
-        nodes=nodes, triangles=np.asarray(tris, dtype=np.int64), on_boundary=on_b
-    )
+    return TriangularMesh(nodes=nodes, triangles=tris, on_boundary=on_b)
 
 
 # -- assembly -----------------------------------------------------------------
@@ -216,17 +218,12 @@ def _p1_geometry(mesh: TriangularMesh):
     return np.abs(signed_area), grads
 
 
-def assemble_p1(
-    mesh: TriangularMesh,
-    f: Callable = default_forcing_term,
-    g: Callable = default_boundary_function,
-    alpha: Callable = default_alpha,
-) -> Tuple[HostCSR, np.ndarray]:
-    """Assemble the interior-dof stiffness matrix and lifted RHS.
-
-    Returns ``(A, rhs)`` with ``A`` of size n_interior x n_interior —
-    exactly the system the reference hands to ``AMG`` (``main.cpp:126``).
-    """
+def _p1_stiffness(mesh: TriangularMesh, alpha: Callable):
+    """The element matrices and their interior / boundary scatter maps:
+    ``(areas, p, K, ii, jj, mask_ii, mask_jj, n_int)`` with ``p`` the
+    elements' vertex coordinates (M, 3, 2), ``K`` the local stiffness
+    (M, 3, 3), ``ii`` / ``jj`` the class-local ids of its rows / columns
+    and ``mask_ii`` / ``mask_jj`` whether they are interior."""
     areas, grads = _p1_geometry(mesh)
     p = mesh.nodes[mesh.triangles]  # (M, 3, 2)
     # vertex quadrature: sum_q alpha(q) w_q with w_q = area / 3
@@ -244,8 +241,23 @@ def assemble_p1(
     jj = np.broadcast_to(tri_sidx[:, None, :], K.shape)
     mask_ii = np.broadcast_to(tri_interior[:, :, None], K.shape)
     mask_jj = np.broadcast_to(tri_interior[:, None, :], K.shape)
+    return areas, p, K, ii, jj, mask_ii, mask_jj, int(interior.sum())
 
-    n_int = int(interior.sum())
+
+def assemble_p1(
+    mesh: TriangularMesh,
+    f: Callable = default_forcing_term,
+    g: Callable = default_boundary_function,
+    alpha: Callable = default_alpha,
+) -> Tuple[HostCSR, np.ndarray]:
+    """Assemble the interior-dof stiffness matrix and lifted RHS.
+
+    Returns ``(A, rhs)`` with ``A`` of size n_interior x n_interior —
+    exactly the system the reference hands to ``AMG`` (``main.cpp:126``).
+    """
+    areas, p, K, ii, jj, mask_ii, mask_jj, n_int = _p1_stiffness(mesh, alpha)
+    tri_interior = mask_ii[:, :, 0]
+    tri_sidx = ii[:, :, 0]
     both = mask_ii & mask_jj
     A = HostCSR.from_coo(ii[both], jj[both], K[both], (n_int, n_int))
 
@@ -262,6 +274,96 @@ def assemble_p1(
         gj = np.broadcast_to(gvals[:, None, :], K.shape)
         np.subtract.at(rhs, ii[lift], (gj * K)[lift])
     return A, rhs
+
+
+class P1System:
+    """A P1 system assembled once from a mesh, for many right-hand sides.
+
+    Holds ``A`` (interior x interior: :func:`assemble_p1`'s matrix, built
+    the same way), ``A_IB`` (interior x boundary, boundary columns in class
+    order), the lumped vertex-quadrature weights ``weights[i] = sum of
+    area / 3`` over the elements at node ``i``, and the node ids of the
+    interior and boundary classes (``interior``, ``boundary``, each in
+    node order, so position ``k`` of a class is its ``set_index`` ``k``).
+
+    On a torch device, :meth:`load` turns nodal ``f`` and ``g`` into the
+    lifted right-hand side ``w_I f_I - A_IB g_B`` (what :func:`assemble_p1`
+    computes from callables, to rounding) and :meth:`field` turns an
+    interior solution back into the nodal field with ``u_B = g_B`` (the
+    VTU writer's rule); neither leaves the device.  The operators go to a
+    device at its first use and stay there (:meth:`to` moves them at once).
+    """
+
+    def __init__(self, mesh: TriangularMesh, alpha: Callable = default_alpha):
+        areas, _, K, ii, jj, mask_ii, mask_jj, n_int = _p1_stiffness(mesh,
+                                                                     alpha)
+        both = mask_ii & mask_jj
+        self.A = HostCSR.from_coo(ii[both], jj[both], K[both], (n_int, n_int))
+        lift = mask_ii & ~mask_jj
+        self.interior = np.flatnonzero(~mesh.on_boundary)
+        self.boundary = np.flatnonzero(mesh.on_boundary)
+        self.A_IB = HostCSR.from_coo(ii[lift], jj[lift], K[lift],
+                                     (n_int, self.boundary.size))
+        self.weights = np.bincount(
+            mesh.triangles.ravel(), weights=np.repeat(areas / 3.0, 3),
+            minlength=mesh.n_nodes)
+        self.n_nodes = mesh.n_nodes
+        self._device = {}
+
+    def to(self, device) -> "P1System":
+        """Put the device operators on ``device`` now (else at first use)."""
+        self._on(torch.device(device))
+        return self
+
+    def _on(self, device: torch.device) -> dict:
+        """The device operators on ``device``: the interior and boundary
+        ids, the interior weights, and ``A_IB`` as a gather block over the
+        rows that touch the boundary (``rows``; ``cols`` node ids, ``vals``
+        padded with zeros on the row's first column)."""
+        key = str(device)
+        ops = self._device.get(key)
+        if ops is None:
+            blk = self.A_IB
+            rows = np.flatnonzero(blk.row_lengths > 0)
+            lengths = blk.row_lengths[rows]
+            slot = np.arange(lengths.max() if rows.size else 0)[None, :]
+            at = blk.indptr[rows][:, None] + np.minimum(slot,
+                                                        lengths[:, None] - 1)
+            cols = self.boundary[blk.indices[at]]
+            vals = np.where(slot < lengths[:, None], blk.data[at], 0.0)
+
+            def dev(a, dtype):
+                return torch.as_tensor(np.ascontiguousarray(a),
+                                       dtype=dtype).to(device)
+
+            ops = self._device[key] = {
+                "interior": dev(self.interior, torch.int64),
+                "boundary": dev(self.boundary, torch.int64),
+                "w": dev(self.weights[self.interior], torch.float64),
+                "lift_rows": dev(rows, torch.int64),
+                "lift_cols": dev(cols, torch.int64),
+                "lift_vals": dev(vals, torch.float64)}
+        return ops
+
+    def load(self, f_nodes: torch.Tensor, g_nodes: torch.Tensor):
+        """``w_I f_I - A_IB g_B`` in float64 on the device of ``f_nodes``,
+        from nodal values (``(n_nodes,)`` each; ``f`` is read at interior
+        nodes, ``g`` at boundary nodes, so one array may carry both)."""
+        ops = self._on(f_nodes.device)
+        rhs = ops["w"] * f_nodes.index_select(0, ops["interior"]).to(
+            torch.float64)
+        g = g_nodes.to(torch.float64)
+        lifted = (ops["lift_vals"] * g[ops["lift_cols"]]).sum(dim=1)
+        return rhs.index_put_((ops["lift_rows"],),
+                              rhs.index_select(0, ops["lift_rows"]) - lifted)
+
+    def field(self, x_interior: torch.Tensor, g_nodes: torch.Tensor):
+        """The nodal field in float64: ``x_interior`` at interior nodes,
+        ``g`` at boundary nodes."""
+        ops = self._on(x_interior.device)
+        u = g_nodes.to(torch.float64, copy=True)
+        return u.index_copy_(0, ops["interior"],
+                             x_interior.to(torch.float64))
 
 
 def solution_on_mesh(mesh: TriangularMesh, sol_interior: np.ndarray,

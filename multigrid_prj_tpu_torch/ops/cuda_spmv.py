@@ -14,6 +14,13 @@ Counterpart of ``multigrid_prj_tpu/ops/pallas_spmv.py`` (sources in
   (``_spmm_kernel``): 8 B per slot once for up to 8 vectors, plus the
   gathered rows of ``X``.  ``ELLMatrix.spmm`` stays the plain op, as in
   the JAX package.
+* ``ell_spmv_axpy`` (``CudaELL.residual``, ``CudaELL.spmv_add``) and
+  ``ell_cheb_step`` (``CudaELL.cheb_step``) replace no TPU kernel: the
+  SpMV with the subtraction or addition after it (the AMG cycle's
+  residual ``b - A x`` and prolong-add ``x + P e``), and one step of
+  ``amg.chebyshev_smooth`` with its vector updates, which the JAX package
+  leaves to XLA around the SpMV.  Each is bit-equal to the SpMV followed
+  by those torch ops.
 
 One slot-major ELL layout serves every matrix: ``colsT`` (K, n) int32
 absolute column ids, ``valsT`` (K, n) f32 (plus ``valsT_lo`` in pair mode);
@@ -28,7 +35,7 @@ order per slot, slots taken in order ``k = 0 .. K-1``, each step a separate
 torch op); CUDA tensors launch the kernel or raise, and operands
 split between the CPU and a card are refused.  There is no fallback.
 Each launch adds one to its ``cuda_stencil.LAUNCHES`` entry (``spmv``,
-``ff_residual_ell``, ``ell_spmm``).
+``spmv_axpy``, ``cheb_step``, ``ff_residual_ell``, ``ell_spmm``).
 """
 
 from __future__ import annotations
@@ -65,9 +72,29 @@ def _on_cpu(name, *tensors) -> bool:
     return False
 
 
-def _check_cuda_ell(name, colsT, vals, vecs):
-    """Raise on what the ELL kernels do not take: int32 (K, n) column ids,
-    f32 (K, n) values, f32 1D vectors, all contiguous on one CUDA device."""
+def _check_cuda_ell(name, colsT, vals, vecs) -> bool:
+    """Whether the twin runs: ``True`` when every operand lies on the CPU,
+    ``False`` when the ELL kernels take them (int32 (K, n) column ids, f32
+    (K, n) values, f32 1D vectors, all contiguous on one CUDA device);
+    anything else raises.  The first test, a few attribute reads per
+    operand, passes a solve's launches; the rest only names the fault."""
+    dev = colsT.get_device()
+    fits = (dev >= 0 and colsT.dtype is torch.int32 and colsT.dim() == 2
+            and colsT.is_contiguous() and colsT.shape[1] < 2 ** 31)
+    for t in vals if fits else ():
+        fits = (t.dtype is torch.float32 and t.get_device() == dev
+                and t.shape == colsT.shape and t.is_contiguous())
+        if not fits:
+            break
+    for t in vecs if fits else ():
+        fits = (t.dtype is torch.float32 and t.get_device() == dev
+                and t.dim() == 1 and t.is_contiguous())
+        if not fits:
+            break
+    if fits:
+        return False
+    if _on_cpu(name, colsT, *vals, *vecs):
+        return True
     for v in (*vals, *vecs):
         if v.dtype != torch.float32:
             raise NotImplementedError(
@@ -91,6 +118,7 @@ def _check_cuda_ell(name, colsT, vals, vecs):
         if t.ndim != 1:
             raise ValueError(f"{name}: vectors must be 1D, got "
                              f"{tuple(t.shape)}")
+    return False
 
 
 # ---------------------------------------------------------------------------
@@ -110,15 +138,86 @@ def ell_spmv_plain(colsT, valsT, x):
 def ell_local_spmv(colsT, valsT, x):
     """``y = A x`` on raw slot-major arrays: ``colsT``/``valsT`` (K, n), ``x``
     (m,) -> ``y`` (n,).  The counterpart of ``ell_local_spmv2d``."""
-    if _on_cpu("ell_local_spmv", colsT, valsT, x):
+    if _check_cuda_ell("ell_local_spmv", colsT, (valsT,), (x,)):
         return ell_spmv_plain(colsT, valsT, x)
-    _check_cuda_ell("ell_local_spmv", colsT, (valsT,), (x,))
     K, n = colsT.shape
     y = torch.empty(n, dtype=torch.float32, device=x.device)
-    _raise_on(_lib().mg_ell_spmv(_ptr(colsT), _ptr(valsT), _ptr(x), _ptr(y),
-                                 n, K, _stream()), "ell_spmv")
+    _raise_on(_lib().mg_ell_spmv(colsT.data_ptr(), valsT.data_ptr(),
+                                 x.data_ptr(), y.data_ptr(), n, K,
+                                 _stream()), "ell_spmv")
     LAUNCHES["spmv"] += 1
     return y
+
+
+def ell_spmv_axpy_plain(colsT, valsT, x, z, subtract: bool):
+    """Twin of the SpMV-and-add kernel: the SpMV twin, then ``z - y`` or
+    ``z + y`` as one torch op."""
+    y = ell_spmv_plain(colsT, valsT, x)
+    return z - y if subtract else z + y
+
+
+def ell_spmv_axpy(colsT, valsT, x, z, subtract: bool):
+    """``z - A x`` (``subtract``) or ``z + A x`` on raw slot-major arrays:
+    ``colsT``/``valsT`` (K, n), ``x`` (m,), ``z`` (n,) -> (n,)."""
+    if _check_cuda_ell("ell_spmv_axpy", colsT, (valsT,), (x, z)):
+        return ell_spmv_axpy_plain(colsT, valsT, x, z, subtract)
+    K, n = colsT.shape
+    if z.shape != (n,):
+        raise ValueError(f"ell_spmv_axpy: z has shape {tuple(z.shape)}, "
+                         f"the matrix {n} rows")
+    y = torch.empty(n, dtype=torch.float32, device=x.device)
+    _raise_on(_lib().mg_ell_spmv_axpy(
+        colsT.data_ptr(), valsT.data_ptr(), x.data_ptr(), z.data_ptr(),
+        y.data_ptr(), n, K, int(subtract), _stream()), "ell_spmv_axpy")
+    LAUNCHES["spmv_axpy"] += 1
+    return y
+
+
+def ell_cheb_step_plain(colsT, valsT, x, b, d, p, c1, c2, first: bool):
+    """Twin of the Chebyshev step kernels: ``amg.chebyshev_smooth``'s torch
+    ops, ``r = b - A x`` (``x`` None: a zero ``x``), then ``p = (r / d) /
+    theta`` on the first step (``c2`` is theta, as a 0-dim tensor: a true
+    division) or ``p = c1 p + c2 (r / d)``, and ``x + p``.  Returns ``(p,
+    x + p)``."""
+    if x is None:
+        x = torch.zeros_like(b)
+    r = b - ell_spmv_plain(colsT, valsT, x)
+    if first:
+        p = (r / d) / torch.full((), c2, dtype=r.dtype, device=r.device)
+    else:
+        p = c1 * p + c2 * (r / d)
+    return p, x + p
+
+
+def ell_cheb_step(colsT, valsT, x, b, d, p, c1: float, c2: float,
+                  first: bool):
+    """One Chebyshev step on raw slot-major arrays of a square matrix:
+    ``x``, ``b``, ``d`` (the diagonal) and ``p`` (n,), ``x`` None for zero,
+    ``p`` unused on the first step.  Returns ``(p, x_out)``; on the card
+    ``p`` is updated in place (a first step writes a new one) and
+    ``x_out`` is new."""
+    vecs = (b, d) + ((x,) if x is not None else ()) + \
+        ((p,) if not first else ())
+    if _check_cuda_ell("ell_cheb_step", colsT, (valsT,), vecs):
+        return ell_cheb_step_plain(colsT, valsT, x, b, d, p, c1, c2,
+                                   first)
+    K, n = colsT.shape
+    for v in vecs:
+        if v.shape != (n,):
+            raise ValueError(f"ell_cheb_step: a vector has shape "
+                             f"{tuple(v.shape)}, the matrix {n} rows")
+    if first:
+        p = torch.empty(n, dtype=torch.float32, device=b.device)
+    elif x is None:
+        raise ValueError("ell_cheb_step: only the first step takes x = 0")
+    x_out = torch.empty(n, dtype=torch.float32, device=b.device)
+    _raise_on(_lib().mg_ell_cheb_step(
+        colsT.data_ptr(), valsT.data_ptr(),
+        None if x is None else x.data_ptr(), b.data_ptr(), d.data_ptr(),
+        p.data_ptr(), x_out.data_ptr(), n, K, c1, c2, int(first),
+        _stream()), "ell_cheb_step")
+    LAUNCHES["cheb_step"] += 1
+    return p, x_out
 
 
 # ---------------------------------------------------------------------------
@@ -185,15 +284,16 @@ def ell_ff_residual_plain(colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo):
 def ell_ff_residual(colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo):
     """``r = b - A x`` with ``A`` (``vhT + vlT``), ``b`` and ``x`` carried as
     f32 pairs, on raw slot-major arrays (square A); returns f32 ``r``."""
-    if _on_cpu("ell_ff_residual", colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo):
-        return ell_ff_residual_plain(colsT, vhT, vlT, b_hi, b_lo, x_hi, x_lo)
-    _check_cuda_ell("ell_ff_residual", colsT, (vhT, vlT),
-                    (b_hi, b_lo, x_hi, x_lo))
+    vecs = (b_hi, b_lo, x_hi, x_lo)
+    if _check_cuda_ell("ell_ff_residual", colsT, (vhT, vlT), vecs):
+        return ell_ff_residual_plain(colsT, vhT, vlT, b_hi, b_lo, x_hi,
+                                     x_lo)
     K, n = colsT.shape
     r = torch.empty(n, dtype=torch.float32, device=x_hi.device)
     _raise_on(_lib().mg_ell_ff_residual(
-        _ptr(colsT), _ptr(vhT), _ptr(vlT), _ptr(x_hi), _ptr(x_lo),
-        _ptr(b_hi), _ptr(b_lo), _ptr(r), n, K, _stream()), "ell_ff_residual")
+        colsT.data_ptr(), vhT.data_ptr(), vlT.data_ptr(), x_hi.data_ptr(),
+        x_lo.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(), r.data_ptr(), n,
+        K, _stream()), "ell_ff_residual")
     LAUNCHES["ff_residual_ell"] += 1
     return r
 
@@ -261,6 +361,29 @@ class CudaELL:
             raise ValueError(f"x has shape {tuple(x.shape)}, the matrix "
                              f"{self.shape}")
         return ell_local_spmv(self.colsT, self.valsT, x)
+
+    def residual(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """``b - A x`` in one launch."""
+        if x.shape != (self.shape[1],):
+            raise ValueError(f"x has shape {tuple(x.shape)}, the matrix "
+                             f"{self.shape}")
+        return ell_spmv_axpy(self.colsT, self.valsT, x, b, True)
+
+    def spmv_add(self, x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+        """``z + A x`` in one launch."""
+        if x.shape != (self.shape[1],):
+            raise ValueError(f"x has shape {tuple(x.shape)}, the matrix "
+                             f"{self.shape}")
+        return ell_spmv_axpy(self.colsT, self.valsT, x, z, False)
+
+    def cheb_step(self, x, b, d, p, c1: float, c2: float, first: bool):
+        """One step of ``amg.chebyshev_smooth`` on this (square) matrix in
+        one launch: ``(p, x_out)`` (:func:`ell_cheb_step`)."""
+        if self.shape[0] != self.shape[1]:
+            raise ValueError(f"cheb_step needs a square matrix, got "
+                             f"{self.shape}")
+        return ell_cheb_step(self.colsT, self.valsT, x, b, d, p, c1, c2,
+                             first)
 
     def spmm(self, X: torch.Tensor) -> torch.Tensor:
         """Block product ``Y = A X`` for ``X`` of shape ``(m, nvec)``: A

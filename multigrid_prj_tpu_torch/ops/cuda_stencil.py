@@ -74,7 +74,8 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_update_residual3d": 0, "restrict_fw3d": 0,
             "prolong_add3d": 0, "rbgs3d_fused": 0,
             "rbgs3d_color": 0, "jacobi3d": 0, "jacobi3d_sweep": 0,
-            "spmv": 0, "ff_residual_ell": 0, "rbgs_resfilter": 0,
+            "spmv": 0, "spmv_axpy": 0, "cheb_step": 0,
+            "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
             "rbgs_fused_ext": 0,
             "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,

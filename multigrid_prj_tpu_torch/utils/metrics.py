@@ -21,7 +21,7 @@ import contextlib
 import dataclasses
 import json
 import time
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -141,6 +141,43 @@ class SolveMetrics:
             for k, r in enumerate(h):
                 red = "" if k == 0 else f"{h[k] / h[k - 1]:.6e}"
                 fh.write(f"{k},{r:.17e},{red}\n")
+
+
+# The solvers' profiler spans (:func:`span`; ranges only while a torch
+# profiler records), shared by ``gmg.GMGSolver`` and ``amg.AMGSolver``.  A
+# solve is one root span; inside it the outer loop's stages, and inside
+# mg.outer.cycle the cycle's stages of level k (L0 the finest) and the
+# bottom solve.  The nesting alone tells the solves apart.
+SPAN_SOLVE_REFINED = "mg.solve_refined"
+SPAN_SOLVE = "mg.solve"
+SPAN_SPLIT = "mg.outer.split"  # padding or permutation, b / c pair, ||b||^2
+SPAN_FF_RESIDUAL = "mg.outer.ff_residual"  # with the pair update before it
+SPAN_FETCH = "mg.fetch"  # a norm and its fetch to the host
+SPAN_CYCLE = "mg.outer.cycle"
+SPAN_COMBINE = "mg.outer.combine"  # u_hi + u_lo, the crop or permutation
+SPAN_BOTTOM = "mg.bottom"
+STAGES = ("pre_smooth", "residual", "restrict", "prolong_add", "post_smooth")
+
+
+class LevelSpans(NamedTuple):
+    """The span names of one level's cycle stages."""
+    pre_smooth: str
+    residual: str
+    restrict: str  # with the zero coarse correction; the fused down-leg
+    prolong_add: str
+    post_smooth: str
+
+
+_LEVEL_SPANS: dict[int, LevelSpans] = {}
+
+
+def level_spans(k: int) -> LevelSpans:
+    """``mg.L{k}.<stage>`` for each stage, built once per level index."""
+    names = _LEVEL_SPANS.get(k)
+    if names is None:
+        names = _LEVEL_SPANS[k] = LevelSpans(
+            *(f"mg.L{k}.{stage}" for stage in STAGES))
+    return names
 
 
 def span(name: str):

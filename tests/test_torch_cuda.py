@@ -643,6 +643,55 @@ def test_cuda_ell_kernels_equal_twins(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_ell_fused_kernels_equal_twins(cuda_device):
+    """The SpMV with the add or subtraction after it (``z + A x``, ``z - A
+    x``) on every test matrix, and the Chebyshev steps (first, from x and
+    from zero; a later one) on the square ones, bit-equal to their twins,
+    which are the torch ops they replace; each counted once a launch; an x
+    of zero refused past the first step."""
+    from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
+
+    rng = np.random.default_rng(5)
+
+    def vec(n, lo=None):
+        v = rng.standard_normal(n).astype(np.float32)
+        if lo is not None:
+            v = np.abs(v) + np.float32(lo)
+        return torch.from_numpy(v).to(cuda_device)
+
+    cs.reset_launch_counts()
+    steps = 0
+    for name, M in _ell_matrices().items():
+        E = cv.CudaELL.build(M, device=cuda_device)
+        n, m = M.shape
+        x, z = vec(m), vec(n)
+        for subtract in (True, False):
+            got = cv.ell_spmv_axpy(E.colsT, E.valsT, x, z, subtract)
+            want = cv.ell_spmv_axpy_plain(E.colsT, E.valsT, x, z, subtract)
+            assert torch.equal(got, want), (name, subtract)
+        assert torch.equal(E.spmv_add(x, z), z + E.spmv(x)), name
+        if n != m:
+            continue
+        assert torch.equal(E.residual(x, z), z - E.spmv(x)), name
+        b, d = vec(n), vec(n, lo=0.5)
+        for x0 in (x, None):
+            p, xo = E.cheb_step(x0, b, d, None, 0.0, 1.7, True)
+            pw, xw = cv.ell_cheb_step_plain(E.colsT, E.valsT, x0, b, d, None,
+                                            0.0, 1.7, True)
+            assert torch.equal(p, pw) and torch.equal(xo, xw), (name, x0)
+            p2, xo2 = E.cheb_step(xo, b, d, p.clone(), 0.61, 0.37, False)
+            pw2, xw2 = cv.ell_cheb_step_plain(E.colsT, E.valsT, xw, b, d, pw,
+                                              0.61, 0.37, False)
+            assert torch.equal(p2, pw2) and torch.equal(xo2, xw2), name
+            steps += 2
+        with pytest.raises(ValueError):
+            E.cheb_step(None, b, d, p, 0.61, 0.37, False)
+    torch.cuda.synchronize()
+    assert cs.LAUNCHES["cheb_step"] == steps
+    assert cs.LAUNCHES["spmv_axpy"] == 2 * 6 + 6 + 4
+
+
+@pytest.mark.cuda
 def test_cuda_ell_wrappers_count_and_refuse(cuda_device):
     from multigrid_prj_tpu_torch.models.poisson import poisson_fd_csr
     from multigrid_prj_tpu_torch.ops import cuda_spmv as cv
@@ -669,7 +718,7 @@ def test_cuda_ell_wrappers_count_and_refuse(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_amg_solves_match_cpu_twins(cuda_device):
-    """FD 96^2 (9216 rows: the finest level and its transfers on the
+    """FD 96^2 (9216 rows: the finest level and its prolongation on the
     kernels, the next levels dense and bottom) on the card vs the same
     hierarchy through the twins on the CPU: the same iterations for
     ``solve``, ``solve_pcg`` and ``solve_refined``; histories within 1e-2
@@ -693,7 +742,11 @@ def test_cuda_amg_solves_match_cpu_twins(cuda_device):
         cs.reset_launch_counts()
         got = getattr(gpu, method)(b, tol=tol)
         torch.cuda.synchronize()
-        assert cs.LAUNCHES["spmv"] > 0, method
+        # the finest level's Chebyshev steps and residual, the prolong-add
+        # onto it; the plain SpMV only in PCG's operator (the restriction
+        # goes to a coarse level under pallas_min_rows: the gather ELL)
+        assert cs.LAUNCHES["cheb_step"] > 0 and cs.LAUNCHES["spmv_axpy"] > 0
+        assert (cs.LAUNCHES["spmv"] > 0) == (method == "solve_pcg"), method
         assert (cs.LAUNCHES["ff_residual_ell"] > 0) == (
             method == "solve_refined")
         want = getattr(cpu, method)(b, tol=tol)
@@ -701,6 +754,72 @@ def test_cuda_amg_solves_match_cpu_twins(cuda_device):
         assert got.rel_residual <= tol
         np.testing.assert_allclose(got.history, want.history, rtol=1e-2,
                                    atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_cuda_amg_p1_solve_spans_and_syncs(cuda_device):
+    """``AMGSolver.solve_p1`` on a 257^2 P1 system (3 levels, the kernels at
+    the two above the bottom), profiled: ``COUNTERS["host_syncs"]`` is the
+    loop's ``iterations + 1`` stop tests, each a DtoH copy, and one more
+    copy brings the history; the device time launched beneath the root
+    span covers at least 99 % of the busy time inside it; the nodal answer
+    stays on the card, equals ``g`` on the boundary, and agrees with the
+    same hierarchy through the twins on the CPU."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multigrid_prj_tpu_torch.amg import AMGSolver
+    from multigrid_prj_tpu_torch.models import fem
+    from multigrid_prj_tpu_torch.utils import metrics
+    from portbench import spans
+
+    system = fem.P1System(fem.structured_unit_square_mesh(257))
+    gpu = AMGSolver(system.A, num_levels=3, device=cuda_device)
+    assert gpu._use_pallas and gpu.levels[1].A_fast is not None
+    cpu = AMGSolver.from_hierarchy(
+        gpu.host_matrices, gpu.host_P, perm=gpu._perm,
+        lmax=[lv.lmax for lv in gpu.levels], smoother="chebyshev",
+        dtype=torch.float32, use_pallas=True, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    nodal = torch.randn(system.n_nodes, generator=gen, dtype=torch.float64)
+    nodal_gpu = nodal.to(cuda_device)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # starts the profiler up
+        gpu.solve_p1(system, nodal_gpu, nodal_gpu)
+        torch.cuda.synchronize()
+    before = metrics.COUNTERS["host_syncs"]
+    with profile(activities=acts) as prof:
+        got = gpu.solve_p1(system, nodal_gpu, nodal_gpu)
+        torch.cuda.synchronize()
+    syncs = metrics.COUNTERS["host_syncs"] - before
+    events = prof.events()
+    root, = [e for e in events if e.name == "mg.solve_refined"
+             and e.device_type == DeviceType.CPU]
+
+    def inside(e):
+        return root.time_range.start <= e.time_range.start <= \
+            root.time_range.end
+
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
+    kind = {e.id: e.name for e in device}
+    dtoh = [e for e in events if e.device_type == DeviceType.CPU
+            and e.thread == root.thread and inside(e)
+            and e.name.startswith("cudaMemcpy")
+            and "DtoH" in kind.get(e.id, "")]
+    assert syncs == got.iterations + 1 == len(dtoh) - 1
+    split = spans.reduce(events, syncs)
+    assert split.solves == 1
+    busy_inside = sum(e.time_range.elapsed_us() for e in device
+                      if inside(e)) / 1e6
+    assert sum(split.busy.values()) >= 0.99 * busy_inside > 0
+    assert got.x.device.type == "cuda" and got.x.dtype == torch.float64
+    assert torch.equal(got.x.cpu()[system.boundary], nodal[system.boundary])
+    want = cpu.solve_p1(system, nodal, nodal)
+    assert got.rel_residual <= 1e-10 and want.rel_residual <= 1e-10
+    err = torch.linalg.vector_norm(got.x.cpu() - want.x) \
+        / torch.linalg.vector_norm(want.x)
+    assert float(err) < 1e-8
 
 
 # the padded levels of the 1025^2 / pad 256 path, the finest level of the

@@ -25,7 +25,6 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from multigrid_prj_tpu_torch import gmg
 from multigrid_prj_tpu_torch.gmg import GMGSolver
 from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
 from multigrid_prj_tpu_torch.utils import metrics
@@ -39,7 +38,8 @@ CASES = {
                  alpha=1.0),
 }
 ENTRIES = ("solve_refined", "solve")
-ROOT = {"solve_refined": gmg.SPAN_SOLVE_REFINED, "solve": gmg.SPAN_SOLVE}
+ROOT = {"solve_refined": metrics.SPAN_SOLVE_REFINED,
+        "solve": metrics.SPAN_SOLVE}
 params = pytest.mark.parametrize("entry,case", [(e, c) for c in CASES
                                                 for e in ENTRIES])
 # the plain route in f64; the kernel route (its CPU twins) in f32
@@ -102,8 +102,8 @@ def _combines(entry, case):
 def _stages(case):
     """The stages each level above the bottom runs once per cycle."""
     if CASES[case]["cycle"] == "v":
-        return {k: set(gmg.STAGES) for k in range(2)}
-    return {0: set(gmg.STAGES), 1: {"restrict", "prolong_add",
+        return {k: set(metrics.STAGES) for k in range(2)}
+    return {0: set(metrics.STAGES), 1: {"restrict", "prolong_add",
                                     "post_smooth"}}
 
 
@@ -112,18 +112,18 @@ def test_span_names_and_nesting(entry, case, route):
     _, traced, paths, _ = _runs(entry, case, route)
     root = ROOT[entry]
     assert [p for p in paths if len(p) == 1] == [(root,)]
-    outer = {gmg.SPAN_SPLIT, gmg.SPAN_FETCH, gmg.SPAN_CYCLE}
+    outer = {metrics.SPAN_SPLIT, metrics.SPAN_FETCH, metrics.SPAN_CYCLE}
     if _combines(entry, case):
-        outer.add(gmg.SPAN_COMBINE)
+        outer.add(metrics.SPAN_COMBINE)
     if entry == "solve_refined":
-        outer.add(gmg.SPAN_FF_RESIDUAL)
+        outer.add(metrics.SPAN_FF_RESIDUAL)
     levels = {f"mg.L{k}.{s}" for k, stages in _stages(case).items()
-              for s in stages} | {gmg.SPAN_BOTTOM}
+              for s in stages} | {metrics.SPAN_BOTTOM}
     got = {p[1:] for p in paths if len(p) > 1}
     want = {(name,) for name in outer}
-    want |= {(gmg.SPAN_CYCLE, name) for name in levels}
+    want |= {(metrics.SPAN_CYCLE, name) for name in levels}
     if CASES[case]["cycle"] == "sawtooth":  # the bottom's own checks
-        want.add((gmg.SPAN_CYCLE, gmg.SPAN_BOTTOM, gmg.SPAN_FETCH))
+        want.add((metrics.SPAN_CYCLE, metrics.SPAN_BOTTOM, metrics.SPAN_FETCH))
     assert got == want
     assert all(p[0] == root for p in paths)
     assert traced.iterations > 2
@@ -134,25 +134,25 @@ def test_one_cycle_and_each_stage_once_per_iteration(entry, case, route):
     _, traced, paths, _ = _runs(entry, case, route)
     k = traced.iterations
     ends = [p[-1] for p in paths]
-    assert ends.count(gmg.SPAN_CYCLE) == k
-    assert ends.count(gmg.SPAN_BOTTOM) == k
+    assert ends.count(metrics.SPAN_CYCLE) == k
+    assert ends.count(metrics.SPAN_BOTTOM) == k
     for level, stages in _stages(case).items():
-        for stage in gmg.STAGES:
-            name = getattr(gmg.level_spans(level), stage)
+        for stage in metrics.STAGES:
+            name = getattr(metrics.level_spans(level), stage)
             assert ends.count(name) == (k if stage in stages else 0), name
     assert not any(e.startswith("mg.L2.") for e in ends)
     if entry == "solve_refined":
-        assert ends.count(gmg.SPAN_FF_RESIDUAL) == k + 1
+        assert ends.count(metrics.SPAN_FF_RESIDUAL) == k + 1
     assert "mg.outer.pair_update" not in ends
-    assert ends.count(gmg.SPAN_SPLIT) == 1
-    assert ends.count(gmg.SPAN_COMBINE) == _combines(entry, case)
+    assert ends.count(metrics.SPAN_SPLIT) == 1
+    assert ends.count(metrics.SPAN_COMBINE) == _combines(entry, case)
 
 
 @params
 def test_host_syncs_count_the_fetches(entry, case):
     plain, traced, paths, syncs = _runs(entry, case)
-    fetches = [p for p in paths if p[-1] == gmg.SPAN_FETCH]
-    outer = [p for p in fetches if gmg.SPAN_CYCLE not in p]
+    fetches = [p for p in paths if p[-1] == metrics.SPAN_FETCH]
+    outer = [p for p in fetches if metrics.SPAN_CYCLE not in p]
     assert len(outer) == traced.iterations + 1
     assert syncs == len(fetches)
     if CASES[case]["cycle"] == "v":
@@ -174,7 +174,7 @@ def test_a_recording_profiler_changes_no_result(entry, case):
 def test_without_a_profiler_no_range_is_made(entry, case, monkeypatch):
     assert not torch.autograd.profiler._is_profiler_enabled
     assert metrics.span("mg.a") is metrics.span("mg.b") is metrics._NO_SPAN
-    assert gmg.level_spans(3) is gmg.level_spans(3)
+    assert metrics.level_spans(3) is metrics.level_spans(3)
 
     def refuse(name, *args, **kwargs):
         raise AssertionError(f"a range {name!r} was made")

@@ -462,6 +462,9 @@ CHUNK_3D = ((71, 45, 77), None)
 CONFIG4_RESIDUAL_LAUNCHES = 11 * 4
 SCALE3D_RESIDUAL_LAUNCHES = 12 * 5
 TIME_SHAPES_3D = [((257, 257, 257), None), ((513, 513, 513), None)]
+# config 4's coarser z-marching levels, where the fused smoother's 2-sweep
+# call is timed too
+COARSE_LEVELS_3D = ((129, 129, 129), (65, 65, 65), (33, 33, 33))
 CONFIG4_BOTTOM = (17, 17, 17)
 # the fused 3D smoother is held to its twin and to the per-colour oracle at
 # every sweep count here on the z-marching route, at these and 100 on the
@@ -919,7 +922,8 @@ def tile_kernel_report(cs, c3, log):
                 continue
             sweeps = int(hit.group(1))
             if extra is None:
-                _, _, rows, cols, ru, rb = c3.rbgs3d_tile(2 * sweeps)
+                _, _, rows, cols, ru, rb, _ = c3.rbgs3d_tile(
+                    2 * sweeps, TIME_SHAPES_3D[0][0])
                 smem = 4 * (ru + rb) * rows * cols
                 what = (f"rings of {ru} u and {rb} b planes of a {rows} x "
                         f"{cols} tile, two colour planes each")
@@ -4154,6 +4158,28 @@ def main() -> int:
                 **extra), note)
         del u, bb
         torch.cuda.empty_cache()
+    # the fused smoother's 2-sweep call at config 4's coarser z-marching
+    # levels, each with its bound (bytes: a few microseconds there)
+    for shape in COARSE_LEVELS_3D:
+        u, bb, h = kernel_inputs_3d(torch, shape, None, seed=95)
+        npts = math.prod(shape)
+
+        def smooth2(u=u, bb=bb, h=h):
+            return c3.red_black_gauss_seidel_3d(u, bb, 1.0, h, sweeps=2)
+
+        t = (median_ms(torch, smooth2, runs=10), median_ms(
+            torch, lambda u=u, bb=bb, h=h: c3.red_black_gauss_seidel_3d_plain(
+                u, bb, 1.0, h, 2), runs=10))
+        extra = {"device_ms": device_ms(torch, smooth2, npts),
+                 "flushed_ms": flushed_ms(torch, smooth2)}
+        add_time("rbgs3d_fused", "sweeps 2", record(
+            "x".join(map(str, shape)), t[0], t[1],
+            stencil_bytes("rbgs3d_fused", shape, None),
+            STENCIL_COST["rbgs3d_fused"][1] * npts, **extra),
+            f"; L2 flushed before each call "
+            f"{extra['flushed_ms'] * 1e3:.1f} us; z-chunks of "
+            f"{c3.rbgs3d_tile(4, shape)[6]} planes")
+        del u, bb
     bshape = CONFIG4_BOTTOM
     u, bb, h = kernel_inputs_3d(torch, bshape, None, seed=96)
     npts = bshape[0] * bshape[1] * bshape[2]

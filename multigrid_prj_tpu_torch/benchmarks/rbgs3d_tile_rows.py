@@ -80,6 +80,7 @@ def run(variants):
             _build.library.cache_clear()
             _build.build(force=True)
             c3._RB3_TILE_ROWS = (lo, hi)
+            c3._geometry3d.cache_clear()
             ok = _equal_to_twin()
             times = {}
             for shape in TIME_SHAPES:
@@ -97,6 +98,7 @@ def run(variants):
     finally:
         _build.SOURCES, _build.LIBRARY, c3._RB3_TILE_ROWS = saved
         _build.library.cache_clear()
+        c3._geometry3d.cache_clear()
     return rows
 
 

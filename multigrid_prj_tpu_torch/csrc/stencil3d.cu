@@ -191,9 +191,33 @@ __global__ void jacobi3d_kernel(const float* __restrict__ x,
 // clone, and half the lanes of each of their warps idled.
 // * One block per x-y tile (Zm<P>::TY rows by kZmCols columns with a halo of
 //   P = 2 x SWEEPS cells on each side: one ring per dependent pass, the ring
-//   argument of stencil2d.cu) walks z from 0 to nz - 1.  z needs no halo:
-//   the march covers every plane, and planes 0 and >= nzl - 1 are boundary
-//   planes, which read no neighbour.
+//   argument of stencil2d.cu) and chunk of zc output planes z0 .. z1 - 1
+//   loads planes z0 - P .. z1 + P - 1, clamped to the array: the ring
+//   argument in z.  The passes run as in a march over every plane, also on
+//   the planes the chunk does not load, whose ring slots hold whatever they
+//   held: each pass reads one plane further than the last, so pass k leaves
+//   planes z0 - P + k .. z1 + P - 1 - k right and pass P the chunk, which
+//   alone is stored; the planes around it are computed again by the blocks
+//   beside it, as the x-y halo is.  Planes 0 and >= nzl - 1 are boundary
+//   planes, which read no neighbour, so the chunks at the array's ends need
+//   no planes beyond it.  A chunk of nz planes is one march over every
+//   plane.
+// * The chunk fills the SMs that one block per tile would leave idle: zc =
+//   ceil(nz / max(kZmTargetBlocks / tiles, 1)), at least kZmMinChunk, cuts
+//   each tile's march into as many chunks as one wave of one block per SM
+//   holds (257^3: one chunk of 257 planes, 121 blocks; 129^3: 43, 108;
+//   65^3: 5, 117; 33^3: 1, 132).  A chunk costs 3 P steps more than its
+//   planes, and a block's steps are bound by its SM's issue and shared-
+//   memory throughput, not by their latency: on the H100 two blocks of 32
+//   registers on one SM took as long as one block after the other, and
+//   waves of more blocks were slower (benchmarks/rbgs3d_chunk_probe.py).
+// * Registers: at most kZmRegisters = 48 a thread (__maxnreg__; one block
+//   of 1024 threads an SM, as the rings of 3 and 4 sweeps allow anyway).
+//   On the H100, left to itself ptxas chose 32 at 1 and 2 sweeps and the
+//   2-sweep call took 363 us at 257^3; __launch_bounds__(1024, 1) gave 48
+//   registers and 349 us; __maxnreg__ of 40 to 64 gave 38 to 48 and 275 to
+//   280 us.  The attribute stands before __global__, where
+//   portbench/trace.py's reader of the port's kernel names finds the name.
 // * The 2 x SWEEPS colour passes run as a wavefront in z, kZmLag = 2 planes
 //   apart, all in the same step with one barrier per step: at step t the
 //   block runs pass k on plane t - 1 - 2 (k - 1), in place.  This is exact
@@ -203,8 +227,8 @@ __global__ void jacobi3d_kernel(const float* __restrict__ x,
 //   later, and the passes running beside it write planes an even number of
 //   planes away, none of which it reads.  With a lag of one plane, pass k + 1
 //   would rewrite z - 1 in the same step as pass k reads it.
-// * Latency: a block walks its planes one after another, so a step's work
-//   is spread as thin as it goes: a thread per (row, column pair) for each
+// * A block walks its planes one after another, so a step's work is
+//   spread as thin as it goes: a thread per (row, column pair) for each
 //   colour (2 x TY x 16 threads), each with one copy of u and of b, one
 //   division and one update per pass of its colour in a step, and one
 //   barrier per step; b / c is divided once per cell when its plane lands
@@ -235,6 +259,9 @@ constexpr int kZmCols = 32;            // tile columns
 constexpr int kZmPairs = kZmCols / 2;  // column pairs: one per lane
 constexpr int kZmLag = 2;              // planes between passes
 constexpr int kZmAhead = 3;            // planes loaded ahead
+constexpr int kZmTargetBlocks = 132;   // blocks of one wave: 1 per SM
+constexpr int kZmMinChunk = 1;         // planes per chunk at least
+constexpr int kZmRegisters = 48;       // per thread at most (__maxnreg__)
 
 template <int P>  // P: dependent passes the halo must cover
 struct Zm {
@@ -255,6 +282,18 @@ struct Zm {
   static_assert(CH > 0 && CW > 0 && TY % 2 == 0 && THREADS <= 1024, "tile");
   static_assert(SMEM <= 227 * 1024, "shared memory");
 };
+
+// The chunk length of P passes on an (nz, ny, nx) array (the rule above).
+template <int P>
+int rbgs3d_chunk(int nz, int ny, int nx) {
+  using T = Zm<P>;
+  const long long tiles =
+      (long long)((nx + T::CW - 1) / T::CW) * ((ny + T::CH - 1) / T::CH);
+  const long long chunks = tiles < kZmTargetBlocks ? kZmTargetBlocks / tiles
+                                                   : 1;
+  const int zc = (int)((nz + chunks - 1) / chunks);
+  return zc < kZmMinChunk ? kZmMinChunk : zc;
+}
 
 // Issue one 4-byte copy of global src to shared byte address dst; nbytes 0
 // fills the cell with zero (src must still be a valid address).
@@ -288,17 +327,18 @@ __device__ __forceinline__ int zm_slot(int s, int d) {
 // What a thread does at every step is worked out once here.  Warp w copies
 // row w, a lane per column, so each copy instruction reads one whole
 // 128-byte line (its shared-memory writes meet in pairs on 16 banks); the
-// global addresses start in plane 0 and advance a plane per step (a cell
-// outside the array copies 0 bytes from a clamped address inside it).
+// global addresses start in the chunk's first input plane and advance a
+// plane per step (a cell outside the array copies 0 bytes from a clamped
+// address inside it).
 // Thread tid updates row (tid / 16) mod TY at pair tid mod 16 in the passes
 // of colour g = tid / 16 div TY.  The core cells are stored by threads in
 // order.
 template <int SWEEPS>
-__global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
+__maxnreg__(kZmRegisters) __global__ void
     rbgs3d_zmarch_kernel(const float* __restrict__ u,
                          const float* __restrict__ b, float* __restrict__ out,
                          int nz, int ny, int nx, int nzl, int nyl, int nxl,
-                         float c, float inv6) {
+                         float c, float inv6, int zc) {
   constexpr int P = 2 * SWEEPS;
   using T = Zm<P>;
   extern __shared__ __align__(16) float zm_smem[];  // u ring, then b ring
@@ -308,6 +348,9 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
   // tile cell (0, 0) is (i0, j0); j0 is even, so local parity is global
   const int i0 = blockIdx.y * T::CH - T::H;
   const int j0 = blockIdx.x * T::CW - T::HC;
+  // the chunk's output planes z0 .. z1 - 1, its input planes p0 .. pe
+  const int z0 = blockIdx.z * zc, z1 = min(z0 + zc, nz);
+  const int p0 = max(z0 - P, 0), pe = min(z1 + P, nz) - 1;
   const long long plane = (long long)ny * nx;
   const int tid = threadIdx.x, p = tid & (kZmPairs - 1);
   const int x0 = j0 + 2 * p;
@@ -326,7 +369,8 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
     ldw = (lc & 1) * T::CP + rr * kZmPairs + (lc >> 1);
     lbytes = (x >= 0 && x < nx && y >= 0 && y < ny) ? 4u : 0u;
     lint = y > 0 && y < nyl - 1 && x > 0 && x < nxl - 1;
-    const long long g = (long long)min(max(y, 0), ny - 1) * nx +
+    const long long g = (long long)p0 * plane +
+                        (long long)min(max(y, 0), ny - 1) * nx +
                         min(max(x, 0), nx - 1);
     gu = u + g;
     gb = b + g;
@@ -361,10 +405,10 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
   const unsigned intm = static_cast<unsigned>(yin && col0) |
                         (static_cast<unsigned>(yin && col1) << 1);
 
-  // one commit group per plane, empty past the last: group t is plane t
+  // one commit group per plane, empty past pe: group t - p0 is plane t
 #pragma unroll
   for (int z = 0; z < kZmAhead; ++z) {
-    if (z < nz) {
+    if (p0 + z <= pe) {
       cp_async4(sbase + 4u * (z * T::SLICE + ldw), gu, lbytes);
       cp_async4(sbase + 4u * (BRING + z * T::SLICE + ldw), gb, lbytes);
     }
@@ -373,10 +417,10 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
     gb += plane;
   }
   int su = 0, sb = 0;  // ring slots of plane t
-  for (int t = 0; t <= nz + 1 + T::SPAN; ++t) {
+  for (int t = p0; t <= z1 + 1 + T::SPAN; ++t) {
     cp_async_wait<kZmAhead - 1>();  // plane t has landed
     __syncthreads();  // plane t is visible; step t - 1 is done with its slots
-    if (t + kZmAhead < nz) {
+    if (t + kZmAhead <= pe) {
       const int lu = zm_slot<T::RU>(su, kZmAhead);
       const int lb = zm_slot<T::RB>(sb, kZmAhead);
       cp_async4(sbase + 4u * (lu * T::SLICE + ldw), gu, lbytes);
@@ -386,12 +430,12 @@ __global__ void __launch_bounds__(Zm<2 * SWEEPS>::THREADS)
     }
     cp_async_commit();
     // b / c of plane t, first read in step t + 1: off this step's path
-    if (t < nz && lint && t > 0 && t < nzl - 1) {
+    if (t <= pe && lint && t > 0 && t < nzl - 1) {
       float* cell = zm_smem + BRING + sb * T::SLICE + ldw;
       *cell = __fdiv_rn(*cell, c);
     }
     const int zs = t - 2 - T::SPAN;  // finished by pass P in step t - 1
-    if (zs >= 0 && zs < nz && go != nullptr) {
+    if (zs >= z0 && zs < z1 && go != nullptr) {
       go[zs * plane] =
           zm_smem[zm_slot<T::RU>(su, -2 - T::SPAN) * T::SLICE + sdw];
     }
@@ -1585,8 +1629,10 @@ int rbgs3d_zmarch_launch(const float* u, const float* b, float* out, int nz,
                          float inv6, const int* geom, cudaStream_t stream) {
   using T = Zm<2 * S>;
   static bool smem_set = false;
+  const int zc = rbgs3d_chunk<2 * S>(nz, ny, nx);
   if (geom[0] != T::H || geom[1] != T::HC || geom[2] != T::TY ||
-      geom[3] != kZmCols || geom[4] != T::RU || geom[5] != T::RB) {
+      geom[3] != kZmCols || geom[4] != T::RU || geom[5] != T::RB ||
+      geom[6] != zc) {
     return (int)cudaErrorInvalidValue;
   }
   if (!smem_set) {
@@ -1596,9 +1642,10 @@ int rbgs3d_zmarch_launch(const float* u, const float* b, float* out, int nz,
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  const dim3 grid((nx + T::CW - 1) / T::CW, (ny + T::CH - 1) / T::CH);
+  const dim3 grid((nx + T::CW - 1) / T::CW, (ny + T::CH - 1) / T::CH,
+                  (nz + zc - 1) / zc);
   rbgs3d_zmarch_kernel<S><<<grid, T::THREADS, T::SMEM, stream>>>(
-      u, b, out, nz, ny, nx, nzl, nyl, nxl, c, inv6);
+      u, b, out, nz, ny, nx, nzl, nyl, nxl, c, inv6, zc);
   return (int)cudaGetLastError();
 }
 
@@ -1802,7 +1849,8 @@ int mg_rbgs3d_color(float* u, const float* b, int nz, int ny, int nx, int nzl,
 
 // `sweeps` (1 .. 4) red-black sweeps u -> out on the z-marching tile; geom
 // = (row halo, column halo, tile rows, tile columns, u ring planes, b ring
-// planes) as the caller computed it, refused unless it is the compiled one.
+// planes, planes per chunk) as the caller computed it, refused unless it is
+// the compiled one and the chunk rule's for this shape.
 int mg_rbgs3d_fused(const float* u, const float* b, float* out, int nz,
                     int ny, int nx, int nzl, int nyl, int nxl, float c,
                     float inv6, int sweeps, const int* geom, void* stream) {

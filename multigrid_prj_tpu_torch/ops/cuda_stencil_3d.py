@@ -58,6 +58,8 @@ replaced stay on no path as oracles (``*_point``, ``_*_per_*``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from multigrid_prj_tpu_torch.ops import extended as _ext
@@ -80,11 +82,16 @@ from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 _INV6 = 1.0 / 6.0
 # the z-marching tile (csrc/stencil3d.cu Zm<P>): rows up to 4 passes and
 # above, 32 columns (16 column pairs: one lane each); consecutive passes run
-# _RB3_LAG planes apart, and planes are loaded _RB3_AHEAD steps ahead
+# _RB3_LAG planes apart, and planes are loaded _RB3_AHEAD steps ahead; each
+# tile's march is cut into as many z-chunks as one wave of
+# _RB3_TARGET_BLOCKS blocks (one per SM of an H100) holds, of at least
+# _RB3_MIN_CHUNK planes
 _RB3_TILE_ROWS = (32, 32)
 _RB3_TILE_COLS = 32
 _RB3_LAG = 2
 _RB3_AHEAD = 3
+_RB3_TARGET_BLOCKS = 132
+_RB3_MIN_CHUNK = 1
 # arrays of at most this many points smooth with u and b resident in one
 # block's shared memory (csrc/stencil3d.cu kResidentMaxPoints), every sweep
 # in one launch; the C entry point refuses another cap or a larger array
@@ -123,24 +130,33 @@ _X3_MAX_CHUNK = 8
 _X3_TARGET_BLOCKS = 528
 
 
-def rbgs3d_tile(passes: int):
+def rbgs3d_tile(passes: int, shape):
     """Geometry of the z-marching tile of ``csrc/stencil3d.cu``
-    (``Zm<P>``) for ``passes`` dependent colour passes (2 per sweep):
-    ``(row halo, column halo, tile rows, tile columns, u ring planes, b
-    ring planes)``.  The x-y halo is one ring per pass on each side.  The
-    passes of a step run ``_RB3_LAG`` planes apart in z, over a span of
-    ``_RB3_LAG * (passes - 1)`` planes, so the u ring holds the span + 3
-    planes they read (the lowest also being stored) and the
-    ``_RB3_AHEAD`` planes in flight; the b ring each pass's plane, the
-    plane that landed and those in flight.  The C entry point refuses a
-    geometry other than the one compiled."""
+    (``Zm<P>``, ``rbgs3d_chunk``) for ``passes`` dependent colour passes (2
+    per sweep) on an ``(nz, ny, nx)`` array: ``(row halo, column halo, tile
+    rows, tile columns, u ring planes, b ring planes, planes per chunk)``.
+    The x-y halo is one ring per pass on each side.  The passes of a step
+    run ``_RB3_LAG`` planes apart in z, over a span of ``_RB3_LAG * (passes
+    - 1)`` planes, so the u ring holds the span + 3 planes they read (the
+    lowest also being stored) and the ``_RB3_AHEAD`` planes in flight; the
+    b ring each pass's plane, the plane that landed and those in flight.  A
+    block marches one x-y tile through one chunk of output planes and reads
+    ``passes`` planes beyond each end; the chunk is ``ceil(nz /
+    max(_RB3_TARGET_BLOCKS // tiles, 1))``, at least ``_RB3_MIN_CHUNK``:
+    each tile's march takes as many chunks as one wave of blocks holds.
+    The C entry point refuses a geometry other than the one compiled and
+    the rule's chunk."""
     if not 0 < passes <= 8 or passes % 2:
         raise ValueError(f"the z-marching tile takes 2, 4, 6 or 8 passes, "
                          f"got {passes}")
+    nz, ny, nx = (int(s) for s in shape)
     rows = _RB3_TILE_ROWS[passes > 4]
     span = _RB3_LAG * (passes - 1)
+    tiles = (-(-nx // (_RB3_TILE_COLS - 2 * passes))
+             * -(-ny // (rows - 2 * passes)))
+    chunks = max(_RB3_TARGET_BLOCKS // tiles, 1)
     return (passes, passes, rows, _RB3_TILE_COLS, span + 3 + _RB3_AHEAD,
-            span + 2 + _RB3_AHEAD)
+            span + 2 + _RB3_AHEAD, max(-(-nz // chunks), _RB3_MIN_CHUNK))
 
 
 def residual3d_tile(shape):
@@ -233,17 +249,22 @@ def jacobi3d_route(shape) -> str:
     return "resident" if _fits_resident(shape) else "march"
 
 
-def _geometry3d(passes):
+@functools.lru_cache(maxsize=None)
+def _geometry3d(passes, shape):
+    """:func:`rbgs3d_tile` as the C entry point takes it, built once per
+    pass count and shape: the smoother runs at a few shapes, and where its
+    launches are a few microseconds long the host sets their pace."""
     import ctypes
 
-    return (ctypes.c_int * 6)(*rbgs3d_tile(passes))
+    return (ctypes.c_int * 7)(*rbgs3d_tile(passes, shape))
 
 
 def rbgs3d_route(shape) -> str:
     """The smoother's launch shape for an array of ``shape``: ``"resident"``
     (the whole array in one block's shared memory, every sweep in one
     launch) up to ``RESIDENT_MAX_POINTS`` points, else ``"zmarch"`` (the
-    z-marching tile, one launch per group of <= 4 sweeps)."""
+    z-chunked march of the z-marching tile, one launch per group of <= 4
+    sweeps)."""
     return "resident" if _fits_resident(shape) else "zmarch"
 
 
@@ -486,7 +507,8 @@ def red_black_gauss_seidel_3d(u, b, alpha, h, sweeps: int = 1,
 
     def launch(x, y, s):
         _raise_on(fn(_ptr(x), _ptr(b), _ptr(y), *dims, c, _INV6, s,
-                     _geometry3d(2 * s), _stream()), "rbgs3d_fused")
+                     _geometry3d(2 * s, u.shape), _stream()),
+                  "rbgs3d_fused")
         LAUNCHES["rbgs3d_fused"] += 1
 
     return _pingpong(u, _groups(sweeps), launch)

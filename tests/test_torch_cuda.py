@@ -266,11 +266,13 @@ def test_cuda_3d_wrappers_count_and_refuse(cuda_device):
 
 # the fused 3D smoother's shapes: config 4's levels (the 17^3 bottom on the
 # resident route), padded levels, a non-cubic shape, one whose x-y extents
-# are no multiple of the tile core, and 257^3
+# are no multiple of the tile core, 257^3 (one z-chunk of 257 planes) and
+# 129^3 (z-chunks of 26, 43, 65 and 129 planes at 1-4 sweeps)
 FUSED3D_SHAPES = [((17, 17, 17), None), ((18, 18, 32), (17, 17, 17)),
                   ((33, 33, 33), None), ((36, 36, 64), (33, 33, 33)),
                   ((65, 65, 65), None), ((20, 24, 136), (17, 21, 129)),
-                  ((19, 53, 101), None), ((257, 257, 257), None)]
+                  ((19, 53, 101), None), ((257, 257, 257), None),
+                  ((129, 129, 129), None)]
 
 
 @pytest.mark.cuda
@@ -309,8 +311,9 @@ def test_cuda_rbgs3d_fused_equals_twin_and_per_colour_oracle(cuda_device,
 def test_cuda_rbgs3d_fused_refusals(cuda_device):
     """What the fused 3D kernels do not take is refused by the C entry
     points before any launch: a z-marching group of more than 4 sweeps or
-    none, a tile geometry other than the compiled one, a resident array
-    above the cap, a cap other than the compiled one."""
+    none, a tile geometry other than the compiled one, a z-chunk other than
+    the rule's for the shape (one plane more or less, or the whole march),
+    a resident array above the cap, a cap other than the compiled one."""
     import ctypes
 
     from multigrid_prj_tpu_torch.kernels._build import library
@@ -319,14 +322,18 @@ def test_cuda_rbgs3d_fused_refusals(cuda_device):
     u, b, _, h = _cuda_inputs((36, 36, 64), (33, 33, 33), cuda_device)
     out = torch.empty_like(u)
     dims = (36, 36, 64, 33, 33, 33, 400.0, 1.0 / 6.0)
-    good = c3._geometry3d(4)
+    good = c3._geometry3d(4, u.shape)
     assert lib.mg_rbgs3d_fused(p(u), p(b), p(out), *dims, 2, good,
                                stream) == 0
-    bad_rows = (ctypes.c_int * 6)(*(c3.rbgs3d_tile(4)[:2] + (16,)
-                                    + c3.rbgs3d_tile(4)[3:]))
-    bad_ring = (ctypes.c_int * 6)(*(c3.rbgs3d_tile(4)[:4] + (6, 6)))
-    for sweeps, geom in ((5, c3._geometry3d(8)), (0, good), (1, good),
-                         (2, bad_rows), (2, bad_ring)):
+    tile = c3.rbgs3d_tile(4, u.shape)
+    assert tile[6] == 2  # 6 tiles: 22 chunks a tile, of 2 planes
+    bad_rows = (ctypes.c_int * 7)(*(tile[:2] + (16,) + tile[3:]))
+    bad_ring = (ctypes.c_int * 7)(*(tile[:4] + (6, 6) + tile[6:]))
+    bad_chunks = [(ctypes.c_int * 7)(*(tile[:6] + (zc,)))
+                  for zc in (tile[6] - 1, tile[6] + 1, 36)]  # 36: whole
+    for sweeps, geom in ((5, c3._geometry3d(8, u.shape)), (0, good),
+                         (1, good), (2, bad_rows), (2, bad_ring),
+                         *((2, g) for g in bad_chunks)):
         assert lib.mg_rbgs3d_fused(p(u), p(b), p(out), *dims, sweeps, geom,
                                    stream) != 0, sweeps
     cap = c3.RESIDENT_MAX_POINTS
@@ -381,6 +388,38 @@ def test_cuda_3d_solve_launch_counts_fused_and_per_colour(cuda_device):
     assert cf["rbgs3d_fused"] == 3 * fused.iterations
     assert cf["rbgs3d_color"] == 0 and cc["rbgs3d_fused"] == 0
     assert cc["rbgs3d_color"] == 208 * colour.iterations
+    np.testing.assert_array_equal(fused.history, colour.history)
+    assert torch.equal(fused.u, colour.u)
+
+
+@pytest.mark.cuda
+def test_cuda_config4_solve_chunked_march_equals_per_colour(cuda_device):
+    """BASELINE config 4 (257^3, 5 levels, V(2,2), ff32 to 1e-8): 11
+    iterations and 99 ``rbgs3d_fused`` launches (per iteration 8 calls of
+    the z-chunked march at 257^3 .. 33^3 and the 17^3 bottom's resident
+    one), with the history and ``u`` bit-equal to the same solve on the
+    per-colour path (2552 ``rbgs3d_color``)."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+
+    kw = dict(shape=(257, 257, 257), length=1.0, alpha=1.0, num_levels=5,
+              cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60)
+    runs = {}
+    for path in ("fused", "per-colour"):
+        s = GMGSolver(device="cuda", **kw)
+        if path == "per-colour":
+            s._f32_route = s._f32_route._replace(
+                smooth=lambda u, b, alpha, h, sweeps=1, logical_shape=None:
+                c3._rbgs3d_per_colour(u, b, alpha, h, sweeps, logical_shape))
+        b = _rhs_3d(s.levels[0], "cuda")
+        cs.reset_launch_counts()
+        res = s.solve_refined(b)
+        torch.cuda.synchronize()
+        runs[path] = (res, dict(cs.LAUNCHES))
+        del s, b
+    (fused, cf), (colour, cc) = runs["fused"], runs["per-colour"]
+    assert fused.converged and fused.iterations == colour.iterations == 11
+    assert cf["rbgs3d_fused"] == 99 and cf["rbgs3d_color"] == 0
+    assert cc["rbgs3d_fused"] == 0 and cc["rbgs3d_color"] == 2552
     np.testing.assert_array_equal(fused.history, colour.history)
     assert torch.equal(fused.u, colour.u)
 

@@ -3,20 +3,27 @@
 emulated in plain torch on the CPU and held to the twin
 ``red_black_gauss_seidel_3d_plain`` bit for bit.
 
-The z-march emulation reads its geometry from
+The z-march emulation reads its geometry, the z-chunk included, from
 ``ops/cuda_stencil_3d.rbgs3d_tile`` and its sweep groups from
 ``ops/cuda_stencil._groups``, the values the CUDA wrapper hands the kernel.
 Every x-y tile (a core plus one ring of halo per dependent pass; cells
-outside the array load as 0 and count as boundary cells) walks z as one
-block does: at step t its copies of plane t + 3 land in their ring slots,
-it stores the core of plane t - 2P, and runs colour pass k on plane
-t + 1 - 2k, k = 1 .. P, all at once, in place in the ring (a pass's rows
-k .. rows-1-k; the edge
-columns read neighbours from outside the tile, as the kernel's do: that
-ring is stale after the first pass anyway).  Equal to the twin on odd,
-padded and non-cubic shapes, it shows that the halo, the two-plane lag and
-the ring sizes the kernel gets are enough; with one ring of halo less, one
-plane of lag less, or one ring plane less, it is not.
+outside the array load as 0 and count as boundary cells) walks each chunk
+z0 .. z1 - 1 of z as one block does: its ring starts as NaN (shared memory
+holds whatever it held), it loads planes z0 - P .. z1 + P - 1 (clamped to
+the array), at step t its copies of plane t + 3 land in their ring slots
+if it loads that plane, it stores the core of plane t - 2P if the chunk
+owns it, and runs colour pass k on plane t + 1 - 2k, k = 1 .. P, wherever
+that plane lies in the array, all at once, in place in the ring (a pass's
+rows k .. rows-1-k; the edge columns read neighbours from outside the
+tile, as the kernel's do: that ring is stale after the first pass
+anyway).  Equal to the twin on odd, padded and non-cubic shapes, with the
+rule's chunk, a chunk of one plane, chunks whose edges fall inside the
+array and a chunk of nz planes (one march over every plane), it shows that
+the halo, the z-halo, the two-plane lag and the ring sizes the kernel gets
+are enough, and that what the passes leave on the planes a chunk does not
+load never reaches a stored plane; with one ring of halo less, one plane
+of z-halo less, one plane of lag less, or one ring plane less, it is
+not.
 
 The resident emulation walks the kernel's sites (z, y, column pair), whose
 cell of colour c is column 2p + ((z + y + c) & 1), pass by pass over the
@@ -58,18 +65,23 @@ def _inputs(shape, logical, seed):
     return u, b, h
 
 
-def _zmarch_launch(u, b, c, sweeps, logical, halo_short=0, lag_short=0,
-                   ring_short=0):
-    """One z-marching launch of ``sweeps`` sweeps: every block at once, as
-    a batch of tiles (``halo_short`` rings fewer of row halo, ``lag_short``
-    planes fewer between passes, ``ring_short`` planes fewer in the u
-    ring).  The passes of a step run at once, as the kernel's do between
-    two barriers: each reads the ring as the step found it."""
+def _zmarch_launch(u, b, c, sweeps, logical, chunk=None, halo_short=0,
+                   zhalo_short=0, lag_short=0, ring_short=0):
+    """One z-marching launch of ``sweeps`` sweeps: every block of a chunk
+    at once, as a batch of tiles, chunk after chunk (each reads only ``u``
+    and ``b`` and stores only its own planes); ``chunk`` planes per chunk
+    in place of the geometry's, ``halo_short`` rings fewer of row halo,
+    ``zhalo_short`` planes fewer loaded beyond each end of a chunk,
+    ``lag_short`` planes fewer between passes, ``ring_short`` planes fewer
+    in the u ring.  The passes of a step run at once, as the kernel's do
+    between two barriers: each reads the ring as the step found it."""
     nz, ny, nx = u.shape
     nzl, nyl, nxl = logical or u.shape
     npass = 2 * sweeps
-    hr, hc, ty, tx, ru, rb = c3.rbgs3d_tile(npass)
+    hr, hc, ty, tx, ru, rb, zc = c3.rbgs3d_tile(npass, u.shape)
+    zc = chunk or zc
     hr -= halo_short
+    hz = npass - zhalo_short
     ru -= ring_short
     lag, ahead = c3._RB3_LAG - lag_short, c3._RB3_AHEAD
     ch, cw = ty - 2 * hr, tx - 2 * hc
@@ -83,7 +95,9 @@ def _zmarch_launch(u, b, c, sweeps, logical, halo_short=0, lag_short=0,
     rows = torch.arange(ty)[None, None, :, None]
     pad = (hc, ntx * cw + hc - nx, hr, nty * ch + hr - ny)
     c_t = torch.full((), c, dtype=u.dtype)
-    ring_u, ring_b = [None] * ru, [None] * rb
+    # a chunk's ring holds whatever shared memory held: NaN
+    garbage = torch.full((nty, ntx, ty, tx), float("nan"))
+    ring_u, ring_b = [garbage] * ru, [garbage] * rb
     out = torch.empty_like(u)
 
     def tiles(plane):  # (ny, nx) -> (nty, ntx, ty, tx), zeros outside
@@ -111,18 +125,23 @@ def _zmarch_launch(u, b, c, sweeps, logical, halo_short=0, lag_short=0,
         return torch.where(upd, torch.where(yx_bnd, bt, gs), x)
 
     span = lag * (npass - 1)
-    for z in range(min(ahead, nz)):
-        load(z)
-    for t in range(nz + span + 2):
-        # the copies of plane t + ahead land while the step runs
-        if t + ahead < nz:
-            load(t + ahead)
-        if 0 <= t - 2 - span < nz:
-            store(t - 2 - span)
-        planes = [(k, t - 1 - lag * (k - 1)) for k in range(1, npass + 1)]
-        new = {z: colour_pass(k, z) for k, z in planes if 0 <= z < nz}
-        for z, x in new.items():
-            ring_u[z % ru] = x
+    for z0 in range(0, nz, zc):
+        z1 = min(z0 + zc, nz)
+        p0, pe = max(z0 - hz, 0), min(z1 + hz, nz) - 1
+        ring_u[:], ring_b[:] = [garbage] * ru, [garbage] * rb
+        for z in range(p0, min(p0 + ahead, pe + 1)):
+            load(z)
+        for t in range(p0, z1 + span + 2):
+            # the copies of plane t + ahead land while the step runs
+            if t + ahead <= pe:
+                load(t + ahead)
+            if z0 <= t - 2 - span < z1:
+                store(t - 2 - span)
+            planes = [(k, t - 1 - lag * (k - 1))
+                      for k in range(1, npass + 1)]
+            new = {z: colour_pass(k, z) for k, z in planes if 0 <= z < nz}
+            for z, x in new.items():
+                ring_u[z % ru] = x
     return out
 
 
@@ -178,6 +197,22 @@ def test_zmarch_tiles_equal_twin(shape, logical, sweeps):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("shape,logical", SHAPES)
+@pytest.mark.parametrize("sweeps", [1, 2, 3, 4, 9])
+@pytest.mark.parametrize("chunk", ["one plane", "edges inside", "nz"])
+def test_zmarch_chunks_equal_twin(shape, logical, sweeps, chunk):
+    """Chunks of one plane, of 3 or 5 planes (edges inside the array, the
+    last chunk shorter), and of nz planes (one march over every plane, the
+    march before the z-split) equal the twin bit for bit at 1-4 and 9
+    sweeps."""
+    u, b, h = _inputs(shape, logical, seed=70 + sweeps)
+    zc = {"one plane": 1, "edges inside": 3 if shape[0] % 3 else 5,
+          "nz": shape[0]}[chunk]
+    got = emulate_zmarch(u, b, ALPHA, h, sweeps, logical, chunk=zc)
+    want = c3.red_black_gauss_seidel_3d_plain(u, b, ALPHA, h, sweeps, logical)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("shape,logical", RESIDENT_SHAPES)
 @pytest.mark.parametrize("sweeps", list(range(10)) + [100])
 def test_resident_equals_twin(shape, logical, sweeps):
@@ -190,16 +225,24 @@ def test_resident_equals_twin(shape, logical, sweeps):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("short", [dict(halo_short=1), dict(lag_short=1),
-                                   dict(ring_short=1)],
+# one march over every plane: the ring wraps around, the lag is exercised
+_WHOLE = TEETH_SHAPE[0][0]
+
+
+@pytest.mark.parametrize("short", [dict(halo_short=1, chunk=_WHOLE),
+                                   dict(lag_short=1, chunk=_WHOLE),
+                                   dict(ring_short=1, chunk=_WHOLE),
+                                   dict(zhalo_short=1, chunk=7)],
                          ids=["one ring of halo less",
                               "one plane of lag less",
-                              "one ring plane less"])
+                              "one ring plane less",
+                              "one plane of z-halo less"])
 @pytest.mark.parametrize("sweeps", [1, 2, 4])
 def test_less_than_the_kernel_gets_fails(short, sweeps):
     """With a row halo of 2 sweeps - 1, passes one plane apart in a step,
-    or a u ring of one plane less, the emulation differs from the twin: the
-    tests above have teeth."""
+    or a u ring of one plane less (one march over every plane), or chunks
+    of 7 planes that read 2 sweeps - 1 planes beyond each end, the
+    emulation differs from the twin: the tests above have teeth."""
     shape, logical = TEETH_SHAPE
     u, b, h = _inputs(shape, logical, seed=50)
     got = emulate_zmarch(u, b, ALPHA, h, sweeps, logical, **short)
@@ -233,24 +276,42 @@ def test_geometry_route_and_the_c_source_agree():
     """The geometry and the cap the wrapper passes are the ones the CUDA
     source compiles (it refuses others): one ring of halo per pass, 32
     columns, passes two planes apart, three planes loaded ahead, rings of
-    2 passes + 4 and 2 passes + 3 planes; the resident route up to
-    RESIDENT_MAX_POINTS points."""
-    assert c3.rbgs3d_tile(4) == (4, 4, 32, 32, 12, 11)  # the 2-sweep smoother
+    2 passes + 4 and 2 passes + 3 planes, as many z-chunks per tile as one
+    wave of 132 blocks holds (config 4's levels: chunks of 257, 43, 5 and 1
+    planes, 121, 108, 117 and 132 blocks; 513^3 one chunk); the resident
+    route up to RESIDENT_MAX_POINTS points."""
+    cube = (257, 257, 257)
+    # the 2-sweep smoother at 257^3
+    assert c3.rbgs3d_tile(4, cube) == (4, 4, 32, 32, 12, 11, 257)
     for p in (2, 4, 6, 8):
-        hr, hc, rows, cols, ru, rb = c3.rbgs3d_tile(p)
+        hr, hc, rows, cols, ru, rb, zc = c3.rbgs3d_tile(p, cube)
         assert (hr, hc, ru, rb) == (p, p, 2 * p + 4, 2 * p + 3)
         assert 4 * (ru + rb) * rows * cols <= 227 * 1024
         assert rows - 2 * hr > 0 and cols - 2 * hc > 0 and rows % 2 == 0
         assert 2 * rows * cols // 2 <= 1024  # a thread per row, pair, colour
+    for n, zc, blocks in ((257, 257, 121), (129, 43, 108), (65, 5, 117),
+                          (33, 1, 132), (513, 513, 484)):
+        tile = c3.rbgs3d_tile(4, (n, n, n))
+        assert tile[6] == zc
+        assert (-(-n // 24)) ** 2 * -(-n // zc) == blocks
+    assert c3.rbgs3d_tile(4, (5, 1000, 1000))[6] == 5  # tiles fill a wave
     for p in (0, 3, 10):
         with pytest.raises(ValueError, match="passes"):
-            c3.rbgs3d_tile(p)
+            c3.rbgs3d_tile(p, cube)
     src = _build.SOURCES[1].read_text()
     lo, hi = c3._RB3_TILE_ROWS
     assert f"static constexpr int TY = P <= 4 ? {lo} : {hi};" in src
     assert f"constexpr int kZmCols = {c3._RB3_TILE_COLS};" in src
     assert f"constexpr int kZmLag = {c3._RB3_LAG};" in src
     assert f"constexpr int kZmAhead = {c3._RB3_AHEAD};" in src
+    assert (f"constexpr int kZmTargetBlocks = {c3._RB3_TARGET_BLOCKS};"
+            in src)
+    assert f"constexpr int kZmMinChunk = {c3._RB3_MIN_CHUNK};" in src
+    # the benchmark's trace reader still finds the kernel among the port's
+    from portbench import trace
+
+    assert {"rbgs3d_zmarch_kernel", "rbgs3d_resident_kernel"} \
+        <= trace.port_kernel_names()
     cap = re.search(r"constexpr int kResidentMaxPoints = (\d+);", src)
     assert int(cap.group(1)) == c3.RESIDENT_MAX_POINTS
     assert c3.rbgs3d_route((17, 17, 17)) == "resident"
@@ -293,3 +354,17 @@ def test_tile_rows_probe_needs_the_card(monkeypatch, capsys):
     assert probe.main(["32:32"]) == 1
     assert "needs a CUDA device" in capsys.readouterr().err
     assert probe._ANCHOR in probe._build.SOURCES[1].read_text()
+
+
+def test_chunk_probe_needs_the_card(monkeypatch, capsys):
+    """The 3D z-chunk probe (``benchmarks/rbgs3d_chunk_probe.py``) builds
+    and times CUDA kernels only: without a card it exits non-zero, builds
+    nothing and names the reason; the constants it rewrites are the ones
+    the source declares."""
+    from multigrid_prj_tpu_torch.benchmarks import rbgs3d_chunk_probe as probe
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe.main(["264:1"]) == 1
+    assert "needs a CUDA device" in capsys.readouterr().err
+    src = probe._build.SOURCES[1].read_text()
+    assert all(anchor in src for anchor in probe._ANCHORS)

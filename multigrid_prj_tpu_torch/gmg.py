@@ -15,7 +15,8 @@ The JAX package runs each solve as one ``lax.while_loop``; here the loops are
 Python loops that fetch one scalar per outer iteration (the residual norm
 that goes into ``history``).  History semantics are the same: entry 0 is the
 initial residual, and the loop stops at ``tol`` or ``maxit``.  Every such
-fetch goes through ``utils/metrics.fetch`` (counted in
+fetch, and with ``inner_cg`` each stop test of the inner CG
+(``ops/krylov.cg_arrays``), goes through ``utils/metrics.fetch`` (counted in
 ``COUNTERS["host_syncs"]``), and a solve's stages run inside the profiler
 spans of ``utils/metrics`` (``SPAN_*``, ``level_spans``), which cost one check
 each when no profiler records.
@@ -61,6 +62,7 @@ from multigrid_prj_tpu_torch.ops.transfer import (
 from multigrid_prj_tpu_torch.utils.guards import check_finite
 from multigrid_prj_tpu_torch.utils.metrics import (
     SPAN_BOTTOM,
+    SPAN_CG_MASK,
     SPAN_COMBINE,
     SPAN_CYCLE,
     SPAN_FETCH,
@@ -549,11 +551,14 @@ class GMGSolver:
                 # space; on the zero-boundary subspace it is the SPD interior
                 # operator, and A and the cycle preserve that subspace: run
                 # CG there and solve the identity rows directly
+                with span(SPAN_CG_MASK):
+                    r_inner = r.masked_fill(bmask, 0.0)
                 e, _, _, _ = cg_arrays(
                     lambda v: route.apply(v, self.alpha, h0, self._logical0),
-                    r.masked_fill(bmask, 0.0), tol=0.0, maxit=inner_cg,
+                    r_inner, tol=0.0, maxit=inner_cg,
                     M=lambda rr: self._error_cycle(rr, cinv))
-                return torch.where(bmask, r, e)
+                with span(SPAN_CG_MASK):
+                    return torch.where(bmask, r, e)
         else:
             def inner_solve(r):
                 return self._error_cycle(r, cinv)

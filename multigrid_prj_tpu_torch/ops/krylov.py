@@ -7,7 +7,10 @@ The JAX package runs each solver as one ``lax.while_loop``; here the loops
 are Python loops that fetch one scalar per iteration (the stop test), with
 the same breakdown guards (``eps = finfo.tiny * 1e4``) and the same
 ``history`` / ``hist_cap`` semantics.  Everything else stays on the device
-of ``b``.
+of ``b``.  CG's stop test is a ``utils/metrics.fetch`` (counted in
+``COUNTERS["host_syncs"]``, inside ``mg.fetch``), and its stages run inside
+the ``mg.cg.*`` profiler spans, which cost one check each when no profiler
+records.
 """
 
 from __future__ import annotations
@@ -16,6 +19,16 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+from multigrid_prj_tpu_torch.utils.metrics import (
+    SPAN_CG_APPLY,
+    SPAN_CG_DOT,
+    SPAN_CG_PRECOND,
+    SPAN_CG_UPDATE,
+    SPAN_FETCH,
+    fetch,
+    span,
+)
 
 
 @dataclasses.dataclass
@@ -146,25 +159,44 @@ def cg_arrays(
         x0 = torch.zeros_like(b)
     if M is None:
         M = lambda r: r
-    bnorm = torch.sqrt(_dot(b, b).real)
-    bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
-    r = b - A(x0)
-    z = M(r)
-    hist = _hist0(b, r, bnorm, history,
-                  (hist_cap if hist_cap is not None else maxit) + 1)
-    x, p, rz, k = x0, z, _dot(r, z), 0
-    while k < maxit and bool(torch.sqrt(_dot(r, r).real) > tol * bnorm):
-        Ap = A(p)
-        alpha = rz / _dot(p, Ap)
-        x = x + alpha * p
-        r = r - alpha * Ap
+    with span(SPAN_CG_DOT):
+        bnorm = torch.sqrt(_dot(b, b).real)
+        bnorm = torch.where(bnorm > 0, bnorm, torch.ones_like(bnorm))
+    with span(SPAN_CG_APPLY):
+        r = A(x0)
+    with span(SPAN_CG_UPDATE):
+        r = b - r  # r0 = b - A x0, A x0 freed here
+    with span(SPAN_CG_PRECOND):
         z = M(r)
-        rz1 = _dot(r, z)
-        p = z + (rz1 / rz) * p
+    with span(SPAN_CG_DOT):
+        hist = _hist0(b, r, bnorm, history,
+                      (hist_cap if hist_cap is not None else maxit) + 1)
+        rz = _dot(r, z)
+    x, p, k = x0, z, 0
+    while k < maxit:
+        with span(SPAN_FETCH):
+            above = fetch(torch.sqrt(_dot(r, r).real) > tol * bnorm)
+        if not above:
+            break
+        with span(SPAN_CG_APPLY):
+            Ap = A(p)
+        with span(SPAN_CG_DOT):
+            alpha = rz / _dot(p, Ap)
+        with span(SPAN_CG_UPDATE):
+            x = x + alpha * p
+            r = r - alpha * Ap
+        with span(SPAN_CG_PRECOND):
+            z = M(r)
+        with span(SPAN_CG_DOT):
+            rz1 = _dot(r, z)
+        with span(SPAN_CG_UPDATE):
+            p = z + (rz1 / rz) * p
         if history:
             idx = k + 1 if hist_cap is None else min(k + 1, hist_cap)
-            hist[idx] = torch.sqrt(_dot(r, r).real) / bnorm
+            with span(SPAN_CG_DOT):
+                hist[idx] = torch.sqrt(_dot(r, r).real) / bnorm
         rz = rz1
         k += 1
-    rel = torch.sqrt(_dot(r, r).real) / bnorm
+    with span(SPAN_CG_DOT):
+        rel = torch.sqrt(_dot(r, r).real) / bnorm
     return x, k, rel, hist

@@ -156,6 +156,16 @@ SPAN_FETCH = "mg.fetch"  # a norm and its fetch to the host
 SPAN_CYCLE = "mg.outer.cycle"
 SPAN_COMBINE = "mg.outer.combine"  # u_hi + u_lo, the crop or permutation
 SPAN_BOTTOM = "mg.bottom"
+# ops/krylov.cg_arrays (inside mg.outer.cycle for an inner_cg correction):
+# each operator apply, the dot products and norms that feed alpha, beta and
+# the history, the vector updates, each preconditioner call (a cycle's
+# mg.L<k>.* and mg.bottom spans inside it), its stop test in mg.fetch; and
+# the correction's restriction to the zero-boundary subspace and back
+SPAN_CG_APPLY = "mg.cg.apply"
+SPAN_CG_DOT = "mg.cg.dot"
+SPAN_CG_UPDATE = "mg.cg.update"
+SPAN_CG_PRECOND = "mg.cg.precond"
+SPAN_CG_MASK = "mg.cg.mask"
 STAGES = ("pre_smooth", "residual", "restrict", "prolong_add", "post_smooth")
 
 

@@ -593,6 +593,63 @@ def test_cuda_spans_cover_a_solve_and_count_its_syncs(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_inner_cg_spans_and_counters(cuda_device):
+    """A profiled 1025^2 ff32 ``solve_refined(b, inner_cg=4)`` (the main
+    path's V(2,2), 6 levels, pad 256, to 1e-8): 4 outer iterations;
+    ``COUNTERS["host_syncs"]`` advances by ``5 k + 1`` (4 CG stop tests and
+    one history fetch a correction, and the first fetch), one for each
+    ``mg.fetch`` span and each DtoH copy inside the root span; each
+    correction's 5 operator applies launch ``apply_kernel`` inside
+    ``mg.cg.apply``; the answer and the history are the same without a
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.utils import metrics
+    from portbench import kernel_split
+
+    solver = GMGSolver(device="cuda", shape=(1025, 1025), length=10.0,
+                       alpha=ALPHA, num_levels=6, cycle="v", nu=2,
+                       pre_sweeps=2, tol=1e-8, maxit=60, pad_align=256)
+    b = assemble_rhs(solver.levels[0], 10.0, test=1, device="cuda")
+    plain = solver.solve_refined(b, inner_cg=4)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):  # starts the profiler up
+        solver.solve_refined(b, inner_cg=4)
+        torch.cuda.synchronize()
+    before = dict(metrics.COUNTERS)
+    with profile(activities=acts) as prof:
+        got = solver.solve_refined(b, inner_cg=4)
+        torch.cuda.synchronize()
+    counted = {k: metrics.COUNTERS[k] - before[k] for k in before}
+    k = got.iterations
+    assert k == 4 and got.converged
+    assert counted["host_syncs"] == 5 * k + 1
+    events = prof.events()
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    root, = [e for e in host if e.name == "mg.solve_refined"]
+    assert sum(e.name == "mg.fetch" for e in host) == 5 * k + 1
+    kind = {e.id: e.name for e in events if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation}
+    dtoh = [e for e in host if e.thread == root.thread
+            and root.time_range.start <= e.time_range.start
+            <= root.time_range.end and e.name.startswith("cudaMemcpy")
+            and "DtoH" in kind.get(e.id, "")]
+    assert len(dtoh) == 5 * k + 1
+    for name, per in (("mg.cg.apply", 5), ("mg.cg.precond", 5),
+                      ("mg.cg.mask", 2)):
+        assert sum(e.name == name for e in host) == per * k, name
+    split = kernel_split.reduce(events, [k])
+    applies = {path: launches for (path, kernel), (_, launches)
+               in split.kernels.items() if kernel == "apply_kernel"}
+    assert applies == {"mg.solve_refined/mg.outer.cycle/mg.cg.apply": 5 * k}
+    assert torch.equal(plain.u, got.u)
+    assert np.array_equal(plain.history, got.history)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dims", [2, 3])
 def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,
                                                               dims):

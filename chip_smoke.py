@@ -91,7 +91,9 @@ non-zero):
   prolong-add stream also against the one-thread-per-point kernel; the
   fused pair update and float-float residual also against the plain pair
   update and the ff residual kernel in turn; the geometry refusals of the
-  chain, the Jacobi tile and the stream)
+  chain, the Jacobi tile and the stream)   3b. the CG step's kernels vs
+  their twins (at the 8193^2 cell's vectors, 257^3, odd and short 1D
+  lengths and unaligned views; the fused r . r against torch.vdot)
   4. 3D kernel vs twin (the fused smoother at sweeps 0-9, and 100 on the
   resident route, also against the per-colour oracle; the residual march
   at a shape whose nz is no multiple of its chunk; the route of each
@@ -127,7 +129,8 @@ non-zero):
   sharded smoother at 8208 x 8192, of the apply chain and of the Jacobi
   tile at 8192^2, each against the kernels it replaced; the Jacobi tile and
   the prolong-add stream at 8192^2 and 8448^2 against their oracles, also
-  L2 flushed; the residual march against the point
+  L2 flushed; the CG step's kernels at 8448^2 against their twins and
+  torch.add, also L2 flushed; the residual march against the point
   kernel, the 3D Jacobi march against the per-sweep kernel and the
   apply's march against the point apply at 257^3 and 513^3, each L2
   flushed too, with the 3D Jacobi's ladder (1 / 2 / 4 / 9 sweeps at 257^3)
@@ -325,6 +328,23 @@ KERNELS.update({
                   f"{_PSPMV}:613 on the TPU", _SRCS),
 })
 KERNELS["rbgs_fused_ext"] = (f"{_PS}:476", _SRC2)
+# the CG step's vector updates replace no TPU kernel: XLA fuses cg_arrays'
+# updates, torch runs each as a multiply and an add kernel (cg_xr_update's
+# call is two launches: the update with the norm's partials, then their
+# sum, cg_rr_sum)
+_KR = "multigrid_prj_tpu/ops/krylov.py"
+_SRCK = "multigrid_prj_tpu_torch/csrc/krylov.cu"
+KERNELS["cg_xr_update"] = (f"none: XLA fused {_KR}:183-184 on the TPU",
+                           _SRCK)
+KERNELS["cg_p_update"] = (f"none: XLA fused {_KR}:187 on the TPU", _SRCK)
+# the CG kernels against their twins at the 8193^2 cell's padded vectors,
+# config 4's 257^3, a 1D length no multiple of 4, one below a block, and
+# views one float off 16-byte alignment; timed at 8448^2
+CG_SHAPES = [((8448, 8448), 0), ((257, 257, 257), 0), ((1_000_003,), 0),
+             ((100,), 0), ((1_000_003,), 1)]
+CG_NORM_RTOL = 1e-6  # the fused r . r against torch.vdot
+# what an inner_cg solve launches beside the cycle's kernels
+CG_NEED = ("apply", "cg_xr_update", "cg_rr_sum", "cg_p_update")
 KERNELS_AMG = ("spmv", "spmv_axpy", "cheb_step", "ff_residual_ell")
 # the design probes of benchmarks/ (csrc/ablation.cu, ROADMAP B17 / B18),
 # driven through the port's two harnesses (multigrid_prj_tpu_torch/
@@ -385,7 +405,10 @@ STENCIL_COST = {
     # the fine grid read, the coarse one written, 53 / 8 flops; u and the
     # coarse e read, u written, 27 / 8 + 1 flops
     "restrict_fw3d": (4.5, 6.625), "prolong_add3d": (8.5, 4.375),
-    "rbgs_fused_ext": (12, 24)}
+    "rbgs_fused_ext": (12, 24),
+    # the CG step: x, p, r, Ap read, x, r written, 2 products, 2 sums and
+    # r . r's square and sum; z, p read, p written, a product and a sum
+    "cg_xr_update": (24, 6), "cg_p_update": (12, 2)}
 
 # AMG: BASELINE config 3's large FD system as benchmarks/amg_bench.py runs
 # it (poisson_fd_csr(1024): 1,048,576 rows, 5,238,784 nnz; b from
@@ -834,6 +857,103 @@ def chain_calls(cs, u, h, logical):
              if (s, tag) != (CHAIN_FUSE, "")]
             + [(f"{CHAIN_FUSE} applies", lambda: chain(CHAIN_FUSE),
                 lambda: twin(CHAIN_FUSE))])
+
+
+def cg_inputs(torch, shape, offset, seed):
+    """x, r, p, Ap, z on the card (views ``offset`` floats into their
+    buffers) and the step's device scalars alpha, rz, rz1."""
+    gen = torch.Generator().manual_seed(seed)
+    n = math.prod(shape)
+    x, r, p, ap, z = (torch.randn(n + offset, generator=gen).cuda()[offset:]
+                      .reshape(shape) for _ in range(5))
+
+    def dot(a, b):
+        return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+    rz = dot(r, z)
+    alpha = rz / dot(p, ap)
+    rz1 = dot(r - alpha * ap, z)
+    return x, r, p, ap, z, alpha, rz, rz1
+
+
+def check_cg_kernels(torch, ck, max_err, seed=11):
+    """The CG step's kernels against their twins at ``CG_SHAPES``: x, r and
+    p ``torch.equal`` (x out of place and in place), the fused r . r within
+    ``CG_NORM_RTOL`` of ``torch.vdot`` and the same in two calls."""
+    worst = 0.0
+    for shape, offset in CG_SHAPES:
+        x, r, p, ap, z, alpha, rz, rz1 = cg_inputs(torch, shape, offset,
+                                                   seed)
+        want_x, want_r, want_rr = ck.cg_xr_update_plain(x, r, p, ap, alpha)
+        rrs = []
+        for owned in (False, True):
+            gx, gr, rr = ck.cg_xr_update(x.clone(), r.clone(), p, ap, alpha,
+                                         owned)
+            torch.cuda.synchronize()
+            err = max(float((gx - want_x).abs().max()),
+                      float((gr - want_r).abs().max()))
+            max_err["cg_xr_update"] = max(max_err["cg_xr_update"], err)
+            check(torch.equal(gx, want_x) and torch.equal(gr, want_r),
+                  f"cg_xr_update (x_owned {owned}) != twin at {shape}, "
+                  f"offset {offset} (max abs diff {err})")
+            rrs.append(rr)
+        rel = abs(float(rrs[0]) - float(want_rr)) / float(want_rr)
+        worst = max(worst, rel)
+        check(rel <= CG_NORM_RTOL and torch.equal(rrs[0], rrs[1]),
+              f"cg_xr_update's r . r at {shape}: {float(rrs[0])!r} and "
+              f"{float(rrs[1])!r} against torch.vdot's {float(want_rr)!r}")
+        want_p = ck.cg_p_update_plain(z, p, rz1, rz)
+        got_p = ck.cg_p_update(z, p.clone(), rz1, rz)
+        torch.cuda.synchronize()
+        err = float((got_p - want_p).abs().max())
+        max_err["cg_p_update"] = max(max_err["cg_p_update"], err)
+        check(torch.equal(got_p, want_p), f"cg_p_update != twin at {shape}, "
+              f"offset {offset} (max abs diff {err})")
+        print(f"[kernels] {shape} offset {offset}: cg_xr_update, "
+              f"cg_p_update equal to their twins (torch.equal); r . r "
+              f"{rel:.2e} from torch.vdot, equal in two calls")
+        del x, r, p, ap, z, want_x, want_r, want_p, got_p, gx, gr
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_cg_kernels(torch, ck, add_time, shape=(8448, 8448), seed=12):
+    """The CG step's kernels at the 8193^2 cell's padded vectors, in place
+    on the same buffers call after call (alpha from the inputs, beta 0.5 so
+    that p stays bounded), against the plain step and, as the
+    library yardstick, ``torch.add(x, p, alpha=a)`` (with r's and the
+    vdot for cg_xr_update)."""
+    x, r, p, ap, z, alpha, rz, _ = cg_inputs(torch, shape, 0, seed)
+    rz1 = 0.5 * rz
+    a, beta = float(alpha), float(rz1 / rz)
+    npts = math.prod(shape)
+
+    def dot(u, v):
+        return torch.vdot(u.reshape(-1), v.reshape(-1))
+
+    calls = {
+        "cg_xr_update": (
+            lambda: ck.cg_xr_update(x, r, p, ap, alpha, True),
+            lambda: ck.cg_xr_update_plain(x, r, p, ap, alpha),
+            lambda: (torch.add(x, p, alpha=a, out=x),
+                     torch.add(r, ap, alpha=-a, out=r), dot(r, r))),
+        "cg_p_update": (
+            lambda: ck.cg_p_update(z, p, rz1, rz),
+            lambda: ck.cg_p_update_plain(z, p, rz1, rz),
+            lambda: torch.add(z, p, alpha=beta, out=p))}
+    for kname, (kern, twin, lib) in calls.items():
+        t = (median_ms(torch, kern), median_ms(torch, twin),
+             median_ms(torch, lib))
+        extra = {"device_ms": device_ms(torch, kern, npts),
+                 "flushed_ms": flushed_ms(torch, kern)}
+        per = STENCIL_COST[kname]
+        add_time(kname, "in place", record(
+            "x".join(map(str, shape)), t[0], t[1], per[0] * npts,
+            per[1] * npts, t[2], **extra),
+            f"; L2 flushed before each call {extra['flushed_ms'] * 1e3:.1f}"
+            " us")
+    del x, r, p, ap, z
+    torch.cuda.empty_cache()
 
 
 def flat(x):
@@ -2729,6 +2849,7 @@ def main() -> int:
     from multigrid_prj_tpu_torch.grids import build_hierarchy
     from multigrid_prj_tpu_torch.kernels import _build
     from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops import cuda_krylov as ck
     from multigrid_prj_tpu_torch.ops import cuda_stencil as cs
     from multigrid_prj_tpu_torch.ops import cuda_stencil_3d as c3
     from multigrid_prj_tpu_torch.ops import extended as text
@@ -2841,6 +2962,12 @@ def main() -> int:
           "jacobi_fused / prolong_add geometry refusal")
     del u, b, got, want, y, e
     torch.cuda.empty_cache()
+
+    # 3b. the CG step's kernels vs their twins
+    phases.next("CG step kernels vs twin")
+    worst = check_cg_kernels(torch, ck, max_err)
+    print(f"[kernels] cg_xr_update's r . r: at most {worst:.2e} relative "
+          f"from torch.vdot (bound {CG_NORM_RTOL})")
 
     # 4. 3D kernel vs twin: every level of paths A-D (C's finest is 513^3)
     # and the non-cubic shape
@@ -3115,7 +3242,7 @@ def main() -> int:
         tag = f"8193 inner_cg={inner}"
         res8, counts = run_path(big, big_b, inner_cg=inner)
         check_solve(tag, res8, (8193, 8193), 1e-7, SCALE_ITERATIONS[inner],
-                    counts, gs_need + (("apply",) if inner else ()))
+                    counts, gs_need + (CG_NEED if inner else ()))
         if not inner:  # inner_cg's preconditioner cycles call it too
             check_smoother_launches(tag, big, res8, counts, fused=False)
         print(f"[{tag}] peak device memory "
@@ -3160,7 +3287,7 @@ def main() -> int:
     phases.next("1025^2 inner_cg / Jacobi")
     res_cg, counts = run_path(solver, b, inner_cg=4)
     check_solve("1025 inner_cg=4", res_cg, SHAPE, 1e-8, INNER_CG_ITERATIONS,
-                counts, gs_need + ("apply",))
+                counts, gs_need + CG_NEED)
     check_twins("1025 inner_cg=4", res_cg, SOLVER_KW, b,
                 rtol=INNER_CG_HISTORY_RTOL, inner_cg=4)
     jac = GMGSolver(**JACOBI_KW, device="cuda")
@@ -3998,6 +4125,7 @@ def main() -> int:
                 **extra), note)
         del u, bb, u_lo
         torch.cuda.empty_cache()
+    time_cg_kernels(torch, ck, add_time)
     # the per-pass ladder at 8448^2, device time per call from graph
     # replays: the down-leg at sweeps 0-3; the smoother at 1, 2 and 4
     # sweeps, fused and as the per-colour oracle

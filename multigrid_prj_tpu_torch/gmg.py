@@ -26,9 +26,9 @@ on the card unless the caller names another device.  Which function runs
 each stencil operation is the solver's route (``ops/routes.py``), chosen
 once per dtype: with ``use_pallas`` (the default on CUDA) float32 work takes
 the hand-written kernels (the smoothers, residuals, float-float residual
-and pair update, ``inner_cg`` operator apply, in 2D the padded grid
-transfers and the fused down-leg of ``fuse_downleg``, in 3D the
-exact-layout grid transfers); as in the JAX kernel
+and pair update, ``inner_cg`` operator apply and CG vector updates, in 2D
+the padded grid transfers and the fused down-leg of ``fuse_downleg``, in
+3D the exact-layout grid transfers); as in the JAX kernel
 wrappers, which take float32 only, work in any other dtype (f64, or the
 bf16 ``smoother_dtype`` cycle) takes the plain ops on every device and
 launches nothing.
@@ -280,10 +280,11 @@ class GMGSolver:
     Parameters mirror the JAX ``GMGSolver`` (and through it the reference
     CLI), plus ``device`` (default the card; ``device="cpu"`` for the CPU).
     ``use_pallas`` keeps its JAX meaning -- route the float32 smoother,
-    residuals, grid transfers and ``inner_cg`` apply through the kernel
-    functions (``ops/routes.kernel_route``) -- and defaults to True on CUDA
-    and False on the CPU.  On the CPU, ``use_pallas=True`` runs the kernels'
-    torch twins; ``False`` runs the XLA-order plain ops on any device.
+    residuals, grid transfers and ``inner_cg`` apply and CG vector updates
+    through the kernel functions (``ops/routes.kernel_route``) -- and
+    defaults to True on CUDA and False on the CPU.  On the CPU,
+    ``use_pallas=True`` runs the kernels' torch twins; ``False`` runs the
+    XLA-order plain ops on any device.
     ``fuse_downleg`` (with ``use_pallas``, ``smoother="gs"`` and
     ``omega=1``) runs each padded level's pre-smoothing, residual and
     restriction as one ``rbgs_residual_restrict`` call, bit-equal to the
@@ -517,9 +518,10 @@ class GMGSolver:
 
         ``inner_cg = k > 0`` replaces each correction's single cycle with
         ``k`` iterations of cycle-preconditioned CG on the f32 error
-        equation (``ops/krylov.cg_arrays``, operator apply through the
-        kernel with ``use_pallas``).  Whether that pays depends on the grid
-        and the device: see PERF.md for the H100's numbers.
+        equation (``ops/krylov.cg_arrays``, operator apply and vector
+        updates through the kernels with ``use_pallas``).  Whether that
+        pays depends on the grid and the device: see PERF.md for the
+        H100's numbers.
 
         ``smoother_dtype`` is not read here: the error cycles run in the
         outer dtype, as in the JAX package."""
@@ -556,7 +558,8 @@ class GMGSolver:
                 e, _, _, _ = cg_arrays(
                     lambda v: route.apply(v, self.alpha, h0, self._logical0),
                     r_inner, tol=0.0, maxit=inner_cg,
-                    M=lambda rr: self._error_cycle(rr, cinv))
+                    M=lambda rr: self._error_cycle(rr, cinv),
+                    xr_step=route.cg_xr_update, p_step=route.cg_p_update)
                 with span(SPAN_CG_MASK):
                     return torch.where(bmask, r, e)
         else:

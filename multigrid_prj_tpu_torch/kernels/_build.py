@@ -1,11 +1,12 @@
 """Build and load the CUDA kernels of ``csrc/`` at first use.
 
 ``nvcc`` compiles each source (``csrc/stencil2d.cu``, ``csrc/stencil3d.cu``,
-``csrc/spmv.cu``, ``csrc/ablation.cu``) for ``sm_90a`` into an object file, all at once in
-parallel, and links them into one shared library with a plain C interface,
-which is loaded with ``ctypes``.  The library goes to ``multigrid_prj_tpu_torch/build/``
-(git-ignored) and is rebuilt when any source is newer than it.  Nothing is
-built or loaded at import time.
+``csrc/spmv.cu``, ``csrc/krylov.cu``, ``csrc/ablation.cu``) for ``sm_90a``
+into an object file, all at once in parallel, and links them into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library goes to ``multigrid_prj_tpu_torch/build/`` (git-ignored) and
+is rebuilt when any source is newer than it.  Nothing is built or loaded
+at import time.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "stencil2d.cu", _PKG / "csrc" / "stencil3d.cu",
-           _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "ablation.cu")
+           _PKG / "csrc" / "spmv.cu", _PKG / "csrc" / "krylov.cu",
+           _PKG / "csrc" / "ablation.cu")
 BUILD_DIR = _PKG / "build"
 LIBRARY = BUILD_DIR / "libmg_stencil.so"
 
@@ -34,6 +36,7 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ll = ctypes.c_longlong  # a vector's length
 _ip = ctypes.POINTER(ctypes.c_int)  # the tile geometry of the tiled
 # kernels
 _SIGNATURES = {
@@ -83,6 +86,9 @@ _SIGNATURES = {
     "mg_ell_spmm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     "mg_rbgs_fused_ext": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _ip,
                           _vp],
+    "mg_cg_xr_update": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _i, _i,
+                        _vp],
+    "mg_cg_p_update": [_vp, _vp, _vp, _vp, _ll, _i, _i, _vp],
     "mg_probe_copy": [_vp, _vp, _i, _i, _i, _vp],
     "mg_probe_neighbour": [_vp, _vp, _i, _i, _i, _i, _vp],
     "mg_probe_carry": [_vp, _vp, _i, _i, _i, _vp],

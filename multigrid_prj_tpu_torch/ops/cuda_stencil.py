@@ -63,8 +63,8 @@ from multigrid_prj_tpu_torch.ops import transfer as _tr
 from multigrid_prj_tpu_torch.ops.stencil import boundary_mask
 
 # kernel name -> number of launches since the last reset_launch_counts()
-# (the ELL kernels of ops/cuda_spmv.py and the design probes of benchmarks/
-# count here too)
+# (the ELL kernels of ops/cuda_spmv.py, the CG step's of ops/cuda_krylov.py
+# and the design probes of benchmarks/ count here too)
 LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_residual": 0, "ff_update_residual": 0, "apply": 0,
             "jacobi": 0, "jacobi_sweep": 0, "restrict_fw": 0,
@@ -78,6 +78,7 @@ LAUNCHES = {"rbgs_fused": 0, "rbgs_color": 0, "residual": 0,
             "ff_residual_ell": 0, "rbgs_resfilter": 0,
             "apply_chain": 0, "rbgs_color_sweep": 0, "ell_spmm": 0,
             "rbgs_fused_ext": 0,
+            "cg_xr_update": 0, "cg_rr_sum": 0, "cg_p_update": 0,
             "probe_copy": 0, "probe_rolls": 0, "probe_shifts": 0,
             "probe_halo": 0, "probe_full": 0, "probe_carry": 0,
             "probe_stream": 0, "probe_staticwin": 0, "probe_noshuffle": 0}

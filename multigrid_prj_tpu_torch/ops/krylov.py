@@ -46,11 +46,31 @@ def _dot(a, b):
     return torch.vdot(a.reshape(-1), b.reshape(-1))
 
 
-def _hist0(b, r0, bnorm, history, length):
+def _hist0(b, r0, bnorm, history, length, rr=None):
+    """The history buffer with ``||r0|| / ||b||`` in its first slot;
+    ``rr``: ``r0 . r0`` where the caller has it."""
+    if rr is None:
+        rr = _dot(r0, r0).real
     hist = torch.full((length,) if history else (1,), float("nan"),
                       dtype=b.dtype, device=b.device)
-    hist[0] = torch.sqrt(_dot(r0, r0).real) / bnorm
+    hist[0] = torch.sqrt(rr) / bnorm
     return hist
+
+
+def cg_xr_step(x, r, p, Ap, alpha, x_owned=False):
+    """CG's ``x + alpha p`` and ``r - alpha Ap``, each a product and then a
+    sum, and ``r' . r'`` (``torch.vdot``): ``(x', r', r' . r')``, new
+    tensors.  ``x_owned`` (whether ``x`` may be written in place) is for the
+    kernel route's step (``ops/cuda_krylov.cg_xr_update``), which takes the
+    same arguments."""
+    x = x + alpha * p
+    r = r - alpha * Ap
+    return x, r, _dot(r, r).real
+
+
+def cg_p_step(z, p, rz1, rz):
+    """CG's new search direction ``z + (rz1 / rz) p``, a new tensor."""
+    return z + (rz1 / rz) * p
 
 
 def bicgstab(
@@ -146,6 +166,8 @@ def cg_arrays(
     M: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     history: bool = False,
     hist_cap: Optional[int] = None,
+    xr_step: Callable = cg_xr_step,
+    p_step: Callable = cg_p_step,
 ) -> tuple:
     """CG core: returns ``(x, k, rel, hist)`` with ``x``, ``rel`` and
     ``hist`` tensors on ``b``'s device and ``k`` an int.
@@ -154,6 +176,19 @@ def cg_arrays(
     last slot.  When None the buffer holds every iteration.  With
     ``tol = 0`` the loop runs ``maxit`` iterations unless the residual
     vanishes (``||r|| > 0`` is still tested).
+
+    ``xr_step(x, r, p, Ap, alpha, x_owned) -> (x', r', r' . r')`` and
+    ``p_step(z, p, rz1, rz) -> z + (rz1 / rz) p`` are the step's vector
+    updates, as ``A`` and ``M`` are its operators: the plain ops
+    (:func:`cg_xr_step`, :func:`cg_p_step`) by default, or a route's
+    kernels, which write in place into buffers the loop owns.  ``x`` is
+    owned once the first step has written it out of place (``x_owned`` is
+    False there: a caller's ``x0`` is never written); ``r`` from
+    ``r = b - A x0`` on; ``p`` is ``M``'s output, so steps that write in
+    place need an ``M`` that returns a new buffer (a V-cycle does; the
+    identity does not).  The stop test and the history read the ``r . r``
+    that ``xr_step`` returns (``r0 . r0`` before the first step), as does
+    ``rel``.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
@@ -169,13 +204,14 @@ def cg_arrays(
     with span(SPAN_CG_PRECOND):
         z = M(r)
     with span(SPAN_CG_DOT):
+        rr = _dot(r, r).real
         hist = _hist0(b, r, bnorm, history,
-                      (hist_cap if hist_cap is not None else maxit) + 1)
+                      (hist_cap if hist_cap is not None else maxit) + 1, rr)
         rz = _dot(r, z)
     x, p, k = x0, z, 0
     while k < maxit:
         with span(SPAN_FETCH):
-            above = fetch(torch.sqrt(_dot(r, r).real) > tol * bnorm)
+            above = fetch(torch.sqrt(rr) > tol * bnorm)
         if not above:
             break
         with span(SPAN_CG_APPLY):
@@ -183,20 +219,22 @@ def cg_arrays(
         with span(SPAN_CG_DOT):
             alpha = rz / _dot(p, Ap)
         with span(SPAN_CG_UPDATE):
-            x = x + alpha * p
-            r = r - alpha * Ap
+            x, r, rr = xr_step(x, r, p, Ap, alpha, k > 0)
+        # A p is read by nothing after the update: freed before the
+        # preconditioner, which is where a step peaks in device memory
+        del Ap
         with span(SPAN_CG_PRECOND):
             z = M(r)
         with span(SPAN_CG_DOT):
             rz1 = _dot(r, z)
         with span(SPAN_CG_UPDATE):
-            p = z + (rz1 / rz) * p
+            p = p_step(z, p, rz1, rz)
         if history:
             idx = k + 1 if hist_cap is None else min(k + 1, hist_cap)
             with span(SPAN_CG_DOT):
-                hist[idx] = torch.sqrt(_dot(r, r).real) / bnorm
+                hist[idx] = torch.sqrt(rr) / bnorm
         rz = rz1
         k += 1
     with span(SPAN_CG_DOT):
-        rel = torch.sqrt(_dot(r, r).real) / bnorm
+        rel = torch.sqrt(rr) / bnorm
     return x, k, rel, hist

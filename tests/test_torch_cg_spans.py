@@ -58,9 +58,10 @@ PER_CORRECTION = {metrics.SPAN_CG_MASK: 2,
 
 
 def _cg_arrays_before(A, b, x0=None, tol=1e-11, maxit=100, M=None,
-                      history=False, hist_cap=None):
+                      history=False, hist_cap=None, **_steps):
     """``ops/krylov.cg_arrays`` as it was before it had spans and counters:
-    the same operations in the same order, with a bare stop test."""
+    the same operations in the same order, with a bare stop test, and the
+    plain vector updates whatever steps the caller hands in."""
     if x0 is None:
         x0 = torch.zeros_like(b)
     if M is None:

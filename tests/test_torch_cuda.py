@@ -649,6 +649,126 @@ def test_cuda_inner_cg_spans_and_counters(cuda_device):
     assert np.array_equal(plain.history, got.history)
 
 
+# the CG step's kernels: the 8193^2 cell's padded vectors, config 4's 257^3,
+# a 1D length that is no multiple of 4, one below a block, and views one
+# float off 16-byte alignment (every point on the scalar path)
+CG_SHAPES = [((8448, 8448), 0), ((257, 257, 257), 0), ((1_000_003,), 0),
+             ((100,), 0), ((1_000_003,), 1)]
+
+
+def _cg_vectors(shape, offset, device, count):
+    gen = torch.Generator().manual_seed(7)
+    n = int(np.prod(shape))
+    return [torch.randn(n + offset, generator=gen).to(device)[offset:]
+            .reshape(shape) for _ in range(count)]
+
+
+def _vdot(a, b):
+    return torch.vdot(a.reshape(-1), b.reshape(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", CG_SHAPES)
+def test_cuda_cg_kernels_equal_twins(cuda_device, shape, offset):
+    """``cg_xr_update`` and ``cg_p_update`` against their plain twins
+    (``torch.equal`` on x, r and p), alpha and beta from device scalars,
+    with x written out of place (the caller's x untouched) and in place;
+    the fused ``r . r`` within 1e-6 relative of ``torch.vdot`` and the
+    same in two calls; each launch counted."""
+    from multigrid_prj_tpu_torch.ops import cuda_krylov as ck
+
+    x, r, p, Ap, z = _cg_vectors(shape, offset, cuda_device, 5)
+    rz = _vdot(r, z)
+    alpha = rz / _vdot(p, Ap)
+    want_x, want_r, want_rr = ck.cg_xr_update_plain(x, r, p, Ap, alpha)
+    rrs = []
+    for x_owned in (False, True):
+        xi, ri = x.clone(), r.clone()
+        cs.reset_launch_counts()
+        got_x, got_r, rr = ck.cg_xr_update(xi, ri, p, Ap, alpha, x_owned)
+        torch.cuda.synchronize()
+        assert cs.LAUNCHES["cg_xr_update"] == cs.LAUNCHES["cg_rr_sum"] == 1
+        assert sum(cs.LAUNCHES.values()) == 2
+        assert torch.equal(got_x, want_x) and torch.equal(got_r, want_r)
+        assert got_r.data_ptr() == ri.data_ptr()
+        assert (got_x.data_ptr() == xi.data_ptr()) == x_owned
+        assert x_owned or torch.equal(xi, x)
+        assert rr.shape == () and rr.device == x.device
+        assert abs(float(rr) - float(want_rr)) <= 1e-6 * float(want_rr)
+        rrs.append(rr)
+    assert torch.equal(rrs[0], rrs[1])
+    rz1 = _vdot(want_r, z)
+    want_p = ck.cg_p_update_plain(z, p, rz1, rz)
+    pi = p.clone()
+    cs.reset_launch_counts()
+    got_p = ck.cg_p_update(z, pi, rz1, rz)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cs.LAUNCHES.items() if v} == {"cg_p_update": 1}
+    assert got_p.data_ptr() == pi.data_ptr() and torch.equal(got_p, want_p)
+
+
+@pytest.mark.cuda
+def test_cuda_cg_kernels_refuse(cuda_device):
+    """Outputs that overlap an operand, vectors of two shapes or dtypes and
+    a scalar of two elements are refused before any launch."""
+    from multigrid_prj_tpu_torch.ops import cuda_krylov as ck
+
+    x, r, p, Ap = _cg_vectors((64, 64), 0, cuda_device, 4)
+    a = torch.ones((), device=cuda_device)
+    cs.reset_launch_counts()
+    # p is r; r is x; Ap is x; x is r, written out of place
+    for args in ((x, r, r, Ap, a, True), (x, x, p, Ap, a, True),
+                 (x, r, p, x, a, True), (r, r, p, Ap, a, False)):
+        with pytest.raises(ValueError, match="overlaps"):
+            ck.cg_xr_update(*args)
+    with pytest.raises(ValueError, match="overlaps"):
+        ck.cg_p_update(p, p, a, a)
+    with pytest.raises(ValueError, match="shape"):
+        ck.cg_xr_update(x, r, p[:32].contiguous(), Ap, a)
+    with pytest.raises(ValueError, match="float32"):
+        ck.cg_p_update(x.double(), p, a, a)
+    with pytest.raises(ValueError, match="elements"):
+        ck.cg_p_update(x, p, torch.ones(2, device=cuda_device), a)
+    assert sum(cs.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [2, 3])
+def test_cuda_inner_cg_solve_equals_plain_cg_step(cuda_device, dims):
+    """``solve_refined(inner_cg=4)`` at 1025^2 (the main path's V(2,2), 6
+    levels, pad 256) and on 33^3 launches ``cg_xr_update``,
+    ``cg_rr_sum`` and ``cg_p_update`` once a CG step; its ``u`` and history
+    are ``torch.equal`` to the same solve with the plain CG steps in its
+    route, which launches none of them."""
+    from multigrid_prj_tpu_torch.gmg import GMGSolver
+    from multigrid_prj_tpu_torch.models.poisson import assemble_rhs
+    from multigrid_prj_tpu_torch.ops import krylov as kr
+
+    kw = (dict(shape=(1025, 1025), length=10.0, alpha=ALPHA, num_levels=6,
+               cycle="v", nu=2, pre_sweeps=2, tol=1e-8, maxit=60,
+               pad_align=256) if dims == 2 else
+          dict(shape=(33, 33, 33), length=1.0, alpha=1.0, num_levels=2,
+               cycle="v", nu=2, tol=1e-8, maxit=40))
+    runs = []
+    for steps in ("kernels", "plain"):
+        s = GMGSolver(device="cuda", **kw)
+        if steps == "plain":
+            s._f32_route = s._f32_route._replace(cg_xr_update=kr.cg_xr_step,
+                                                 cg_p_update=kr.cg_p_step)
+        b = (assemble_rhs(s.levels[0], 10.0, test=1, device="cuda")
+             if dims == 2 else _rhs_3d(s.levels[0], "cuda"))
+        cs.reset_launch_counts()
+        res = s.solve_refined(b, inner_cg=4)
+        torch.cuda.synchronize()
+        runs.append((res, dict(cs.LAUNCHES)))
+    (got, cg), (want, cp) = runs
+    assert got.converged and got.iterations == want.iterations >= 2
+    for k in ("cg_xr_update", "cg_rr_sum", "cg_p_update"):
+        assert cg[k] == 4 * got.iterations and cp[k] == 0, k
+    np.testing.assert_array_equal(got.history, want.history)
+    assert torch.equal(got.u, want.u)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", [2, 3])
 def test_cuda_bf16_defect_correction_launches_no_cycle_kernel(cuda_device,

@@ -30,7 +30,8 @@ cycles on a torch device.
 * ``solve`` and ``solve_refined`` open ``GMGSolver``'s profiler spans
   (``utils/metrics``: root, split, float-float residual, fetch, cycle with
   each level's stages and the bottom, combine); ``setup_times`` holds the
-  set-up's wall seconds by phase.
+  set-up's seconds by phase, and the first solve's are kept beside them
+  (``utils/metrics.PhaseTimer``, the solver's set-up record).
 
 Defaults follow the JAX package with CUDA in the TPU's place: ``dtype=None``
 is f64 on the CPU and f32 on CUDA, ``smoother="auto"`` Chebyshev on CUDA and
@@ -716,7 +717,7 @@ class AMGSolver:
         self._perm_dev = self._inv_perm_dev = None
         self._lmax: dict[int, float] = {}
         self._ell_pair = self._ell_pair_fast = None
-        self._timer = PhaseTimer()
+        self._timer = PhaseTimer(owner="AMGSolver")
         if on_cuda:
             # float32 matmuls (dense levels, bottom inverse) in full float32,
             # never TF32 (the default; set explicitly)
@@ -731,8 +732,9 @@ class AMGSolver:
 
     @property
     def setup_times(self) -> dict[str, float]:
-        """Wall seconds of each set-up phase so far: ``rcm`` (the
-        reordering), ``coarsening`` (strength and C/F splitting),
+        """Self seconds of each set-up phase so far (wall seconds less a
+        set-up phase nested in it, as the kernel library's load): ``rcm``
+        (the reordering), ``coarsening`` (strength and C/F splitting),
         ``interpolation`` (the prolongations and every lmax estimate, which
         smoothed interpolation and Chebyshev both read), ``rap`` (the
         Galerkin products), ``upload`` (the transposes, layouts and copies
@@ -959,7 +961,7 @@ class AMGSolver:
         infinity raises ``ValueError`` (found where the loop stops at its
         first test, which such a ``b`` always makes it do).
         """
-        with span(SPAN_SOLVE):
+        with self._timer.solve_span(SPAN_SOLVE):
             return self._solve(b, x0, tol, maxit)
 
     def _solve(self, b, x0, tol, maxit):
@@ -1003,7 +1005,7 @@ class AMGSolver:
         numpy array), so the extended precision survives the return; with
         ``on_device``, summed in f64 on the device (a tensor there).  A
         non-finite ``b`` raises as in :meth:`solve`."""
-        with span(SPAN_SOLVE_REFINED):
+        with self._timer.solve_span(SPAN_SOLVE_REFINED):
             return self._solve_refined(b, tol, maxit, on_device)
 
     def _solve_refined(self, b, tol, maxit, on_device):

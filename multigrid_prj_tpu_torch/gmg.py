@@ -70,6 +70,7 @@ from multigrid_prj_tpu_torch.utils.metrics import (
     SPAN_SOLVE,
     SPAN_SOLVE_REFINED,
     SPAN_SPLIT,
+    PhaseTimer,
     fetch,
     level_spans,
     span,
@@ -315,8 +316,6 @@ class GMGSolver:
         device="cuda",
     ):
         self.device = torch.device(device)
-        self.levels = build_hierarchy(shape, length, num_levels,
-                                      pad_align=pad_align)
         self.alpha = float(alpha)
         self.length = float(length)
         self.tol = float(tol)
@@ -329,23 +328,30 @@ class GMGSolver:
         if use_pallas is None:
             use_pallas = self.device.type == "cuda"
         self.smoother_dtype = smoother_dtype
-        self._logical0 = _logical(self.levels[0])
-        # the routes, built once: float32 work takes the kernels with
-        # use_pallas, every other dtype the plain ops (_route)
-        self._plain_route = plain_route(smoother, omega)
-        self._f32_route = (
-            kernel_route(len(self.levels[0].shape), smoother, omega,
-                         fuse_downleg, self.alpha)
-            if use_pallas else self._plain_route)
+        # set-up phases: hierarchy (with the routes), bottom_inverse; and
+        # the first solve (utils/metrics.PhaseTimer.solve_span)
+        self._timer = PhaseTimer(owner="GMGSolver")
+        with self._timer.phase("hierarchy"):
+            self.levels = build_hierarchy(shape, length, num_levels,
+                                          pad_align=pad_align)
+            self._logical0 = _logical(self.levels[0])
+            # the routes, built once: float32 work takes the kernels with
+            # use_pallas, every other dtype the plain ops (_route)
+            self._plain_route = plain_route(smoother, omega)
+            self._f32_route = (
+                kernel_route(len(self.levels[0].shape), smoother, omega,
+                             fuse_downleg, self.alpha)
+                if use_pallas else self._plain_route)
         # direct bottom solve: dense inverse of the coarsest operator, built
         # once in f64 on the host and kept on the device (f64); solves use a
         # copy cast to their dtype
         self._coarse_inv = None
         self._coarse_inv_cast = {}
         if coarse == "direct" and cycle in ("v", "w"):
-            inv = self._build_coarse_inverse()
-            if inv is not None:
-                self._coarse_inv = torch.from_numpy(inv).to(self.device)
+            with self._timer.phase("bottom_inverse"):
+                inv = self._build_coarse_inverse()
+                if inv is not None:
+                    self._coarse_inv = torch.from_numpy(inv).to(self.device)
 
     def _build_coarse_inverse(self, max_nodes: int = 4608):
         """Dense inverse of the coarsest-level stencil operator (numpy f64).
@@ -525,7 +531,7 @@ class GMGSolver:
 
         ``smoother_dtype`` is not read here: the error cycles run in the
         outer dtype, as in the JAX package."""
-        with span(SPAN_SOLVE_REFINED):
+        with self._timer.solve_span(SPAN_SOLVE_REFINED):
             return self._solve_refined(self._input(b, "b"), inner_cg)
 
     def _solve_refined(self, b, inner_cg):
@@ -600,7 +606,7 @@ class GMGSolver:
 
         ``fmg_start``: start from one full-multigrid pass.
         """
-        with span(SPAN_SOLVE):
+        with self._timer.solve_span(SPAN_SOLVE):
             b = self._input(b, "b")
             check_finite(b, "rhs b")
             if fmg_start and u0 is None:

@@ -6,7 +6,9 @@ into an object file, all at once in parallel, and links them into one
 shared library with a plain C interface, which is loaded with ``ctypes``.
 The library goes to ``multigrid_prj_tpu_torch/build/`` (git-ignored) and
 is rebuilt when any source is newer than it.  Nothing is built or loaded
-at import time.
+at import time.  The load is a set-up record of its own (``utils/metrics``,
+owner ``kernel_library``), and a load that ran nvcc counts in
+``COUNTERS["kernel_builds"]``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+from multigrid_prj_tpu_torch.utils.metrics import COUNTERS, PhaseTimer
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = (_PKG / "csrc" / "stencil2d.cu", _PKG / "csrc" / "stencil3d.cu",
@@ -154,11 +158,17 @@ def build(force: bool = False) -> dict:
 
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built first if needed), with argtypes."""
-    build()
-    lib = ctypes.CDLL(str(LIBRARY))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    """The loaded kernel library (built first if needed), with argtypes:
+    the set-up phase ``kernel_library``, with ``kernel_build`` (the
+    staleness check, and nvcc where it ran) inside it."""
+    record = PhaseTimer(owner="kernel_library")
+    with record.phase("kernel_library"):
+        with record.phase("kernel_build"):
+            built = build()
+        lib = ctypes.CDLL(str(LIBRARY))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    COUNTERS["kernel_builds"] += built["built"]
     return lib

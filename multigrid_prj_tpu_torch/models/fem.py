@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from multigrid_prj_tpu_torch.ops.sparse import HostCSR
+from multigrid_prj_tpu_torch.utils.metrics import PhaseTimer
 
 
 # -- reference problem functions (AMG/src/Utilities.cpp:3-27) ----------------
@@ -104,7 +105,13 @@ def parse_msh(path: str, use_native: bool = True) -> TriangularMesh:
     (``AMG/src/FEM.cpp:3-316``) without its fixed-size parsing loops.
 
     Uses the native C++ loader (``native/mgtpu.cpp``) when built; this
-    Python implementation is the behavior-identical fallback."""
+    Python implementation is the behavior-identical fallback.  The parse
+    is the set-up phase ``mesh`` of a record of its own."""
+    with PhaseTimer(owner="TriangularMesh").phase("mesh"):
+        return _parse_msh(path, use_native)
+
+
+def _parse_msh(path: str, use_native: bool) -> TriangularMesh:
     if use_native:
         from multigrid_prj_tpu_torch import native
 
@@ -180,7 +187,13 @@ def structured_unit_square_mesh(n: int) -> TriangularMesh:
     Node ``r * n + c`` lies at ``(x, y) = (c, r) / (n - 1)``; the square with
     lower-left node ``a = r * n + c`` (``r``, ``c`` in row-major order) holds
     the triangles ``(a, a + 1, a + n)`` and ``(a + 1, a + n, a + n + 1)``, in
-    that order, each row sorted ascending."""
+    that order, each row sorted ascending.  The build is the set-up phase
+    ``mesh`` of a record of its own."""
+    with PhaseTimer(owner="TriangularMesh").phase("mesh"):
+        return _structured_unit_square_mesh(n)
+
+
+def _structured_unit_square_mesh(n: int) -> TriangularMesh:
     xs = np.linspace(0.0, 1.0, n)
     X, Y = np.meshgrid(xs, xs, indexing="xy")
     nodes = np.stack([X.ravel(), Y.ravel()], axis=1)
@@ -292,21 +305,27 @@ class P1System:
     interior solution back into the nodal field with ``u_B = g_B`` (the
     VTU writer's rule); neither leaves the device.  The operators go to a
     device at its first use and stay there (:meth:`to` moves them at once).
+
+    Set-up phases (``utils/metrics.PhaseTimer``): ``p1_assembly`` (the
+    constructor) and ``p1_upload`` (each device's operators).
     """
 
     def __init__(self, mesh: TriangularMesh, alpha: Callable = default_alpha):
-        areas, _, K, ii, jj, mask_ii, mask_jj, n_int = _p1_stiffness(mesh,
-                                                                     alpha)
-        both = mask_ii & mask_jj
-        self.A = HostCSR.from_coo(ii[both], jj[both], K[both], (n_int, n_int))
-        lift = mask_ii & ~mask_jj
-        self.interior = np.flatnonzero(~mesh.on_boundary)
-        self.boundary = np.flatnonzero(mesh.on_boundary)
-        self.A_IB = HostCSR.from_coo(ii[lift], jj[lift], K[lift],
-                                     (n_int, self.boundary.size))
-        self.weights = np.bincount(
-            mesh.triangles.ravel(), weights=np.repeat(areas / 3.0, 3),
-            minlength=mesh.n_nodes)
+        self._timer = PhaseTimer(owner="P1System")
+        with self._timer.phase("p1_assembly"):
+            areas, _, K, ii, jj, mask_ii, mask_jj, n_int = _p1_stiffness(
+                mesh, alpha)
+            both = mask_ii & mask_jj
+            self.A = HostCSR.from_coo(ii[both], jj[both], K[both],
+                                      (n_int, n_int))
+            lift = mask_ii & ~mask_jj
+            self.interior = np.flatnonzero(~mesh.on_boundary)
+            self.boundary = np.flatnonzero(mesh.on_boundary)
+            self.A_IB = HostCSR.from_coo(ii[lift], jj[lift], K[lift],
+                                         (n_int, self.boundary.size))
+            self.weights = np.bincount(
+                mesh.triangles.ravel(), weights=np.repeat(areas / 3.0, 3),
+                minlength=mesh.n_nodes)
         self.n_nodes = mesh.n_nodes
         self._device = {}
 
@@ -323,27 +342,30 @@ class P1System:
         key = str(device)
         ops = self._device.get(key)
         if ops is None:
-            blk = self.A_IB
-            rows = np.flatnonzero(blk.row_lengths > 0)
-            lengths = blk.row_lengths[rows]
-            slot = np.arange(lengths.max() if rows.size else 0)[None, :]
-            at = blk.indptr[rows][:, None] + np.minimum(slot,
-                                                        lengths[:, None] - 1)
-            cols = self.boundary[blk.indices[at]]
-            vals = np.where(slot < lengths[:, None], blk.data[at], 0.0)
+            with self._timer.phase("p1_upload"):
+                ops = self._device[key] = self._upload(device)
+        return ops
 
-            def dev(a, dtype):
-                return torch.as_tensor(np.ascontiguousarray(a),
-                                       dtype=dtype).to(device)
+    def _upload(self, device: torch.device) -> dict:
+        blk = self.A_IB
+        rows = np.flatnonzero(blk.row_lengths > 0)
+        lengths = blk.row_lengths[rows]
+        slot = np.arange(lengths.max() if rows.size else 0)[None, :]
+        at = blk.indptr[rows][:, None] + np.minimum(slot,
+                                                    lengths[:, None] - 1)
+        cols = self.boundary[blk.indices[at]]
+        vals = np.where(slot < lengths[:, None], blk.data[at], 0.0)
 
-            ops = self._device[key] = {
-                "interior": dev(self.interior, torch.int64),
+        def dev(a, dtype):
+            return torch.as_tensor(np.ascontiguousarray(a),
+                                   dtype=dtype).to(device)
+
+        return {"interior": dev(self.interior, torch.int64),
                 "boundary": dev(self.boundary, torch.int64),
                 "w": dev(self.weights[self.interior], torch.float64),
                 "lift_rows": dev(rows, torch.int64),
                 "lift_cols": dev(cols, torch.int64),
                 "lift_vals": dev(vals, torch.float64)}
-        return ops
 
     def load(self, f_nodes: torch.Tensor, g_nodes: torch.Tensor):
         """``w_I f_I - A_IB g_B`` in float64 on the device of ``f_nodes``,

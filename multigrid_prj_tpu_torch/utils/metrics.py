@@ -4,7 +4,10 @@
 * :func:`fence` -- completion fence: one element of the first tensor of a
   result fetched to the host;
 * :class:`PhaseTimer` -- named wall-clock phases (the reference's
-  init/solve split), fenced;
+  init/solve split), fenced; with an ``owner``, an object's set-up record
+  (each phase's self seconds, the first solve's, and a ``mg.setup.<phase>``
+  span), the first :data:`SETUP_LOG_CAP` of a process in
+  :data:`SETUP_LOG`;
 * :class:`SolveMetrics` -- the residual history with its derived
   convergence factors and throughput, exported as JSON or CSV;
 * :func:`trace` -- a ``torch.profiler`` trace of a block (CPU, plus the
@@ -20,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import threading
 import time
 from typing import Any, NamedTuple, Optional
 
@@ -28,8 +32,9 @@ import torch
 import torch.autograd.profiler as _profiler
 
 # program counters: "host_syncs" counts the calls of fetch (a host sync
-# each on the card); read the change over a block of work
-COUNTERS = {"host_syncs": 0}
+# each on the card), "kernel_builds" the loads of the kernel library that
+# ran nvcc (kernels/_build.library); read the change over a block of work
+COUNTERS = {"host_syncs": 0, "kernel_builds": 0}
 _NO_SPAN = contextlib.nullcontext()
 # the range a span opens: torch's record-function context without the
 # Python op dispatch of torch.profiler.record_function, which costs several
@@ -65,19 +70,89 @@ def fence(x) -> None:
         torch.cuda.synchronize(t.device)
 
 
+# set-up records (PhaseTimer with an owner): the first SETUP_LOG_CAP of the
+# process, in the order they were made (a server that builds a solver per
+# request fills it once); a reader takes an owner's first record
+SETUP_LOG_CAP = 16
+SETUP_LOG: list["PhaseTimer"] = []
+SETUP_SPAN = "mg.setup."  # + the phase's name
+_SETUP_LOCK = threading.Lock()
+_setup_open = threading.local()  # .stack: the open set-up blocks' nested s
+
+
+@contextlib.contextmanager
+def _self_timed():
+    """Time the block by the host's clock; on a normal exit the yielded
+    list holds its self seconds: its wall less the walls of the set-up
+    blocks opened directly inside it on this thread, so a second counts
+    once, in the innermost block."""
+    stack = _setup_open.__dict__.setdefault("stack", [])
+    out = []
+    stack.append(0.0)
+    t0 = time.perf_counter()
+    try:
+        yield out
+    finally:
+        wall = time.perf_counter() - t0
+        nested = stack.pop()
+        if stack:
+            stack[-1] += wall
+    out.append(wall - nested)
+
+
 @dataclasses.dataclass
 class PhaseTimer:
-    """Named wall-clock phases (the reference's init/solve split)."""
+    """Named wall-clock phases (the reference's init/solve split).
+
+    With an ``owner`` (``"GMGSolver"``, ``"AMGSolver"``, ``"P1System"``,
+    ``"TriangularMesh"``, ``"kernel_library"``) it is that object's set-up
+    record, kept in :data:`SETUP_LOG` while the log has room, and always
+    on: a phase adds its self seconds (host clock, less the set-up phases
+    and first solves nested in it) and, while a profiler records, opens
+    the span ``mg.setup.<phase>``; :meth:`solve_span` keeps the first
+    solve's self seconds in ``first_solve_s``.  A few clock reads per
+    build, one check per later solve."""
 
     phases: dict[str, float] = dataclasses.field(default_factory=dict)
+    owner: Optional[str] = None
+    first_solve_s: Optional[float] = None
+
+    def __post_init__(self):
+        if self.owner is not None:
+            with _SETUP_LOCK:
+                if len(SETUP_LOG) < SETUP_LOG_CAP:
+                    SETUP_LOG.append(self)
 
     @contextlib.contextmanager
     def phase(self, name: str, result_to_fence: Any = None):
+        if self.owner is not None:
+            with span(SETUP_SPAN + name), _self_timed() as out:
+                yield
+                if result_to_fence is not None:
+                    fence(result_to_fence)
+            self.phases[name] = self.phases.get(name, 0.0) + out[0]
+            return
         t0 = time.perf_counter()
         yield
         if result_to_fence is not None:
             fence(result_to_fence)
         self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
+
+    def solve_span(self, name: str):
+        """A solve's root span ``name`` (:func:`span`).  Until a solve has
+        returned it also keeps that solve's self seconds in
+        ``first_solve_s``: from the span's start to its end, just after
+        the solve's last fetch (the combine's few launches after that
+        fetch run on).  It adds no sync and no launch."""
+        if self.first_solve_s is not None:
+            return span(name)
+        return self._first_solve(name)
+
+    @contextlib.contextmanager
+    def _first_solve(self, name: str):
+        with span(name), _self_timed() as out:
+            yield
+        self.first_solve_s = out[0]
 
     def report(self) -> str:
         return "\n".join(f"{k}: {v:.6f} seconds" for k, v in self.phases.items())

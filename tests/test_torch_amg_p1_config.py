@@ -32,6 +32,11 @@ SMALL = dict(shape=[65, 65], num_levels=3)
 PER_LAYER = ("amg.spmv_roofline", "amg.ff_residual_roofline",
              "amg.plain_device_ms_per_solve", "amg.idle_ms_per_solve",
              "amg.host_syncs_per_solve", "amg.setup_hierarchy_s")
+# read after them: the set-up split of every cell, then the AMG phases
+SETUP = ("setup.kernel_library_s", "setup.solver_s", "setup.first_solve_s",
+         "setup.outside_program_s", "setup.kernel_builds",
+         "amg.setup_p1_s", "amg.setup_coarsening_s",
+         "amg.setup_interpolation_s", "amg.setup_rap_s")
 
 
 def _small_cell():
@@ -78,7 +83,7 @@ def test_benchmark_json_names_the_cell_and_its_metrics():
     assert cells[CELL]["why"] == registry.cell(CELL)["why"]
     assert registry.metrics_of(bench, CELL, False) == [
         "solve_ms", "solve_ms_p90", "setup_s"]
-    assert registry.metrics_of(bench, CELL, True) == list(PER_LAYER)
+    assert registry.metrics_of(bench, CELL, True) == [*PER_LAYER, *SETUP]
 
 
 @pytest.mark.parametrize("name", PER_LAYER)

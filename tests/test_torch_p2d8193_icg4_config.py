@@ -34,6 +34,9 @@ SIBLING = "poisson2d-8193-gmg"
 SMALL = dict(shape=[65, 65], num_levels=4, pad_align=128)
 NEW = ("icg.apply_roofline", "icg.krylov_device_ms_per_solve",
        "icg.solve_roofline")
+# read after them: the set-up split of every cell
+SETUP = ("setup.kernel_library_s", "setup.solver_s", "setup.first_solve_s",
+         "setup.outside_program_s", "setup.kernel_builds")
 # accepted metrics whose readers find this cell's spans and counters: the
 # cells that listed them before, then this one
 SHARED = {name: "p3d-257-ff32" for name in (
@@ -93,7 +96,8 @@ def test_benchmark_json_names_the_cell_and_its_metrics():
     assert len(cells[CELL]["why"]) <= 200
     assert registry.metrics_of(bench, CELL, False) == [
         "solve_ms", "solve_ms_p90", "setup_s"]
-    assert registry.metrics_of(bench, CELL, True) == [*SHARED, *NEW]
+    assert registry.metrics_of(bench, CELL, True) == [*SHARED, *NEW,
+                                                      *SETUP]
 
 
 @pytest.mark.parametrize("name", NEW)
